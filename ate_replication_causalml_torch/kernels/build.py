@@ -8,8 +8,9 @@ library with a plain C interface, for Hopper (``sm_90a``)::
 
 The libraries are built at first use, all ``nvcc`` processes started
 together, into ``build/torch_kernels/`` at the repository root. A
-library's file name carries a hash of its source and flags, so an
-edited source is never served by a stale build. ``ptxas``' register and
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is never served by
+a stale build. ``ptxas``' register and
 shared-memory report lands beside each library as ``<name>-<hash>.log``.
 
 Each C entry point launches on the stream it is given and returns
@@ -46,7 +47,9 @@ _I64 = ctypes.c_int64
 # stream go as c_void_p: ctypes would otherwise pass a 32-bit int.
 KERNELS = {
     "hist": ("hist.cu", "ate_hist",
-             [_P, _I64, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
+             [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "hist_partition": ("hist_partition.cu", "ate_hist_partition",
+                       [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "route": ("route.cu", "ate_route",
               [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P]),
     "lookup": ("lookup.cu", "ate_lookup",
@@ -82,8 +85,13 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str, str]:
     src = os.path.join(CSRC_DIR, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The source and every shared header it may include.
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.join(BUILD_DIR, f"{name}-{digest}")
     return src, stem + ".so", stem + ".log"
 

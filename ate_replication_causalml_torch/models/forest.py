@@ -36,7 +36,12 @@ from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts
-from ate_replication_causalml_torch.ops.hist import bin_histogram_batched, check_mode, node_sums
+from ate_replication_causalml_torch.ops.hist import (
+    bin_histogram_batched,
+    mode_for_width,
+    node_sums,
+    resolve_hist_mode,
+)
 from ate_replication_causalml_torch.ops.tree import route_bits, table_lookup
 
 # Trees grown together: one kernel launch per level covers the chunk.
@@ -170,6 +175,31 @@ def binarize(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def exact_subsample_mask(k: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """Uniform s-of-n subsample as a boolean mask, (..., n) for keys (..., 2).
+
+    One u32 draw per row; the rows below the s-th smallest draw are
+    taken, and ties at that value in index order, so the mask holds
+    exactly s rows. The s-th order statistic comes from a 32-round
+    binary search on the value domain (one count per round), as in the
+    JAX package, so the mask is the JAX package's bit for bit."""
+    if not 1 <= s <= n:
+        raise ValueError(f"need 1 <= s <= n, got s={s}, n={n}")
+    draws = rnd.bits(k, (n,))  # (..., n) int64 in [0, 2^32)
+    lo = torch.zeros(draws.shape[:-1] + (1,), dtype=torch.int64, device=draws.device)
+    hi = lo + 0xFFFFFFFF
+    for _ in range(32):  # count(≤ lo) < s ≤ count(≤ hi)
+        mid = lo + (hi - lo) // 2
+        take_hi = torch.sum(draws <= mid, dim=-1, keepdim=True) >= s
+        lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
+    zero_enough = torch.sum(draws == 0, dim=-1, keepdim=True) >= s
+    kth = torch.where(zero_enough, 0, hi)
+    below = draws < kth
+    short = s - torch.sum(below, dim=-1, keepdim=True)
+    ties = draws == kth
+    return below | (ties & (torch.cumsum(ties.to(torch.int32), dim=-1) <= short))
+
+
 @functools.lru_cache(maxsize=None)
 def bitrev_perm(level: int) -> tuple[int, ...]:
     """Bit-reversal permutation of ``2^level`` node ids (an involution).
@@ -271,13 +301,15 @@ def _split_tables(hist, lk, level_nodes, p, n_bins, mtry, perm):
     return select_split(score, lk, level_nodes, p, n_bins, mtry, perm=perm)
 
 
-def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins):
+def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode):
     """Grow one chunk of trees (one key per tree, (T, 2)).
 
     ``center`` is 0.0 for binary targets (the histogram weights stay
     integer) and 1.0 for continuous ones: each tree's bootstrap-weighted
     mean is subtracted before accumulation and re-added at the leaves,
-    so the sibling subtraction never cancels a large outcome level."""
+    so the sibling subtraction never cancels a large outcome level.
+    ``hist_mode`` is the resolved policy; each level's kernel width
+    picks its formulation (:func:`mode_for_width`, K = 2)."""
     n_trees = tree_keys.shape[0]
     n, p = codes.shape
     n_leaves = 1 << depth
@@ -287,21 +319,19 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins):
     yt = yf[None, :] - center * mu[:, None]
     base = center * mu
     weights2 = torch.stack([counts, counts * yt], dim=1).contiguous()  # (T, 2, n)
-    integer_weights = center == 0.0  # Poisson counts and counts·y, y in {0, 1}
     level_keys = rnd.split(gk, depth)  # (T, depth, 2)
 
     feats, bins, node_of_row = streaming_level_loop(
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_batched(
             codes, ids.contiguous(), weights2, max_nodes=m, n_bins=n_bins,
-            integer_weights=integer_weights),
+            mode=mode_for_width(hist_mode, m, 2, p, n_bins)),
         tables_fn=lambda hist, level, perm: _split_tables(
             hist, level_keys[:, level], 1 << level, p, n_bins, mtry, perm),
         route_fn=lambda ids, bf, bb: route_bits(
             codes, ids.contiguous(), bf.contiguous(), bb.contiguous()),
     )
-    ls = node_sums(node_of_row.contiguous(), weights2, n_leaves,
-                   integer_weights=integer_weights)  # (T, L, 2)
+    ls = node_sums(node_of_row.contiguous(), weights2, n_leaves)  # (T, L, 2)
     leaf_c, leaf_y = ls[..., 0], ls[..., 1]
     leaf_value = torch.where(
         leaf_c > 0, base[:, None] + leaf_y / torch.clamp(leaf_c, min=1e-12), mu[:, None]
@@ -327,37 +357,31 @@ def fit_forest_classifier(
     mtry: int | None = None,
     n_bins: int = 64,
     tree_chunk: int = DEFAULT_TREE_CHUNK,
-    hist_mode: str = "dense",
+    hist_mode: str | None = None,
 ) -> Forest:
     """Fit a classification forest of ``n_trees`` depth-``depth`` trees.
 
     mtry defaults to floor(sqrt(p)) (randomForest's classification
     default). Tree ``i`` grows from ``split(key, n_trees)[i]``, so the
-    chunking does not change a single number. ``hist_mode`` must be
-    "dense" (the only ported histogram formulation).
-
-    On the card the target must be {0, 1}-valued: a continuous target's
-    centered histogram weights are floats, which the CUDA histogram
-    kernel refuses (see ``ops/hist.py``). On the CPU any target grows.
+    chunking does not change a single number. ``hist_mode`` is the
+    histogram policy, "dense" | "partition" | "auto", resolved as the
+    JAX package does (``ATE_TPU_HIST_MODE`` when None, default "auto":
+    dense below the crossover width, partition from it). Both
+    formulations give the same sums, so the mode does not change the
+    forest.
     """
     n, p = x.shape
     if mtry is None:
         mtry = max(1, int(np.sqrt(p)))
-    check_mode(hist_mode)
+    hist_mode = resolve_hist_mode(hist_mode, n_bins)
     center = 0.0 if _is_binary01(y) else 1.0
-    if center != 0.0 and x.device.type != "cpu":
-        raise ValueError(
-            "a continuous target grows on the CPU only: its centered histogram weights "
-            "are floats, and the CUDA histogram kernel is exact only for integer weights "
-            "(the ordered float reduction is still to be ported, ROADMAP Queue B)"
-        )
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
     yf = y.to(torch.float32)
     tree_keys = rnd.split(key.to(x.device), n_trees)
     chunks = [
         _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center,
-                    depth=depth, mtry=mtry, n_bins=n_bins)
+                    depth=depth, mtry=mtry, n_bins=n_bins, hist_mode=hist_mode)
         for s in range(0, n_trees, tree_chunk)
     ]
     cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
@@ -383,8 +407,9 @@ def fit_forest_regressor(
 ) -> Forest:
     """Regression forest — the same engine (SSE split score), leaf values
     are bootstrap-weighted means; mtry defaults to randomForest's
-    regression default max(1, floor(p/3)). A continuous target grows on
-    the CPU only (see :func:`fit_forest_classifier`)."""
+    regression default max(1, floor(p/3)). A continuous target's
+    centered weights are floats; the kernels add them in a fixed order,
+    so a forest grown twice on the card is the same forest."""
     if mtry is None:
         mtry = max(1, x.shape[1] // 3)
     return fit_forest_classifier(x, y, key, n_trees=n_trees, depth=depth, mtry=mtry, **kwargs)

@@ -1,29 +1,37 @@
 """Weighted bin histograms for forest split search.
 
-Port of the dense tree-batched histogram of
+Port of the tree-batched histogram of
 ``ate_replication_causalml_tpu/ops/hist_pallas.py``:
 
     hist[t, k, m, f, b] = Σ_row  w[t, k, row] · 1[ids[t, row] = m] · 1[codes[row, f] = b]
 
 T trees share one ``codes`` stream; ids outside ``[0, max_nodes)``
-contribute nothing. The JAX package runs this as a Pallas TPU kernel
-behind a ``custom_vmap`` rule that folds the grower's per-tree vmap into
-the kernel's tree axis; here the tree axis is explicit.
+contribute nothing. The weights are per tree, (T, K, n), or one (K, n)
+stack shared by every tree (``*_shared``: the causal grower's moment
+channels, with each tree's membership folded into its ids as −1). The
+JAX package runs this as a Pallas TPU kernel behind ``custom_vmap``
+rules that fold the growers' per-tree vmaps into the kernel's tree axis;
+here the tree axis is explicit.
+
+Two formulations with one contract, chosen per kernel width by the JAX
+package's policy (:func:`resolve_hist_mode`, :func:`mode_for_width`):
+``dense`` (``csrc/hist.cu``) and ``partition`` (``csrc/hist_partition.cu``,
+rows grouped by node first). Both add each cell's rows in ascending row
+order within each row range and the ranges in a fixed order, so float
+sums are reproducible and the two formulations give the same bits.
 
 Each public function has a plain PyTorch version (``*_plain``) in this
 module. The wrapper runs it for CPU tensors only; for CUDA tensors it
-launches the hand-written kernel (``csrc/hist.cu``) or raises. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
-
-The kernel adds a block's rows with shared-memory float atomics, whose
-order varies between runs: the sums are exact, and reruns bitwise
-equal, only for integer-valued weights. The CUDA path therefore runs
-only when the caller passes ``integer_weights=True`` (the classifier's
-Poisson counts and counts·y with y in {0, 1}); float weights need an
-ordered in-block reduction that is still to be ported (ROADMAP Queue B).
+launches the hand-written kernel or raises. Each wrapper counts its
+dense-kernel launches in ``<wrapper>.launches`` and, for the histogram
+wrappers, its partition-kernel launches in
+``<wrapper>.partition_launches``.
 """
 
 from __future__ import annotations
+
+import functools
+import os
 
 import torch
 
@@ -31,42 +39,148 @@ from ate_replication_causalml_torch.kernels import build
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM_BYTES = 232_448
+# Weight channels one launch takes (kMaxWeights in csrc/hist_common.cuh).
+_MAX_WEIGHTS = 8
 # Row ranges split the rows only while (trees × features × ranges)
 # stays under this many blocks (8 per SM of an H100's 132), so the
 # scratch slabs stay a small multiple of the output.
 _TARGET_BLOCKS = 1056
 _MIN_ROWS_PER_BLOCK = 2048
 
+# ---------------------------------------------------------------------------
+# Kernel-mode policy, copied from the JAX package (hist_pallas.py:919-1095) so
+# that one setting names the same formulation per kernel width in both
+# packages. The crossover comes from the TPU kernels' MXU FLOP model; it is
+# kept as it is, and PERF.md records both formulations' card times per
+# width for a later re-derivation.
+# ---------------------------------------------------------------------------
 
-def check_mode(mode: str) -> None:
-    """Only the dense formulation is ported; the partition kernel and
-    its packed-codes branch are still to be ported (ROADMAP Queue B)."""
-    if mode != "dense":
+HIST_MODE_ENV = "ATE_TPU_HIST_MODE"
+HIST_MODES = ("dense", "partition", "auto")
+PACK_ENV = "ATE_TPU_PREDICT_PACK"
+PACK_SUFFIX = "+pack"
+_LANES = 128
+_PART_BLOCK = 8
+
+
+def _pack_requested(mode: str | None, n_bins: int) -> bool:
+    """Whether the JAX package's policy would add ``+pack`` here: an
+    explicit suffix, or ``ATE_TPU_PREDICT_PACK=1`` with ≤ 128 bins."""
+    if mode is not None and str(mode).strip().lower().endswith(PACK_SUFFIX):
+        return True
+    env = os.environ.get(PACK_ENV, "auto").strip().lower()
+    if env not in ("0", "1", "auto"):
+        raise ValueError(f"{PACK_ENV} must be one of ('0', '1', 'auto'), got {env!r}")
+    return env == "1" and n_bins <= 128
+
+
+def resolve_hist_mode(mode: str | None = None, n_bins: int = 64) -> str:
+    """The growers' one config-time policy call: ``mode`` when given,
+    else ``ATE_TPU_HIST_MODE`` (case-insensitive, default "auto").
+
+    The packed-codes branch of the partition kernel is not ported: a
+    policy that would select it (a ``+pack`` suffix, or
+    ``ATE_TPU_PREDICT_PACK=1``) raises here."""
+    if _pack_requested(mode, n_bins):
         raise ValueError(
-            f"histogram mode {mode!r} is not ported to the torch package: only "
-            "'dense' runs here (the partition kernel and '+pack' are still to be "
-            "ported, ROADMAP Queue B)"
+            "the '+pack' histogram mode (packed codes in the partition kernel) is not "
+            "ported to the torch package (ROADMAP Queue B item 6)"
+        )
+    raw = mode if mode is not None else os.environ.get(HIST_MODE_ENV, "auto")
+    val = str(raw).strip().lower()
+    if val not in HIST_MODES:
+        raise ValueError(
+            f"{HIST_MODE_ENV}/hist_mode must be one of {HIST_MODES} (case-insensitive), "
+            f"got {raw!r}"
+        )
+    return val
+
+
+def hist_level_flops(mode: str, n_rows: int, max_nodes: int, n_weights: int,
+                     p: int = 21, n_bins: int = 64, tile: int = 2048) -> dict:
+    """The JAX package's MXU-FLOP model of one tree's level histogram on
+    the TPU (``hist_pallas.py:988``, unpacked modes): ``useful`` is the
+    mode-independent work, ``total`` what the TPU kernel issues."""
+    if mode not in ("dense", "partition"):
+        raise ValueError(f"flop model mode must be dense|partition, got {mode!r}")
+    f_pb = max(1, _LANES // n_bins)
+    p_blocks = -(-p // f_pb)
+    lanes = p_blocks * _LANES
+    c_cols = p_blocks * f_pb
+    n_tiles = max(1, -(-n_rows // tile))
+    rows_pad = n_tiles * tile
+    useful = 2.0 * n_rows * n_weights * p * n_bins
+    if mode == "dense":
+        total = 2.0 * rows_pad * n_weights * max_nodes * lanes
+    else:
+        tp = tile + (max_nodes + 1) * _PART_BLOCK
+        per_tile = tp * tile * c_cols + n_weights * tile * tp + tp * n_weights * lanes
+        total = 2.0 * n_tiles * per_tile
+    return {"useful": useful, "total": total}
+
+
+@functools.lru_cache(maxsize=None)
+def partition_crossover_width(n_weights: int, p: int = 21, n_bins: int = 64,
+                              tile: int = 2048) -> int:
+    """Smallest kernel width (a power of two ≤ 128) at which the TPU
+    model's partition FLOPs beat dense's; 256 when dense wins everywhere."""
+    for width in (1, 2, 4, 8, 16, 32, 64, 128):
+        dense = hist_level_flops("dense", tile, width, n_weights, p, n_bins, tile)
+        part = hist_level_flops("partition", tile, width, n_weights, p, n_bins, tile)
+        if part["total"] < dense["total"]:
+            return width
+    return 256
+
+
+def mode_for_width(mode: str, width: int, n_weights: int, p: int = 21,
+                   n_bins: int = 64) -> str:
+    """A resolved policy ("dense" | "partition" | "auto") → the kernel
+    formulation for one kernel width (the node count it allocates)."""
+    if mode == "auto":
+        return "partition" if width >= partition_crossover_width(n_weights, p, n_bins) else "dense"
+    if mode not in ("dense", "partition"):
+        raise ValueError(f"unknown histogram mode {mode!r}")
+    return mode
+
+
+def _check_dispatch_mode(mode: str) -> None:
+    """A kernel call takes a resolved formulation: "auto" is resolved per
+    width by the caller (:func:`mode_for_width`), as in the JAX package."""
+    if mode.endswith(PACK_SUFFIX):
+        raise ValueError(
+            f"histogram mode {mode!r} is not ported to the torch package: the packed-codes "
+            "branch of the partition kernel is still to be ported (ROADMAP Queue B item 6)"
+        )
+    if mode not in ("dense", "partition"):
+        raise ValueError(
+            f"histogram kernel mode must be 'dense' or 'partition' at dispatch (resolve "
+            f"'auto' via mode_for_width), got {mode!r}"
         )
 
 
-def _check_inputs(codes, ids, weights):
+def _check_inputs(codes, ids, weights, shared: bool):
     if codes.dtype != torch.int32 or codes.ndim != 2:
         raise TypeError(f"codes must be (n, p) int32, got {codes.dtype} {tuple(codes.shape)}")
     if ids.dtype != torch.int32 or ids.ndim != 2 or ids.shape[1] != codes.shape[0]:
         raise TypeError(f"ids must be (T, n) int32, got {ids.dtype} {tuple(ids.shape)}")
-    if (weights.dtype != torch.float32 or weights.ndim != 3
-            or weights.shape[0] != ids.shape[0] or weights.shape[2] != codes.shape[0]):
-        raise TypeError(
-            f"weights must be (T, K, n) float32, got {weights.dtype} {tuple(weights.shape)}"
-        )
+    want = "(K, n)" if shared else "(T, K, n)"
+    ok_shape = (weights.ndim == 2 if shared
+                else weights.ndim == 3 and weights.shape[0] == ids.shape[0])
+    if weights.dtype != torch.float32 or not ok_shape or weights.shape[-1] != codes.shape[0]:
+        raise TypeError(f"weights must be {want} float32, got {weights.dtype} "
+                        f"{tuple(weights.shape)}")
     if not (codes.device == ids.device == weights.device):
         raise ValueError("codes, ids and weights must lie on one device")
 
 
 def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int):
-    """The plain PyTorch version: one ``index_add_`` per (tree, channel)."""
+    """The plain PyTorch version: one ``index_add_`` per (tree, channel).
+    ``weights`` is (T, K, n), or (K, n) shared by every tree."""
     n, p = codes.shape
-    n_trees, k_w, _ = weights.shape
+    n_trees = ids.shape[0]
+    if weights.ndim == 2:
+        weights = weights.expand(n_trees, *weights.shape)
+    k_w = weights.shape[1]
     out = torch.zeros((n_trees, k_w, max_nodes, p, n_bins), dtype=torch.float32,
                       device=codes.device)
     codes64 = codes.long()
@@ -82,26 +196,30 @@ def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int
     return out
 
 
-def _check_cuda(device: torch.device, integer_weights: bool) -> None:
-    if not integer_weights:
-        raise ValueError(
-            "the CUDA histogram kernel is exact and reproducible only for integer-valued "
-            "weights: pass integer_weights=True for such weights (float weights need the "
-            "ordered in-block reduction, still to be ported, ROADMAP Queue B)"
-        )
-    if device.type != "cuda":
-        raise ValueError(f"no histogram kernel for device {device}")
+def _n_parts(n: int, n_trees: int, p: int) -> int:
+    """Row ranges per (tree, feature); the same for both formulations, so
+    they add the same partial sums in the same order."""
+    return max(1, min(-(-n // _MIN_ROWS_PER_BLOCK), _TARGET_BLOCKS // (n_trees * p)))
 
 
-def _launch(codes, ids, weights, max_nodes: int, n_bins: int, counter) -> torch.Tensor:
-    """Launch ``csrc/hist.cu`` on the current stream and add one to
-    ``counter.launches``; returns the output."""
+def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter) -> torch.Tensor:
+    """Launch ``csrc/hist.cu`` (dense) or ``csrc/hist_partition.cu``
+    (partition) on the current stream; add one to ``counter.launches`` or
+    ``counter.partition_launches``. ``weights`` (K, n) is shared by every
+    tree (a tree stride of 0)."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {codes.device}")
     n, p = codes.shape
-    n_trees, k_w, _ = weights.shape
+    n_trees = ids.shape[0]
+    k_w = weights.shape[-2]
+    w_tree_stride = 0 if weights.ndim == 2 else k_w * n
     out = torch.empty((n_trees, k_w, max_nodes, p, n_bins), dtype=torch.float32,
                       device=codes.device)
     if n_trees == 0 or n == 0 or p == 0:
         return out.zero_()
+    if k_w > _MAX_WEIGHTS:
+        raise ValueError(f"the histogram kernels take at most {_MAX_WEIGHTS} weight channels, "
+                         f"got {k_w}")
     smem = 4 * k_w * max_nodes * n_bins
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(
@@ -111,64 +229,98 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, counter) -> torch.
     for name, t in (("codes", codes), ("ids", ids), ("weights", weights)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n_parts = max(1, min(-(-n // _MIN_ROWS_PER_BLOCK), _TARGET_BLOCKS // (n_trees * p)))
+    n_parts = _n_parts(n, n_trees, p)
     partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32,
                            device=codes.device) if n_parts > 1 else out)
-    k = build.kernel("hist")
-    build.check(k, k.fn(
-        codes.data_ptr(), n, p, ids.data_ptr(), weights.data_ptr(), n_trees, k_w,
-        max_nodes, n_bins, n_parts, partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(codes.device).cuda_stream,
-    ))
-    counter.launches += 1
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    head = (codes.data_ptr(), n, p, ids.data_ptr(), weights.data_ptr(), w_tree_stride,
+            n_trees, k_w, max_nodes, n_bins, n_parts)
+    if mode == "dense":
+        k = build.kernel("hist")
+        build.check(k, k.fn(*head, partial.data_ptr(), out.data_ptr(), stream))
+        counter.launches += 1
+    else:
+        perm = torch.empty((n_trees, n), dtype=torch.int32, device=codes.device)
+        seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32,
+                          device=codes.device)
+        k = build.kernel("hist_partition")
+        build.check(k, k.fn(*head, perm.data_ptr(), seg.data_ptr(), partial.data_ptr(),
+                            out.data_ptr(), stream))
+        counter.partition_launches += 1
     return out
 
 
 def bin_histogram_batched(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                          mode: str = "dense", integer_weights: bool = False) -> torch.Tensor:
+                          mode: str = "dense") -> torch.Tensor:
     """Tree-batched histograms: codes (n, p) int32, ids (T, n) int32,
     weights (T, K, n) float32 → (T, K, max_nodes, p, n_bins) float32.
-    ``integer_weights=True`` states that every weight is an integer; the
-    CUDA path requires it."""
-    check_mode(mode)
-    _check_inputs(codes, ids, weights)
+    ``mode`` is the resolved formulation, "dense" or "partition"."""
+    _check_dispatch_mode(mode)
+    _check_inputs(codes, ids, weights, shared=False)
     if codes.device.type == "cpu":
         return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
-    _check_cuda(codes.device, integer_weights)
-    return _launch(codes, ids, weights, max_nodes, n_bins, bin_histogram_batched)
+    return _launch(codes, ids, weights, max_nodes, n_bins, mode, bin_histogram_batched)
 
 
 bin_histogram_batched.launches = 0
+bin_histogram_batched.partition_launches = 0
+
+
+def bin_histogram_shared(codes, ids, weights, *, max_nodes: int, n_bins: int,
+                         mode: str = "dense") -> torch.Tensor:
+    """:func:`bin_histogram_batched` with one (K, n) weight stack shared
+    by every tree (the JAX package's ``bin_histogram_shared``); each
+    tree's row membership rides in its ids (−1 drops a row)."""
+    _check_dispatch_mode(mode)
+    _check_inputs(codes, ids, weights, shared=True)
+    if codes.device.type == "cpu":
+        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
+    return _launch(codes, ids, weights, max_nodes, n_bins, mode, bin_histogram_shared)
+
+
+bin_histogram_shared.launches = 0
+bin_histogram_shared.partition_launches = 0
 
 
 def bin_histogram(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                  mode: str = "dense", integer_weights: bool = False) -> torch.Tensor:
+                  mode: str = "dense") -> torch.Tensor:
     """Single-tree case: ids (n,), weights (K, n) → (K, max_nodes, p, n_bins)."""
     return bin_histogram_batched(
         codes, ids[None], weights[None], max_nodes=max_nodes, n_bins=n_bins, mode=mode,
-        integer_weights=integer_weights,
     )[0]
 
 
 def node_sums_plain(ids, weights, num_nodes: int) -> torch.Tensor:
-    """The plain version of :func:`node_sums`."""
+    """The plain version of :func:`node_sums` and :func:`node_sums_shared`."""
     codes0 = torch.zeros((ids.shape[1], 1), dtype=torch.int32, device=ids.device)
     h = bin_histogram_batched_plain(codes0, ids, weights, num_nodes, 1)
     return h[:, :, :, 0, 0].transpose(1, 2)
 
 
-def node_sums(ids, weights, num_nodes: int, *, integer_weights: bool = False) -> torch.Tensor:
-    """Per-node weighted sums: ids (T, n) int32, weights (T, K, n) float32
-    → (T, num_nodes, K). The degenerate histogram with one constant
-    feature and one bin, through the same kernel (``integer_weights`` as
-    in :func:`bin_histogram_batched`)."""
+def _node_sums(ids, weights, num_nodes: int, shared: bool, counter) -> torch.Tensor:
     codes0 = torch.zeros((ids.shape[1], 1), dtype=torch.int32, device=ids.device)
-    _check_inputs(codes0, ids, weights)
+    _check_inputs(codes0, ids, weights, shared=shared)
     if ids.device.type == "cpu":
         return node_sums_plain(ids, weights, num_nodes)
-    _check_cuda(ids.device, integer_weights)
-    h = _launch(codes0, ids, weights, num_nodes, 1, node_sums)
+    h = _launch(codes0, ids, weights, num_nodes, 1, "dense", counter)
     return h[:, :, :, 0, 0].transpose(1, 2)
 
 
+def node_sums(ids, weights, num_nodes: int) -> torch.Tensor:
+    """Per-node weighted sums: ids (T, n) int32, weights (T, K, n) float32
+    → (T, num_nodes, K). The degenerate histogram with one constant
+    feature and one bin, through the dense kernel."""
+    return _node_sums(ids, weights, num_nodes, False, node_sums)
+
+
 node_sums.launches = 0
+
+
+def node_sums_shared(ids, weights, num_nodes: int) -> torch.Tensor:
+    """:func:`node_sums` with one (K, n) weight stack shared by every tree:
+    the causal forest's honest leaf payloads, the estimate-half
+    membership folded into the ids."""
+    return _node_sums(ids, weights, num_nodes, True, node_sums_shared)
+
+
+node_sums_shared.launches = 0

@@ -2,7 +2,8 @@
 
 The JAX package draws every random number of the flagship path from
 ``jax.random``: Poisson(1) bootstrap counts and per-node mtry draws in
-the forest grower, multinomial indices in the AIPW bootstrap. This
+the forest grower, multinomial indices in the AIPW bootstrap, the
+causal forest's half-samples and honesty draws. This
 module reproduces those streams bit for bit, in the layout jax uses
 when ``jax_threefry_partitionable`` is on (its default):
 
@@ -14,7 +15,8 @@ when ``jax_threefry_partitionable`` is on (its default):
   (hi word, lo word) and returns ``out1 ^ out2``;
 * ``uniform`` fills the mantissa of a number in [1, 2) and subtracts 1;
   ``randint`` folds two 32-bit draws into the span (jax's two-draw
-  modulus, ``jax/_src/random.py::_randint``).
+  modulus, ``jax/_src/random.py::_randint``); ``bernoulli`` compares a
+  uniform draw with ``p``.
 
 Keys are int64 tensors of shape ``(..., 2)`` holding uint32 values; a
 leading batch of keys draws a batch of streams at once (the forest's
@@ -133,6 +135,14 @@ def uniform(k: torch.Tensor, shape, dtype: torch.dtype = torch.float32,
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(k: torch.Tensor, p: float = 0.5, shape=(),
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (its default ``mode="low"``):
+    ``uniform(key, shape, dtype) < p``, a bool tensor. ``dtype`` is the
+    float type jax gives ``p``: float32, or float64 under x64."""
+    return uniform(k, shape, dtype) < torch.tensor(p, dtype=dtype)
 
 
 def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:

@@ -9,16 +9,27 @@ imports nothing of JAX. Phases, each printing one JSON line:
 1. device  — the card, and ``nvidia-smi``'s name and power limit line;
 2. build   — compiles every kernel of ``csrc/`` with nvcc (sm_90a);
 3. kernels — each kernel's wrapper on card tensors at the shapes the
-   DR-RF path gives it, held against its plain PyTorch version with
-   ``torch.equal`` (all three kernels are exact there), with CUDA-event
-   times of the kernel, the plain version and a one-call PyTorch
-   yardstick, and the least time the card could take (``bound_ms``);
+   DR-RF and causal forest paths give it, held against its plain
+   PyTorch version: ``torch.equal`` on integer weights and on route and
+   lookup, 16·eps·Σ|w| per (tree, channel) on float weights, and two
+   launches ``torch.equal`` to each other; with CUDA-event times of the
+   kernel, the plain version and a one-call PyTorch yardstick, and the
+   least time the card could take (``bound_ms``). Dense and partition
+   are both timed at every width, and must give the same bits;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
-   1,000-replicate bootstrap SE), with launch counts read around it;
+   1,000-replicate bootstrap SE), with launch counts read around it and
+   τ held to its recorded value (``DR_TAU``);
 5. parity  — the same path at 32 trees on the card and on the CPU: split
-   tables, leaves and OOB votes equal, τ within a stated bound.
+   tables, leaves and OOB votes equal, τ within a stated bound;
+6. path_cf — the notebook's "Causal Forest(GRF)" row through
+   ``causal_forest_report`` at the sweep's configuration (2,000 causal
+   trees of depth 8, 500 nuisance trees of depth 9, the sweep's key),
+   with stage times and launch counts read around it;
+7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
+   card and on the CPU, held to stated bounds (split agreement, leaf
+   statistics, τ̂ and its variance, the ATE and its SE).
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -33,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -45,8 +57,10 @@ sys.path.insert(0, REPO)
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
 from ate_replication_causalml_torch.estimators.aipw import doubly_robust, outcome_model_mu  # noqa: E402
+from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report  # noqa: E402
 from ate_replication_causalml_torch.estimators.naive import naive_ate  # noqa: E402
 from ate_replication_causalml_torch.kernels import build  # noqa: E402
+from ate_replication_causalml_torch.models import causal_forest as cf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as fo  # noqa: E402
 from ate_replication_causalml_torch.ops import hist, tree  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
@@ -64,6 +78,33 @@ BIG_ROWS = 1_000_000  # bench.py's forest rows
 # Card vs CPU, τ and sandwich SE: the f32 IRLS and AIPW sums reassociate.
 # Observed on an H100 80GB HBM3 at 700 W: |Δτ| 2.46e-7, |Δse| 1.9e-9.
 TAU_BOUND = 1e-6
+# The DR-RF row's τ as first recorded on the card (the atomic histogram
+# kernel): integer histogram weights are exact in any order, so the
+# ordered kernels must give it bit for bit.
+DR_TAU = 0.0028399527072906494
+# The "Causal Forest(GRF)" row (SweepConfig: cf_trees, cf_nuisance_trees,
+# forest_depth for the nuisances; grow_causal_forest's depth 8, 64 bins,
+# ci_group_size 2, min_node 5, sample_fraction 0.5, honesty on).
+CF_TREES, CF_DEPTH, CF_NUISANCE_TREES = 2_000, 8, 500
+CF_PARITY_TREES = 32
+# Float histogram sums: the kernel adds each cell's rows in ascending
+# order per row range, the plain version (index_add_, float atomics on
+# the card) in its own order: |Δ| ≤ FLOAT_ULPS·eps·Σ|w| per (tree,
+# channel). Observed on an H100 80GB HBM3 at 700 W: at most 8.6·eps·Σ|w|
+# (K=5 shared, M=1, the w̃² channel, where a binary covariate puts about
+# a quarter of the rows in one cell).
+FLOAT_ULPS = 64
+EPS32 = float(np.finfo(np.float32).eps)
+# Card vs CPU port, causal row at 32 trees (see phase_parity_cf).
+# Observed on an H100 80GB HBM3 at 700 W: split agreement 0.99277, leaf
+# statistics on agreeing paths 3.5e-6 relative, τ̂ 0.117 and variance
+# 0.040 relative at the worst row, |ΔATE| 3.1e-4, |ΔSE| 1.7e-5.
+CF_SPLIT_AGREEMENT = 0.97
+CF_LEAF_REL = 2e-5
+CF_TAU_BOUND = 0.5
+CF_TAU_MEAN_BOUND = 0.01
+CF_ATE_BOUND = 2e-3
+CF_SE_BOUND = 1e-4
 
 RECORD: dict = {}
 
@@ -98,20 +139,31 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+COUNTERS = {  # kernel name -> (wrapper, its counter for that kernel)
+    "hist": (hist.bin_histogram_batched, "launches"),
+    "hist_partition": (hist.bin_histogram_batched, "partition_launches"),
+    "hist_shared": (hist.bin_histogram_shared, "launches"),
+    "hist_partition_shared": (hist.bin_histogram_shared, "partition_launches"),
+    "node_sums": (hist.node_sums, "launches"),
+    "node_sums_shared": (hist.node_sums_shared, "launches"),
+    "route": (tree.route_bits, "launches"),
+    "lookup": (tree.table_lookup, "launches"),
+}
+
+
 def reset_counts() -> None:
-    hist.bin_histogram_batched.launches = 0
-    hist.node_sums.launches = 0
-    tree.route_bits.launches = 0
-    tree.table_lookup.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {
-        "hist": hist.bin_histogram_batched.launches,
-        "node_sums": hist.node_sums.launches,
-        "route": tree.route_bits.launches,
-        "lookup": tree.table_lookup.launches,
-    }
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def require_launched(counts: dict, names, path: str) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: {missing} ({counts})")
 
 
 def phase_device() -> tuple[str, str]:
@@ -172,35 +224,118 @@ def kernel_cases(codes: torch.Tensor, rng: np.random.Generator, t: int = 16):
     return weights, ids
 
 
-def measure_hist(codes, weights, ids, m, reps=20):
+def moment_channels(n: int, rng: np.random.Generator, dev) -> torch.Tensor:
+    """The causal path's five float channels [1, w̃, ỹ, w̃², w̃ỹ], (5, n),
+    with residual-like w̃ ∈ (−0.5, 0.5) and ỹ ∈ (−1, 1)."""
+    wt = (rng.random(n) - 0.5).astype(np.float32)
+    yt = (rng.random(n) * 2 - 1).astype(np.float32)
+    return torch.as_tensor(np.stack([np.ones(n, np.float32), wt, yt, wt * wt, wt * yt]), device=dev)
+
+
+def check_float(name: str, got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> tuple[float, float]:
+    """|got − want| ≤ FLOAT_ULPS·eps·scale everywhere; returns (max |Δ|,
+    max |Δ| / bound)."""
+    diff = (got.double() - want.double()).abs()
+    lim = FLOAT_ULPS * EPS32 * scale.double()
+    ratio = float((diff / lim.clamp(min=1e-300)).max())
+    if not bool((diff <= lim).all()):
+        raise AssertionError(f"{name}: kernel outside {FLOAT_ULPS}·eps·Σ|w| of its plain version "
+                             f"(max |Δ| {float(diff.max())}, {ratio:.3g} of the bound)")
+    return float(diff.max()), ratio
+
+
+def hist_library(codes, ids, weights, m):
+    """One ``scatter_add_`` over precomputed flat (tree, channel, node,
+    feature, bin) indices: the one-call yardstick (index construction
+    not timed). ``weights`` (T, K, n) or (K, n) shared."""
     n, p = codes.shape
-    t, k, _ = weights.shape
-    got = hist.bin_histogram_batched(codes, ids, weights, max_nodes=m, n_bins=N_BINS,
-                                     integer_weights=True)
-    want = hist.bin_histogram_batched_plain(codes, ids, weights, m, N_BINS)
-    err = check_equal(f"hist M={m} n={n}", got, want)
-    # One PyTorch call over precomputed flat (tree, channel, node, feature, bin) indices.
+    t = ids.shape[0]
+    w = weights if weights.ndim == 3 else weights.expand(t, *weights.shape)
+    k = w.shape[1]
+    dev = codes.device
     valid = (ids >= 0) & (ids < m)
-    cell = (((torch.arange(t, device=codes.device)[:, None, None, None] * k
-              + torch.arange(k, device=codes.device)[None, :, None, None]) * m
+    cell = (((torch.arange(t, device=dev)[:, None, None, None] * k
+              + torch.arange(k, device=dev)[None, :, None, None]) * m
              + ids.long()[:, None, :, None]) * p
-            + torch.arange(p, device=codes.device)) * N_BINS + codes.long()[None, None]
+            + torch.arange(p, device=dev)) * N_BINS + codes.long()[None, None]
     sel = valid[:, None, :, None].expand(t, k, n, p)
     flat_idx = cell[sel]
-    flat_val = weights[:, :, :, None].expand(t, k, n, p)[sel]
-    size = got.numel()
-    lib_out = torch.zeros(size, device=codes.device).scatter_add_(0, flat_idx, flat_val)
-    check_equal(f"hist M={m} scatter_add_", lib_out.view_as(got), want)
-    ms = time_ms(lambda: hist.bin_histogram_batched(codes, ids, weights, max_nodes=m, n_bins=N_BINS,
-                                                    integer_weights=True), reps)
-    plain_ms = time_ms(lambda: hist.bin_histogram_batched_plain(codes, ids, weights, m, N_BINS),
-                       max(3, reps // 4))
-    library_ms = time_ms(lambda: torch.zeros(size, device=codes.device).scatter_add_(0, flat_idx, flat_val), reps)
-    n_valid = int(valid.sum())
+    flat_val = w[:, :, :, None].expand(t, k, n, p)[sel]
+    size = t * k * m * p * N_BINS
+    return lambda: torch.zeros(size, device=dev).scatter_add_(0, flat_idx, flat_val).view(t, k, m, p, N_BINS)
+
+
+def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20):
+    """One histogram case: the kernel against its plain version (exact
+    for integer weights, within FLOAT_ULPS·eps·Σ|w| for float ones), two
+    launches bitwise equal, times and bound."""
+    n, p = codes.shape
+    t = ids.shape[0]
+    k = weights.shape[-2]
+    wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
+    run = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode=mode)
+    plain = lambda: hist.bin_histogram_batched_plain(codes, ids, weights, m, N_BINS)
+    got, again = run(), run()
+    want = plain()
+    integer = bool(torch.equal(weights, weights.round()))
+    name = f"hist{'_shared' if shared else ''} {mode} M={m} T={t} K={k} n={n}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    lib = hist_library(codes, ids, weights, m)
+    if integer:
+        err, ratio = check_equal(name, got, want), 0.0
+        check_equal(f"{name} scatter_add_", lib(), want)
+    else:
+        scale = weights.abs().sum(dim=-1)
+        scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
+        err, ratio = check_float(name, got, want, scale)
+        check_float(f"{name} scatter_add_", lib(), want, scale)
+    ms = time_ms(run, reps)
+    plain_ms = time_ms(plain, max(3, reps // 4))
+    library_ms = time_ms(lib, reps)
+    n_valid = int(((ids >= 0) & (ids < m)).sum())
     nbytes = 4 * (codes.numel() + ids.numel() + weights.numel() + got.numel())
     b_ms, b_by = bound(nbytes, n_valid * p * k)
-    return {"M": m, "n": n, "T": t, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return {"M": m, "n": n, "T": t, "K": k, "mode": mode, "weights": "integer" if integer else "float",
+            "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, "out": got}
+
+
+def node_sums_row(ids, weights, leaves, shared, reps=20):
+    t = ids.shape[0]
+    wrapper = hist.node_sums_shared if shared else hist.node_sums
+    run = lambda: wrapper(ids, weights, leaves)
+    plain = lambda: hist.node_sums_plain(ids, weights, leaves)
+    got, again = run(), run()
+    want = plain()
+    name = f"node_sums{'_shared' if shared else ''} M={leaves}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    w = weights if weights.ndim == 3 else weights.expand(t, *weights.shape)
+    k = w.shape[1]
+    dev = ids.device
+    valid = (ids >= 0) & (ids < leaves)
+    seg = ((torch.arange(t, device=dev)[:, None, None] * k
+            + torch.arange(k, device=dev)[None, :, None]) * leaves + ids.long()[:, None, :])
+    sel = valid[:, None, :].expand_as(seg)
+    seg_idx, seg_val = seg[sel], w[sel]
+    lib = lambda: torch.zeros(t * k * leaves, device=dev).scatter_add_(0, seg_idx, seg_val).view(
+        t, k, leaves).transpose(1, 2)
+    if shared:
+        scale = weights.abs().sum(dim=1)[None, None, :]
+        err, ratio = check_float(name, got, want, scale)
+        check_float(f"{name} scatter_add_", lib(), want, scale)
+    else:
+        err, ratio = check_equal(name, got, want), 0.0
+        check_equal(f"{name} scatter_add_", lib(), got)
+    b_ms, b_by = bound(4 * (ids.numel() + weights.numel() + got.numel()), int(valid.sum()) * k)
+    return {"M": leaves, "n": ids.shape[1], "T": t, "K": k, "max_abs_err": err,
+            "err_over_bound": ratio, "ms": time_ms(run, reps), "plain_ms": time_ms(plain, 5),
+            "library_ms": time_ms(lib, reps), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def strip(row: dict) -> dict:
+    return {k: v for k, v in row.items() if k != "out"}
 
 
 def phase_kernels(frame_mod) -> dict:
@@ -210,36 +345,56 @@ def phase_kernels(frame_mod) -> dict:
     n, p = codes.shape
     weights, ids = kernel_cases(codes, rng)
     t = weights.shape[0]
+    summary = {}
 
-    hist_rows = [measure_hist(codes, weights, ids(m), m) for m in (1, 2, 4, 8, 16, 32, 64, 128)]
+    def both_modes(w, m, shared):
+        """Dense and partition on one input, bitwise equal to each other.
+        Both are timed at every width (the path takes partition from the
+        crossover up), so that a later PR can re-derive the crossover."""
+        lid = ids(m)
+        d = measure_hist(codes, w, lid, m, shared=shared)
+        q = measure_hist(codes, w, lid, m, mode="partition", shared=shared)
+        q["equal_to_dense"] = bool(torch.equal(q["out"], d["out"]))
+        if not q["equal_to_dense"]:
+            raise AssertionError(f"partition M={m} K={w.shape[-2]}: not bitwise equal to dense")
+        return strip(d), strip(q)
+
+    # Per-tree weights, K=2 integer (classifier and nuisance levels).
+    hist_rows, part_rows = map(list, zip(*(both_modes(weights, m, False)
+                                           for m in (1, 2, 4, 8, 16, 32, 64, 128))))
     # bench.py's forest row count: one million rows, at the deepest width.
     big_codes = torch.as_tensor(rng.integers(0, N_BINS, size=(BIG_ROWS, p)).astype(np.int32), device=x.device)
     big_w, big_ids = kernel_cases(big_codes, rng)
-    hist_rows.append(measure_hist(big_codes, big_w, big_ids(128), 128, reps=5))
+    hist_rows.append(strip(measure_hist(big_codes, big_w, big_ids(128), 128, reps=5)))
     del big_codes, big_w
-    emit({"phase": "kernels", "kernel": "hist", "rows": hist_rows})
+    # The float path of the per-tree kernel (a continuous target's
+    # centered counts·y), at the deepest width.
+    yc = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=x.device)
+    wf = torch.stack([weights[:, 0], weights[:, 0] * yc], dim=1).contiguous()
+    float_row = strip(measure_hist(codes, wf, ids(128), 128))
+    # The T = 1 case (the single-tree _hist_kernel) at the deepest width.
+    t1_ids = ids(128)[:1].contiguous()
+    t1_row = strip(measure_hist(codes, weights[:1].contiguous(), t1_ids, 128))
+    emit({"phase": "kernels", "kernel": "hist", "rows": hist_rows, "float": float_row, "t1": t1_row})
+    emit({"phase": "kernels", "kernel": "hist_partition", "rows": part_rows})
+    summary["hist"] = hist_rows[4]             # M=16: the deepest dense width under "auto" (K=2)
+    summary["hist_partition"] = part_rows[7]   # M=128
+    summary["hist_t1"] = t1_row
 
-    # node_sums: leaf sums at 2^depth leaves.
-    leaves = 1 << DEPTH
-    leaf_ids = ids(leaves)
-    got = hist.node_sums(leaf_ids, weights, leaves, integer_weights=True)
-    err = check_equal("node_sums", got, hist.node_sums_plain(leaf_ids, weights, leaves))
-    k = weights.shape[1]
-    valid = (leaf_ids >= 0) & (leaf_ids < leaves)
-    seg = ((torch.arange(t, device=x.device)[:, None, None] * k
-            + torch.arange(k, device=x.device)[None, :, None]) * leaves + leaf_ids.long()[:, None, :])
-    sel = valid[:, None, :].expand_as(seg)
-    seg_idx, seg_val = seg[sel], weights[sel]
-    lib = torch.zeros(t * k * leaves, device=x.device).scatter_add_(0, seg_idx, seg_val)
-    check_equal("node_sums scatter_add_", lib.view(t, k, leaves).transpose(1, 2), got)
-    b_ms, b_by = bound(4 * (leaf_ids.numel() + weights.numel() + got.numel()), int(valid.sum()) * k)
-    ns_row = {"M": leaves, "n": n, "T": t, "max_abs_err": err,
-              "ms": time_ms(lambda: hist.node_sums(leaf_ids, weights, leaves, integer_weights=True), 20),
-              "plain_ms": time_ms(lambda: hist.node_sums_plain(leaf_ids, weights, leaves), 5),
-              "library_ms": time_ms(lambda: torch.zeros(t * k * leaves, device=x.device)
-                                    .scatter_add_(0, seg_idx, seg_val), 20),
-              "bound_ms": b_ms, "bound_by": b_by}
-    emit({"phase": "kernels", "kernel": "node_sums", "rows": [ns_row]})
+    # Shared weights, K=5 float (the causal levels), widths 1–64.
+    mom = moment_channels(n, rng, x.device)
+    sh_rows, shp_rows = map(list, zip(*(both_modes(mom, m, True)
+                                        for m in (1, 2, 4, 8, 16, 32, 64))))
+    emit({"phase": "kernels", "kernel": "hist_shared", "rows": sh_rows})
+    emit({"phase": "kernels", "kernel": "hist_partition_shared", "rows": shp_rows})
+    summary["hist_shared"] = sh_rows[3]             # M=8: the deepest dense width under "auto" (K=5)
+    summary["hist_partition_shared"] = shp_rows[6]  # M=64
+
+    # Leaf sums: 512 leaves, K=2 integer (DR-RF); 256 leaves, K=5 float (causal).
+    summary["node_sums"] = node_sums_row(ids(1 << DEPTH), weights, 1 << DEPTH, shared=False)
+    summary["node_sums_shared"] = node_sums_row(ids(1 << CF_DEPTH), mom, 1 << CF_DEPTH, shared=True)
+    emit({"phase": "kernels", "kernel": "node_sums", "rows": [summary["node_sums"]]})
+    emit({"phase": "kernels", "kernel": "node_sums_shared", "rows": [summary["node_sums_shared"]]})
 
     # route: every level width of a depth-9 tree.
     route_rows = []
@@ -257,22 +412,26 @@ def phase_kernels(frame_mod) -> dict:
             "plain_ms": time_ms(lambda: tree.route_bits_plain(codes, rid, feat, thr), 20),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     emit({"phase": "kernels", "kernel": "route", "rows": route_rows})
+    summary["route"] = route_rows[-1]
 
-    # lookup: the 512-leaf training-row value recording (K = 1).
-    table = torch.as_tensor(rng.random((t, 1, leaves)).astype(np.float32), device=x.device)
-    lid = ids(leaves)
-    got = tree.table_lookup(table, lid)
-    err = check_equal("lookup", got, tree.table_lookup_plain(table, lid))
-    gidx = lid.long().clamp(0, leaves - 1)[:, None, :]
-    b_ms, b_by = bound(4 * (table.numel() + lid.numel() + got.numel()), lid.numel())
-    lookup_row = {"M": leaves, "n": n, "T": t, "max_abs_err": err,
-                  "ms": time_ms(lambda: tree.table_lookup(table, lid), 20),
-                  "plain_ms": time_ms(lambda: tree.table_lookup_plain(table, lid), 20),
-                  "library_ms": time_ms(lambda: torch.gather(table, 2, gidx), 20),
-                  "bound_ms": b_ms, "bound_by": b_by}
-    emit({"phase": "kernels", "kernel": "lookup", "rows": [lookup_row]})
-    # The deepest main-path width stands for each kernel in the summary.
-    return {"hist": hist_rows[7], "node_sums": ns_row, "route": route_rows[-1], "lookup": lookup_row}
+    # lookup: the 512-leaf training-row value recording (K = 1) and the
+    # causal leaf payload (K = 5, 256 leaves, 32 trees of a predict chunk).
+    lookup_rows = []
+    for tt_, kk, leaves in ((t, 1, 1 << DEPTH), (32, 5, 1 << CF_DEPTH)):
+        table = torch.as_tensor(rng.random((tt_, kk, leaves)).astype(np.float32), device=x.device)
+        lid = torch.as_tensor(rng.integers(-1, leaves, size=(tt_, n)).astype(np.int32), device=x.device)
+        got = tree.table_lookup(table, lid)
+        err = check_equal("lookup", got, tree.table_lookup_plain(table, lid))
+        gidx = lid.long().clamp(0, leaves - 1)[:, None, :].expand(tt_, kk, n)
+        b_ms, b_by = bound(4 * (table.numel() + lid.numel() + got.numel()), got.numel())
+        lookup_rows.append({"M": leaves, "n": n, "T": tt_, "K": kk, "max_abs_err": err,
+                            "ms": time_ms(lambda: tree.table_lookup(table, lid), 20),
+                            "plain_ms": time_ms(lambda: tree.table_lookup_plain(table, lid), 20),
+                            "library_ms": time_ms(lambda: torch.gather(table, 2, gidx), 20),
+                            "bound_ms": b_ms, "bound_by": b_by})
+    emit({"phase": "kernels", "kernel": "lookup", "rows": lookup_rows})
+    summary["lookup"] = lookup_rows[0]
+    return summary
 
 
 def phase_path(frame, frame_mod) -> dict:
@@ -309,9 +468,9 @@ def phase_path(frame, frame_mod) -> dict:
     for r in (oracle, naive, dr, dr_boot):
         if not (math.isfinite(r.ate) and math.isfinite(r.se) and r.se > 0):
             raise AssertionError(f"{r.method}: non-finite estimate or SE ({r})")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing} ({counts})")
+    require_launched(counts, ("hist", "hist_partition", "node_sums", "route", "lookup"), "DR-RF")
+    if dr.ate != DR_TAU:
+        raise AssertionError(f"DR-RF τ moved: {dr.ate!r}, recorded {DR_TAU!r}")
     out = {"phase": "path", "rows": frame_mod.n, "trees": DR_TREES, "depth": DEPTH,
            "oracle": [oracle.ate, oracle.se], "naive": [naive.ate, naive.se],
            "dr_rf_sandwich": [dr.ate, dr.se], "dr_rf_bootstrap": [dr_boot.ate, dr_boot.se],
@@ -343,11 +502,135 @@ def phase_parity(frame_mod) -> None:
           "bound": TAU_BOUND})
 
 
+def sweep_key(name: str, device: str) -> torch.Tensor:
+    """The sweep's per-stage key: fold_in(key(0), crc32(name))
+    (``ate_replication_causalml_tpu/pipeline.py:586-589``)."""
+    return rnd.fold_in(rnd.key(0, device=device), zlib.crc32(name.encode()))
+
+
+def phase_path_cf(frame_mod) -> dict:
+    """The "Causal Forest(GRF)" row through its entry point."""
+    stages: dict = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = causal_forest_report(frame_mod, key=sweep_key("causal_forest", "cuda"), n_trees=CF_TREES,
+                               depth=CF_DEPTH, nuisance_trees=CF_NUISANCE_TREES,
+                               nuisance_depth=DEPTH, stage_times=stages)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    r = rep.result
+    for label, v in (("ATE", r.ate), ("SE", r.se), ("incorrect ATE", rep.incorrect_ate),
+                     ("incorrect SE", rep.incorrect_se)):
+        if not math.isfinite(v):
+            raise AssertionError(f"causal forest {label} is not finite: {v}")
+    if not r.se > 0:
+        raise AssertionError(f"causal forest SE is not positive: {r.se}")
+    require_launched(counts, COUNTERS, "causal forest")
+    emit({"phase": "path_cf", "method": r.method, "rows": frame_mod.n, "trees": CF_TREES,
+          "depth": CF_DEPTH, "nuisance_trees": CF_NUISANCE_TREES, "nuisance_depth": DEPTH,
+          "ate": r.ate, "se": r.se, "ci": [r.lower_ci, r.upper_ci],
+          "incorrect_ate": rep.incorrect_ate, "incorrect_se": rep.incorrect_se,
+          "stages": stages, "wall_s": wall, "launches": counts})
+    return counts
+
+
+def path_agrees(f1, b1, f2, b2) -> np.ndarray:
+    """(T, 2^D) mask of the leaves whose every split on the path agrees."""
+    n_trees, depth, _ = f1.shape
+    differs = (f1 != f2) | (b1 != b2)
+    leaf = np.arange(1 << depth)
+    ok = np.ones((n_trees, 1 << depth), bool)
+    for a in range(depth):
+        ok &= ~differs[:, a, leaf >> (depth - a)]
+    return ok
+
+
+def phase_parity_cf(frame_mod) -> None:
+    """The causal row at 32 causal and 32 nuisance trees on the card and
+    on the CPU (plain versions). The nuisance forests are integer-weight
+    forests (y, w ∈ {0, 1}), equal field for field; their OOB means sum
+    over trees in another order, so ŷ, ŵ and with them the residuals
+    differ by ulps, and the float histograms add in another order: a
+    split can flip at a float tie, which moves whole rows. Held: the
+    half-samples exact, the split agreement, τ̂ and its variance, the
+    ATE and its SE; and predict_cate of one forest on both devices to
+    1e-6·(1 + |τ̂|) (route and lookup are exact, the reductions f32)."""
+    key = sweep_key("causal_forest", "cuda")
+    kw = dict(n_trees=CF_PARITY_TREES, depth=CF_DEPTH, nuisance_trees=CF_PARITY_TREES,
+              nuisance_depth=DEPTH)
+    card = cf.fit_causal_forest(frame_mod, key=key, **kw)
+    cpu_frame = frame_mod.to("cpu")
+    host = cf.fit_causal_forest(cpu_frame, key=key.cpu(), **kw)
+    fc, fh = card.forest, host.forest
+    if not torch.equal(fc.in_sample.cpu(), fh.in_sample):
+        raise AssertionError("card and CPU half-samples differ")
+    f1, b1 = fc.split_feat.cpu().numpy(), fc.split_bin.cpu().numpy()
+    f2, b2 = fh.split_feat.numpy(), fh.split_bin.numpy()
+    live = np.zeros(f1.shape, bool)
+    for lv in range(f1.shape[1]):
+        live[:, lv, : 1 << lv] = True
+    agreement = float(np.mean(((f1 == f2) & (b1 == b2))[live]))
+    ok = path_agrees(f1, b1, f2, b2)
+    s1, s2 = fc.leaf_stats.cpu().numpy(), fh.leaf_stats.numpy()
+    counts_equal = bool(np.array_equal(s1[..., 0][ok], s2[..., 0][ok]))
+    leaf_rel = float(np.max(np.abs(s1 - s2)[ok] / (1 + np.abs(s2)[ok]))) if ok.any() else 0.0
+    pc, ph = cf.predict_cate(fc, frame_mod.x), cf.predict_cate(fh, cpu_frame.x)
+    tau_h, var_h = ph.cate.numpy(), ph.variance.numpy()
+    rel_tau = np.abs(pc.cate.cpu().numpy() - tau_h) / (1 + np.abs(tau_h))
+    d_tau, d_tau_mean = float(rel_tau.max()), float(rel_tau.mean())
+    d_var = float(np.max(np.abs(pc.variance.cpu().numpy() - var_h) / (1 + np.abs(var_h))))
+    # One forest (the CPU's) predicted on the card: isolates predict_cate.
+    moved = cf.CausalForest(*(getattr(fh, f).cuda() for f in
+                              ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")))
+    px = cf.predict_cate(moved, frame_mod.x)
+    d_tau_same = float(np.max(np.abs(px.cate.cpu().numpy() - tau_h) / (1 + np.abs(tau_h))))
+    ec, eh = cf.average_treatment_effect(card, pc), cf.average_treatment_effect(host, ph)
+    d_ate, d_se = abs(float(ec.estimate) - float(eh.estimate)), abs(float(ec.std_err) - float(eh.std_err))
+    out = {"phase": "parity_cf", "trees": CF_PARITY_TREES, "nuisance_trees": CF_PARITY_TREES,
+           "y_hat_max_abs_diff": float((card.y_hat.cpu() - host.y_hat).abs().max()),
+           "w_hat_max_abs_diff": float((card.w_hat.cpu() - host.w_hat).abs().max()),
+           "split_agreement": agreement, "leaves_on_agreeing_paths": int(ok.sum()),
+           "leaf_counts_equal": counts_equal, "leaf_stats_max_rel_diff": leaf_rel,
+           "tau_max_rel_diff": d_tau, "tau_mean_rel_diff": d_tau_mean,
+           "variance_max_rel_diff": d_var,
+           "same_forest_tau_max_rel_diff": d_tau_same,
+           "ate_card": float(ec.estimate), "ate_cpu": float(eh.estimate), "abs_date": d_ate,
+           "se_card": float(ec.std_err), "se_cpu": float(eh.std_err), "abs_dse": d_se,
+           "bounds": {"split_agreement": CF_SPLIT_AGREEMENT, "leaf_rel": CF_LEAF_REL,
+                      "tau_rel": CF_TAU_BOUND, "tau_mean_rel": CF_TAU_MEAN_BOUND,
+                      "ate": CF_ATE_BOUND, "se": CF_SE_BOUND, "same_forest_tau_rel": 1e-6}}
+    emit(out)
+    fails = []
+    if not counts_equal:
+        fails.append("leaf counts differ on agreeing paths")
+    if agreement < CF_SPLIT_AGREEMENT:
+        fails.append(f"split agreement {agreement} < {CF_SPLIT_AGREEMENT}")
+    if not leaf_rel <= CF_LEAF_REL:
+        fails.append(f"leaf statistics differ by {leaf_rel} > {CF_LEAF_REL}·(1 + |·|)")
+    if not (d_tau <= CF_TAU_BOUND and d_var <= CF_TAU_BOUND and d_tau_mean <= CF_TAU_MEAN_BOUND):
+        fails.append(f"τ̂/variance differ by {d_tau}/{d_var} (mean {d_tau_mean}) > "
+                     f"{CF_TAU_BOUND} ({CF_TAU_MEAN_BOUND})·(1 + |·|)")
+    if not d_tau_same <= 1e-6:
+        fails.append(f"predict_cate of one forest differs by {d_tau_same} > 1e-6·(1 + |τ̂|)")
+    if not (d_ate <= CF_ATE_BOUND and d_se <= CF_SE_BOUND):
+        fails.append(f"ATE/SE differ by {d_ate}/{d_se} > {CF_ATE_BOUND}/{CF_SE_BOUND}")
+    if fails:
+        raise AssertionError("card vs CPU causal forest: " + "; ".join(fails))
+
+
+_HIST = "ate_replication_causalml_torch/csrc/hist.cu"
+_PART = "ate_replication_causalml_torch/csrc/hist_partition.cu"
+_TPU = "ate_replication_causalml_tpu/ops/"
 SOURCES = {
-    "hist": ("ate_replication_causalml_torch/csrc/hist.cu", "ate_replication_causalml_tpu/ops/hist_pallas.py:243"),
-    "node_sums": ("ate_replication_causalml_torch/csrc/hist.cu", "ate_replication_causalml_tpu/ops/hist_pallas.py:243"),
-    "route": ("ate_replication_causalml_torch/csrc/route.cu", "ate_replication_causalml_tpu/ops/tree_pallas.py:198"),
-    "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", "ate_replication_causalml_tpu/ops/tree_pallas.py:67"),
+    "hist": (_HIST, _TPU + "hist_pallas.py:243"),
+    "hist_partition": (_PART, _TPU + "hist_pallas.py:335"),
+    "hist_shared": (_HIST, _TPU + "hist_pallas.py:782"),
+    "hist_partition_shared": (_PART, _TPU + "hist_pallas.py:335"),
+    "node_sums": (_HIST, _TPU + "hist_pallas.py:243"),
+    "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782"),
+    "route": ("ate_replication_causalml_torch/csrc/route.cu", _TPU + "tree_pallas.py:198"),
+    "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", _TPU + "tree_pallas.py:67"),
 }
 
 
@@ -356,13 +639,17 @@ def main() -> int:
     phase_build()
     frame, frame_mod = notebook_frames("cuda")
     timing = phase_kernels(frame_mod)
-    counts = phase_path(frame, frame_mod)
+    dr_counts = phase_path(frame, frame_mod)
     phase_parity(frame_mod)
+    cf_counts = phase_path_cf(frame_mod)
+    phase_parity_cf(frame_mod)
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = timing[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": counts[k], "max_abs_err": row["max_abs_err"],
+                        "launches": dr_counts[k] + cf_counts[k],
+                        "launches_by_path": {"dr_rf": dr_counts[k], "causal_forest": cf_counts[k]},
+                        "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     out_dir = os.path.join(REPO, "build")

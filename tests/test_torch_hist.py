@@ -1,6 +1,12 @@
-"""ops/hist.py: the plain histogram and node sums equal the JAX
-package's Pallas kernels (run in interpret mode). The CUDA kernel is
-held against the plain version in tests/test_torch_kernels.py."""
+"""ops/hist.py: the plain histogram and node sums, per-tree and shared
+weights, equal the JAX package's Pallas kernels (run in interpret mode,
+dense and partition), and the kernel-mode policy names the same
+formulation per width as the JAX package's. The CUDA kernels are held
+against the plain version in tests/test_torch_kernels.py.
+
+Float bound: both sides sum the same f32 products in another order, so
+a cell may differ by a few roundings of its running sum. Per cell
+|Δ| ≤ 8·eps_f32·Σ|w| (Σ over the rows of the call, at most 1,500 here)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,15 +32,44 @@ def _case(seed, n, p, t, k, m, integer=True):
     return codes, ids, w
 
 
-def _jax_batched(codes, ids, w, m):
+def _jax_batched(codes, ids, w, m, partition=False):
     return np.asarray(jh.bin_histogram_pallas_batched(
         jnp.asarray(codes), jnp.asarray(ids), jnp.asarray(w),
-        max_nodes=m, n_bins=N_BINS, interpret=True))
+        max_nodes=m, n_bins=N_BINS, interpret=True, partition=partition))
 
 
-def _torch_batched(codes, ids, w, m):
+def _torch_batched(codes, ids, w, m, mode="dense"):
     return th.bin_histogram_batched(torch.as_tensor(codes), torch.as_tensor(ids),
-                                    torch.as_tensor(w), max_nodes=m, n_bins=N_BINS).numpy()
+                                    torch.as_tensor(w), max_nodes=m, n_bins=N_BINS,
+                                    mode=mode).numpy()
+
+
+def _jax_shared(codes, ids, w, m, partition=False):
+    return np.asarray(jh.bin_histogram_pallas_batched_shared(
+        jnp.asarray(codes), jnp.asarray(ids), jnp.asarray(w),
+        max_nodes=m, n_bins=N_BINS, interpret=True, partition=partition))
+
+
+def _torch_shared(codes, ids, w, m, mode="dense"):
+    return th.bin_histogram_shared(torch.as_tensor(codes), torch.as_tensor(ids),
+                                   torch.as_tensor(w), max_nodes=m, n_bins=N_BINS,
+                                   mode=mode).numpy()
+
+
+def _within_float_bound(got, ref, w):
+    """|Δ| ≤ 8·eps·Σ|w| per (tree, channel) of a (T, K, M, p, b) output;
+    w is (T, K, n) or (K, n) shared."""
+    scale = np.abs(w).sum(axis=-1)
+    scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
+    return bool(np.all(np.abs(got - ref) <= 8 * np.finfo(np.float32).eps * scale))
+
+
+def _moments(seed, n):
+    """The causal grower's five channels [1, w̃, ỹ, w̃², w̃ỹ], (5, n)."""
+    rng = np.random.default_rng(seed)
+    wt = (rng.random(n) - 0.4).astype(np.float32)
+    yt = rng.normal(size=n).astype(np.float32)
+    return np.stack([np.ones(n, np.float32), wt, yt, wt * wt, wt * yt])
 
 
 @pytest.mark.parametrize("t,m", [(1, 1), (3, 4), (4, 16)])
@@ -45,11 +80,44 @@ def test_plain_equals_pallas_interpret_integer_weights(t, m):
 
 def test_plain_float_weights_within_bound():
     """Float weights: both sides sum the same products in another order.
-    Bound: |Δ| ≤ 8·eps_f32·Σ|w| per cell (a sum of ≤1500 f32 terms)."""
+    Bound: |Δ| ≤ 8·eps_f32·Σ|w| per cell (a sum of ≤1500 f32 terms;
+    largest seen 7.6e-6 at T=4, M=128, about 0.2 of the bound)."""
     codes, ids, w = _case(5, 1500, 7, 2, 3, 8, integer=False)
     got, ref = _torch_batched(codes, ids, w, 8), _jax_batched(codes, ids, w, 8)
-    scale = np.abs(w).sum(axis=2)[:, :, None, None, None]
-    assert np.all(np.abs(got - ref) <= 8 * np.finfo(np.float32).eps * scale)
+    assert _within_float_bound(got, ref, w)
+
+
+@pytest.mark.parametrize("mode", ["dense", "partition"])
+@pytest.mark.parametrize("t,m", [(1, 1), (3, 16), (2, 64)])
+def test_shared_weights_integer_equal_pallas_interpret(mode, t, m):
+    """One (K, n) integer stack shared by T trees: exact in both modes."""
+    codes, ids, w = _case(40 + t + m, 1200, 21, t, 2, m)
+    ws = np.ascontiguousarray(w[0])
+    ref = _jax_shared(codes, ids, ws, m, partition=mode == "partition")
+    assert np.array_equal(_torch_shared(codes, ids, ws, m, mode), ref)
+    # The shared form equals the per-tree form with the stack repeated.
+    wt = np.repeat(ws[None], t, axis=0)
+    assert np.array_equal(_torch_batched(codes, ids, wt, m, mode), ref)
+
+
+@pytest.mark.parametrize("mode", ["dense", "partition"])
+def test_shared_weights_float_within_bound(mode):
+    """The causal grower's five float channels, honest membership as −1
+    ids, against the JAX kernel: within 8·eps·Σ|w| per cell."""
+    codes, ids, _ = _case(41, 1500, 21, 4, 2, 16)
+    w = _moments(3, 1500)
+    got = _torch_shared(codes, ids, w, 16, mode)
+    ref = _jax_shared(codes, ids, w, 16, partition=mode == "partition")
+    assert _within_float_bound(got, ref, w)
+
+
+def test_partition_equals_dense_on_integer_stacks():
+    """Both JAX formulations and the port's agree exactly on integer
+    weights (the partition kernel's contract is dense's)."""
+    codes, ids, w = _case(42, 1500, 21, 3, 2, 32)
+    dense = _jax_batched(codes, ids, w, 32)
+    assert np.array_equal(_jax_batched(codes, ids, w, 32, partition=True), dense)
+    assert np.array_equal(_torch_batched(codes, ids, w, 32, "partition"), dense)
 
 
 def test_single_tree_is_the_t1_case_of_the_batched_kernel():
@@ -80,24 +148,93 @@ def test_node_sums_equal_pallas_interpret(m):
         assert np.array_equal(got[i], ref)
 
 
+@pytest.mark.parametrize("m", [1, 256])
+def test_node_sums_shared_equal_pallas_interpret(m):
+    """The honest leaf payload: K=5 shared channels, estimate-half
+    membership as −1 ids. Integer stacks exact, float ones within
+    8·eps·Σ|w|."""
+    _, ids, w = _case(50 + m, 1300, 1, 3, 2, m)
+    for ws, exact in ((np.ascontiguousarray(w[0]), True), (_moments(m, 1300), False)):
+        got = th.node_sums_shared(torch.as_tensor(ids), torch.as_tensor(ws), m).numpy()
+        assert got.shape == (3, m, ws.shape[0])
+        for i in range(3):
+            ref = np.asarray(jh.node_sums_shared(jnp.asarray(ids[i]), jnp.asarray(ws), m,
+                                                 backend="pallas_interpret"))
+            if exact:
+                assert np.array_equal(got[i], ref)
+            else:
+                scale = np.abs(ws).sum(axis=1)[None, :]
+                assert np.all(np.abs(got[i] - ref) <= 8 * np.finfo(np.float32).eps * scale)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("p,n_bins", [(5, 16), (21, 64), (21, 128), (3, 256)])
+def test_mode_policy_equals_jax(k, p, n_bins):
+    """Under every policy the port picks the JAX package's formulation
+    for every kernel width (the crossover is the JAX package's TPU
+    FLOP model, copied)."""
+    assert th.partition_crossover_width(k, p, n_bins) == jh.partition_crossover_width(k, p, n_bins)
+    for mode in ("dense", "partition", "auto"):
+        for width in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            assert th.mode_for_width(mode, width, k, p, n_bins) == jh.mode_for_width(
+                mode, width, k, p, n_bins)
+    for mode in ("dense", "partition"):
+        assert th.hist_level_flops(mode, 11016, 64, k, p, n_bins) == jh.hist_level_flops(
+            mode, 11016, 64, k, p, n_bins)
+    assert th.partition_crossover_width(5) == 16 and th.partition_crossover_width(2) == 32
+
+
+def test_resolve_hist_mode_reads_the_jax_packages_settings(monkeypatch):
+    monkeypatch.delenv(th.HIST_MODE_ENV, raising=False)
+    monkeypatch.delenv(th.PACK_ENV, raising=False)
+    assert th.resolve_hist_mode(None) == jh.resolve_hist_mode(None) == "auto"
+    monkeypatch.setenv(th.HIST_MODE_ENV, "Partition")
+    assert th.resolve_hist_mode(None) == jh.resolve_hist_mode(None) == "partition"
+    assert th.resolve_hist_mode("dense") == "dense"
+    monkeypatch.setenv(th.HIST_MODE_ENV, "bogus")
+    with pytest.raises(ValueError, match="ATE_TPU_HIST_MODE"):
+        th.resolve_hist_mode(None)
+    monkeypatch.setenv(th.HIST_MODE_ENV, "auto")
+    monkeypatch.setenv(th.PACK_ENV, "1")  # the JAX package would pack here: not ported
+    assert jh.resolve_hist_mode_packed(None, 64) == "auto+pack"
+    with pytest.raises(ValueError, match="not ported"):
+        th.resolve_hist_mode(None, 64)
+    assert th.resolve_hist_mode(None, 256) == "auto"  # 256 bins never pack
+
+
 def test_unported_modes_rejected():
+    """``+pack`` is still to be ported; "auto" is resolved per width by
+    the caller, never at dispatch; "partition" now runs."""
     codes, ids, w = (torch.as_tensor(a) for a in _case(1, 100, 3, 1, 2, 2))
-    for mode in ("partition", "partition+pack", "auto"):
+    for mode in ("partition+pack", "dense+pack"):
         with pytest.raises(ValueError, match="not ported"):
             th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode=mode)
+        with pytest.raises(ValueError, match="not ported"):
+            th.resolve_hist_mode(mode)
+    for mode in ("auto", "bogus"):
+        with pytest.raises(ValueError, match="mode_for_width"):
+            th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode=mode)
+    th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode="partition")
 
 
 def test_kernel_path_refuses_float_weights():
-    """Off the CPU the wrapper launches the kernel, which adds with
-    unordered shared-memory atomics: it runs only for weights the caller
-    states are integers (meta tensors reach that check without a card)."""
-    codes, ids, w = (torch.as_tensor(a).to("meta") for a in _case(3, 100, 3, 2, 2, 4))
-    with pytest.raises(ValueError, match="integer_weights=True"):
-        th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS)
-    with pytest.raises(ValueError, match="integer_weights=True"):
-        th.node_sums(ids, w, 4)
-    with pytest.raises(ValueError, match="no histogram kernel for device meta"):
-        th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS, integer_weights=True)
+    """Off the CPU every wrapper goes to its kernel whatever the weights:
+    float weights are no longer refused (the kernels add in a fixed
+    order), and a device without a kernel raises instead of falling back
+    (meta tensors reach that point without a card)."""
+    codes, ids, w = (torch.as_tensor(a).to("meta")
+                     for a in _case(3, 100, 3, 2, 2, 4, integer=False))
+    calls = (
+        lambda: th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS),
+        lambda: th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS,
+                                         mode="partition"),
+        lambda: th.bin_histogram_shared(codes, ids, w[0], max_nodes=4, n_bins=N_BINS),
+        lambda: th.node_sums(ids, w, 4),
+        lambda: th.node_sums_shared(ids, w[0], 4),
+    )
+    for call in calls:
+        with pytest.raises(ValueError, match="no histogram kernel for device meta"):
+            call()
 
 
 def test_wrapper_rejects_wrong_dtypes():
@@ -106,4 +243,6 @@ def test_wrapper_rejects_wrong_dtypes():
         th.bin_histogram_batched(codes.long(), ids, w, max_nodes=2, n_bins=N_BINS)
     with pytest.raises(TypeError):
         th.bin_histogram_batched(codes, ids, w.double(), max_nodes=2, n_bins=N_BINS)
+    with pytest.raises(TypeError, match=r"\(K, n\)"):
+        th.bin_histogram_shared(codes, ids, w, max_nodes=2, n_bins=N_BINS)
 

@@ -24,7 +24,8 @@ def _port_modules() -> list[str]:
 def test_port_lists_its_modules():
     mods = _port_modules()
     for m in ("ops.random", "ops.hist", "ops.tree", "models.forest", "kernels.build",
-              "estimators.aipw", "data.pipeline"):
+              "estimators.aipw", "data.pipeline", "models.causal_forest",
+              "estimators.causal_forest_est"):
         assert f"{_PKG}.{m}" in mods
 
 

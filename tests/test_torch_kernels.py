@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ate_replication_causalml_torch.models import causal_forest as cf
 from ate_replication_causalml_torch.models import forest as fo
 from ate_replication_causalml_torch.ops import hist as th
 from ate_replication_causalml_torch.ops import random as rnd
@@ -27,6 +28,9 @@ def cuda():
     return torch.device("cuda")
 
 
+EPS32 = float(np.finfo(np.float32).eps)
+
+
 def _hist_case(seed, n, p, t, m, dev):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, N_BINS, size=(n, p)).astype(np.int32)
@@ -37,40 +41,162 @@ def _hist_case(seed, n, p, t, m, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (codes, ids, w))
 
 
+def _moments(seed, n, dev):
+    """The causal grower's five float channels [1, w̃, ỹ, w̃², w̃ỹ], (5, n)."""
+    rng = np.random.default_rng(seed)
+    wt = (rng.random(n) - 0.4).astype(np.float32)
+    yt = rng.normal(size=n).astype(np.float32)
+    return torch.as_tensor(np.stack([np.ones(n, np.float32), wt, yt, wt * wt, wt * yt]), device=dev)
+
+
+def _float_bound(got, want, w):
+    """|Δ| ≤ 16·eps_f32·Σ|w| per channel: two f32 sums of the same terms
+    in other orders (the kernel's ascending rows per range, the plain
+    version's index_add_), each within n·eps·Σ|w| of the exact sum in
+    the worst case and ~√n·eps·Σ|w| in practice."""
+    scale = w.abs().sum(dim=-1)
+    scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
+    return bool(torch.all((got - want).abs() <= 16 * EPS32 * scale))
+
+
+@pytest.mark.parametrize("mode", ["dense", "partition"])
 @pytest.mark.parametrize("n,t,m", [(11016, 16, 1), (11016, 16, 128), (100_000, 3, 32), (5, 2, 4)])
-def test_hist_kernel_equals_plain(cuda, n, t, m):
+def test_hist_kernel_equals_plain(cuda, mode, n, t, m):
+    """Integer weights: both formulations exact, reruns bitwise equal."""
     codes, ids, w = _hist_case(n + m, n, 21, t, m, cuda)
-    before = th.bin_histogram_batched.launches
-    got = th.bin_histogram_batched(codes, ids, w, max_nodes=m, n_bins=N_BINS, integer_weights=True)
+    counter = "launches" if mode == "dense" else "partition_launches"
+    before = getattr(th.bin_histogram_batched, counter)
+    got = th.bin_histogram_batched(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode=mode)
     torch.cuda.synchronize()
-    assert th.bin_histogram_batched.launches == before + 1
+    assert getattr(th.bin_histogram_batched, counter) == before + 1
     assert torch.equal(got, th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS))
-    # Reruns are bitwise equal (fixed-order cross-block pass, integer weights).
     assert torch.equal(got, th.bin_histogram_batched(codes, ids, w, max_nodes=m, n_bins=N_BINS,
-                                                     integer_weights=True))
+                                                     mode=mode))
+
+
+@pytest.mark.parametrize("m", [1, 16, 64])
+def test_shared_float_kernel_within_bound_and_stable(cuda, m):
+    """K=5 float channels shared by 16 trees at the causal path's shape:
+    within the bound of the plain version, two launches bitwise equal,
+    and dense and partition give the same bits (each cell sums its rows
+    in ascending order within each row range in both)."""
+    codes, ids, _ = _hist_case(m, 11016, 21, 16, m, cuda)
+    w = _moments(m, 11016, cuda)
+    dense = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS)
+    part = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition")
+    again = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, again) and torch.equal(dense, part)
+    assert _float_bound(dense, th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS), w)
+    # Per-tree float weights take the same path with a tree stride.
+    wt = w[None].repeat(16, 1, 1)
+    assert torch.equal(th.bin_histogram_batched(codes, ids, wt, max_nodes=m, n_bins=N_BINS), dense)
 
 
 def test_node_sums_kernel_equals_plain(cuda):
     _, ids, w = _hist_case(3, 11016, 1, 16, 512, cuda)
     before = th.node_sums.launches
-    got = th.node_sums(ids, w, 512, integer_weights=True)
+    got = th.node_sums(ids, w, 512)
     torch.cuda.synchronize()
     assert th.node_sums.launches == before + 1
     assert torch.equal(got, th.node_sums_plain(ids, w, 512))
+    # The causal leaf payload: K=5 shared float channels at M=256.
+    _, lid, _ = _hist_case(4, 11016, 1, 16, 256, cuda)
+    ws = _moments(4, 11016, cuda)
+    before = th.node_sums_shared.launches
+    got = th.node_sums_shared(lid, ws, 256)
+    assert th.node_sums_shared.launches == before + 1
+    assert torch.equal(got, th.node_sums_shared(lid, ws, 256))
+    want = th.node_sums_plain(lid, ws, 256)
+    assert torch.all((got - want).abs() <= 16 * EPS32 * ws.abs().sum(dim=1)[None, None, :])
 
 
 def test_kernels_refuse_float_weights_and_count_only_launches(cuda):
+    """Float weights now launch the kernel (counted once per launch); an
+    empty call launches nothing and counts nothing."""
     codes, ids, w = _hist_case(4, 1000, 21, 2, 8, cuda)
-    with pytest.raises(ValueError, match="integer_weights=True"):
-        th.bin_histogram_batched(codes, ids, w * 0.5, max_nodes=8, n_bins=N_BINS)
-    with pytest.raises(ValueError, match="continuous target grows on the CPU only"):
-        fo.fit_forest_regressor(torch.randn(500, 4, device=cuda), torch.randn(500, device=cuda),
-                                rnd.key(1, device=cuda), n_trees=2, depth=2)
-    # An empty call launches nothing and counts nothing.
     before = th.bin_histogram_batched.launches
-    empty = th.bin_histogram_batched(codes[:0], ids[:, :0], w[:, :, :0], max_nodes=8, n_bins=N_BINS,
-                                     integer_weights=True)
+    got = th.bin_histogram_batched(codes, ids, w * 0.5 + 0.1, max_nodes=8, n_bins=N_BINS)
+    assert th.bin_histogram_batched.launches == before + 1
+    assert _float_bound(got, th.bin_histogram_batched_plain(codes, ids, w * 0.5 + 0.1, 8, N_BINS),
+                        w * 0.5 + 0.1)
+    before = th.bin_histogram_batched.launches
+    empty = th.bin_histogram_batched(codes[:0], ids[:, :0], w[:, :, :0], max_nodes=8, n_bins=N_BINS)
     assert th.bin_histogram_batched.launches == before and not bool(empty.any())
+
+
+def _path_agrees(f1, b1, f2, b2):
+    """(T, 2^D) mask: leaves whose every split on the path agrees."""
+    n_trees, depth, _ = f1.shape
+    differs = (f1 != f2) | (b1 != b2)
+    leaf = np.arange(1 << depth)
+    ok = np.ones((n_trees, 1 << depth), bool)
+    for a in range(depth):
+        ok &= ~differs[:, a, leaf >> (depth - a)]
+    return ok
+
+
+def test_continuous_regressor_on_card_vs_cpu(cuda):
+    """A continuous target now grows on the card (float weights, ordered
+    sums). Against the CPU port: counts and edges exact, at least 90% of
+    the split table equal (a float tie may flip), and every leaf whose
+    path agrees within 8·eps·(|tree mean| + 4) of the CPU's (|y| < 4)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3000, 21)).astype(np.float32)
+    y = (3.0 + x[:, 0] + 0.2 * rng.normal(size=3000)).astype(np.float32)
+    kw = dict(n_trees=16, depth=6)
+    card = fo.fit_forest_regressor(torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda),
+                                   rnd.key(5, device=cuda), **kw)
+    host = fo.fit_forest_regressor(torch.as_tensor(x), torch.as_tensor(y), rnd.key(5, device="cpu"),
+                                   **kw)
+    for f in ("counts", "bin_edges", "train_fp"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
+    f1, b1 = card.split_feat.cpu().numpy(), card.split_bin.cpu().numpy()
+    f2, b2 = host.split_feat.numpy(), host.split_bin.numpy()
+    assert np.mean((f1 == f2) & (b1 == b2)) >= 0.9
+    ok = _path_agrees(f1, b1, f2, b2)
+    v1, v2 = card.leaf_value.cpu().numpy(), host.leaf_value.numpy()
+    assert np.all(np.abs(v1 - v2)[ok] <= 8 * EPS32 * (np.abs(v2) + 4.0)[ok])
+
+
+def test_causal_forest_on_card_vs_cpu(cuda):
+    """The causal grow at a few trees on the card against the CPU port:
+    half-samples exact, at least 90% of the split table equal, leaf
+    statistics on agreeing paths within 16·eps·Σ|channel| (counts exact),
+    and predict_cate of one forest within 1e-6·(1 + |τ̂|) on both."""
+    rng = np.random.default_rng(1)
+    n, p = 11016, 21
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    wt = (rng.random(n) - 0.5).astype(np.float32)
+    yt = ((1.0 + x[:, 0]) * wt + 0.3 * rng.normal(size=n)).astype(np.float32)
+    kw = dict(n_trees=16, depth=8)
+    card = cf.grow_causal_forest(*(torch.as_tensor(a, device=cuda) for a in (x, wt, yt)),
+                                 rnd.key(3, device=cuda), **kw)
+    host = cf.grow_causal_forest(*(torch.as_tensor(a) for a in (x, wt, yt)),
+                                 rnd.key(3, device="cpu"), **kw)
+    assert torch.equal(card.in_sample.cpu(), host.in_sample)
+    f1, b1 = card.split_feat.cpu().numpy(), card.split_bin.cpu().numpy()
+    f2, b2 = host.split_feat.numpy(), host.split_bin.numpy()
+    assert np.mean((f1 == f2) & (b1 == b2)) >= 0.9
+    ok = _path_agrees(f1, b1, f2, b2)
+    s1, s2 = card.leaf_stats.cpu().numpy(), host.leaf_stats.numpy()
+    # Per-leaf scale Σ|channel| over the leaf's estimate rows (CPU forest).
+    gkeys = rnd.split(rnd.key(3, device="cpu"), 8)
+    _, _, _, est = cf.little_bag_masks(gkeys, n, n // 2, 2)
+    codes = fo.binarize(torch.as_tensor(x), host.bin_edges)
+    leaf = cf._tree_route_stream(host.split_feat, host.split_bin, codes, 8).numpy()
+    chan = np.abs(np.stack([np.ones(n), wt, yt, wt * wt, wt * yt], axis=1))
+    scale = np.zeros(s2.shape)
+    for t in range(16):
+        np.add.at(scale[t], leaf[t][est[t].numpy()], chan[est[t].numpy()])
+    assert np.array_equal(s1[..., 0][ok], s2[..., 0][ok])
+    assert np.all((np.abs(s1 - s2) <= 16 * EPS32 * scale)[ok])
+    on_card = cf.predict_cate(card, torch.as_tensor(x, device=cuda))
+    host_copy = cf.CausalForest(*(getattr(card, f).cpu() for f in
+                                  ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")))
+    on_cpu = cf.predict_cate(host_copy, torch.as_tensor(x))
+    tau = on_cpu.cate.numpy()
+    assert np.all(np.abs(on_card.cate.cpu().numpy() - tau) <= 1e-6 * (1 + np.abs(tau)))
 
 
 @pytest.mark.parametrize("m", [1, 32, 256])

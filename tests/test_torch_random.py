@@ -85,3 +85,30 @@ def test_bad_keys_rejected():
         rnd.key(-1, device="cpu")
     with pytest.raises(ValueError):
         rnd.bits(torch.zeros(3, dtype=torch.int64), (2,))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bernoulli(seed, shape):
+    """The causal forest's honesty draw, ``bernoulli(key, 0.5, (n,))``,
+    and other probabilities; float32 as in production, float64 as jax
+    draws it under x64."""
+    jk, tk = _jkey(seed), _tkey(seed)
+    for p in (0.5, 0.3, 0.9):
+        with jax.enable_x64(False):
+            ref = np.asarray(jax.random.bernoulli(jk, p, shape))
+        got = rnd.bernoulli(tk, p, shape)
+        assert got.dtype == torch.bool and np.array_equal(got.numpy(), ref)
+        with jax.enable_x64(True):
+            ref64 = np.asarray(jax.random.bernoulli(jk, p, shape))
+        assert np.array_equal(rnd.bernoulli(tk, p, shape, dtype=torch.float64).numpy(), ref64)
+
+
+def test_bernoulli_batched_keys():
+    """A (T, 2) key batch draws T honesty masks, each its own key's."""
+    keys = rnd.split(_tkey(21), 6)
+    jkeys = jax.random.split(_jkey(21), 6)
+    got = rnd.bernoulli(keys, 0.5, (300,)).numpy()
+    with jax.enable_x64(False):
+        for i in range(6):
+            assert np.array_equal(got[i], np.asarray(jax.random.bernoulli(jkeys[i], 0.5, (300,))))
