@@ -4,7 +4,9 @@ Every source under ``csrc/`` is compiled on its own into a shared
 library with a plain C interface, for Hopper (``sm_90a``)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<lib>-<hash>.so csrc/<lib>.cu
+
+A library exports one or more kernel entry points (``KERNELS``).
 
 The libraries are built at first use, all ``nvcc`` processes started
 together, into ``build/torch_kernels/`` at the repository root. A
@@ -43,25 +45,38 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
-# name -> (source file, C entry point, argtypes). Pointers and the
+# library -> source file; each exports ate_<library>_error_string.
+LIBRARIES = {
+    "hist": "hist.cu",
+    "hist_partition": "hist_partition.cu",
+    "route": "route.cu",
+    "lookup": "lookup.cu",
+}
+
+# kernel name -> (library, C entry point, argtypes). Pointers and the
 # stream go as c_void_p: ctypes would otherwise pass a 32-bit int.
 KERNELS = {
-    "hist": ("hist.cu", "ate_hist",
+    "hist": ("hist", "ate_hist",
              [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "hist_partition": ("hist_partition.cu", "ate_hist_partition",
+    "hist_partition": ("hist_partition", "ate_hist_partition",
                        [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
-    "route": ("route.cu", "ate_route",
+    "hist_partition_packed": ("hist_partition", "ate_hist_partition_packed",
+                              [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P]),
+    "pack_codes": ("hist_partition", "ate_pack_codes", [_P, _I64, _I, _P, _P]),
+    "route": ("route", "ate_route",
               [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P]),
-    "lookup": ("lookup.cu", "ate_lookup",
+    "lookup": ("lookup", "ate_lookup",
                [_P, _I, _I, _I, _P, _I64, _P, _P]),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class Built:
-    """One loaded kernel library."""
+    """One kernel entry point of a loaded library."""
 
     name: str
+    library: str
     path: str
     fn: ctypes._CFuncPtr
     error_string: ctypes._CFuncPtr
@@ -83,8 +98,8 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> tuple[str, str, str]:
-    src = os.path.join(CSRC_DIR, KERNELS[name][0])
+def _target(lib: str) -> tuple[str, str, str]:
+    src = os.path.join(CSRC_DIR, LIBRARIES[lib])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     # The source and every shared header it may include.
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
@@ -92,26 +107,27 @@ def _target(name: str) -> tuple[str, str, str]:
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    stem = os.path.join(BUILD_DIR, f"{name}-{digest}")
+    stem = os.path.join(BUILD_DIR, f"{lib}-{digest}")
     return src, stem + ".so", stem + ".log"
 
 
 def _load(name: str, path: str, log: str, seconds: float) -> Built:
+    lib_name, symbol, argtypes = KERNELS[name]
     lib = ctypes.CDLL(path)
-    _, symbol, argtypes = KERNELS[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    err = getattr(lib, symbol + "_error_string")
+    err = getattr(lib, f"ate_{lib_name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     with open(log) as f:
         ptxas = f.read()
-    return Built(name, path, fn, err, seconds, ptxas)
+    return Built(name, lib_name, path, fn, err, seconds, ptxas)
 
 
 def build_all() -> dict[str, Built]:
-    """Build (in parallel) and load every kernel library not yet loaded."""
+    """Build (one nvcc per library, all started together) and load every
+    kernel not yet loaded."""
     with _lock:
         todo = [k for k in KERNELS if k not in _built]
         if not todo:
@@ -119,23 +135,23 @@ def build_all() -> dict[str, Built]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
         t0 = time.perf_counter()
-        for name in todo:
-            src, so, log = _target(name)
+        for lib in sorted({KERNELS[k][0] for k in todo}):
+            src, so, log = _target(lib)
             if os.path.isfile(so) and os.path.isfile(log):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
             logf = open(log + ".tmp", "w")
-            procs[name] = (subprocess.Popen(
+            procs[lib] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=logf, stderr=subprocess.STDOUT,
             ), logf, tmp, so, log)
         failures = []
-        for name, (proc, logf, tmp, so, log) in procs.items():
+        for lib, (proc, logf, tmp, so, log) in procs.items():
             rc = proc.wait()
             logf.close()
             if rc != 0:
                 with open(log + ".tmp") as f:
-                    failures.append(f"{name}: nvcc exit {rc}\n{f.read()}")
+                    failures.append(f"{lib}: nvcc exit {rc}\n{f.read()}")
                 continue
             os.replace(tmp, so)
             os.replace(log + ".tmp", log)
@@ -143,8 +159,9 @@ def build_all() -> dict[str, Built]:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
         seconds = time.perf_counter() - t0
         for name in todo:
-            _, so, log = _target(name)
-            _built[name] = _load(name, so, log, seconds if name in procs else 0.0)
+            lib = KERNELS[name][0]
+            _, so, log = _target(lib)
+            _built[name] = _load(name, so, log, seconds if lib in procs else 0.0)
         return dict(_built)
 
 

@@ -30,9 +30,15 @@ The histogram sums are float; the port adds them in another order than
 the JAX package, so a split can differ where two candidates tie in
 float32 (the tests bound how often, and check that each is a tie).
 
+Under the packed policy (``ATE_TPU_PREDICT_PACK=1`` or a "+pack"
+``hist_mode``) the partition levels read packed codes, built once per
+fit. ``compute_leaf_index`` and ``predict_cate`` take ``pack`` and
+resolve it as the JAX package does; the JAX package's packed routing is
+an XLA contraction with the same leaves, and the port routes with its
+route kernel either way, so ``pack`` changes no number.
+
 Not ported: the non-streaming ``xla``/``onehot`` formulations, the
-sharded grower, the leaf-index cache and packed routing, and the
-serving (AOT) wrappers.
+sharded grower, the leaf-index cache, and the serving (AOT) wrappers.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ate_replication_causalml_torch.models.forest import (
     exact_subsample_mask,
     fit_forest_regressor,
     forest_oob_mean,
+    packed_codes_for,
     quantile_bins,
     select_split,
     streaming_level_loop,
@@ -61,8 +68,9 @@ from ate_replication_causalml_torch.ops.hist import (
     bin_histogram_shared,
     mode_for_width,
     node_sums_shared,
-    resolve_hist_mode,
+    resolve_hist_mode_packed,
 )
+from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
 from ate_replication_causalml_torch.ops.tree import route_bits, table_lookup
 
 _EPS = 1e-12
@@ -200,10 +208,11 @@ def little_bag_masks(group_keys, n: int, s: int, k: int, honesty: bool = True):
 
 
 def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_node,
-                 honesty, hist_mode):
+                 honesty, hist_mode, words=None):
     """Grow G little-bag groups of k trees (group keys (G, 2)): the JAX
     package's ``grow_group`` → ``grow_one`` → ``grow_one_streaming``,
-    with the groups' trees on one explicit tree axis (T = G·k)."""
+    with the groups' trees on one explicit tree axis (T = G·k).
+    ``words``: the packed codes of the "partition+pack" levels."""
     p = codes.shape[1]
     tree_keys, base, grow_mask, est_mask = little_bag_masks(group_keys, n, s, k, honesty)
     # The honesty draw spent tree_key itself; the level keys drop split
@@ -215,7 +224,7 @@ def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_n
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_shared(
             codes, torch.where(grow_mask, ids, -1), mom5, max_nodes=m, n_bins=n_bins,
-            mode=mode_for_width(hist_mode, m, 5, p, n_bins)),
+            mode=mode_for_width(hist_mode, m, 5, p, n_bins), packed=words),
         tables_fn=lambda hist, level, perm: _tables(
             hist, level_keys, level, perm, p=p, n_bins=n_bins, mtry=mtry, min_node=min_node),
         route_fn=lambda ids, bf, bb: route_bits(
@@ -252,23 +261,24 @@ def grow_causal_forest(
     count, so the forest equals the JAX package's padded dispatch plan's
     and ``group_chunk`` changes no number. ``hist_mode`` as in
     :func:`~.forest.fit_forest_classifier` (K = 5 channels: partition
-    from width 16 under "auto")."""
+    from width 16 under "auto"; packed there under the packed policy)."""
     n, p = x.shape
     if mtry is None:
         mtry = int(np.ceil(np.sqrt(p))) + 20  # grf's default, capped at p below
     mtry = min(mtry, p)
     k = ci_group_size
     n_groups = -(-n_trees // k)
-    hist_mode = resolve_hist_mode(hist_mode, n_bins)
+    hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
+    words = packed_codes_for(codes, hist_mode)
     mom5 = _moments_stack(wt, yt).T.contiguous()            # (5, n), shared by every tree
     s = max(2, int(n * sample_fraction))
     group_keys = rnd.split(key.to(x.device), n_groups)
     chunks = [
         _grow_groups(group_keys[g : g + group_chunk], codes, mom5, n=n, s=s, k=k,
                      depth=depth, mtry=mtry, n_bins=n_bins, min_node=min_node,
-                     honesty=honesty, hist_mode=hist_mode)
+                     honesty=honesty, hist_mode=hist_mode, words=words)
         for g in range(0, n_groups, group_chunk)
     ]
     cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
@@ -337,9 +347,22 @@ def _tree_route_stream(feats, bins, codes, depth):
     return node
 
 
-def compute_leaf_index(forest: CausalForest, x: torch.Tensor, tree_chunk: int = 32) -> torch.Tensor:
+def _resolve_pack_for(forest: CausalForest, pack) -> bool:
+    """The JAX package's pack resolution for one forest: the policy
+    (``pack``, else ``ATE_TPU_PREDICT_PACK``; a bad value raises) and the
+    7-bit bound on its bins. Routing runs on the route kernel whatever
+    it says: packed routing is an XLA contraction in the JAX package,
+    with the same leaves."""
+    return resolve_predict_pack(pack) and packable(int(forest.bin_edges.shape[1]) + 1)
+
+
+def compute_leaf_index(forest: CausalForest, x: torch.Tensor, tree_chunk: int = 32,
+                       pack: bool | str | None = None) -> torch.Tensor:
     """Per-(tree, row) leaf indices for a query matrix, (T, n), in the
-    JAX package's storage type (uint8 up to depth 8, else int16/int32)."""
+    JAX package's storage type (uint8 up to depth 8, else int16/int32).
+    ``pack`` is resolved as in the JAX package and changes nothing
+    (:func:`_resolve_pack_for`)."""
+    _resolve_pack_for(forest, pack)
     codes = binarize(x, forest.bin_edges)
     depth = forest.depth
     dtype = torch.uint8 if depth <= 8 else (torch.int16 if depth <= 15 else torch.int32)
@@ -415,6 +438,7 @@ def predict_cate(
     oob: bool = True,
     tree_chunk: int = 32,
     variance_compat: str = "unbiased",
+    pack: bool | str | None = None,
 ) -> CatePredictions:
     """Forest-weighted CATE τ̂(x) with the little-bags variance.
 
@@ -424,8 +448,9 @@ def predict_cate(
     time (whole groups), each chunk's ψ-moments at its own pooled τ_c
     and shifted to the global τ̂ afterwards, as in the JAX package.
     ``variance_compat``: "unbiased" (gn − 1 between-group df) or "grf"
-    (grf's num_groups)."""
+    (grf's num_groups). ``pack`` as in :func:`compute_leaf_index`."""
     grf_df = _grf_df_flag(variance_compat)
+    _resolve_pack_for(forest, pack)
     if oob and x.shape[0] != forest.in_sample.shape[1]:
         raise ValueError(
             "oob=True is only valid for the training matrix: forest was "

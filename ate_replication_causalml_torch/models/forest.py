@@ -40,8 +40,10 @@ from ate_replication_causalml_torch.ops.hist import (
     bin_histogram_batched,
     mode_for_width,
     node_sums,
-    resolve_hist_mode,
+    resolve_hist_mode_packed,
+    split_pack_mode,
 )
+from ate_replication_causalml_torch.ops.pack import pack_codes
 from ate_replication_causalml_torch.ops.tree import route_bits, table_lookup
 
 # Trees grown together: one kernel launch per level covers the chunk.
@@ -301,7 +303,15 @@ def _split_tables(hist, lk, level_nodes, p, n_bins, mtry, perm):
     return select_split(score, lk, level_nodes, p, n_bins, mtry, perm=perm)
 
 
-def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode):
+def packed_codes_for(codes: torch.Tensor, hist_mode: str) -> torch.Tensor | None:
+    """The packed words a grower builds once per fit (``ops/pack.py``)
+    when its resolved policy carries ``+pack`` on a base that can reach
+    the partition kernel; None otherwise."""
+    base, pack = split_pack_mode(hist_mode)
+    return pack_codes(codes) if pack and base != "dense" else None
+
+
+def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode, words=None):
     """Grow one chunk of trees (one key per tree, (T, 2)).
 
     ``center`` is 0.0 for binary targets (the histogram weights stay
@@ -309,7 +319,8 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode)
     mean is subtracted before accumulation and re-added at the leaves,
     so the sibling subtraction never cancels a large outcome level.
     ``hist_mode`` is the resolved policy; each level's kernel width
-    picks its formulation (:func:`mode_for_width`, K = 2)."""
+    picks its formulation (:func:`mode_for_width`, K = 2). ``words`` are
+    the packed codes that the "partition+pack" levels read."""
     n_trees = tree_keys.shape[0]
     n, p = codes.shape
     n_leaves = 1 << depth
@@ -325,7 +336,7 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode)
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_batched(
             codes, ids.contiguous(), weights2, max_nodes=m, n_bins=n_bins,
-            mode=mode_for_width(hist_mode, m, 2, p, n_bins)),
+            mode=mode_for_width(hist_mode, m, 2, p, n_bins), packed=words),
         tables_fn=lambda hist, level, perm: _split_tables(
             hist, level_keys[:, level], 1 << level, p, n_bins, mtry, perm),
         route_fn=lambda ids, bf, bb: route_bits(
@@ -364,24 +375,28 @@ def fit_forest_classifier(
     mtry defaults to floor(sqrt(p)) (randomForest's classification
     default). Tree ``i`` grows from ``split(key, n_trees)[i]``, so the
     chunking does not change a single number. ``hist_mode`` is the
-    histogram policy, "dense" | "partition" | "auto", resolved as the
-    JAX package does (``ATE_TPU_HIST_MODE`` when None, default "auto":
-    dense below the crossover width, partition from it). Both
-    formulations give the same sums, so the mode does not change the
-    forest.
+    histogram policy, "dense" | "partition" | "auto" with an optional
+    "+pack", resolved as the JAX package does
+    (:func:`~..ops.hist.resolve_hist_mode_packed`: ``ATE_TPU_HIST_MODE``
+    when None, default "auto": dense below the crossover width,
+    partition from it; ``ATE_TPU_PREDICT_PACK=1`` or "+pack" sends the
+    partition widths to the packed pass, whose words are packed once
+    here). Every formulation gives the same sums, so the mode does not
+    change the forest.
     """
     n, p = x.shape
     if mtry is None:
         mtry = max(1, int(np.sqrt(p)))
-    hist_mode = resolve_hist_mode(hist_mode, n_bins)
+    hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
     center = 0.0 if _is_binary01(y) else 1.0
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
+    words = packed_codes_for(codes, hist_mode)
     yf = y.to(torch.float32)
     tree_keys = rnd.split(key.to(x.device), n_trees)
     chunks = [
-        _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center,
-                    depth=depth, mtry=mtry, n_bins=n_bins, hist_mode=hist_mode)
+        _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center, depth=depth, mtry=mtry,
+                    n_bins=n_bins, hist_mode=hist_mode, words=words)
         for s in range(0, n_trees, tree_chunk)
     ]
     cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)

@@ -13,19 +13,23 @@ JAX package runs this as a Pallas TPU kernel behind ``custom_vmap``
 rules that fold the growers' per-tree vmaps into the kernel's tree axis;
 here the tree axis is explicit.
 
-Two formulations with one contract, chosen per kernel width by the JAX
-package's policy (:func:`resolve_hist_mode`, :func:`mode_for_width`):
-``dense`` (``csrc/hist.cu``) and ``partition`` (``csrc/hist_partition.cu``,
-rows grouped by node first). Both add each cell's rows in ascending row
-order within each row range and the ranges in a fixed order, so float
-sums are reproducible and the two formulations give the same bits.
+Three formulations with one contract, chosen per kernel width by the
+JAX package's policy (:func:`resolve_hist_mode_packed`,
+:func:`mode_for_width`): ``dense`` (``csrc/hist.cu``), ``partition``
+(``csrc/hist_partition.cu``, rows grouped by node first) and
+``partition+pack`` (the same file's packed pass: the codes are read as
+int32 words of three 7-bit codes, ``ops/pack.py``). All add each cell's
+rows in ascending row order within each row range and the ranges in a
+fixed order, so float sums are reproducible and the three formulations
+give the same bits.
 
 Each public function has a plain PyTorch version (``*_plain``) in this
 module. The wrapper runs it for CPU tensors only; for CUDA tensors it
 launches the hand-written kernel or raises. Each wrapper counts its
 dense-kernel launches in ``<wrapper>.launches`` and, for the histogram
 wrappers, its partition-kernel launches in
-``<wrapper>.partition_launches``.
+``<wrapper>.partition_launches`` and its packed ones in
+``<wrapper>.packed_launches``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ import os
 import torch
 
 from ate_replication_causalml_torch.kernels import build
+from ate_replication_causalml_torch.ops.pack import (
+    PACK_SLOTS,
+    pack_codes,
+    packable,
+    packed_width,
+    resolve_predict_pack,
+    unpack_codes,
+)
 
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM_BYTES = 232_448
@@ -57,35 +69,30 @@ _MIN_ROWS_PER_BLOCK = 2048
 
 HIST_MODE_ENV = "ATE_TPU_HIST_MODE"
 HIST_MODES = ("dense", "partition", "auto")
-PACK_ENV = "ATE_TPU_PREDICT_PACK"
+#: The packed-codes pass rides the mode string as a suffix
+#: ("partition+pack"), as in the JAX package.
 PACK_SUFFIX = "+pack"
 _LANES = 128
 _PART_BLOCK = 8
 
 
-def _pack_requested(mode: str | None, n_bins: int) -> bool:
-    """Whether the JAX package's policy would add ``+pack`` here: an
-    explicit suffix, or ``ATE_TPU_PREDICT_PACK=1`` with ≤ 128 bins."""
-    if mode is not None and str(mode).strip().lower().endswith(PACK_SUFFIX):
-        return True
-    env = os.environ.get(PACK_ENV, "auto").strip().lower()
-    if env not in ("0", "1", "auto"):
-        raise ValueError(f"{PACK_ENV} must be one of ('0', '1', 'auto'), got {env!r}")
-    return env == "1" and n_bins <= 128
+def with_pack_mode(mode: str, pack: bool) -> str:
+    """Attach the pack suffix to a resolved policy mode (or strip it)."""
+    base, _ = split_pack_mode(mode)
+    return base + PACK_SUFFIX if pack else base
 
 
-def resolve_hist_mode(mode: str | None = None, n_bins: int = 64) -> str:
-    """The growers' one config-time policy call: ``mode`` when given,
-    else ``ATE_TPU_HIST_MODE`` (case-insensitive, default "auto").
+def split_pack_mode(mode: str) -> tuple[str, bool]:
+    """→ (base mode, packed?)."""
+    if mode.endswith(PACK_SUFFIX):
+        return mode[: -len(PACK_SUFFIX)], True
+    return mode, False
 
-    The packed-codes branch of the partition kernel is not ported: a
-    policy that would select it (a ``+pack`` suffix, or
-    ``ATE_TPU_PREDICT_PACK=1``) raises here."""
-    if _pack_requested(mode, n_bins):
-        raise ValueError(
-            "the '+pack' histogram mode (packed codes in the partition kernel) is not "
-            "ported to the torch package (ROADMAP Queue B item 6)"
-        )
+
+def resolve_hist_mode(mode: str | None = None) -> str:
+    """The kernel-mode policy: ``mode`` when given, else
+    ``ATE_TPU_HIST_MODE`` (case-insensitive, default "auto": dense below
+    :func:`partition_crossover_width`, partition from it)."""
     raw = mode if mode is not None else os.environ.get(HIST_MODE_ENV, "auto")
     val = str(raw).strip().lower()
     if val not in HIST_MODES:
@@ -94,6 +101,20 @@ def resolve_hist_mode(mode: str | None = None, n_bins: int = 64) -> str:
             f"got {raw!r}"
         )
     return val
+
+
+def resolve_hist_mode_packed(mode: str | None = None, n_bins: int = 64) -> str:
+    """:func:`resolve_hist_mode` plus the pack policy: the growers' one
+    config-time call. An explicit ``+pack`` suffix on ``mode`` wins;
+    otherwise ``ATE_TPU_PREDICT_PACK`` decides (``ops/pack.py``); either
+    way packing engages only where a 7-bit slot is exact
+    (``n_bins`` ≤ 128), and wider-bin forests keep the unpacked path."""
+    explicit = False
+    if isinstance(mode, str):
+        mode, explicit = split_pack_mode(mode)
+    base = resolve_hist_mode(mode)
+    pack = (explicit or resolve_predict_pack(None)) and packable(n_bins)
+    return with_pack_mode(base, pack)
 
 
 def hist_level_flops(mode: str, n_rows: int, max_nodes: int, n_weights: int,
@@ -134,28 +155,36 @@ def partition_crossover_width(n_weights: int, p: int = 21, n_bins: int = 64,
 
 def mode_for_width(mode: str, width: int, n_weights: int, p: int = 21,
                    n_bins: int = 64) -> str:
-    """A resolved policy ("dense" | "partition" | "auto") → the kernel
-    formulation for one kernel width (the node count it allocates)."""
+    """A resolved policy ("dense" | "partition" | "auto", each with an
+    optional ``+pack``) → the kernel formulation for one kernel width
+    (the node count it allocates). The suffix passes through on
+    partition widths and drops on dense ones: "auto+pack" is "dense"
+    below the crossover and "partition+pack" from it."""
+    mode, pack = split_pack_mode(mode)
     if mode == "auto":
-        return "partition" if width >= partition_crossover_width(n_weights, p, n_bins) else "dense"
-    if mode not in ("dense", "partition"):
+        mode = "partition" if width >= partition_crossover_width(n_weights, p, n_bins) else "dense"
+    elif mode not in ("dense", "partition"):
         raise ValueError(f"unknown histogram mode {mode!r}")
-    return mode
+    return mode + PACK_SUFFIX if mode == "partition" and pack else mode
 
 
-def _check_dispatch_mode(mode: str) -> None:
-    """A kernel call takes a resolved formulation: "auto" is resolved per
-    width by the caller (:func:`mode_for_width`), as in the JAX package."""
-    if mode.endswith(PACK_SUFFIX):
-        raise ValueError(
-            f"histogram mode {mode!r} is not ported to the torch package: the packed-codes "
-            "branch of the partition kernel is still to be ported (ROADMAP Queue B item 6)"
-        )
-    if mode not in ("dense", "partition"):
+def _check_dispatch_mode(mode: str) -> tuple[str, bool]:
+    """A kernel call takes a resolved formulation → (base, packed?):
+    "auto" is resolved per width by the caller (:func:`mode_for_width`),
+    and ``+pack`` applies to the partition kernel only, as in the JAX
+    package's ``_check_mode``."""
+    base, pack = split_pack_mode(mode)
+    if base not in ("dense", "partition"):
         raise ValueError(
             f"histogram kernel mode must be 'dense' or 'partition' at dispatch (resolve "
             f"'auto' via mode_for_width), got {mode!r}"
         )
+    if pack and base != "partition":
+        raise ValueError(
+            f"the {PACK_SUFFIX!r} suffix applies to the partition kernel only, got {mode!r} "
+            "(mode_for_width strips it on dense)"
+        )
+    return base, pack
 
 
 def _check_inputs(codes, ids, weights, shared: bool):
@@ -171,6 +200,21 @@ def _check_inputs(codes, ids, weights, shared: bool):
                         f"{tuple(weights.shape)}")
     if not (codes.device == ids.device == weights.device):
         raise ValueError("codes, ids and weights must lie on one device")
+
+
+def _packed_words(codes, packed, n_bins: int):
+    """The (n, ceil(p/3)) int32 words of the packed pass: ``packed`` as
+    given (a grower packs once per fit), else packed here."""
+    if not packable(n_bins):
+        raise ValueError(f"the packed pass needs n_bins <= 128 (7-bit slots), got {n_bins}")
+    if packed is None:
+        return pack_codes(codes)
+    n, p = codes.shape
+    if (packed.dtype != torch.int32 or tuple(packed.shape) != (n, packed_width(p))
+            or packed.device != codes.device):
+        raise TypeError(f"packed must be ({n}, {packed_width(p)}) int32 on {codes.device}, got "
+                        f"{packed.dtype} {tuple(packed.shape)} on {packed.device}")
+    return packed
 
 
 def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int):
@@ -196,19 +240,38 @@ def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int
     return out
 
 
+def bin_histogram_packed_plain(codes, ids, weights, max_nodes: int, n_bins: int, packed=None):
+    """The plain version of the packed mode: the words (``packed``, or
+    :func:`~.pack.pack_codes` of ``codes``) unpacked with
+    :func:`~.pack.unpack_codes`, then :func:`bin_histogram_batched_plain`."""
+    words = _packed_words(codes, packed, n_bins)
+    return bin_histogram_batched_plain(unpack_codes(words, codes.shape[1]), ids, weights,
+                                       max_nodes, n_bins)
+
+
 def _n_parts(n: int, n_trees: int, p: int) -> int:
-    """Row ranges per (tree, feature); the same for both formulations, so
+    """Row ranges per (tree, feature); the same for every formulation, so
     they add the same partial sums in the same order."""
     return max(1, min(-(-n // _MIN_ROWS_PER_BLOCK), _TARGET_BLOCKS // (n_trees * p)))
 
 
-def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter) -> torch.Tensor:
+def packed_slots(n_weights: int, max_nodes: int, n_bins: int) -> int:
+    """Slots of a packed word one block of the packed pass takes: as many
+    (K, M, n_bins) feature tiles as fit a block's shared memory, at most
+    3 (K=2: 3 up to M=128; K=5: 3 up to M=32, 2 at M=64, 1 at M=128)."""
+    return min(PACK_SLOTS, _MAX_SMEM_BYTES // (4 * n_weights * max_nodes * n_bins))
+
+
+def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter,
+            packed=None) -> torch.Tensor:
     """Launch ``csrc/hist.cu`` (dense) or ``csrc/hist_partition.cu``
-    (partition) on the current stream; add one to ``counter.launches`` or
-    ``counter.partition_launches``. ``weights`` (K, n) is shared by every
+    (partition, and its packed pass for "partition+pack") on the current
+    stream; add one to ``counter.launches``, ``counter.partition_launches``
+    or ``counter.packed_launches``. ``weights`` (K, n) is shared by every
     tree (a tree stride of 0)."""
     if codes.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {codes.device}")
+    base, pack = _check_dispatch_mode(mode)
     n, p = codes.shape
     n_trees = ids.shape[0]
     k_w = weights.shape[-2]
@@ -226,60 +289,76 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
             f"histogram tile K·M·n_bins = {k_w}·{max_nodes}·{n_bins} floats needs "
             f"{smem} B of shared memory, more than a block has ({_MAX_SMEM_BYTES} B)"
         )
-    for name, t in (("codes", codes), ("ids", ids), ("weights", weights)):
-        if not t.is_contiguous():
+    words = _packed_words(codes, packed, n_bins) if pack else None
+    for name, t in (("codes", codes), ("ids", ids), ("weights", weights), ("packed", words)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_parts = _n_parts(n, n_trees, p)
     partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32,
                            device=codes.device) if n_parts > 1 else out)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    head = (codes.data_ptr(), n, p, ids.data_ptr(), weights.data_ptr(), w_tree_stride,
-            n_trees, k_w, max_nodes, n_bins, n_parts)
-    if mode == "dense":
+    tail = (ids.data_ptr(), weights.data_ptr(), w_tree_stride, n_trees, k_w, max_nodes, n_bins,
+            n_parts)
+    if base == "dense":
         k = build.kernel("hist")
-        build.check(k, k.fn(*head, partial.data_ptr(), out.data_ptr(), stream))
+        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, partial.data_ptr(), out.data_ptr(),
+                            stream))
         counter.launches += 1
+        return out
+    perm = torch.empty((n_trees, n), dtype=torch.int32, device=codes.device)
+    seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32, device=codes.device)
+    scratch = (perm.data_ptr(), seg.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
+    if pack:
+        slots = packed_slots(k_w, max_nodes, n_bins)
+        k = build.kernel("hist_partition_packed")
+        build.check(k, k.fn(words.data_ptr(), n, p, *tail, slots, *scratch))
+        counter.packed_launches += 1
     else:
-        perm = torch.empty((n_trees, n), dtype=torch.int32, device=codes.device)
-        seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32,
-                          device=codes.device)
         k = build.kernel("hist_partition")
-        build.check(k, k.fn(*head, perm.data_ptr(), seg.data_ptr(), partial.data_ptr(),
-                            out.data_ptr(), stream))
+        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *scratch))
         counter.partition_launches += 1
     return out
 
 
+def _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, shared, counter):
+    _, pack = _check_dispatch_mode(mode)
+    _check_inputs(codes, ids, weights, shared=shared)
+    if codes.device.type == "cpu":
+        if pack:
+            return bin_histogram_packed_plain(codes, ids, weights, max_nodes, n_bins, packed)
+        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
+    return _launch(codes, ids, weights, max_nodes, n_bins, mode, counter, packed)
+
+
 def bin_histogram_batched(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                          mode: str = "dense") -> torch.Tensor:
+                          mode: str = "dense", packed=None) -> torch.Tensor:
     """Tree-batched histograms: codes (n, p) int32, ids (T, n) int32,
     weights (T, K, n) float32 → (T, K, max_nodes, p, n_bins) float32.
-    ``mode`` is the resolved formulation, "dense" or "partition"."""
-    _check_dispatch_mode(mode)
-    _check_inputs(codes, ids, weights, shared=False)
-    if codes.device.type == "cpu":
-        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
-    return _launch(codes, ids, weights, max_nodes, n_bins, mode, bin_histogram_batched)
+    ``mode`` is the resolved formulation, "dense", "partition" or
+    "partition+pack"; the last reads ``packed``, the (n, ceil(p/3))
+    int32 words of ``codes`` (:func:`~.pack.pack_codes`; packed here
+    when None). Other modes ignore ``packed``."""
+    return _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, False,
+                      bin_histogram_batched)
 
 
 bin_histogram_batched.launches = 0
 bin_histogram_batched.partition_launches = 0
+bin_histogram_batched.packed_launches = 0
 
 
 def bin_histogram_shared(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                         mode: str = "dense") -> torch.Tensor:
+                         mode: str = "dense", packed=None) -> torch.Tensor:
     """:func:`bin_histogram_batched` with one (K, n) weight stack shared
     by every tree (the JAX package's ``bin_histogram_shared``); each
     tree's row membership rides in its ids (−1 drops a row)."""
-    _check_dispatch_mode(mode)
-    _check_inputs(codes, ids, weights, shared=True)
-    if codes.device.type == "cpu":
-        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
-    return _launch(codes, ids, weights, max_nodes, n_bins, mode, bin_histogram_shared)
+    return _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, True,
+                      bin_histogram_shared)
 
 
 bin_histogram_shared.launches = 0
 bin_histogram_shared.partition_launches = 0
+bin_histogram_shared.packed_launches = 0
 
 
 def bin_histogram(codes, ids, weights, *, max_nodes: int, n_bins: int,

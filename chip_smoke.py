@@ -7,15 +7,17 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around it; it
 imports nothing of JAX. Phases, each printing one JSON line:
 
 1. device  — the card, and ``nvidia-smi``'s name and power limit line;
-2. build   — compiles every kernel of ``csrc/`` with nvcc (sm_90a);
+2. build   — compiles every kernel library of ``csrc/`` with nvcc (sm_90a);
 3. kernels — each kernel's wrapper on card tensors at the shapes the
-   DR-RF and causal forest paths give it, held against its plain
-   PyTorch version: ``torch.equal`` on integer weights and on route and
-   lookup, 16·eps·Σ|w| per (tree, channel) on float weights, and two
+   DR-RF, causal forest and DML paths give it, held against its plain
+   PyTorch version: ``torch.equal`` on integer weights, on route, lookup
+   and pack, 64·eps·Σ|w| per (tree, channel) on float weights, and two
    launches ``torch.equal`` to each other; with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, and the
    least time the card could take (``bound_ms``). Dense and partition
-   are both timed at every width, and must give the same bits;
+   are both timed at every width and must give the same bits; the
+   packed pass (``partition+pack``) must give the unpacked partition
+   kernel's bits, and reports its slots per block;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
@@ -26,10 +28,26 @@ imports nothing of JAX. Phases, each printing one JSON line:
 6. path_cf — the notebook's "Causal Forest(GRF)" row through
    ``causal_forest_report`` at the sweep's configuration (2,000 causal
    trees of depth 8, 500 nuisance trees of depth 9, the sweep's key),
-   with stage times and launch counts read around it;
+   with stage times and launch counts read around it and the ATE held
+   to its recorded value (``CF_ATE``);
 7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
    card and on the CPU, held to stated bounds (split agreement, leaf
-   statistics, τ̂ and its variance, the ATE and its SE).
+   statistics, τ̂ and its variance, the ATE and its SE);
+8. path_cf_packed — the causal row again under the packed-code policy
+   (``ATE_TPU_PREDICT_PACK=1``: its partition levels take the packed
+   pass): the ATE and SE bit for bit those of path_cf, and the 32-tree
+   forest of parity_cf grown again under the policy ``torch.equal`` to it;
+9. path_dml — the notebook's "Double Machine Learning" row through
+   ``double_ml`` at the sweep's configuration (2,000 trees of depth 9 per
+   nuisance forest, the sweep's key, ``crossfit="r"``, ``se_mode="r"``)
+   under ``ATE_TPU_PREDICT_PACK=1``, with stage times and launch counts;
+10. parity_dml — the DML row at 32 trees three ways: packed on the card,
+   unpacked on the card, and on the CPU: forests and vote fractions
+   ``torch.equal``, τ and SE bit for bit between the card runs and
+   within ``TAU_BOUND`` of the CPU's;
+11. path_ipw — the Direct Method, Propensity_Weighting and
+   Propensity_Regression rows on the card (no kernel of their own), with
+   τ, SE and the card-vs-CPU differences.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -38,6 +56,7 @@ non-zero and prints no result. Details go to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -58,11 +77,18 @@ from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
 from ate_replication_causalml_torch.estimators.aipw import doubly_robust, outcome_model_mu  # noqa: E402
 from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report  # noqa: E402
+from ate_replication_causalml_torch.estimators import dml  # noqa: E402
+from ate_replication_causalml_torch.estimators.ipw import (  # noqa: E402
+    logistic_propensity,
+    prop_score_ols,
+    prop_score_weight,
+)
 from ate_replication_causalml_torch.estimators.naive import naive_ate  # noqa: E402
+from ate_replication_causalml_torch.estimators.ols import ate_condmean_ols  # noqa: E402
 from ate_replication_causalml_torch.kernels import build  # noqa: E402
 from ate_replication_causalml_torch.models import causal_forest as cf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as fo  # noqa: E402
-from ate_replication_causalml_torch.ops import hist, tree  # noqa: E402
+from ate_replication_causalml_torch.ops import hist, pack, tree  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
 
@@ -105,6 +131,18 @@ CF_TAU_BOUND = 0.5
 CF_TAU_MEAN_BOUND = 0.01
 CF_ATE_BOUND = 2e-3
 CF_SE_BOUND = 1e-4
+# The causal row's ATE as first recorded on the card with the ordered
+# kernels; every kernel and reduction on its path runs in a fixed order,
+# so it must hold bit for bit, under the packed policy too.
+CF_ATE = 0.10669395327568054
+# The "Double Machine Learning" row (SweepConfig: dml_trees, forest_depth).
+DML_TREES = 2_000
+DML_PARITY_TREES = 32
+# Direct Method and the propensity rows, card vs CPU port: f32 IRLS and
+# normal equations in another summation order, amplified by 1/(p(1−p)).
+# Observed on an H100 80GB HBM3 at 700 W: |Δτ| at most 6.0e-7
+# (Propensity_Regression), |Δse| at most 3.7e-9.
+IPW_BOUND = 5e-6
 
 RECORD: dict = {}
 
@@ -148,7 +186,14 @@ COUNTERS = {  # kernel name -> (wrapper, its counter for that kernel)
     "node_sums_shared": (hist.node_sums_shared, "launches"),
     "route": (tree.route_bits, "launches"),
     "lookup": (tree.table_lookup, "launches"),
+    "hist_partition_packed": (hist.bin_histogram_batched, "packed_launches"),
+    "hist_partition_shared_packed": (hist.bin_histogram_shared, "packed_launches"),
+    "pack_codes": (pack.pack_codes, "launches"),
 }
+
+
+PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack_codes")
+UNPACKED_KERNELS = tuple(k for k in COUNTERS if k not in PACKED_KERNELS)
 
 
 def reset_counts() -> None:
@@ -164,6 +209,29 @@ def require_launched(counts: dict, names, path: str) -> None:
     missing = [k for k in names if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing} ({counts})")
+
+
+@contextlib.contextmanager
+def packed_policy():
+    """``ATE_TPU_PREDICT_PACK=1`` for the block; the old value restored in
+    a finally (an exception in the block propagates)."""
+    old = os.environ.get(pack.ENV_PACK)
+    os.environ[pack.ENV_PACK] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(pack.ENV_PACK, None)
+        else:
+            os.environ[pack.ENV_PACK] = old
+
+
+def require_unpacked(counts: dict, path: str) -> None:
+    """The default policy ("auto" packing resolves to unpacked) launches
+    no packed kernel."""
+    if any(counts[k] for k in PACKED_KERNELS):
+        raise AssertionError(f"packed kernels launched on the {path} path under the default "
+                             f"policy: {counts}")
 
 
 def phase_device() -> tuple[str, str]:
@@ -184,8 +252,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built = build.build_all()
     ptxas = {
-        name: [ln.strip() for ln in b.ptxas.splitlines() if "registers" in ln or "spill" in ln]
-        for name, b in built.items()
+        b.library: [ln.strip() for ln in b.ptxas.splitlines() if "registers" in ln or "spill" in ln]
+        for b in built.values()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": max(b.seconds for b in built.values()), "ptxas": ptxas})
@@ -301,6 +369,62 @@ def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20):
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, "out": got}
 
 
+def measure_packed(codes, weights, ids, m, shared, reps=20):
+    """One case of the packed pass: ``torch.equal`` to the unpacked
+    partition kernel on the same inputs, two launches equal, against the
+    plain version (exact for integer weights, FLOAT_ULPS·eps·Σ|w| for
+    float ones); times of both kernels, the plain version and the
+    ``scatter_add_`` yardstick; the bound counts the packed words, ids,
+    weights and output bytes (each once)."""
+    n, p = codes.shape
+    t = ids.shape[0]
+    k = weights.shape[-2]
+    wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
+    words = pack.pack_codes(codes)
+    run = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode="partition+pack",
+                          packed=words)
+    unpacked = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode="partition")
+    plain = lambda: hist.bin_histogram_packed_plain(codes, ids, weights, m, N_BINS, words)
+    got, again, ref = run(), run(), unpacked()
+    name = f"hist{'_shared' if shared else ''} partition+pack M={m} T={t} K={k} n={n}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: not bitwise equal to the unpacked partition kernel")
+    want = plain()
+    integer = bool(torch.equal(weights, weights.round()))
+    lib = hist_library(codes, ids, weights, m)
+    if integer:
+        err, ratio = check_equal(name, got, want), 0.0
+    else:
+        scale = weights.abs().sum(dim=-1)
+        scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
+        err, ratio = check_float(name, got, want, scale)
+    n_valid = int(((ids >= 0) & (ids < m)).sum())
+    b_ms, b_by = bound(4 * (words.numel() + ids.numel() + weights.numel() + got.numel()),
+                       n_valid * p * k)
+    return {"M": m, "n": n, "T": t, "K": k, "mode": "partition+pack",
+            "weights": "integer" if integer else "float",
+            "slots_per_block": hist.packed_slots(k, m, N_BINS), "equal_to_unpacked": True,
+            "max_abs_err": err, "err_over_bound": ratio, "ms": time_ms(run, reps),
+            "unpacked_ms": time_ms(unpacked, reps), "plain_ms": time_ms(plain, max(3, reps // 4)),
+            "library_ms": time_ms(lib, reps), "bound_ms": b_ms, "bound_by": b_by,
+            "perm_bytes": 4 * t * n}
+
+
+def pack_row(codes, reps=20):
+    """The pack kernel against its plain version at the path's codes."""
+    words = pack.pack_codes(codes)
+    err = check_equal("pack_codes", words, pack.pack_codes_plain(codes))
+    if not torch.equal(pack.unpack_codes(words, codes.shape[1]), codes):
+        raise AssertionError("pack_codes: the words do not unpack to the codes")
+    b_ms, b_by = bound(4 * (codes.numel() + words.numel()), codes.numel())
+    return {"n": codes.shape[0], "p": codes.shape[1], "max_abs_err": err,
+            "ms": time_ms(lambda: pack.pack_codes(codes), reps),
+            "plain_ms": time_ms(lambda: pack.pack_codes_plain(codes), reps),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def node_sums_row(ids, weights, leaves, shared, reps=20):
     t = ids.shape[0]
     wrapper = hist.node_sums_shared if shared else hist.node_sums
@@ -390,6 +514,21 @@ def phase_kernels(frame_mod) -> dict:
     summary["hist_shared"] = sh_rows[3]             # M=8: the deepest dense width under "auto" (K=5)
     summary["hist_partition_shared"] = shp_rows[6]  # M=64
 
+    # The packed pass: K=2 integer at the DML path's shape (one fold of
+    # 5,508 rows, T=16) at its partition widths; K=5 float shared at the
+    # causal path's (11,016 rows), M=16–64 on the path and M=128, where
+    # one slot per block is left.
+    fold = codes[: n // 2].contiguous()
+    fold_w, fold_ids = kernel_cases(fold, rng)
+    pk_rows = [measure_packed(fold, fold_w, fold_ids(m), m, False) for m in (32, 64, 128)]
+    pks_rows = [measure_packed(codes, mom, ids(m), m, True) for m in (16, 32, 64, 128)]
+    emit({"phase": "kernels", "kernel": "hist_partition_packed", "rows": pk_rows})
+    emit({"phase": "kernels", "kernel": "hist_partition_shared_packed", "rows": pks_rows})
+    summary["hist_partition_packed"] = pk_rows[2]         # M=128
+    summary["hist_partition_shared_packed"] = pks_rows[2]  # M=64, the causal path's deepest
+    summary["pack_codes"] = pack_row(fold)
+    emit({"phase": "kernels", "kernel": "pack_codes", "rows": [summary["pack_codes"]]})
+
     # Leaf sums: 512 leaves, K=2 integer (DR-RF); 256 leaves, K=5 float (causal).
     summary["node_sums"] = node_sums_row(ids(1 << DEPTH), weights, 1 << DEPTH, shared=False)
     summary["node_sums_shared"] = node_sums_row(ids(1 << CF_DEPTH), mom, 1 << CF_DEPTH, shared=True)
@@ -469,6 +608,7 @@ def phase_path(frame, frame_mod) -> dict:
         if not (math.isfinite(r.ate) and math.isfinite(r.se) and r.se > 0):
             raise AssertionError(f"{r.method}: non-finite estimate or SE ({r})")
     require_launched(counts, ("hist", "hist_partition", "node_sums", "route", "lookup"), "DR-RF")
+    require_unpacked(counts, "DR-RF")
     if dr.ate != DR_TAU:
         raise AssertionError(f"DR-RF τ moved: {dr.ate!r}, recorded {DR_TAU!r}")
     out = {"phase": "path", "rows": frame_mod.n, "trees": DR_TREES, "depth": DEPTH,
@@ -508,7 +648,7 @@ def sweep_key(name: str, device: str) -> torch.Tensor:
     return rnd.fold_in(rnd.key(0, device=device), zlib.crc32(name.encode()))
 
 
-def phase_path_cf(frame_mod) -> dict:
+def phase_path_cf(frame_mod) -> tuple[dict, dict]:
     """The "Causal Forest(GRF)" row through its entry point."""
     stages: dict = {}
     reset_counts()
@@ -526,13 +666,17 @@ def phase_path_cf(frame_mod) -> dict:
             raise AssertionError(f"causal forest {label} is not finite: {v}")
     if not r.se > 0:
         raise AssertionError(f"causal forest SE is not positive: {r.se}")
-    require_launched(counts, COUNTERS, "causal forest")
-    emit({"phase": "path_cf", "method": r.method, "rows": frame_mod.n, "trees": CF_TREES,
-          "depth": CF_DEPTH, "nuisance_trees": CF_NUISANCE_TREES, "nuisance_depth": DEPTH,
-          "ate": r.ate, "se": r.se, "ci": [r.lower_ci, r.upper_ci],
-          "incorrect_ate": rep.incorrect_ate, "incorrect_se": rep.incorrect_se,
-          "stages": stages, "wall_s": wall, "launches": counts})
-    return counts
+    require_launched(counts, UNPACKED_KERNELS, "causal forest")
+    require_unpacked(counts, "causal forest")
+    out = {"phase": "path_cf", "method": r.method, "rows": frame_mod.n, "trees": CF_TREES,
+           "depth": CF_DEPTH, "nuisance_trees": CF_NUISANCE_TREES, "nuisance_depth": DEPTH,
+           "ate": r.ate, "se": r.se, "ci": [r.lower_ci, r.upper_ci],
+           "incorrect_ate": rep.incorrect_ate, "incorrect_se": rep.incorrect_se,
+           "stages": stages, "wall_s": wall, "launches": counts}
+    emit(out)
+    if r.ate != CF_ATE:
+        raise AssertionError(f"causal ATE moved: {r.ate!r}, recorded {CF_ATE!r}")
+    return counts, out
 
 
 def path_agrees(f1, b1, f2, b2) -> np.ndarray:
@@ -546,7 +690,7 @@ def path_agrees(f1, b1, f2, b2) -> np.ndarray:
     return ok
 
 
-def phase_parity_cf(frame_mod) -> None:
+def phase_parity_cf(frame_mod) -> cf.FittedCausalForest:
     """The causal row at 32 causal and 32 nuisance trees on the card and
     on the CPU (plain versions). The nuisance forests are integer-weight
     forests (y, w ∈ {0, 1}), equal field for field; their OOB means sum
@@ -617,6 +761,164 @@ def phase_parity_cf(frame_mod) -> None:
         fails.append(f"ATE/SE differ by {d_ate}/{d_se} > {CF_ATE_BOUND}/{CF_SE_BOUND}")
     if fails:
         raise AssertionError("card vs CPU causal forest: " + "; ".join(fails))
+    return card
+
+
+def phase_path_cf_packed(frame_mod, cf_out: dict, card_32) -> dict:
+    """The causal row under the packed-code policy: its partition levels
+    (widths 16–64 at K=5, and 32–128 of the nuisance forests) take the
+    packed pass, which adds every cell's rows in the unpacked order, so
+    the ATE and SE are path_cf's bit for bit; and the 32-tree forest of
+    parity_cf, grown again under the policy, is ``torch.equal`` to it."""
+    stages: dict = {}
+    with packed_policy():
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = causal_forest_report(frame_mod, key=sweep_key("causal_forest", "cuda"),
+                                   n_trees=CF_TREES, depth=CF_DEPTH,
+                                   nuisance_trees=CF_NUISANCE_TREES, nuisance_depth=DEPTH,
+                                   stage_times=stages)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        again = cf.fit_causal_forest(frame_mod, key=sweep_key("causal_forest", "cuda"),
+                                     n_trees=CF_PARITY_TREES, depth=CF_DEPTH,
+                                     nuisance_trees=CF_PARITY_TREES, nuisance_depth=DEPTH)
+    r = rep.result
+    equal_32 = all(torch.equal(getattr(again.forest, f), getattr(card_32.forest, f))
+                   for f in ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges"))
+    equal_32 = equal_32 and torch.equal(again.y_hat, card_32.y_hat) and torch.equal(
+        again.w_hat, card_32.w_hat)
+    emit({"phase": "path_cf_packed", "policy": f"{pack.ENV_PACK}=1", "ate": r.ate, "se": r.se,
+          "ate_unpacked": cf_out["ate"], "se_unpacked": cf_out["se"],
+          "incorrect_ate": rep.incorrect_ate, "forest_32_equal_to_unpacked": equal_32,
+          "stages": stages, "wall_s": wall, "launches": counts})
+    if (r.ate, r.se, rep.incorrect_ate, rep.incorrect_se) != (
+            cf_out["ate"], cf_out["se"], cf_out["incorrect_ate"], cf_out["incorrect_se"]):
+        raise AssertionError(f"packed causal row differs from the unpacked one: {r} vs {cf_out}")
+    if not equal_32:
+        raise AssertionError("the 32-tree causal forest under the packed policy differs from "
+                             "the unpacked card forest")
+    if counts["hist_partition"] or counts["hist_partition_shared"]:
+        raise AssertionError(f"unpacked partition launches under the packed policy: {counts}")
+    require_launched(counts, ("hist", "hist_shared", "node_sums", "node_sums_shared", "route",
+                              "lookup", "hist_partition_packed", "hist_partition_shared_packed",
+                              "pack_codes"), "packed causal forest")
+    return counts
+
+
+@contextlib.contextmanager
+def dml_capture():
+    """Record the forests and vote fractions ``double_ml`` computes (its
+    ``_fit_nuisance_forest`` and ``_rf_vote``), in call order."""
+    seen = {"forests": [], "votes": []}
+    fit, vote = dml._fit_nuisance_forest, dml._rf_vote
+
+    def fit_rec(*a, **k):
+        seen["forests"].append(fit(*a, **k))
+        return seen["forests"][-1]
+
+    def vote_rec(*a, **k):
+        seen["votes"].append(vote(*a, **k))
+        return seen["votes"][-1]
+
+    dml._fit_nuisance_forest, dml._rf_vote = fit_rec, vote_rec
+    try:
+        yield seen
+    finally:
+        dml._fit_nuisance_forest, dml._rf_vote = fit, vote
+
+
+def phase_path_dml(frame_mod) -> dict:
+    """The "Double Machine Learning" row at the sweep's configuration
+    under the packed-code policy."""
+    stages: dict = {}
+    with packed_policy():
+        reset_counts()
+        t0 = time.perf_counter()
+        r = dml.double_ml(frame_mod, n_trees=DML_TREES, depth=DEPTH, key=sweep_key("dml", "cuda"),
+                          crossfit="r", se_mode="r", stage_times=stages)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    if not (math.isfinite(r.ate) and math.isfinite(r.se) and r.se > 0):
+        raise AssertionError(f"DML: non-finite estimate or SE ({r})")
+    emit({"phase": "path_dml", "method": r.method, "policy": f"{pack.ENV_PACK}=1",
+          "rows": frame_mod.n, "fold_rows": frame_mod.n // 2, "trees": DML_TREES, "depth": DEPTH,
+          "crossfit": "r", "se_mode": "r", "ate": r.ate, "se": r.se, "ci": [r.lower_ci, r.upper_ci],
+          "stages": stages, "wall_s": wall, "launches": counts})
+    if counts["hist_partition"]:
+        raise AssertionError(f"unpacked partition launches under the packed policy: {counts}")
+    require_launched(counts, ("hist", "hist_partition_packed", "node_sums", "route", "lookup",
+                              "pack_codes"), "DML")
+    return counts
+
+
+def phase_parity_dml(frame_mod) -> None:
+    """The DML row at 32 trees: packed and unpacked on the card, and on
+    the CPU port. Integer histogram weights make every forest exact."""
+    kw = dict(n_trees=DML_PARITY_TREES, depth=DEPTH, key=sweep_key("dml", "cuda"))
+    with dml_capture() as packed_run, packed_policy():
+        r_pk = dml.double_ml(frame_mod, **kw)
+    with dml_capture() as card_run:
+        r_card = dml.double_ml(frame_mod, **kw)
+    with dml_capture() as cpu_run:
+        r_cpu = dml.double_ml(frame_mod, device="cpu", **kw)
+    fields = ("split_feat", "split_bin", "leaf_value", "counts", "bin_edges", "train_leaf")
+
+    def same(a, b) -> bool:
+        return (len(a["forests"]) == len(b["forests"]) == len(a["votes"]) == len(b["votes"]) == 4
+                and all(torch.equal(getattr(fa, f).cpu(), getattr(fb, f).cpu())
+                        for fa, fb in zip(a["forests"], b["forests"]) for f in fields)
+                and all(torch.equal(va.cpu(), vb.cpu()) for va, vb in zip(a["votes"], b["votes"])))
+
+    packed_equal, cpu_equal = same(packed_run, card_run), same(card_run, cpu_run)
+    d_tau, d_se = abs(r_card.ate - r_cpu.ate), abs(r_card.se - r_cpu.se)
+    emit({"phase": "parity_dml", "trees": DML_PARITY_TREES,
+          "packed_vs_unpacked_forests_and_votes_equal": packed_equal,
+          "card_vs_cpu_forests_and_votes_equal": cpu_equal,
+          "tau_packed": r_pk.ate, "tau_card": r_card.ate, "tau_cpu": r_cpu.ate,
+          "se_packed": r_pk.se, "se_card": r_card.se, "se_cpu": r_cpu.se,
+          "abs_dtau_card_cpu": d_tau, "abs_dse_card_cpu": d_se, "bound": TAU_BOUND})
+    if not packed_equal or (r_pk.ate, r_pk.se) != (r_card.ate, r_card.se):
+        raise AssertionError("DML: packed and unpacked card runs differ")
+    if not cpu_equal:
+        raise AssertionError("DML: card and CPU forests or vote fractions differ")
+    if not (d_tau <= TAU_BOUND and d_se <= TAU_BOUND):
+        raise AssertionError(f"DML card vs CPU: |Δτ| {d_tau}, |Δse| {d_se} > {TAU_BOUND}")
+
+
+def phase_path_ipw(frame_mod) -> None:
+    """The Direct Method and the two propensity rows on the card, and the
+    same rows from the CPU port."""
+    stages = {}
+
+    def rows(frame, times):
+        t0 = time.perf_counter()
+        direct = ate_condmean_ols(frame)
+        times["direct_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = logistic_propensity(frame.x, frame.w)
+        if frame.device.type == "cuda":
+            sync()
+        times["logistic_propensity_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = [direct, prop_score_weight(frame, p), prop_score_ols(frame, p)]
+        times["weighting_rows_s"] = time.perf_counter() - t0
+        return out
+
+    card = rows(frame_mod, stages)
+    host = rows(frame_mod.to("cpu"), {})
+    diffs = {c.method: [abs(c.ate - h.ate), abs(c.se - h.se)] for c, h in zip(card, host)}
+    emit({"phase": "path_ipw", "rows": frame_mod.n,
+          "results": {r.method: [r.ate, r.se] for r in card}, "stages": stages,
+          "card_vs_cpu_abs_diff": diffs, "bound": IPW_BOUND})
+    for r in card:
+        if not (math.isfinite(r.ate) and math.isfinite(r.se) and r.se > 0):
+            raise AssertionError(f"{r.method}: non-finite estimate or SE ({r})")
+    bad = {m: d for m, d in diffs.items() if max(d) > IPW_BOUND}
+    if bad:
+        raise AssertionError(f"card vs CPU beyond {IPW_BOUND}: {bad}")
 
 
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
@@ -631,6 +933,11 @@ SOURCES = {
     "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782"),
     "route": ("ate_replication_causalml_torch/csrc/route.cu", _TPU + "tree_pallas.py:198"),
     "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", _TPU + "tree_pallas.py:67"),
+    # The pack=True branch of _hist_kernel_batched_partition (:415-445, :463-484).
+    "hist_partition_packed": (_PART, _TPU + "hist_pallas.py:463"),
+    "hist_partition_shared_packed": (_PART, _TPU + "hist_pallas.py:463"),
+    # Its in-kernel pack matmul.
+    "pack_codes": (_PART, _TPU + "hist_pallas.py:441"),
 }
 
 
@@ -639,16 +946,20 @@ def main() -> int:
     phase_build()
     frame, frame_mod = notebook_frames("cuda")
     timing = phase_kernels(frame_mod)
-    dr_counts = phase_path(frame, frame_mod)
+    by_path = {"dr_rf": phase_path(frame, frame_mod)}
     phase_parity(frame_mod)
-    cf_counts = phase_path_cf(frame_mod)
-    phase_parity_cf(frame_mod)
+    by_path["causal_forest"], cf_out = phase_path_cf(frame_mod)
+    card_32 = phase_parity_cf(frame_mod)
+    by_path["causal_forest_packed"] = phase_path_cf_packed(frame_mod, cf_out, card_32)
+    by_path["dml"] = phase_path_dml(frame_mod)
+    phase_parity_dml(frame_mod)
+    phase_path_ipw(frame_mod)
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = timing[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": dr_counts[k] + cf_counts[k],
-                        "launches_by_path": {"dr_rf": dr_counts[k], "causal_forest": cf_counts[k]},
+                        "launches": sum(c[k] for c in by_path.values()),
+                        "launches_by_path": {p: c[k] for p, c in by_path.items()},
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -1,13 +1,15 @@
 """Parity report: the torch port against the JAX package, on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/torch_parity.py [--trees 32] [--cf-trees 2000] > parity.json
+    JAX_PLATFORMS=cpu python scripts/torch_parity.py [--trees 32] [--cf-trees 2000] \
+        [--dml-trees 2000] > parity.json
 
 The tests hold the port to the JAX package at small sizes; this script
 runs the same comparisons, through the tests' own helpers
 (``tests/test_torch_forest.py::classifier_pair``,
 ``tests/test_torch_aipw.py::build_frames`` and ``dr_pair``,
 ``tests/test_torch_causal_forest.py::causal_pair``, ``split_comparison``
-and ``_frames``), and prints one JSON object:
+and ``_frames``, ``tests/test_torch_dml.py::_capture``), and prints one
+JSON object:
 
 * ``dr_rf`` — the "Doubly Robust with Random Forest PS" row at the
   notebook's configuration: 120k-row synthetic pool → 50k-row sample →
@@ -22,7 +24,11 @@ and ``_frames``), and prints one JSON object:
   this comparison is statistical, not bitwise;
 * ``causal_forest.small`` — the streaming grower against the JAX
   package's ``pallas_interpret`` at the tests' sizes: split agreement,
-  float ties, τ̂ on a carried-across forest, and the report end to end.
+  float ties, τ̂ on a carried-across forest, and the report end to end;
+* ``dml`` — the "Double Machine Learning" row on the same frame with the
+  sweep's key (``fold_in(key(0), crc32("dml"))``), ``--dml-trees`` trees
+  of depth 9 per nuisance forest, ``crossfit="r"``, ``se_mode="r"``: the
+  four forests compared field for field, |Δτ| and |ΔSE|.
 """
 
 from __future__ import annotations
@@ -45,12 +51,15 @@ import torch  # noqa: E402
 
 import test_torch_aipw as aipw_tests  # noqa: E402
 import test_torch_causal_forest as cf_tests  # noqa: E402
+import test_torch_dml as dml_tests  # noqa: E402
 import test_torch_forest as forest_tests  # noqa: E402
 from ate_replication_causalml_torch.estimators import causal_forest_est as tce  # noqa: E402
+from ate_replication_causalml_torch.estimators import dml as tdml  # noqa: E402
 from ate_replication_causalml_torch.models import causal_forest as tcf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as tf  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_tpu.estimators import causal_forest_est as jce  # noqa: E402
+from ate_replication_causalml_tpu.estimators import dml as jdml  # noqa: E402
 from ate_replication_causalml_tpu.models import causal_forest as jcf  # noqa: E402
 
 
@@ -145,11 +154,39 @@ def cf_small() -> dict:
     return out
 
 
+def dml_row(jmod, tmod, trees: int) -> dict:
+    """The DML row in both packages (float32), each on its own CPU path;
+    the nuisance forests are integer-weight forests, equal field for field."""
+    import pytest
+
+    tag = zlib.crc32(b"dml")
+    t0 = time.perf_counter()
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(False):
+        jforests = dml_tests._capture(mp, jdml)
+        ref = jdml.double_ml(jmod, n_trees=trees, depth=9,
+                             key=jax.random.fold_in(jax.random.key(0), tag))
+    t1 = time.perf_counter()
+    with pytest.MonkeyPatch.context() as mp:
+        tforests = dml_tests._capture(mp, tdml)
+        got = tdml.double_ml(tmod, n_trees=trees, depth=9,
+                             key=rnd.fold_in(rnd.key(0, device="cpu"), tag), device="cpu")
+    t2 = time.perf_counter()
+    return {
+        "trees": trees, "jax": [ref.ate, ref.se], "torch": [got.ate, got.se],
+        "forest fields max |diff| (exact)": max(
+            maxdiff(getattr(a, f).numpy(), np.asarray(getattr(b, f)))
+            for a, b in zip(tforests, jforests) for f in dml_tests.FIELDS),
+        "abs_dtau": abs(got.ate - ref.ate), "abs_dse": abs(got.se - ref.se),
+        "seconds": {"jax": t1 - t0, "torch": t2 - t1},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", type=int, default=32, help="DR-RF forest trees")
     ap.add_argument("--cf-trees", type=int, default=2000, help="causal forest trees")
     ap.add_argument("--cf-nuisance-trees", type=int, default=500)
+    ap.add_argument("--dml-trees", type=int, default=2000, help="trees per DML nuisance forest")
     args = ap.parse_args()
     t0 = time.perf_counter()
     _, jmod, _, tmod = aipw_tests.build_frames(120_000, 0, 50_000, dtypes=(np.float32,))[np.float32]
@@ -158,6 +195,7 @@ def main() -> int:
         "dr_rf": dr_rf(jmod, tmod, args.trees),
         "causal_forest": {"notebook": cf_notebook(jmod, tmod, args.cf_trees, args.cf_nuisance_trees),
                           "small": cf_small()},
+        "dml": dml_row(jmod, tmod, args.dml_trees),
         "seconds": time.perf_counter() - t0,
     }, indent=1))
     return 0

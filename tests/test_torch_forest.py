@@ -251,16 +251,17 @@ def test_regressor_recovers_a_step():
 
 
 def test_unported_hist_mode_rejected(fitted):
-    """The partition formulation now runs: "partition" at every width
-    and "auto" (partition from width 32 at K=2) grow the same forest as
-    dense. The packed-codes branch, "+pack", is still rejected."""
+    """Every histogram formulation now runs: "partition" at every width,
+    "auto" (partition from width 32 at K=2) and the packed-codes pass
+    ("partition+pack", "auto+pack") grow the same forest as dense; a
+    bad mode is still rejected."""
     x, w, _, _, mine = fitted
-    for mode in ("partition", "auto"):
+    for mode in ("partition", "auto", "partition+pack", "auto+pack"):
         other = tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w),
                                          rnd.key(12325, device="cpu"), n_trees=TREES,
                                          depth=DEPTH, hist_mode=mode)
         for f in FIELDS:
             assert torch.equal(getattr(other, f), getattr(mine, f)), (mode, f)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="ATE_TPU_HIST_MODE"):
         tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), rnd.key(0, device="cpu"),
-                                 n_trees=2, depth=2, hist_mode="partition+pack")
+                                 n_trees=2, depth=2, hist_mode="bogus+pack")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ate_replication_causalml_torch.ops import hist as th
+from ate_replication_causalml_torch.ops import pack as tp
 from ate_replication_causalml_tpu.ops import hist_pallas as jh
 
 N_BINS = 64
@@ -186,7 +187,7 @@ def test_mode_policy_equals_jax(k, p, n_bins):
 
 def test_resolve_hist_mode_reads_the_jax_packages_settings(monkeypatch):
     monkeypatch.delenv(th.HIST_MODE_ENV, raising=False)
-    monkeypatch.delenv(th.PACK_ENV, raising=False)
+    monkeypatch.delenv(tp.ENV_PACK, raising=False)
     assert th.resolve_hist_mode(None) == jh.resolve_hist_mode(None) == "auto"
     monkeypatch.setenv(th.HIST_MODE_ENV, "Partition")
     assert th.resolve_hist_mode(None) == jh.resolve_hist_mode(None) == "partition"
@@ -195,26 +196,28 @@ def test_resolve_hist_mode_reads_the_jax_packages_settings(monkeypatch):
     with pytest.raises(ValueError, match="ATE_TPU_HIST_MODE"):
         th.resolve_hist_mode(None)
     monkeypatch.setenv(th.HIST_MODE_ENV, "auto")
-    monkeypatch.setenv(th.PACK_ENV, "1")  # the JAX package would pack here: not ported
-    assert jh.resolve_hist_mode_packed(None, 64) == "auto+pack"
-    with pytest.raises(ValueError, match="not ported"):
-        th.resolve_hist_mode(None, 64)
-    assert th.resolve_hist_mode(None, 256) == "auto"  # 256 bins never pack
+    monkeypatch.setenv(tp.ENV_PACK, "1")  # the packed policy, now ported
+    assert th.resolve_hist_mode_packed(None, 64) == jh.resolve_hist_mode_packed(None, 64) == "auto+pack"
+    assert th.resolve_hist_mode_packed(None, 256) == "auto"  # 256 bins never pack
+    with pytest.raises(ValueError, match="ATE_TPU_HIST_MODE"):
+        th.resolve_hist_mode("partition+pack")  # the suffix is resolve_hist_mode_packed's
 
 
 def test_unported_modes_rejected():
-    """``+pack`` is still to be ported; "auto" is resolved per width by
-    the caller, never at dispatch; "partition" now runs."""
+    """Every formulation of the JAX package now runs: "partition" and
+    "partition+pack" give the dense bits. "dense+pack" is refused as in
+    the JAX package, and "auto" is resolved per width by the caller,
+    never at dispatch."""
     codes, ids, w = (torch.as_tensor(a) for a in _case(1, 100, 3, 1, 2, 2))
-    for mode in ("partition+pack", "dense+pack"):
-        with pytest.raises(ValueError, match="not ported"):
-            th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode=mode)
-        with pytest.raises(ValueError, match="not ported"):
-            th.resolve_hist_mode(mode)
-    for mode in ("auto", "bogus"):
+    with pytest.raises(ValueError, match="partition kernel only"):
+        th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode="dense+pack")
+    for mode in ("auto", "bogus", "auto+pack"):
         with pytest.raises(ValueError, match="mode_for_width"):
             th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode=mode)
-    th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS, mode="partition")
+    dense = th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS)
+    for mode in ("partition", "partition+pack"):
+        assert torch.equal(th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=N_BINS,
+                                                    mode=mode), dense)
 
 
 def test_kernel_path_refuses_float_weights():

@@ -25,7 +25,8 @@ def test_port_lists_its_modules():
     mods = _port_modules()
     for m in ("ops.random", "ops.hist", "ops.tree", "models.forest", "kernels.build",
               "estimators.aipw", "data.pipeline", "models.causal_forest",
-              "estimators.causal_forest_est"):
+              "estimators.causal_forest_est", "ops.pack", "ops.linalg", "estimators.dml",
+              "estimators.ols", "estimators.ipw"):
         assert f"{_PKG}.{m}" in mods
 
 

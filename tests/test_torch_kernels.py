@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from ate_replication_causalml_torch.data.frame import CausalFrame
+from ate_replication_causalml_torch.estimators import dml
 from ate_replication_causalml_torch.models import causal_forest as cf
 from ate_replication_causalml_torch.models import forest as fo
 from ate_replication_causalml_torch.ops import hist as th
+from ate_replication_causalml_torch.ops import pack as tp
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops import tree as tt
 
@@ -91,6 +94,80 @@ def test_shared_float_kernel_within_bound_and_stable(cuda, m):
     # Per-tree float weights take the same path with a tree stride.
     wt = w[None].repeat(16, 1, 1)
     assert torch.equal(th.bin_histogram_batched(codes, ids, wt, max_nodes=m, n_bins=N_BINS), dense)
+
+
+@pytest.mark.parametrize("p", [20, 21, 22])
+def test_pack_kernel_equals_plain(cuda, p):
+    rng = np.random.default_rng(p)
+    codes = torch.as_tensor(rng.integers(0, 128, size=(11016, p)).astype(np.int32), device=cuda)
+    codes[:8, :3] = torch.as_tensor([[a, b, c] for a in (0, 127) for b in (0, 127)
+                                     for c in (0, 127)], dtype=torch.int32, device=cuda)
+    before = tp.pack_codes.launches
+    words = tp.pack_codes(codes)
+    torch.cuda.synchronize()
+    assert tp.pack_codes.launches == before + 1
+    assert torch.equal(words, tp.pack_codes_plain(codes))
+    assert torch.equal(tp.unpack_codes(words, p), codes)
+
+
+# (K, M, p): every slots-per-block case of the packed pass (3, 2, 1) and
+# ragged feature counts (a last word with one or two slots).
+PACKED_CASES = [(2, 32, 21), (2, 128, 21), (2, 64, 20), (5, 32, 21), (5, 64, 21),
+                (5, 128, 21), (5, 64, 22), (5, 128, 20)]
+
+
+@pytest.mark.parametrize("k,m,p", PACKED_CASES)
+def test_packed_kernel_equals_unpacked_and_plain(cuda, k, m, p):
+    """The packed pass against the unpacked partition kernel (bit for bit,
+    integer and float weights) and the plain version (exact for integer
+    weights, within the float bound otherwise); two launches equal."""
+    codes, ids, wi = _hist_case(k * 1000 + m + p, 5508 if k == 2 else 11016, p, 16, m, cuda)
+    if k == 2:
+        w, shared, fn = wi, False, th.bin_histogram_batched
+    else:
+        w, shared, fn = _moments(m, codes.shape[0], cuda), True, th.bin_histogram_shared
+    words = tp.pack_codes(codes)
+    before = fn.packed_launches
+    got = fn(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition+pack", packed=words)
+    torch.cuda.synchronize()
+    assert fn.packed_launches == before + 1
+    again = fn(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition+pack", packed=words)
+    unpacked = fn(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition")
+    assert torch.equal(got, again) and torch.equal(got, unpacked)
+    want = th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS)
+    if shared:
+        assert _float_bound(got, want, w)
+    else:
+        assert torch.equal(got, want)
+    # Without words the wrapper packs them itself (one pack launch).
+    before = tp.pack_codes.launches
+    assert torch.equal(fn(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition+pack"), got)
+    assert tp.pack_codes.launches == before + 1
+
+
+def test_packed_dml_forest_on_card_vs_cpu(cuda, monkeypatch):
+    """A DML nuisance forest under ATE_TPU_PREDICT_PACK=1 (depth 9: widths
+    32–128 take the packed pass) on the card equals the CPU port's, and the
+    DML row's τ and SE on the card are within 1e-6 of the CPU port's."""
+    monkeypatch.setenv(tp.ENV_PACK, "1")
+    monkeypatch.delenv(th.HIST_MODE_ENV, raising=False)
+    rng = np.random.default_rng(7)
+    n = 6000
+    x = rng.normal(size=(n, 21)).astype(np.float32)
+    w = (rng.random(n) < 1 / (1 + np.exp(-x[:, 0]))).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x[:, 1] + 0.4 * w)))).astype(np.float32)
+    before = th.bin_histogram_batched.packed_launches
+    card = fo.fit_forest_classifier(torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda),
+                                    rnd.key(5, device=cuda), n_trees=16, depth=9)
+    assert th.bin_histogram_batched.packed_launches == before + 3
+    host = fo.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), rnd.key(5, device="cpu"),
+                                    n_trees=16, depth=9)
+    for f in ("split_feat", "split_bin", "leaf_value", "counts", "bin_edges", "train_leaf", "train_fp"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
+    frame = CausalFrame(*(torch.as_tensor(a) for a in (x, w, y)))
+    on_card = dml.double_ml(frame, n_trees=16, depth=9, key=rnd.key(3, device="cpu"))
+    on_cpu = dml.double_ml(frame, n_trees=16, depth=9, key=rnd.key(3, device="cpu"), device="cpu")
+    assert abs(on_card.ate - on_cpu.ate) <= 1e-6 and abs(on_card.se - on_cpu.se) <= 1e-6
 
 
 def test_node_sums_kernel_equals_plain(cuda):
