@@ -2,19 +2,32 @@
 // hist_partition.cu: partition). Each .cu compiles into its own library,
 // so everything here is internal to the including file.
 //
-// The ordered reduction. A block owns one (row range, feature, tree) and
-// keeps its (K, M, n_bins) tile in shared memory. Each cell adds its rows
-// in ascending row order, one add at a time, starting from 0.0: no float
-// atomics, so the result does not depend on scheduling and two launches
-// on the same input are bitwise equal. Within a warp, a step covers 32
-// rows in lane order; lanes that hit the same cell are ranked by lane
-// (__match_any_sync), and the adds of rank r finish before those of rank
-// r + 1. Across warps, each cell is written by one warp only (the dense
-// kernel gives cell c to warp c mod 4, the partition kernel gives node m
-// to warp m mod 16), which walks its rows in ascending order. When
-// several row ranges split the rows, a second pass adds their partial
-// tiles in range order. Dense and partition share the row ranges and the
-// second pass, so they give the same bits for float weights too.
+// The ordered reduction. Each cell adds its rows in ascending row order,
+// one add at a time, starting from 0.0: no float atomics, so the result
+// does not depend on scheduling and two launches on the same input are
+// bitwise equal. Within a warp, a step covers 32 rows in lane order;
+// lanes that hit the same cell are ranked by lane (__match_any_sync), and
+// the adds of rank r finish before those of rank r + 1. Across warps, each
+// cell is written by one warp only, which walks its rows in ascending
+// order: the dense kernel gives each warp whole features and a contiguous
+// run of nodes, the partition kernel node m to warp m mod 16, and its
+// packed pass a contiguous run of nodes per warp and slot. When several
+// row ranges split the rows, their partial tiles are added in range order:
+// by a second pass over one slab per range, or by a packed-pass block
+// itself, range after range. Dense and partition share the row ranges and
+// that sum, so they give the same bits for float weights too.
+//
+// What bounds these kernels on an H100 is latency, not bytes or
+// arithmetic: a warp's adds into one tile form a chain of shared-memory
+// read-modify-writes, one 32-row step after another, and the contract
+// fixes its length (the rows of a range over 32). A step costs the more
+// ordered rounds the more of its lanes share a cell (a few at 64 cells, one
+// at thousands). So the kernels keep each step short (the K weight
+// channels are a template parameter: K registers, no runtime channel loop,
+// no local-memory array; one __reduce_max_sync gives the rounds) and put
+// as many independent chains on an SM as shared memory allows. Ranks from
+// one ballot per bit of the cell index, tried in place of
+// __match_any_sync, did not shorten the step.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,55 +40,57 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWeights = 8;  // K, the weight channels of one launch
 constexpr unsigned kFull = 0xffffffffu;
 
-// One lane's row: its cell in the tile (-1: adds nothing) and weights.
-struct RowIn {
-  int cell;
-  float w[kMaxWeights];
-};
-
-__device__ __forceinline__ void load_weights(RowIn& r, const float* __restrict__ w_t,
-                                             int64_t n, int64_t row, int n_weights) {
-#pragma unroll
-  for (int k = 0; k < kMaxWeights; ++k) {
-    r.w[k] = (r.cell >= 0 && k < n_weights) ? w_t[static_cast<int64_t>(k) * n + row] : 0.0f;
-  }
-}
-
 // tile[k * chan + cell] += w[k] for every lane with cell >= 0, lanes of one
 // cell in ascending lane order. Warp-uniform: every lane must call it.
-__device__ __forceinline__ void add_in_lane_order(float* tile, int chan, int n_weights,
-                                                  const RowIn& r) {
-  const int lane = threadIdx.x & 31;
-  const bool mine = r.cell >= 0;
-  const unsigned same = __match_any_sync(kFull, mine ? r.cell : -1);
-  const int rank = __popc(same & ((1u << lane) - 1u));
-  for (int step = 0; __any_sync(kFull, mine && rank >= step); ++step) {
-    if (mine && rank == step) {
+template <int K>
+__device__ __forceinline__ void add_ordered(float* tile, int chan, int cell, const float (&w)[K]) {
+  const unsigned lane = threadIdx.x & 31u;
+  const bool mine = cell >= 0;
+  const unsigned same = __match_any_sync(kFull, mine ? cell : -1);
+  const unsigned rank = __popc(same & ((1u << lane) - 1u));
+  const unsigned rounds = __reduce_max_sync(kFull, mine ? rank + 1u : 0u);
+  for (unsigned r = 0; r < rounds; ++r) {
+    if (mine && rank == r) {
 #pragma unroll
-      for (int k = 0; k < kMaxWeights; ++k) {
-        if (k < n_weights) tile[k * chan + r.cell] += r.w[k];
-      }
+      for (int k = 0; k < K; ++k) tile[k * chan + cell] += w[k];
     }
     __syncwarp();
   }
+}
+
+// w[k] = w_t[k * n + row] for a lane that holds a row, else 0.
+template <int K>
+__device__ __forceinline__ void load_weights(float (&w)[K], const float* __restrict__ w_t,
+                                             int64_t n, int64_t row, bool live) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) w[k] = live ? w_t[static_cast<int64_t>(k) * n + row] : 0.0f;
 }
 
 __device__ __forceinline__ void zero_tile(float* tile, int size) {
   for (int i = threadIdx.x; i < size; i += blockDim.x) tile[i] = 0.0f;
 }
 
-// Tile (k, m, b) of (tree t, feature f) -> out[part][t][k][m][f][b].
+// A (K, tile_nodes, n_bins) tile holding nodes [m_lo, m_lo + nodes) of
+// (tree t, feature f) -> out[part][t][k][m][f][b]; nodes <= tile_nodes.
+// With accumulate, out[0][...] += tile instead: a block that adds its row
+// ranges in range order itself (the second pass's arithmetic, in place).
 __device__ __forceinline__ void write_tile(const float* tile, int n_trees, int n_weights,
                                            int max_nodes, int p, int n_bins, int part, int f,
-                                           int t, float* __restrict__ out) {
-  const int size = n_weights * max_nodes * n_bins;
+                                           int t, int m_lo, int nodes, int tile_nodes,
+                                           float* __restrict__ out, bool accumulate = false) {
+  const int per_k = nodes * n_bins;
+  const int size = n_weights * per_k;
   const int64_t slab = static_cast<int64_t>(n_trees) * n_weights * max_nodes * p * n_bins;
   float* out_part = out + part * slab;
-  const int64_t tree_base = static_cast<int64_t>(t) * n_weights * max_nodes;
   for (int i = threadIdx.x; i < size; i += blockDim.x) {
-    const int b = i % n_bins;
-    const int km = i / n_bins;  // k * max_nodes + m
-    out_part[((tree_base + km) * p + f) * n_bins + b] = tile[i];
+    const int k = i / per_k;
+    const int mb = i - k * per_k;  // m * n_bins + b within the tile's nodes
+    const int m = mb / n_bins;
+    const int b = mb - m * n_bins;
+    const int64_t km = (static_cast<int64_t>(t) * n_weights + k) * max_nodes + m_lo + m;
+    float* dst = out_part + (km * p + f) * n_bins + b;
+    const float v = tile[k * tile_nodes * n_bins + mb];
+    *dst = accumulate ? *dst + v : v;
   }
 }
 
@@ -100,3 +115,16 @@ cudaError_t launch_reduce(const float* partial, int n_parts, int64_t size, float
 }
 
 }  // namespace
+
+// FN<K>(args...) with K = k in [1, kMaxWeights] as a compile-time
+// constant; cudaErrorInvalidValue for any other k.
+#define ATE_WITH_K(k, FN, ...)                                                          \
+  ((k) == 1   ? FN<1>(__VA_ARGS__)                                                  \
+   : (k) == 2 ? FN<2>(__VA_ARGS__)                                                  \
+   : (k) == 3 ? FN<3>(__VA_ARGS__)                                                  \
+   : (k) == 4 ? FN<4>(__VA_ARGS__)                                                  \
+   : (k) == 5 ? FN<5>(__VA_ARGS__)                                                  \
+   : (k) == 6 ? FN<6>(__VA_ARGS__)                                                  \
+   : (k) == 7 ? FN<7>(__VA_ARGS__)                                                  \
+   : (k) == 8 ? FN<8>(__VA_ARGS__)                                                  \
+              : cudaErrorInvalidValue)

@@ -12,15 +12,16 @@
 // under the packed policy (ATE_TPU_PREDICT_PACK=1 or a "+pack" mode) those
 // widths take the packed pass.
 //
-// What bounds it on an H100: the bytes, as for the dense kernel (the same
-// inputs and output, plus a (T, n) permutation written and read once).
+// What bounds it on an H100: as for the dense kernel, the latency of the
+// ordered adds (hist_common.cuh), not the bytes (the dense kernel's inputs
+// and output, plus a (T, n) permutation written and read once); here each
+// warp's chain is the rows of its own nodes, and the second pass over the
+// row ranges' partial slabs is the largest byte stream.
 //
 // Design. The TPU kernel regrouped rows with a one-hot permutation matmul
 // in VMEM, so its FLOPs scale with rows instead of rows x nodes. On the card
-// the regrouping is a stable counting sort, and what it saves is the dense
-// kernel's redundant walk: there every warp of a block reads every row and
-// keeps the 1/16 whose cells it owns; here each warp reads only the rows of
-// its own nodes.
+// the regrouping is a stable counting sort, and each warp then reads only
+// the rows of its own nodes.
 //   1. partition_rows, one block per (row range, tree): each warp counts
 //      the node ids of its own contiguous sixteenth of the range, an
 //      exclusive prefix runs in (node, warp) order, then every row's
@@ -34,20 +35,31 @@
 //      hist_common.cuh. Each cell thus sums its rows in ascending row order
 //      within the range, exactly as in hist.cu, and the same second pass
 //      adds the ranges: dense and partition give the same bits.
-//   2'. partition_accumulate_packed (the packed pass), one block per (row
-//      range, slot group of a packed word, tree). The codes come as
-//      (n, ceil(p/3)) int32 words of three 7-bit codes (ops/pack.py; built
-//      once per fit by pack_words). A row's word is gathered once and split
-//      with shifts and masks, its weights loaded once, and each slot adds to
-//      its own feature's (K, M, n_bins) tile: up to 3x fewer code gathers and
-//      weight loads than one block per feature (the TPU's 3x fewer permute
-//      MACs, on this card). Three tiles take 3*K*M*n_bins*4 B, so a block
-//      takes as many slots as fit its shared memory (the wrapper passes
-//      slots: 3 at K=2 up to M=128, 2 at K=5 M=64, 1 at K=5 M=128) and the
-//      grid's second axis is ceil(p/3) * ceil(3/slots). Each tile is walked
-//      exactly as step 2 walks its feature (same perm, same segments, same
-//      lane order, same ranges and second pass), so packed == unpacked bit
-//      for bit, for integer and float weights.
+//   2'. partition_accumulate_packed (the packed pass), one block per (slot
+//      group of a packed word, node group, tree). The codes come as (n, ceil(p/3)) int32
+//      words of three 7-bit codes (ops/pack.py; built once per fit by
+//      pack_words), split with shifts and masks: one code gather serves
+//      three features (the TPU's 3x fewer permute MACs, on this card).
+//      Three full (K, M, n_bins) tiles would take 3*K*M*n_bins*4 B (192 KB
+//      at K=2, M=128: one block per SM, and K=5 would drop to 2 or 1
+//      slots), so the nodes are split into G contiguous groups
+//      (ops/hist.py::packed_node_groups) and a block holds three
+//      (K, ceil(M/G), n_bins) tiles within a quarter of an SM's shared
+//      memory: 3 slots at every (K, M) of the paths, 4 blocks of 16 warps
+//      on an SM. The warps form 5 runs of 3: run r takes the contiguous
+//      nodes whose segments start in the r-th fifth of the group's rows,
+//      so its rows are one contiguous run of perm, walked in full 32-lane
+//      steps across segment boundaries (a lane's node is ids[t, row]), and
+//      its three warps add slot 0, 1 and 2 of each row (the row's word and
+//      weights reach the second and third warp from L1). A block walks the
+//      row ranges in turn and adds each range's tile into out in range
+//      order: the second pass's sum without the partial slabs, which at
+//      K=2, M=128 are 66 MB written and read again. A cell's rows still come in
+//      ascending row order (a node's segment is, and lanes of one cell are
+//      ranked by lane), over the same perm, segments and ranges, and the
+//      ranges are added in the same order, so packed == unpacked == dense
+//      bit for bit, for integer and float weights. K is a template
+//      parameter: no per-lane array lives in local memory.
 #include "hist_common.cuh"
 
 namespace {
@@ -133,18 +145,24 @@ __global__ void __launch_bounds__(kThreads) partition_rows(
 constexpr int kPackSlots = 3;  // codes per word (ops/pack.py PACK_SLOTS)
 constexpr int kSlotBits = 7;   // PACK_RADIX = 2^7
 constexpr uint32_t kSlotMask = (1u << kSlotBits) - 1u;
+// Two 512-thread blocks an SM at least: up to 64 registers a thread, so
+// ptxas need not spill to reach four.
+constexpr int kAccumulateMinBlocks = 2;
+// The packed pass's warps: 5 runs of nodes, 3 warps each (one per slot).
+constexpr int kRuns = kWarps / kPackSlots;
 
-__global__ void __launch_bounds__(kThreads) partition_accumulate(
+template <int K>
+__global__ void __launch_bounds__(kThreads, kAccumulateMinBlocks) partition_accumulate(
     const int32_t* __restrict__ codes, int64_t n, int p, const int32_t* __restrict__ perm,
     const int32_t* __restrict__ seg, const float* __restrict__ w, int64_t w_tree_stride,
-    int n_trees, int n_parts, int n_weights, int max_nodes, int n_bins,
-    int64_t rows_per_block, float* __restrict__ out) {
-  extern __shared__ float tile[];  // (n_weights, max_nodes, n_bins)
+    int n_trees, int n_parts, int max_nodes, int n_bins, int64_t rows_per_block,
+    float* __restrict__ out) {
+  extern __shared__ float tile[];  // (K, max_nodes, n_bins)
   const int part = blockIdx.x;
   const int f = blockIdx.y;
   const int t = blockIdx.z;
   const int chan = max_nodes * n_bins;
-  zero_tile(tile, n_weights * chan);
+  zero_tile(tile, K * chan);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -156,74 +174,113 @@ __global__ void __launch_bounds__(kThreads) partition_accumulate(
   for (int m = warp; m < max_nodes; m += kWarps) {
     const int32_t s1 = seg_tp[m + 1];
     for (int32_t i = seg_tp[m]; i < s1; i += 32) {
-      RowIn r;
-      r.cell = -1;
+      int cell = -1;
       int64_t row = 0;
       if (i + lane < s1) {
         row = perm_tp[i + lane];
         const int code = codes[row * p + f];
-        if (code >= 0 && code < n_bins) r.cell = m * n_bins + code;
+        if (code >= 0 && code < n_bins) cell = m * n_bins + code;
       }
-      load_weights(r, w_t, n, row, n_weights);
-      add_in_lane_order(tile, chan, n_weights, r);
+      float wk[K];
+      load_weights<K>(wk, w_t, n, row, cell >= 0);
+      add_ordered<K>(tile, chan, cell, wk);
     }
   }
   __syncthreads();
-  write_tile(tile, n_trees, n_weights, max_nodes, p, n_bins, part, f, t, out);
+  write_tile(tile, n_trees, K, max_nodes, p, n_bins, part, f, t, 0, max_nodes, max_nodes, out);
 }
 
-__global__ void __launch_bounds__(kThreads) partition_accumulate_packed(
-    const int32_t* __restrict__ words, int64_t n, int p, int slots,
+// First node m in [lo, hi) whose segment starts at or after position q
+// (hi if none): seg is non-decreasing.
+__device__ __forceinline__ int first_node_from(const int32_t* __restrict__ seg_tp, int lo, int hi,
+                                               int32_t q) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (seg_tp[mid] < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, kAccumulateMinBlocks) partition_accumulate_packed(
+    const int32_t* __restrict__ words, int64_t n, int p, int slots, int node_groups,
+    int group_nodes, const int32_t* __restrict__ ids,
     const int32_t* __restrict__ perm, const int32_t* __restrict__ seg,
-    const float* __restrict__ w, int64_t w_tree_stride, int n_trees, int n_parts,
-    int n_weights, int max_nodes, int n_bins, int64_t rows_per_block, float* __restrict__ out) {
-  extern __shared__ float tile[];  // (slots, n_weights, max_nodes, n_bins)
+    const float* __restrict__ w, int64_t w_tree_stride, int n_trees, int n_parts, int max_nodes,
+    int n_bins, int64_t rows_per_block, float* __restrict__ out) {
+  extern __shared__ float tile[];  // (slots, K, group_nodes, n_bins)
   const int p3 = (p + kPackSlots - 1) / kPackSlots;
-  const int groups = (kPackSlots + slots - 1) / slots;  // blocks per word
-  const int word = blockIdx.y / groups;
-  const int s0 = (blockIdx.y % groups) * slots;         // first slot of this block
-  const int f0 = word * kPackSlots + s0;                // its feature
+  const int slot_groups = (kPackSlots + slots - 1) / slots;
+  const int per_word = slot_groups * node_groups;
+  const int word = blockIdx.x / per_word;
+  const int sg = (blockIdx.x - word * per_word) / node_groups;
+  const int g = blockIdx.x - word * per_word - sg * node_groups;
+  const int s0 = sg * slots;              // first slot of this block
+  const int f0 = word * kPackSlots + s0;  // its feature
   int nf = slots < kPackSlots - s0 ? slots : kPackSlots - s0;
   if (nf > p - f0) nf = p - f0;
   if (nf <= 0) return;  // the last word's unused slots: block-uniform
-  const int part = blockIdx.x;
-  const int t = blockIdx.z;
-  const int chan = max_nodes * n_bins;
-  const int tile_size = n_weights * chan;
-  zero_tile(tile, nf * tile_size);
-  __syncthreads();
+  const int t = blockIdx.y;
+  const int m_lo = g * group_nodes;
+  const int m_hi = m_lo + group_nodes < max_nodes ? m_lo + group_nodes : max_nodes;
+  const int chan = group_nodes * n_bins;
+  const int tile_size = K * chan;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int32_t* seg_tp = seg + (static_cast<int64_t>(t) * n_parts + part) * (max_nodes + 1);
-  const int32_t* perm_tp = perm + static_cast<int64_t>(t) * n
-                           + static_cast<int64_t>(part) * rows_per_block;
+  // Warps 3r, 3r + 1 and 3r + 2 walk run r of the group's nodes and add
+  // slot 0, 1 and 2 of each row's word: the row's perm entry, id, word
+  // and weights are read by three warps, the second and third from L1.
+  const int run = warp / kPackSlots;
+  const int slot = warp % kPackSlots;
+  const int32_t* ids_t = ids + static_cast<int64_t>(t) * n;
   const float* w_t = w + static_cast<int64_t>(t) * w_tree_stride;
-  for (int m = warp; m < max_nodes; m += kWarps) {
-    const int32_t s1 = seg_tp[m + 1];
-    for (int32_t i = seg_tp[m]; i < s1; i += 32) {
-      RowIn r;
-      r.cell = -1;
-      int64_t row = 0;
-      uint32_t bits = 0;
-      if (i + lane < s1) {
-        row = perm_tp[i + lane];
-        bits = static_cast<uint32_t>(words[row * p3 + word]) >> (kSlotBits * s0);
-        r.cell = 0;  // a live row: load its weights
-      }
-      load_weights(r, w_t, n, row, n_weights);
-      const bool live = r.cell >= 0;
-      for (int s = 0; s < nf; ++s) {
-        const int code = static_cast<int>((bits >> (kSlotBits * s)) & kSlotMask);
-        r.cell = live && code < n_bins ? m * n_bins + code : -1;
-        add_in_lane_order(tile + s * tile_size, chan, n_weights, r);
-      }
+  // The row ranges one after another, each from a zeroed tile, added into
+  // out in range order: the second pass's sum, without the partial slabs.
+  for (int part = 0; part < n_parts; ++part) {
+    zero_tile(tile, nf * tile_size);
+    __syncthreads();
+    const int32_t* seg_tp = seg + (static_cast<int64_t>(t) * n_parts + part) * (max_nodes + 1);
+    const int32_t* perm_tp = perm + static_cast<int64_t>(t) * n
+                             + static_cast<int64_t>(part) * rows_per_block;
+    // Run r holds the nodes whose segments start in the r-th fifth of the
+    // group's rows: whole nodes, so its rows are one contiguous run of
+    // perm, walked in full 32-lane steps across segment boundaries.
+    const int32_t q_lo = seg_tp[m_lo];
+    const int32_t chunk = (seg_tp[m_hi] - q_lo + kRuns - 1) / kRuns;
+    int32_t i0 = 0, i1 = 0;
+    if (run < kRuns && slot < nf) {  // warp-uniform
+      const int a = first_node_from(seg_tp, m_lo, m_hi, q_lo + run * chunk);
+      const int b = run + 1 == kRuns ? m_hi
+                                     : first_node_from(seg_tp, m_lo, m_hi, q_lo + (run + 1) * chunk);
+      i0 = seg_tp[a];
+      i1 = seg_tp[b];
     }
-  }
-  __syncthreads();
-  for (int s = 0; s < nf; ++s) {
-    write_tile(tile + s * tile_size, n_trees, n_weights, max_nodes, p, n_bins, part, f0 + s, t,
-               out);
+    for (int32_t i = i0; i < i1; i += 32) {
+      const bool live = i + lane < i1;
+      int64_t row = 0;
+      int local = 0;
+      int code = n_bins;
+      if (live) {
+        row = perm_tp[i + lane];
+        local = ids_t[row] - m_lo;  // the row's node, in [0, group_nodes)
+        const uint32_t bits = static_cast<uint32_t>(words[row * p3 + word]);
+        code = static_cast<int>((bits >> (kSlotBits * (s0 + slot))) & kSlotMask);
+      }
+      float wk[K];
+      load_weights<K>(wk, w_t, n, row, live);
+      add_ordered<K>(tile + slot * tile_size, chan, code < n_bins ? local * n_bins + code : -1, wk);
+    }
+    __syncthreads();
+    for (int s = 0; s < nf; ++s) {
+      write_tile(tile + s * tile_size, n_trees, K, max_nodes, p, n_bins, 0, f0 + s, t, m_lo,
+                 m_hi - m_lo, group_nodes, out, part > 0);
+    }
+    __syncthreads();  // the tile is zeroed for the next range
   }
 }
 
@@ -270,6 +327,70 @@ cudaError_t finish(cudaError_t err, const void* partial, int n_parts, int n_tree
                        static_cast<float*>(out), s);
 }
 
+struct PartitionLaunch {
+  const int32_t* codes;  // codes (n, p), or the packed words (n, ceil(p/3))
+  int64_t n;
+  int p;
+  const int32_t* ids;
+  const int32_t* perm;
+  const int32_t* seg;
+  const float* w;
+  int64_t w_tree_stride;
+  int n_trees, n_parts, max_nodes, n_bins, slots, node_groups;
+  int64_t rows_per_block;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <int K>
+cudaError_t launch_accumulate(const PartitionLaunch& a) {
+  const size_t smem = static_cast<size_t>(K) * a.max_nodes * a.n_bins * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(partition_accumulate<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  partition_accumulate<K><<<dim3(a.n_parts, a.p, a.n_trees), kThreads, smem, a.stream>>>(
+      a.codes, a.n, a.p, a.perm, a.seg, a.w, a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes,
+      a.n_bins, a.rows_per_block, a.out);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_accumulate_packed(const PartitionLaunch& a) {
+  const int group_nodes = (a.max_nodes + a.node_groups - 1) / a.node_groups;
+  const size_t smem = static_cast<size_t>(a.slots) * K * group_nodes * a.n_bins * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(partition_accumulate_packed<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int p3 = (a.p + kPackSlots - 1) / kPackSlots;
+  const int slot_groups = (kPackSlots + a.slots - 1) / a.slots;
+  const dim3 grid(p3 * slot_groups * a.node_groups, a.n_trees);
+  partition_accumulate_packed<K><<<grid, kThreads, smem, a.stream>>>(
+      a.codes, a.n, a.p, a.slots, a.node_groups, group_nodes, a.ids, a.perm, a.seg, a.w,
+      a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes, a.n_bins, a.rows_per_block, a.out);
+  return cudaGetLastError();
+}
+
+// Step 1, then the accumulate pass. The unpacked pass writes one partial
+// slab per row range and the second pass adds them; the packed pass adds
+// its ranges itself (ranges_in_block), in the same order.
+template <typename Launch>
+int run_partition(PartitionLaunch a, int n_weights, void* perm, void* seg, void* partial,
+                  void* out, bool ranges_in_block, Launch accumulate) {
+  a.rows_per_block = (a.n + a.n_parts - 1) / a.n_parts;
+  a.perm = static_cast<const int32_t*>(perm);
+  a.seg = static_cast<const int32_t*>(seg);
+  a.out = static_cast<float*>(a.n_parts > 1 && !ranges_in_block ? partial : out);
+  cudaError_t err = launch_partition_rows(a.ids, a.n, a.n_trees, a.n_parts, a.max_nodes,
+                                          a.rows_per_block, static_cast<int32_t*>(perm),
+                                          static_cast<int32_t*>(seg), a.stream);
+  if (err == cudaSuccess) err = accumulate(a);
+  if (ranges_in_block) return static_cast<int>(err);
+  return static_cast<int>(finish(err, partial, a.n_parts, a.n_trees, n_weights, a.max_nodes, a.p,
+                                 a.n_bins, out, a.stream));
+}
+
 }  // namespace
 
 extern "C" int ate_hist_partition(const void* codes, int64_t n, int p, const void* ids,
@@ -278,55 +399,37 @@ extern "C" int ate_hist_partition(const void* codes, int64_t n, int p, const voi
                                   void* perm, void* seg, void* partial, void* out,
                                   void* stream) {
   if (n_weights < 1 || n_weights > kMaxWeights) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rows_per_block = (n + n_parts - 1) / n_parts;
-  cudaError_t err = launch_partition_rows(static_cast<const int32_t*>(ids), n, n_trees, n_parts,
-                                          max_nodes, rows_per_block,
-                                          static_cast<int32_t*>(perm), static_cast<int32_t*>(seg), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(n_weights) * max_nodes * n_bins * sizeof(float);
-  err = cudaFuncSetAttribute(partition_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  partition_accumulate<<<dim3(n_parts, p, n_trees), kThreads, smem, s>>>(
-      static_cast<const int32_t*>(codes), n, p, static_cast<const int32_t*>(perm),
-      static_cast<const int32_t*>(seg), static_cast<const float*>(w), w_tree_stride, n_trees,
-      n_parts, n_weights, max_nodes, n_bins, rows_per_block,
-      static_cast<float*>(n_parts > 1 ? partial : out));
-  return static_cast<int>(finish(cudaGetLastError(), partial, n_parts, n_trees, n_weights,
-                                 max_nodes, p, n_bins, out, s));
+  const PartitionLaunch a{static_cast<const int32_t*>(codes), n, p,
+                          static_cast<const int32_t*>(ids), nullptr, nullptr,
+                          static_cast<const float*>(w), w_tree_stride, n_trees, n_parts,
+                          max_nodes, n_bins, 1, 1, 0, nullptr, static_cast<cudaStream_t>(stream)};
+  return run_partition(a, n_weights, perm, seg, partial, out, false,
+                       [n_weights](const PartitionLaunch& b) {
+                         return ATE_WITH_K(n_weights, launch_accumulate, b);
+                       });
 }
 
 // The packed pass: words (n, ceil(p/3)) int32 from ate_pack_codes; slots of a
-// word per block in [1, 3].
+// word per block in [1, 3]; node_groups blocks split the nodes of a word.
+// Its blocks add their row ranges themselves: partial is not used.
 extern "C" int ate_hist_partition_packed(const void* words, int64_t n, int p, const void* ids,
                                          const void* w, int64_t w_tree_stride, int n_trees,
                                          int n_weights, int max_nodes, int n_bins, int n_parts,
-                                         int slots, void* perm, void* seg, void* partial,
-                                         void* out, void* stream) {
+                                         int slots, int node_groups, void* perm, void* seg,
+                                         void* partial, void* out, void* stream) {
   if (n_weights < 1 || n_weights > kMaxWeights || slots < 1 || slots > kPackSlots ||
-      n_bins > (1 << kSlotBits)) {
+      node_groups < 1 || node_groups > max_nodes || n_bins > (1 << kSlotBits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rows_per_block = (n + n_parts - 1) / n_parts;
-  cudaError_t err = launch_partition_rows(static_cast<const int32_t*>(ids), n, n_trees, n_parts,
-                                          max_nodes, rows_per_block,
-                                          static_cast<int32_t*>(perm), static_cast<int32_t*>(seg), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(slots) * n_weights * max_nodes * n_bins * sizeof(float);
-  err = cudaFuncSetAttribute(partition_accumulate_packed,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int p3 = (p + kPackSlots - 1) / kPackSlots;
-  const int groups = (kPackSlots + slots - 1) / slots;
-  partition_accumulate_packed<<<dim3(n_parts, p3 * groups, n_trees), kThreads, smem, s>>>(
-      static_cast<const int32_t*>(words), n, p, slots, static_cast<const int32_t*>(perm),
-      static_cast<const int32_t*>(seg), static_cast<const float*>(w), w_tree_stride, n_trees,
-      n_parts, n_weights, max_nodes, n_bins, rows_per_block,
-      static_cast<float*>(n_parts > 1 ? partial : out));
-  return static_cast<int>(finish(cudaGetLastError(), partial, n_parts, n_trees, n_weights,
-                                 max_nodes, p, n_bins, out, s));
+  const PartitionLaunch a{static_cast<const int32_t*>(words), n, p,
+                          static_cast<const int32_t*>(ids), nullptr, nullptr,
+                          static_cast<const float*>(w), w_tree_stride, n_trees, n_parts,
+                          max_nodes, n_bins, slots, node_groups, 0, nullptr,
+                          static_cast<cudaStream_t>(stream)};
+  return run_partition(a, n_weights, perm, seg, partial, out, true,
+                       [n_weights](const PartitionLaunch& b) {
+                         return ATE_WITH_K(n_weights, launch_accumulate_packed, b);
+                       });
 }
 
 extern "C" int ate_pack_codes(const void* codes, int64_t n, int p, void* words, void* stream) {

@@ -49,8 +49,30 @@ from ate_replication_causalml_torch.ops.pack import (
     unpack_codes,
 )
 
-# Shared memory one block may use on Hopper (227 KB).
+# Shared memory one block may use on Hopper (227 KB), and one SM's (228 KB,
+# of which each resident block reserves 1 KB).
 _MAX_SMEM_BYTES = 232_448
+_SM_SMEM_BYTES = 233_472
+_BLOCK_RESERVED_BYTES = 1024
+_SMS = 132  # an H100 SXM's streaming multiprocessors
+# The dense kernel's block (csrc/hist.cu): one warp per feature, at most
+# 16; rows staged 128 at a time, 4 stages deep; tiles and stages within a
+# budget that leaves two blocks on an SM; and at least 2.5 blocks per SM
+# in the grid where fewer features per block allow it (a block of 7
+# features left 12 of 132 SMs with two blocks at K=2 M=16, and ran slower
+# than blocks of 3: scripts/torch_hist_geometry.py, PERF.md PR 4).
+_DENSE_MAX_WARPS = 16
+_DENSE_STAGE_ROWS = 128
+_DENSE_STAGES = 4
+_DENSE_SMEM_BUDGET = _SM_SMEM_BYTES // 2 - _BLOCK_RESERVED_BYTES
+_DENSE_MIN_BLOCKS = 5 * _SMS // 2
+# A feature with a block to itself splits its nodes over this many warps
+# (one warp alone walks its range's rows with the SM mostly idle; same
+# script).
+_DENSE_WARPS_PER_LONE_FEATURE = 4
+# The packed pass's block (csrc/hist_partition.cu): 16 warps, four blocks
+# on an SM, so its three tiles stay within a quarter of the SM.
+_PACKED_SMEM_BUDGET = _SM_SMEM_BYTES // 4 - _BLOCK_RESERVED_BYTES
 # Weight channels one launch takes (kMaxWeights in csrc/hist_common.cuh).
 _MAX_WEIGHTS = 8
 # Row ranges split the rows only while (trees × features × ranges)
@@ -255,11 +277,83 @@ def _n_parts(n: int, n_trees: int, p: int) -> int:
     return max(1, min(-(-n // _MIN_ROWS_PER_BLOCK), _TARGET_BLOCKS // (n_trees * p)))
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry. A block's cells are (feature, node) pairs; each lies in
+# exactly one block and one warp, so each cell keeps one writer and its
+# rows' order. Tests check the cover and the shared-memory budgets.
+# ---------------------------------------------------------------------------
+
+
+def _dense_stage_bytes(n_weights: int, features: int) -> int:
+    return 4 * _DENSE_STAGES * _DENSE_STAGE_ROWS * (1 + n_weights + features)
+
+
+def dense_node_groups(n_weights: int, max_nodes: int, n_bins: int) -> int:
+    """Blocks that split the dense kernel's nodes: 1 while one feature's
+    (K, M, n_bins) tile and the row stages fit the block budget, else the
+    fewest contiguous node groups whose tile does (K=5 M=128: 2)."""
+    room = _DENSE_SMEM_BUDGET - _dense_stage_bytes(n_weights, 1)
+    group = max(1, min(max_nodes, room // (4 * n_weights * n_bins)))
+    return -(-max_nodes // group)
+
+
+def dense_features_per_block(n_weights: int, max_nodes: int, p: int, n_bins: int,
+                             n_trees: int, n_parts: int) -> int:
+    """F, the features one dense block takes (one warp each): as many
+    tiles as fit the block budget with the row stages (at most 16), fewer
+    while the grid (trees × row ranges × node groups × feature groups)
+    has under 2.5 blocks per SM, then evened out over the ceil(p / F)
+    feature groups (K=2, p=21, 16 trees, 3 ranges: 3 at M=1–16, 1 at
+    M=128)."""
+    groups = dense_node_groups(n_weights, max_nodes, n_bins)
+    tile = 4 * n_weights * -(-max_nodes // groups) * n_bins
+    fits = [f for f in range(1, min(p, _DENSE_MAX_WARPS) + 1)
+            if f * tile + _dense_stage_bytes(n_weights, f) <= _DENSE_SMEM_BUDGET]
+    busy = [f for f in fits if n_trees * n_parts * groups * -(-p // f) >= _DENSE_MIN_BLOCKS]
+    features = max(busy) if busy else min(fits, default=1)
+    return -(-p // -(-p // features))
+
+
+def dense_warps_per_feature(n_weights: int, max_nodes: int, p: int, n_bins: int,
+                            n_trees: int, n_parts: int) -> int:
+    """Warps that split one feature's node group into contiguous runs: 4
+    where a block takes one feature (large tiles, node sums), never more
+    than the group's nodes; 1 otherwise."""
+    if dense_features_per_block(n_weights, max_nodes, p, n_bins, n_trees, n_parts) > 1:
+        return 1
+    group = -(-max_nodes // dense_node_groups(n_weights, max_nodes, n_bins))
+    return min(_DENSE_WARPS_PER_LONE_FEATURE, group)
+
+
+def dense_block_bytes(n_weights: int, max_nodes: int, p: int, n_bins: int, n_trees: int,
+                      n_parts: int) -> int:
+    """Dynamic shared memory of one dense block: F tiles and the stages."""
+    features = dense_features_per_block(n_weights, max_nodes, p, n_bins, n_trees, n_parts)
+    group = -(-max_nodes // dense_node_groups(n_weights, max_nodes, n_bins))
+    return 4 * features * n_weights * group * n_bins + _dense_stage_bytes(n_weights, features)
+
+
 def packed_slots(n_weights: int, max_nodes: int, n_bins: int) -> int:
-    """Slots of a packed word one block of the packed pass takes: as many
-    (K, M, n_bins) feature tiles as fit a block's shared memory, at most
-    3 (K=2: 3 up to M=128; K=5: 3 up to M=32, 2 at M=64, 1 at M=128)."""
-    return min(PACK_SLOTS, _MAX_SMEM_BYTES // (4 * n_weights * max_nodes * n_bins))
+    """Slots of a packed word one block of the packed pass takes: 3 (every
+    K ≤ 8 at n_bins ≤ 128), fewer only where three one-node tiles exceed
+    the block budget. ``max_nodes`` does not enter: node groups absorb it."""
+    return max(1, min(PACK_SLOTS, _PACKED_SMEM_BUDGET // (4 * n_weights * n_bins)))
+
+
+def packed_node_groups(n_weights: int, max_nodes: int, n_bins: int) -> int:
+    """Blocks that split the packed pass's nodes: the fewest contiguous
+    groups whose ``packed_slots`` tiles fit the block budget, and at least
+    2, which doubles the blocks of the narrow widths (K=2: 2 to M=64, 4 at
+    M=128; K=5: 2 at M=16, 5 at M=64; scripts/torch_hist_geometry.py)."""
+    per_node = 4 * packed_slots(n_weights, max_nodes, n_bins) * n_weights * n_bins
+    group = max(1, min(max_nodes, _PACKED_SMEM_BUDGET // per_node))
+    return max(-(-max_nodes // group), min(max_nodes, 2))
+
+
+def packed_block_bytes(n_weights: int, max_nodes: int, n_bins: int) -> int:
+    """Dynamic shared memory of one block of the packed pass."""
+    group = -(-max_nodes // packed_node_groups(n_weights, max_nodes, n_bins))
+    return 4 * packed_slots(n_weights, max_nodes, n_bins) * n_weights * group * n_bins
 
 
 def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter,
@@ -294,24 +388,30 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_parts = _n_parts(n, n_trees, p)
+    # One partial slab per row range, added by a second pass; the packed
+    # pass adds its ranges in the block and needs none.
     partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32,
-                           device=codes.device) if n_parts > 1 else out)
+                           device=codes.device) if n_parts > 1 and not pack else out)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     tail = (ids.data_ptr(), weights.data_ptr(), w_tree_stride, n_trees, k_w, max_nodes, n_bins,
             n_parts)
     if base == "dense":
+        shape = (k_w, max_nodes, p, n_bins, n_trees, n_parts)
+        geometry = (dense_features_per_block(*shape), dense_node_groups(k_w, max_nodes, n_bins),
+                    dense_warps_per_feature(*shape))
         k = build.kernel("hist")
-        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, partial.data_ptr(), out.data_ptr(),
-                            stream))
+        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *geometry, partial.data_ptr(),
+                            out.data_ptr(), stream))
         counter.launches += 1
         return out
     perm = torch.empty((n_trees, n), dtype=torch.int32, device=codes.device)
     seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32, device=codes.device)
     scratch = (perm.data_ptr(), seg.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
     if pack:
-        slots = packed_slots(k_w, max_nodes, n_bins)
+        geometry = (packed_slots(k_w, max_nodes, n_bins),
+                    packed_node_groups(k_w, max_nodes, n_bins))
         k = build.kernel("hist_partition_packed")
-        build.check(k, k.fn(words.data_ptr(), n, p, *tail, slots, *scratch))
+        build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, *scratch))
         counter.packed_launches += 1
     else:
         k = build.kernel("hist_partition")

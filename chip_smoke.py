@@ -7,17 +7,23 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around it; it
 imports nothing of JAX. Phases, each printing one JSON line:
 
 1. device  — the card, and ``nvidia-smi``'s name and power limit line;
-2. build   — compiles every kernel library of ``csrc/`` with nvcc (sm_90a);
+2. build   — compiles every kernel library of ``csrc/`` with nvcc (sm_90a)
+   and records each device function's registers and spill bytes from
+   ptxas; fails if ``hist_dense`` or ``partition_accumulate_packed``
+   (any K) spills;
 3. kernels — each kernel's wrapper on card tensors at the shapes the
    DR-RF, causal forest and DML paths give it, held against its plain
    PyTorch version: ``torch.equal`` on integer weights, on route, lookup
    and pack, 64·eps·Σ|w| per (tree, channel) on float weights, and two
    launches ``torch.equal`` to each other; with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, and the
-   least time the card could take (``bound_ms``). Dense and partition
-   are both timed at every width and must give the same bits; the
-   packed pass (``partition+pack``) must give the unpacked partition
-   kernel's bits, and reports its slots per block;
+   least time the card could take (``bound_ms``), and ``factor`` = kernel
+   ms / yardstick ms. ``ms`` is device time (a CUDA graph of 10 calls
+   replayed, ``device_ms``); ``call_ms`` one call timed from the host,
+   launch gaps included (the method of PRs 1–3). Dense, partition and the packed pass
+   (``partition+pack``) are timed at every width and must give the same
+   bits, K=2 integer and K=5 float; the packed rows report their slots
+   and node groups per block;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
@@ -28,8 +34,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
 6. path_cf — the notebook's "Causal Forest(GRF)" row through
    ``causal_forest_report`` at the sweep's configuration (2,000 causal
    trees of depth 8, 500 nuisance trees of depth 9, the sweep's key),
-   with stage times and launch counts read around it and the ATE held
-   to its recorded value (``CF_ATE``);
+   with stage times and launch counts read around it and the ATE and SE
+   held to their recorded values (``CF_ATE``, ``CF_SE``);
 7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
    card and on the CPU, held to stated bounds (split agreement, leaf
    statistics, τ̂ and its variance, the ATE and its SE);
@@ -40,7 +46,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
 9. path_dml — the notebook's "Double Machine Learning" row through
    ``double_ml`` at the sweep's configuration (2,000 trees of depth 9 per
    nuisance forest, the sweep's key, ``crossfit="r"``, ``se_mode="r"``)
-   under ``ATE_TPU_PREDICT_PACK=1``, with stage times and launch counts;
+   under ``ATE_TPU_PREDICT_PACK=1``, with stage times and launch counts,
+   τ and SE held to their recorded values (``DML_TAU``, ``DML_SE``);
 10. parity_dml — the DML row at 32 trees three ways: packed on the card,
    unpacked on the card, and on the CPU: forests and vote fractions
    ``torch.equal``, τ and SE bit for bit between the card runs and
@@ -135,9 +142,14 @@ CF_SE_BOUND = 1e-4
 # kernels; every kernel and reduction on its path runs in a fixed order,
 # so it must hold bit for bit, under the packed policy too.
 CF_ATE = 0.10669395327568054
+CF_SE = 0.014757290482521057
 # The "Double Machine Learning" row (SweepConfig: dml_trees, forest_depth).
 DML_TREES = 2_000
 DML_PARITY_TREES = 32
+# The DML row's τ and SE as first recorded on the card (packed policy):
+# integer histogram weights and fixed-order reductions, so bit for bit.
+DML_TAU = 0.07885216176509857
+DML_SE = 0.010522110387682915
 # Direct Method and the propensity rows, card vs CPU port: f32 IRLS and
 # normal equations in another summation order, amplified by 1/(p(1−p)).
 # Observed on an H100 80GB HBM3 at 700 W: |Δτ| at most 6.0e-7
@@ -169,6 +181,40 @@ def time_ms(fn, reps: int) -> float:
         pairs.append((a, b))
     sync()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def device_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``reps`` times between two events, so no host launch gap
+    enters (``time_ms`` times one call from the host, gaps included)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    sync()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    sync()
+    return a.elapsed_time(b) / (calls * reps)
+
+
+def timed(row: dict, run, lib, calls: int = 10) -> dict:
+    """The device times of a kernel call and its yardstick, and their
+    ratio ``factor``; ``call_ms`` and ``call_library_ms`` are one call's
+    host-side event times (the method of PRs 1–3's tables)."""
+    ms, library_ms = device_ms(run, calls), device_ms(lib, calls)
+    row.update(ms=ms, library_ms=library_ms, factor=ms / library_ms)
+    return row
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -248,15 +294,45 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> None:
+# Device functions of csrc/, as ptxas names them (mangled); K is the
+# template argument of the histogram kernels.
+DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
+                    "hist_dense", "hist_reduce", "pack_words", "route_kernel", "lookup_kernel")
+# Kernels that must not spill (every instantiation).
+NO_SPILL = ("hist_dense", "partition_accumulate_packed")
+
+
+def ptxas_functions(log: str) -> dict:
+    """``nvcc -Xptxas -v`` → {"name<K>": {registers, stack, spill_bytes}}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            mangled = ln.split("'")[1] if "'" in ln else ln.rsplit(" ", 1)[-1]
+            base = next((b for b in DEVICE_FUNCTIONS if b in mangled), mangled)
+            k = mangled.split(base + "ILi", 1)[1].split("E", 1)[0] if base + "ILi" in mangled else None
+            name = f"{base}<{k}>" if k else base
+            out.setdefault(name, {})
+        elif name and "spill stores" in ln:
+            nums = [int(x) for x in ln.replace(",", " ").split() if x.isdigit()]
+            out[name].update(stack=nums[0], spill_bytes=nums[1] + nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used", 1)[1].split()[0])
+    return out
+
+
+def phase_build() -> dict:
     t0 = time.perf_counter()
     built = build.build_all()
-    ptxas = {
-        b.library: [ln.strip() for ln in b.ptxas.splitlines() if "registers" in ln or "spill" in ln]
-        for b in built.values()
-    }
+    functions = {}
+    for b in {b.library: b for b in built.values()}.values():
+        functions.update(ptxas_functions(b.ptxas))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": max(b.seconds for b in built.values()), "ptxas": ptxas})
+          "nvcc_seconds": max(b.seconds for b in built.values()), "functions": functions})
+    spilled = {f: v for f, v in functions.items()
+               if f.split("<")[0] in NO_SPILL and v.get("spill_bytes", 0)}
+    if spilled or not any(f.startswith("hist_dense<") for f in functions):
+        raise AssertionError(f"ptxas spills (or no hist_dense instantiation): {spilled}")
+    return functions
 
 
 def notebook_frames(device: str):
@@ -358,15 +434,14 @@ def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20):
         scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
         err, ratio = check_float(name, got, want, scale)
         check_float(f"{name} scatter_add_", lib(), want, scale)
-    ms = time_ms(run, reps)
-    plain_ms = time_ms(plain, max(3, reps // 4))
-    library_ms = time_ms(lib, reps)
     n_valid = int(((ids >= 0) & (ids < m)).sum())
     nbytes = 4 * (codes.numel() + ids.numel() + weights.numel() + got.numel())
     b_ms, b_by = bound(nbytes, n_valid * p * k)
-    return {"M": m, "n": n, "T": t, "K": k, "mode": mode, "weights": "integer" if integer else "float",
-            "max_abs_err": err, "err_over_bound": ratio, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, "out": got}
+    row = {"M": m, "n": n, "T": t, "K": k, "mode": mode, "weights": "integer" if integer else "float",
+           "max_abs_err": err, "err_over_bound": ratio, "call_ms": time_ms(run, reps),
+           "call_library_ms": time_ms(lib, reps), "plain_ms": time_ms(plain, max(3, reps // 4)),
+           "bound_ms": b_ms, "bound_by": b_by, "out": got}
+    return timed(row, run, lib, 2 if n > 100_000 else 10)
 
 
 def measure_packed(codes, weights, ids, m, shared, reps=20):
@@ -403,13 +478,15 @@ def measure_packed(codes, weights, ids, m, shared, reps=20):
     n_valid = int(((ids >= 0) & (ids < m)).sum())
     b_ms, b_by = bound(4 * (words.numel() + ids.numel() + weights.numel() + got.numel()),
                        n_valid * p * k)
-    return {"M": m, "n": n, "T": t, "K": k, "mode": "partition+pack",
-            "weights": "integer" if integer else "float",
-            "slots_per_block": hist.packed_slots(k, m, N_BINS), "equal_to_unpacked": True,
-            "max_abs_err": err, "err_over_bound": ratio, "ms": time_ms(run, reps),
-            "unpacked_ms": time_ms(unpacked, reps), "plain_ms": time_ms(plain, max(3, reps // 4)),
-            "library_ms": time_ms(lib, reps), "bound_ms": b_ms, "bound_by": b_by,
-            "perm_bytes": 4 * t * n}
+    row = {"M": m, "n": n, "T": t, "K": k, "mode": "partition+pack",
+           "weights": "integer" if integer else "float",
+           "slots_per_block": hist.packed_slots(k, m, N_BINS),
+           "node_groups": hist.packed_node_groups(k, m, N_BINS), "equal_to_unpacked": True,
+           "max_abs_err": err, "err_over_bound": ratio, "call_ms": time_ms(run, reps),
+           "call_library_ms": time_ms(lib, reps), "call_unpacked_ms": time_ms(unpacked, reps),
+           "unpacked_ms": device_ms(unpacked), "plain_ms": time_ms(plain, max(3, reps // 4)),
+           "bound_ms": b_ms, "bound_by": b_by, "perm_bytes": 4 * t * n}
+    return timed(row, run, lib)
 
 
 def pack_row(codes, reps=20):
@@ -420,7 +497,8 @@ def pack_row(codes, reps=20):
         raise AssertionError("pack_codes: the words do not unpack to the codes")
     b_ms, b_by = bound(4 * (codes.numel() + words.numel()), codes.numel())
     return {"n": codes.shape[0], "p": codes.shape[1], "max_abs_err": err,
-            "ms": time_ms(lambda: pack.pack_codes(codes), reps),
+            "ms": device_ms(lambda: pack.pack_codes(codes)),
+            "call_ms": time_ms(lambda: pack.pack_codes(codes), reps),
             "plain_ms": time_ms(lambda: pack.pack_codes_plain(codes), reps),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -453,9 +531,10 @@ def node_sums_row(ids, weights, leaves, shared, reps=20):
         err, ratio = check_equal(name, got, want), 0.0
         check_equal(f"{name} scatter_add_", lib(), got)
     b_ms, b_by = bound(4 * (ids.numel() + weights.numel() + got.numel()), int(valid.sum()) * k)
-    return {"M": leaves, "n": ids.shape[1], "T": t, "K": k, "max_abs_err": err,
-            "err_over_bound": ratio, "ms": time_ms(run, reps), "plain_ms": time_ms(plain, 5),
-            "library_ms": time_ms(lib, reps), "bound_ms": b_ms, "bound_by": b_by}
+    row = {"M": leaves, "n": ids.shape[1], "T": t, "K": k, "max_abs_err": err,
+           "err_over_bound": ratio, "call_ms": time_ms(run, reps), "call_library_ms": time_ms(lib, reps),
+           "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by}
+    return timed(row, run, lib)
 
 
 def strip(row: dict) -> dict:
@@ -468,19 +547,29 @@ def phase_kernels(frame_mod) -> dict:
     codes = fo.binarize(x, fo.quantile_bins(x, N_BINS))
     n, p = codes.shape
     weights, ids = kernel_cases(codes, rng)
+    words = pack.pack_codes(codes)
     t = weights.shape[0]
     summary = {}
 
     def both_modes(w, m, shared):
-        """Dense and partition on one input, bitwise equal to each other.
-        Both are timed at every width (the path takes partition from the
-        crossover up), so that a later PR can re-derive the crossover."""
+        """Dense, partition and the packed pass on one input, bitwise equal
+        to each other. All three are timed at every width (the path takes
+        partition from the crossover up), so that a later PR can re-derive
+        the crossover."""
         lid = ids(m)
         d = measure_hist(codes, w, lid, m, shared=shared)
         q = measure_hist(codes, w, lid, m, mode="partition", shared=shared)
+        wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
+        run = lambda: wrapper(codes, lid, w, max_nodes=m, n_bins=N_BINS, mode="partition+pack",
+                              packed=words)
+        packed, again = run(), run()
         q["equal_to_dense"] = bool(torch.equal(q["out"], d["out"]))
-        if not q["equal_to_dense"]:
-            raise AssertionError(f"partition M={m} K={w.shape[-2]}: not bitwise equal to dense")
+        q["packed_equal_to_dense"] = bool(torch.equal(packed, d["out"]) and torch.equal(again, packed))
+        if not (q["equal_to_dense"] and q["packed_equal_to_dense"]):
+            raise AssertionError(f"M={m} K={w.shape[-2]}: partition or packed not bitwise equal "
+                                 f"to dense ({q['equal_to_dense']}, {q['packed_equal_to_dense']})")
+        q["packed_ms"] = device_ms(run)
+        q["packed_factor"] = q["packed_ms"] / q["library_ms"]
         return strip(d), strip(q)
 
     # Per-tree weights, K=2 integer (classifier and nuisance levels).
@@ -505,10 +594,10 @@ def phase_kernels(frame_mod) -> dict:
     summary["hist_partition"] = part_rows[7]   # M=128
     summary["hist_t1"] = t1_row
 
-    # Shared weights, K=5 float (the causal levels), widths 1–64.
+    # Shared weights, K=5 float (the causal levels), widths 1–64, and 128.
     mom = moment_channels(n, rng, x.device)
     sh_rows, shp_rows = map(list, zip(*(both_modes(mom, m, True)
-                                        for m in (1, 2, 4, 8, 16, 32, 64))))
+                                        for m in (1, 2, 4, 8, 16, 32, 64, 128))))
     emit({"phase": "kernels", "kernel": "hist_shared", "rows": sh_rows})
     emit({"phase": "kernels", "kernel": "hist_partition_shared", "rows": shp_rows})
     summary["hist_shared"] = sh_rows[3]             # M=8: the deepest dense width under "auto" (K=5)
@@ -516,8 +605,7 @@ def phase_kernels(frame_mod) -> dict:
 
     # The packed pass: K=2 integer at the DML path's shape (one fold of
     # 5,508 rows, T=16) at its partition widths; K=5 float shared at the
-    # causal path's (11,016 rows), M=16–64 on the path and M=128, where
-    # one slot per block is left.
+    # causal path's (11,016 rows), M=16–64 on the path and M=128.
     fold = codes[: n // 2].contiguous()
     fold_w, fold_ids = kernel_cases(fold, rng)
     pk_rows = [measure_packed(fold, fold_w, fold_ids(m), m, False) for m in (32, 64, 128)]
@@ -547,7 +635,8 @@ def phase_kernels(frame_mod) -> dict:
                            rid.numel())
         route_rows.append({
             "M": m, "n": n, "T": t, "max_abs_err": err,
-            "ms": time_ms(lambda: tree.route_bits(codes, rid, feat, thr), 20),
+            "ms": device_ms(lambda: tree.route_bits(codes, rid, feat, thr)),
+            "call_ms": time_ms(lambda: tree.route_bits(codes, rid, feat, thr), 20),
             "plain_ms": time_ms(lambda: tree.route_bits_plain(codes, rid, feat, thr), 20),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     emit({"phase": "kernels", "kernel": "route", "rows": route_rows})
@@ -563,11 +652,12 @@ def phase_kernels(frame_mod) -> dict:
         err = check_equal("lookup", got, tree.table_lookup_plain(table, lid))
         gidx = lid.long().clamp(0, leaves - 1)[:, None, :].expand(tt_, kk, n)
         b_ms, b_by = bound(4 * (table.numel() + lid.numel() + got.numel()), got.numel())
-        lookup_rows.append({"M": leaves, "n": n, "T": tt_, "K": kk, "max_abs_err": err,
-                            "ms": time_ms(lambda: tree.table_lookup(table, lid), 20),
-                            "plain_ms": time_ms(lambda: tree.table_lookup_plain(table, lid), 20),
-                            "library_ms": time_ms(lambda: torch.gather(table, 2, gidx), 20),
-                            "bound_ms": b_ms, "bound_by": b_by})
+        row = {"M": leaves, "n": n, "T": tt_, "K": kk, "max_abs_err": err,
+               "call_ms": time_ms(lambda: tree.table_lookup(table, lid), 20),
+               "plain_ms": time_ms(lambda: tree.table_lookup_plain(table, lid), 20),
+               "bound_ms": b_ms, "bound_by": b_by}
+        lookup_rows.append(timed(row, lambda: tree.table_lookup(table, lid),
+                                 lambda: torch.gather(table, 2, gidx)))
     emit({"phase": "kernels", "kernel": "lookup", "rows": lookup_rows})
     summary["lookup"] = lookup_rows[0]
     return summary
@@ -674,8 +764,9 @@ def phase_path_cf(frame_mod) -> tuple[dict, dict]:
            "incorrect_ate": rep.incorrect_ate, "incorrect_se": rep.incorrect_se,
            "stages": stages, "wall_s": wall, "launches": counts}
     emit(out)
-    if r.ate != CF_ATE:
-        raise AssertionError(f"causal ATE moved: {r.ate!r}, recorded {CF_ATE!r}")
+    if (r.ate, r.se) != (CF_ATE, CF_SE):
+        raise AssertionError(f"causal ATE/SE moved: {r.ate!r}/{r.se!r}, recorded "
+                             f"{CF_ATE!r}/{CF_SE!r}")
     return counts, out
 
 
@@ -851,6 +942,8 @@ def phase_path_dml(frame_mod) -> dict:
         raise AssertionError(f"unpacked partition launches under the packed policy: {counts}")
     require_launched(counts, ("hist", "hist_partition_packed", "node_sums", "route", "lookup",
                               "pack_codes"), "DML")
+    if (r.ate, r.se) != (DML_TAU, DML_SE):
+        raise AssertionError(f"DML τ/SE moved: {r.ate!r}/{r.se!r}, recorded {DML_TAU!r}/{DML_SE!r}")
     return counts
 
 
@@ -924,26 +1017,29 @@ def phase_path_ipw(frame_mod) -> None:
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
 _PART = "ate_replication_causalml_torch/csrc/hist_partition.cu"
 _TPU = "ate_replication_causalml_tpu/ops/"
-SOURCES = {
-    "hist": (_HIST, _TPU + "hist_pallas.py:243"),
-    "hist_partition": (_PART, _TPU + "hist_pallas.py:335"),
-    "hist_shared": (_HIST, _TPU + "hist_pallas.py:782"),
-    "hist_partition_shared": (_PART, _TPU + "hist_pallas.py:335"),
-    "node_sums": (_HIST, _TPU + "hist_pallas.py:243"),
-    "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782"),
-    "route": ("ate_replication_causalml_torch/csrc/route.cu", _TPU + "tree_pallas.py:198"),
-    "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", _TPU + "tree_pallas.py:67"),
+SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device function)
+    "hist": (_HIST, _TPU + "hist_pallas.py:243", "hist_dense"),
+    "hist_partition": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
+    "hist_shared": (_HIST, _TPU + "hist_pallas.py:782", "hist_dense"),
+    "hist_partition_shared": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
+    "node_sums": (_HIST, _TPU + "hist_pallas.py:243", "hist_dense"),
+    "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782", "hist_dense"),
+    "route": ("ate_replication_causalml_torch/csrc/route.cu", _TPU + "tree_pallas.py:198",
+              "route_kernel"),
+    "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", _TPU + "tree_pallas.py:67",
+               "lookup_kernel"),
     # The pack=True branch of _hist_kernel_batched_partition (:415-445, :463-484).
-    "hist_partition_packed": (_PART, _TPU + "hist_pallas.py:463"),
-    "hist_partition_shared_packed": (_PART, _TPU + "hist_pallas.py:463"),
+    "hist_partition_packed": (_PART, _TPU + "hist_pallas.py:463", "partition_accumulate_packed"),
+    "hist_partition_shared_packed": (_PART, _TPU + "hist_pallas.py:463",
+                                     "partition_accumulate_packed"),
     # Its in-kernel pack matmul.
-    "pack_codes": (_PART, _TPU + "hist_pallas.py:441"),
+    "pack_codes": (_PART, _TPU + "hist_pallas.py:441", "pack_words"),
 }
 
 
 def main() -> int:
     name, smi = phase_device()
-    phase_build()
+    functions = phase_build()
     frame, frame_mod = notebook_frames("cuda")
     timing = phase_kernels(frame_mod)
     by_path = {"dr_rf": phase_path(frame, frame_mod)}
@@ -955,14 +1051,18 @@ def main() -> int:
     phase_parity_dml(frame_mod)
     phase_path_ipw(frame_mod)
     kernels = []
-    for k, (src, rep) in SOURCES.items():
+    for k, (src, rep, device_fn) in SOURCES.items():
         row = timing[k]
+        ptxas = [v for f, v in functions.items() if f.split("<")[0] == device_fn]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": sum(c[k] for c in by_path.values()),
                         "launches_by_path": {p: c[k] for p, c in by_path.items()},
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "factor": row.get("factor"), "call_ms": row.get("call_ms"),
+                        "registers": max((v.get("registers", 0) for v in ptxas), default=None),
+                        "spill_bytes": max((v.get("spill_bytes", 0) for v in ptxas), default=None)})
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     RECORD["kernels"] = kernels

@@ -220,18 +220,22 @@ def test_unported_modes_rejected():
                                                     mode=mode), dense)
 
 
-def test_kernel_path_refuses_float_weights():
+def test_kernel_path_takes_float_weights_and_raises_off_cuda():
     """Off the CPU every wrapper goes to its kernel whatever the weights:
-    float weights are no longer refused (the kernels add in a fixed
-    order), and a device without a kernel raises instead of falling back
-    (meta tensors reach that point without a card)."""
+    float weights are taken (the kernels add in a fixed order), and a
+    device without a kernel raises instead of falling back (meta tensors
+    reach that point without a card), in every formulation."""
     codes, ids, w = (torch.as_tensor(a).to("meta")
                      for a in _case(3, 100, 3, 2, 2, 4, integer=False))
     calls = (
         lambda: th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS),
         lambda: th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS,
                                          mode="partition"),
+        lambda: th.bin_histogram_batched(codes, ids, w, max_nodes=4, n_bins=N_BINS,
+                                         mode="partition+pack"),
         lambda: th.bin_histogram_shared(codes, ids, w[0], max_nodes=4, n_bins=N_BINS),
+        lambda: th.bin_histogram_shared(codes, ids, w[0], max_nodes=4, n_bins=N_BINS,
+                                        mode="partition+pack"),
         lambda: th.node_sums(ids, w, 4),
         lambda: th.node_sums_shared(ids, w[0], 4),
     )
@@ -249,3 +253,97 @@ def test_wrapper_rejects_wrong_dtypes():
     with pytest.raises(TypeError, match=r"\(K, n\)"):
         th.bin_histogram_shared(codes, ids, w, max_nodes=2, n_bins=N_BINS)
 
+
+
+# (K, M, p, n_bins): the paths' shapes (K=2 classifier levels and leaf
+# sums, K=5 causal levels and honest leaf sums, p=21, 64 bins) and edges
+# (every K to 8, M not a power of two, p of 1, 2, 20 and 22, 1 and 128 bins).
+GEOMETRY_CASES = (
+    [(2, m, 21, 64) for m in (1, 2, 4, 8, 16, 32, 64, 128)]
+    + [(5, m, 21, 64) for m in (1, 2, 4, 8, 16, 32, 64, 128)]
+    + [(2, 512, 1, 1), (5, 256, 1, 1)]
+    + [(k, 100, 21, 64) for k in (1, 3, 8)]
+    + [(8, 128, 20, 64), (4, 3, 22, 128), (6, 77, 2, 16), (7, 1, 1, 128), (2, 1000, 1, 1)]
+)
+PATH_PACKED = [(2, m) for m in (32, 64, 128)] + [(5, m) for m in (16, 32, 64, 128)]
+
+
+@pytest.mark.parametrize("n,n_trees", [(11016, 16), (1_000_000, 16), (5, 2), (11016, 1)])
+@pytest.mark.parametrize("k,m,p,n_bins", GEOMETRY_CASES)
+def test_dense_geometry_gives_each_cell_one_warp(k, m, p, n_bins, n, n_trees):
+    """The dense kernel's blocks (feature group × node group) and warps
+    (feature × contiguous node run) cover each (feature, node) cell
+    exactly once; a block stays within 16 warps and the two-blocks-per-SM
+    budget, or within a block's 227 KB where one node's tile exceeds it."""
+    shape = (k, m, p, n_bins, n_trees, th._n_parts(n, n_trees, p))
+    f_per = th.dense_features_per_block(*shape)
+    groups = th.dense_node_groups(k, m, n_bins)
+    slices = th.dense_warps_per_feature(*shape)
+    group = -(-m // groups)
+    run = -(-group // slices)
+    assert 1 <= f_per * slices <= th._DENSE_MAX_WARPS and groups <= m
+    owners = np.zeros((p, m), np.int64)
+    for fg in range(-(-p // f_per)):
+        for g in range(groups):
+            nodes = min(group, m - g * group)
+            for warp in range(f_per * slices):
+                f = fg * f_per + warp % f_per
+                lo = (warp // f_per) * run
+                if f < p and lo < nodes:
+                    owners[f, g * group + lo: g * group + min(lo + run, nodes)] += 1
+    assert (owners == 1).all()
+    used = th.dense_block_bytes(*shape)
+    assert used <= th._MAX_SMEM_BYTES
+    one_node = 4 * k * n_bins + th._dense_stage_bytes(k, 1)
+    assert used <= th._DENSE_SMEM_BUDGET or one_node > th._DENSE_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("k,m,p,n_bins", GEOMETRY_CASES)
+def test_packed_geometry_gives_each_cell_one_block(k, m, p, n_bins):
+    """The packed pass's blocks (word × slot group × node group) cover each
+    (feature, node) cell exactly once, within a quarter of an SM's shared
+    memory (four 16-warp blocks on an SM), and take all 3 slots of a word
+    at every shape here (K ≤ 8, n_bins ≤ 128)."""
+    slots = th.packed_slots(k, m, n_bins)
+    groups = th.packed_node_groups(k, m, n_bins)
+    group = -(-m // groups)
+    owners = np.zeros((p, m), np.int64)
+    for word in range(tp.packed_width(p)):
+        for sg in range(-(-tp.PACK_SLOTS // slots)):
+            for g in range(groups):
+                s0 = sg * slots
+                for s in range(s0, min(s0 + slots, tp.PACK_SLOTS)):
+                    f = word * tp.PACK_SLOTS + s
+                    if f < p:
+                        owners[f, g * group: min(m, (g + 1) * group)] += 1
+    assert (owners == 1).all()
+    assert th.packed_block_bytes(k, m, n_bins) <= th._PACKED_SMEM_BUDGET
+    assert slots == tp.PACK_SLOTS
+
+
+@pytest.mark.parametrize("k,m", PATH_PACKED)
+def test_packed_pass_keeps_three_slots_on_the_paths(k, m):
+    """At the paths' partition widths (K=2: 32–128, K=5: 16–128) a block
+    takes all three slots of a word, where a whole (K, M, 64) tile per
+    slot took 2 or 1 at K=5 M ≥ 64; node groups absorb the width, at
+    least two of them."""
+    assert th.packed_slots(k, m, N_BINS) == 3
+    groups = th.packed_node_groups(k, m, N_BINS)
+    assert 3 * 4 * k * -(-m // groups) * N_BINS <= th._PACKED_SMEM_BUDGET
+    # The fewest groups that fit, but at least two.
+    assert groups == 2 or 3 * 4 * k * -(-m // (groups - 1)) * N_BINS > th._PACKED_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("k,m,p,n,f_per", [(2, 1, 21, 11016, 3), (2, 16, 21, 11016, 3),
+                                          (2, 128, 21, 11016, 1), (5, 8, 21, 11016, 3),
+                                          (2, 128, 21, 1_000_000, 1), (2, 512, 1, 11016, 1)])
+def test_dense_grid_fills_the_card_at_the_paths_shapes(k, m, p, n, f_per):
+    """At the paths' shapes (16 trees) the dense grid has at least 2.5
+    blocks per SM of an H100, as few features per block as that needs;
+    a block with a feature to itself splits its nodes over 4 warps."""
+    n_parts = th._n_parts(n, 16, p)
+    shape = (k, m, p, 64 if p > 1 else 1, 16, n_parts)
+    assert th.dense_features_per_block(*shape) == f_per
+    groups = th.dense_node_groups(k, m, shape[3])
+    assert 16 * n_parts * groups * -(-p // f_per) >= 330 or f_per == 1
+    assert th.dense_warps_per_feature(*shape) == (4 if f_per == 1 else 1)

@@ -34,14 +34,18 @@ def cuda():
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def _hist_case(seed, n, p, t, m, dev):
+def _hist_case(seed, n, p, t, m, dev, k=2):
+    """Codes in [0, n_bins + 3) (the top three add nothing), ids in
+    [-1, m + 2) (−1 and ≥ m add nothing), K integer weight channels:
+    counts, counts·y, then counts·(c mod 3) for further channels."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, N_BINS, size=(n, p)).astype(np.int32)
+    codes = rng.integers(0, N_BINS + 3, size=(n, p)).astype(np.int32)
     ids = rng.integers(-1, m + 2, size=(t, n)).astype(np.int32)
     counts = rng.poisson(1.0, size=(t, n)).astype(np.float32)
     y = (rng.random(n) < 0.4).astype(np.float32)
-    w = np.stack([counts, counts * y], axis=1)
-    return tuple(torch.as_tensor(a, device=dev) for a in (codes, ids, w))
+    extra = [counts * (rng.integers(0, 3, size=n).astype(np.float32)) for _ in range(k - 2)]
+    w = np.stack([counts, counts * y] + extra, axis=1)[:, :k]
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (codes, ids, w))
 
 
 def _moments(seed, n, dev):
@@ -62,12 +66,25 @@ def _float_bound(got, want, w):
     return bool(torch.all((got - want).abs() <= 16 * EPS32 * scale))
 
 
-@pytest.mark.parametrize("mode", ["dense", "partition"])
-@pytest.mark.parametrize("n,t,m", [(11016, 16, 1), (11016, 16, 128), (100_000, 3, 32), (5, 2, 4)])
-def test_hist_kernel_equals_plain(cuda, mode, n, t, m):
-    """Integer weights: both formulations exact, reruns bitwise equal."""
-    codes, ids, w = _hist_case(n + m, n, 21, t, m, cuda)
-    counter = "launches" if mode == "dense" else "partition_launches"
+COUNTERS = {"dense": "launches", "partition": "partition_launches",
+            "partition+pack": "packed_launches"}
+# (n, T, M, K, p): the paths' shapes, unaligned row counts with one row
+# range (n = 5, 1,000) and several (11,016, 100,003), every K the kernels
+# instantiate that the tests reach (1, 2, 3, 5, 8), M not a power of two
+# (nor a multiple of the node groups), p not a multiple of a block's
+# features or of a packed word's three slots.
+HIST_CASES = [(11016, 16, 1, 2, 21), (11016, 16, 128, 2, 21), (100_003, 3, 32, 2, 21),
+              (5, 2, 4, 2, 21), (1000, 4, 100, 1, 20), (1000, 2, 8, 3, 22),
+              (5508, 16, 64, 5, 21), (3001, 3, 100, 8, 21)]
+
+
+@pytest.mark.parametrize("mode", ["dense", "partition", "partition+pack"])
+@pytest.mark.parametrize("n,t,m,k,p", HIST_CASES)
+def test_hist_kernel_equals_plain(cuda, mode, n, t, m, k, p):
+    """Integer weights: every formulation exact, reruns bitwise equal,
+    one launch counted per call."""
+    codes, ids, w = _hist_case(n + m + k, n, p, t, m, cuda, k)
+    counter = COUNTERS[mode]
     before = getattr(th.bin_histogram_batched, counter)
     got = th.bin_histogram_batched(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode=mode)
     torch.cuda.synchronize()
@@ -77,19 +94,32 @@ def test_hist_kernel_equals_plain(cuda, mode, n, t, m):
                                                      mode=mode))
 
 
-@pytest.mark.parametrize("m", [1, 16, 64])
+def test_hist_kernel_equals_plain_at_a_million_rows(cuda):
+    """bench.py's forest size: 1,000,000 rows, 16 trees, K=2, M=128, three
+    row ranges of 333,334 rows; dense and partition exact."""
+    codes, ids, w = _hist_case(1, 1_000_000, 21, 16, 128, cuda)
+    want = th.bin_histogram_batched_plain(codes, ids, w, 128, N_BINS)
+    for mode in ("dense", "partition"):
+        got = th.bin_histogram_batched(codes, ids, w, max_nodes=128, n_bins=N_BINS, mode=mode)
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_shared_float_kernel_within_bound_and_stable(cuda, m):
     """K=5 float channels shared by 16 trees at the causal path's shape:
     within the bound of the plain version, two launches bitwise equal,
-    and dense and partition give the same bits (each cell sums its rows
-    in ascending order within each row range in both)."""
+    and dense, partition and the packed pass give the same bits (each
+    cell sums its rows in ascending order within each row range in all
+    three)."""
     codes, ids, _ = _hist_case(m, 11016, 21, 16, m, cuda)
     w = _moments(m, 11016, cuda)
     dense = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS)
     part = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition")
+    packed = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS,
+                                     mode="partition+pack")
     again = th.bin_histogram_shared(codes, ids, w, max_nodes=m, n_bins=N_BINS)
     torch.cuda.synchronize()
-    assert torch.equal(dense, again) and torch.equal(dense, part)
+    assert torch.equal(dense, again) and torch.equal(dense, part) and torch.equal(dense, packed)
     assert _float_bound(dense, th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS), w)
     # Per-tree float weights take the same path with a tree stride.
     wt = w[None].repeat(16, 1, 1)
@@ -110,10 +140,12 @@ def test_pack_kernel_equals_plain(cuda, p):
     assert torch.equal(tp.unpack_codes(words, p), codes)
 
 
-# (K, M, p): every slots-per-block case of the packed pass (3, 2, 1) and
-# ragged feature counts (a last word with one or two slots).
-PACKED_CASES = [(2, 32, 21), (2, 128, 21), (2, 64, 20), (5, 32, 21), (5, 64, 21),
-                (5, 128, 21), (5, 64, 22), (5, 128, 20)]
+# (K, M, p): the paths' packed widths (K=2: 32–128, K=5: 16–128, one to
+# ten node groups), ragged feature counts (a last word with one or two
+# slots), M not a multiple of the node groups, and K = 1, 3, 8.
+PACKED_CASES = [(2, 32, 21), (2, 128, 21), (2, 64, 20), (5, 16, 21), (5, 32, 21), (5, 64, 21),
+                (5, 128, 21), (5, 64, 22), (5, 128, 20), (2, 100, 21), (1, 64, 22),
+                (3, 128, 20), (8, 64, 21)]
 
 
 @pytest.mark.parametrize("k,m,p", PACKED_CASES)
@@ -121,8 +153,8 @@ def test_packed_kernel_equals_unpacked_and_plain(cuda, k, m, p):
     """The packed pass against the unpacked partition kernel (bit for bit,
     integer and float weights) and the plain version (exact for integer
     weights, within the float bound otherwise); two launches equal."""
-    codes, ids, wi = _hist_case(k * 1000 + m + p, 5508 if k == 2 else 11016, p, 16, m, cuda)
-    if k == 2:
+    codes, ids, wi = _hist_case(k * 1000 + m + p, 11016 if k == 5 else 5508, p, 16, m, cuda, k)
+    if k != 5:
         w, shared, fn = wi, False, th.bin_histogram_batched
     else:
         w, shared, fn = _moments(m, codes.shape[0], cuda), True, th.bin_histogram_shared
@@ -188,7 +220,7 @@ def test_node_sums_kernel_equals_plain(cuda):
     assert torch.all((got - want).abs() <= 16 * EPS32 * ws.abs().sum(dim=1)[None, None, :])
 
 
-def test_kernels_refuse_float_weights_and_count_only_launches(cuda):
+def test_kernels_take_float_weights_and_count_only_launches(cuda):
     """Float weights now launch the kernel (counted once per launch); an
     empty call launches nothing and counts nothing."""
     codes, ids, w = _hist_case(4, 1000, 21, 2, 8, cuda)

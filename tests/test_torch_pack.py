@@ -190,9 +190,10 @@ def test_packed_mode_checks():
                                  mode="partition+pack", packed=codes)
     with pytest.raises(ValueError, match="n_bins <= 128"):
         th.bin_histogram_batched(codes, ids, w, max_nodes=2, n_bins=256, mode="partition+pack")
-    # Slots per block of the packed pass, from the 227 KB of shared memory.
+    # Slots per block of the packed pass: node groups keep all three at
+    # every width of the paths (K=2 and K=5).
     assert [th.packed_slots(2, m, 64) for m in (32, 64, 128)] == [3, 3, 3]
-    assert [th.packed_slots(5, m, 64) for m in (16, 32, 64, 128)] == [3, 3, 2, 1]
+    assert [th.packed_slots(5, m, 64) for m in (16, 32, 64, 128)] == [3, 3, 3, 3]
 
 
 def test_packed_mode_launches_or_raises_off_the_cpu():
