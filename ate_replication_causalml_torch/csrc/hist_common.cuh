@@ -10,12 +10,13 @@
 // the adds of rank r finish before those of rank r + 1. Across warps, each
 // cell is written by one warp only, which walks its rows in ascending
 // order: the dense kernel gives each warp whole features and a contiguous
-// run of nodes, the partition kernel node m to warp m mod 16, and its
-// packed pass a contiguous run of nodes per warp and slot. When several
-// row ranges split the rows, their partial tiles are added in range order:
-// by a second pass over one slab per range, or by a packed-pass block
-// itself, range after range. Dense and partition share the row ranges and
-// that sum, so they give the same bits for float weights too.
+// run of nodes, and the partition passes a contiguous run of nodes per
+// warp and feature (or slot). When several row ranges split the rows,
+// their partial tiles are added in range order: by a second pass over one
+// slab per range, across the blocks of a thread-block cluster, or by a
+// packed-pass block itself, range after range. Dense and partition share
+// the row ranges and that sum, so they give the same bits for float
+// weights too.
 //
 // What bounds these kernels on an H100 is latency, not bytes or
 // arithmetic: a warp's adds into one tile form a chain of shared-memory
@@ -56,6 +57,41 @@ __device__ __forceinline__ void add_ordered(float* tile, int chan, int cell, con
     }
     __syncwarp();
   }
+}
+
+// add_ordered's adds with a step's running sums in registers: the lowest
+// lane of each cell reads the tile and adds its weights, each later lane of
+// the cell takes the running sum from the one before it (a shuffle) and
+// adds its own, and the cell's highest lane writes the sum back. The same
+// float adds in the same order, so the same bits; a round costs K shuffles
+// and adds where add_ordered's costs K shared-memory read-modify-writes and
+// a __syncwarp (the unpacked partition pass's accumulate took 0.75-0.93x
+// the time with it, scripts/torch_hist_geometry.py). Warp-uniform: every
+// lane must call it.
+template <int K>
+__device__ __forceinline__ void add_chained(float* tile, int chan, int cell, const float (&w)[K]) {
+  const unsigned lane = threadIdx.x & 31u;
+  const bool mine = cell >= 0;
+  const unsigned same = __match_any_sync(kFull, mine ? cell : -1);
+  const unsigned below = same & ((1u << lane) - 1u);
+  const unsigned rank = __popc(below);
+  const unsigned rounds = __reduce_max_sync(kFull, mine ? rank + 1u : 0u);
+  const int prev = below ? 31 - __clz(below) : static_cast<int>(lane);  // rank - 1's lane
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = mine && rank == 0 ? tile[k * chan + cell] + w[k] : 0.0f;
+  for (unsigned r = 1; r < rounds; ++r) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float v = __shfl_sync(kFull, acc[k], prev);
+      if (mine && rank == r) acc[k] = v + w[k];
+    }
+  }
+  if (mine && (same >> lane) == 1u) {  // the cell's highest lane
+#pragma unroll
+    for (int k = 0; k < K; ++k) tile[k * chan + cell] = acc[k];
+  }
+  __syncwarp();
 }
 
 // w[k] = w_t[k * n + row] for a lane that holds a row, else 0.

@@ -15,8 +15,13 @@
 // What bounds it on an H100: as for the dense kernel, the latency of the
 // ordered adds (hist_common.cuh), not the bytes (the dense kernel's inputs
 // and output, plus a (T, n) permutation written and read once); here each
-// warp's chain is the rows of its own nodes, and the second pass over the
-// row ranges' partial slabs is the largest byte stream.
+// warp's chain is the rows of its own nodes. Two byte streams come close
+// behind: partial slabs per row range, written and read again by a second
+// pass (66 MB each way at K=2, M=128, 16 trees, 3 ranges), and the
+// gathers, which move a 32-byte sector for every 4-byte value of a random
+// row (per row and feature: a code, K weights and a node id; ~0.5 GB of
+// L2 traffic a call at K=2). The passes below add the ranges without
+// slabs, and the unpacked pass gathers only the code.
 //
 // Design. The TPU kernel regrouped rows with a one-hot permutation matmul
 // in VMEM, so its FLOPs scale with rows instead of rows x nodes. On the card
@@ -29,12 +34,25 @@
 //      the same node (__match_any_sync ranks within a 32-row step). The sort is
 //      stable, so a node's rows keep ascending row order. Writes perm
 //      (T, n) and segment starts seg (T, n_parts, M + 1).
-//   2. partition_accumulate, one block per (row range, feature, tree): warp
-//      w takes nodes w, w + 16, ... and walks each node's segment in order
-//      into the shared (K, M, n_bins) tile with the ordered adds of
-//      hist_common.cuh. Each cell thus sums its rows in ascending row order
-//      within the range, exactly as in hist.cu, and the same second pass
-//      adds the ranges: dense and partition give the same bits.
+//   1b. partition_gather, for the unpacked pass: each sorted position's
+//      node and K weights, gathered once into perm order (node_sorted,
+//      w_sorted), so that the 21 feature blocks read them coalesced.
+//   2. partition_accumulate (the unpacked pass), one block per (row range,
+//      feature, tree) holding one (K, M, n_bins) tile (blocks of 2-4 features,
+//      sharing each row's loads, ran slower). Warp r takes the contiguous nodes
+//      whose segment midpoints lie in the r-th sixteenth of the range's rows
+//      and walks their rows in full 32-lane steps across segment boundaries:
+//      per lane, a code gathered through perm, and the node and weights at its
+//      position. The step's adds run in registers (add_chained). With 2 to 8
+//      row ranges the range blocks of one (feature, tree) form a thread-block
+//      cluster: once every tile is full, block r adds the r-th share of the
+//      cells over the cluster's tiles through distributed shared memory, range
+//      0's value first, then range 1's, ..., and writes the sum: the second
+//      pass's arithmetic, with no slab. One range writes its tile directly;
+//      more than 8 (no path has them) keep one slab per range and the second
+//      pass (hist_reduce). Each cell thus sums its rows in ascending row order
+//      within each range, and the ranges in order, exactly as hist.cu does:
+//      dense and partition give the same bits.
 //   2'. partition_accumulate_packed (the packed pass), one block per (slot
 //      group of a packed word, node group, tree). The codes come as (n, ceil(p/3)) int32
 //      words of three 7-bit codes (ops/pack.py; built once per fit by
@@ -60,7 +78,11 @@
 //      ranges are added in the same order, so packed == unpacked == dense
 //      bit for bit, for integer and float weights. K is a template
 //      parameter: no per-lane array lives in local memory.
+#include <cooperative_groups.h>
+
 #include "hist_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -142,53 +164,50 @@ __global__ void __launch_bounds__(kThreads) partition_rows(
   }
 }
 
+// Step 1b, for the unpacked pass: each sorted position's node and weights
+// in perm order, node_sorted (T, n) and w_sorted (T, K, n), gathered by
+// row once here and read coalesced by every feature's block, which would
+// otherwise gather a 32-byte sector per lane for each of them. Positions
+// past a range's sorted rows are not written.
+__global__ void partition_gather(const int32_t* __restrict__ ids, int64_t n, int n_trees,
+                                 int n_parts, int max_nodes, int64_t rows_per_block,
+                                 const int32_t* __restrict__ perm,
+                                 const int32_t* __restrict__ seg, const float* __restrict__ w,
+                                 int64_t w_tree_stride, int n_weights,
+                                 int32_t* __restrict__ node_sorted, float* __restrict__ w_sorted) {
+  const int64_t total = static_cast<int64_t>(n_trees) * n;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+       e += stride) {
+    const int64_t t = e / n;
+    const int64_t pos = e - t * n;
+    const int64_t part = pos / rows_per_block;
+    const int32_t count = seg[(t * n_parts + part) * (max_nodes + 1) + max_nodes];
+    if (pos - part * rows_per_block >= count) continue;
+    const int64_t row = perm[e];
+    node_sorted[e] = ids[t * n + row];
+    const float* w_t = w + t * w_tree_stride;
+    for (int k = 0; k < n_weights; ++k) w_sorted[(t * n_weights + k) * n + pos] = w_t[k * n + row];
+  }
+}
+
 constexpr int kPackSlots = 3;  // codes per word (ops/pack.py PACK_SLOTS)
 constexpr int kSlotBits = 7;   // PACK_RADIX = 2^7
 constexpr uint32_t kSlotMask = (1u << kSlotBits) - 1u;
 // Two 512-thread blocks an SM at least: up to 64 registers a thread, so
 // ptxas need not spill to reach four.
 constexpr int kAccumulateMinBlocks = 2;
+// The unpacked pass: four 512-thread blocks an SM (32 registers a thread)
+// where its tiles allow them (K=2 M <= 64, K=5 M <= 32); three from K=7,
+// which spills at 32.
+constexpr int kUnpackedMinBlocks = 4;
+constexpr int kUnpackedMinBlocksWide = 3;
+constexpr int kUnpackedWideK = 7;
 // The packed pass's warps: 5 runs of nodes, 3 warps each (one per slot).
 constexpr int kRuns = kWarps / kPackSlots;
-
-template <int K>
-__global__ void __launch_bounds__(kThreads, kAccumulateMinBlocks) partition_accumulate(
-    const int32_t* __restrict__ codes, int64_t n, int p, const int32_t* __restrict__ perm,
-    const int32_t* __restrict__ seg, const float* __restrict__ w, int64_t w_tree_stride,
-    int n_trees, int n_parts, int max_nodes, int n_bins, int64_t rows_per_block,
-    float* __restrict__ out) {
-  extern __shared__ float tile[];  // (K, max_nodes, n_bins)
-  const int part = blockIdx.x;
-  const int f = blockIdx.y;
-  const int t = blockIdx.z;
-  const int chan = max_nodes * n_bins;
-  zero_tile(tile, K * chan);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int32_t* seg_tp = seg + (static_cast<int64_t>(t) * n_parts + part) * (max_nodes + 1);
-  const int32_t* perm_tp = perm + static_cast<int64_t>(t) * n
-                           + static_cast<int64_t>(part) * rows_per_block;
-  const float* w_t = w + static_cast<int64_t>(t) * w_tree_stride;
-  for (int m = warp; m < max_nodes; m += kWarps) {
-    const int32_t s1 = seg_tp[m + 1];
-    for (int32_t i = seg_tp[m]; i < s1; i += 32) {
-      int cell = -1;
-      int64_t row = 0;
-      if (i + lane < s1) {
-        row = perm_tp[i + lane];
-        const int code = codes[row * p + f];
-        if (code >= 0 && code < n_bins) cell = m * n_bins + code;
-      }
-      float wk[K];
-      load_weights<K>(wk, w_t, n, row, cell >= 0);
-      add_ordered<K>(tile, chan, cell, wk);
-    }
-  }
-  __syncthreads();
-  write_tile(tile, n_trees, K, max_nodes, p, n_bins, part, f, t, 0, max_nodes, max_nodes, out);
-}
+// Most row ranges one cluster of the unpacked pass takes (the portable
+// cluster size); more keep the partial slabs and the second pass.
+constexpr int kMaxClusterRanges = 8;
 
 // First node m in [lo, hi) whose segment starts at or after position q
 // (hi if none): seg is non-decreasing.
@@ -203,6 +222,100 @@ __device__ __forceinline__ int first_node_from(const int32_t* __restrict__ seg_t
     }
   }
   return lo;
+}
+
+// The unpacked pass's node runs. Warp r walks run r of kWarps runs of
+// whole, contiguous nodes: the nodes whose segment midpoints lie in the
+// r-th sixteenth of the range's rows, so a run's rows are its share give
+// or take half a node at each end (splitting at segment starts instead
+// gave some runs a whole extra node: 1.7x the rows at M=16). A node never
+// spans two runs, so each cell keeps one writer.
+// First node m in [0, max_nodes) with seg[m] + seg[m + 1] >= q2 (max_nodes if
+// none): twice the midpoint is non-decreasing in m.
+__device__ __forceinline__ int first_node_by_mid(const int32_t* __restrict__ seg_tp,
+                                                 int max_nodes, int32_t q2) {
+  int lo = 0, hi = max_nodes;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (seg_tp[mid] + seg_tp[mid + 1] < q2) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The unpacked pass, one block per (row range, feature, tree). With
+// 2..kMaxClusterRanges ranges (clustered), the range blocks of one
+// (feature, tree) form one thread-block cluster: after its tile is full,
+// block r sums the r-th share of the cells over the cluster's tiles
+// (distributed shared memory) in range order, from range 0's value, and
+// writes it to out. Otherwise each block writes its tile to the slab of
+// its range (one range: out itself; more: the second pass adds them).
+template <int K>
+__global__ void __launch_bounds__(kThreads,
+                                  K < kUnpackedWideK ? kUnpackedMinBlocks : kUnpackedMinBlocksWide)
+    partition_accumulate(
+    const int32_t* __restrict__ codes, int64_t n, int p, const int32_t* __restrict__ perm,
+    const int32_t* __restrict__ seg, const int32_t* __restrict__ node_sorted,
+    const float* __restrict__ w_sorted, int n_trees, int n_parts, int max_nodes, int n_bins,
+    int64_t rows_per_block, int clustered, float* __restrict__ out) {
+  extern __shared__ float tile[];  // (K, max_nodes, n_bins)
+  const int part = blockIdx.x;
+  const int f = blockIdx.y;
+  const int t = blockIdx.z;
+  const int chan = max_nodes * n_bins;
+  zero_tile(tile, K * chan);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int32_t* seg_tp = seg + (static_cast<int64_t>(t) * n_parts + part) * (max_nodes + 1);
+  const int64_t range_first = static_cast<int64_t>(part) * rows_per_block;
+  const int32_t* perm_tp = perm + static_cast<int64_t>(t) * n + range_first;
+  const int32_t* node_tp = node_sorted + static_cast<int64_t>(t) * n + range_first;
+  const float* ws_tp = w_sorted + static_cast<int64_t>(t) * K * n + range_first;
+  const int32_t chunk2 = 2 * ((seg_tp[max_nodes] + kWarps - 1) / kWarps);
+  const int32_t i0 = seg_tp[first_node_by_mid(seg_tp, max_nodes, warp * chunk2)];
+  const int32_t i1 = seg_tp[warp + 1 == kWarps
+                                ? max_nodes
+                                : first_node_by_mid(seg_tp, max_nodes, (warp + 1) * chunk2)];
+  // A step gathers one code per lane; the position's node and weights come
+  // in perm order, coalesced.
+  for (int32_t i = i0; i < i1; i += 32) {
+    int cell = -1;
+    const int32_t pos = i + lane;
+    if (pos < i1) {
+      const int code = codes[static_cast<int64_t>(perm_tp[pos]) * p + f];
+      if (code >= 0 && code < n_bins) cell = node_tp[pos] * n_bins + code;
+    }
+    float wk[K];
+    load_weights<K>(wk, ws_tp, n, pos, cell >= 0);
+    add_chained<K>(tile, chan, cell, wk);
+  }
+  if (!clustered) {
+    __syncthreads();
+    write_tile(tile, n_trees, K, max_nodes, p, n_bins, part, f, t, 0, max_nodes, max_nodes, out);
+    return;
+  }
+  // Every block of the cluster reaches both barriers, rows or none.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every range's tile is full
+  // The tile's cells in out's order: (k, m) rows of n_bins contiguous
+  // floats. Block `part` takes the part-th contiguous share.
+  const int size = K * chan;
+  const int share = (size + n_parts - 1) / n_parts;
+  const int hi = (part + 1) * share < size ? (part + 1) * share : size;
+  float* out_t = out + static_cast<int64_t>(t) * K * max_nodes * p * n_bins
+                 + static_cast<int64_t>(f) * n_bins;
+  for (int i = part * share + threadIdx.x; i < hi; i += blockDim.x) {
+    const int km = i / n_bins;  // k * max_nodes + m
+    float v = *cluster.map_shared_rank(tile + i, 0);
+    for (int r = 1; r < n_parts; ++r) v += *cluster.map_shared_rank(tile + i, r);
+    out_t[static_cast<int64_t>(km) * p * n_bins + (i - km * n_bins)] = v;
+  }
+  cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
 template <int K>
@@ -304,27 +417,27 @@ __global__ void pack_words(const int32_t* __restrict__ codes, int64_t n, int p,
   }
 }
 
-// Step 1 for both accumulate passes.
+// Step 1 for both accumulate passes, and step 1b for the unpacked one
+// (node_sorted non-null).
 cudaError_t launch_partition_rows(const int32_t* ids, int64_t n, int n_trees, int n_parts,
-                                  int max_nodes, int64_t rows_per_block, int32_t* perm,
-                                  int32_t* seg, cudaStream_t s) {
+                                  int max_nodes, int32_t* perm, int32_t* seg, const float* w,
+                                  int64_t w_tree_stride, int n_weights, int32_t* node_sorted,
+                                  float* w_sorted, cudaStream_t s) {
   const size_t sort_smem =
       static_cast<size_t>(kWarps * max_nodes + max_nodes + 1) * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
       partition_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sort_smem));
   if (err != cudaSuccess) return err;
+  const int64_t rows_per_block = (n + n_parts - 1) / n_parts;
   partition_rows<<<dim3(n_parts, n_trees), kThreads, sort_smem, s>>>(
       ids, n, n_parts, max_nodes, rows_per_block, perm, seg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || node_sorted == nullptr) return err;
+  const int64_t want = (static_cast<int64_t>(n_trees) * n + 255) / 256;
+  partition_gather<<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, s>>>(
+      ids, n, n_trees, n_parts, max_nodes, rows_per_block, perm, seg, w, w_tree_stride,
+      n_weights, node_sorted, w_sorted);
   return cudaGetLastError();
-}
-
-// The second pass over the row ranges (none when there is one range).
-cudaError_t finish(cudaError_t err, const void* partial, int n_parts, int n_trees, int n_weights,
-                   int max_nodes, int p, int n_bins, void* out, cudaStream_t s) {
-  if (err != cudaSuccess || n_parts == 1) return err;
-  const int64_t size = static_cast<int64_t>(n_trees) * n_weights * max_nodes * p * n_bins;
-  return launch_reduce(static_cast<const float*>(partial), n_parts, size,
-                       static_cast<float*>(out), s);
 }
 
 struct PartitionLaunch {
@@ -336,23 +449,57 @@ struct PartitionLaunch {
   const int32_t* seg;
   const float* w;
   int64_t w_tree_stride;
-  int n_trees, n_parts, max_nodes, n_bins, slots, node_groups;
-  int64_t rows_per_block;
+  int n_trees, n_parts, max_nodes, n_bins;
+  // The unpacked pass: node_sorted (T, n) and w_sorted (T, K, n) in perm order.
+  const int32_t* node_sorted;
+  const float* w_sorted;
+  int clustered;
+  int slots, node_groups;  // the packed pass
   float* out;
   cudaStream_t stream;
 };
 
+int64_t rows_per_block(const PartitionLaunch& a) { return (a.n + a.n_parts - 1) / a.n_parts; }
+
+// The unpacked pass's launch: grid (ranges, features, trees), one
+// cluster of all ranges when clustered; its shared memory allowed.
+template <int K>
+cudaError_t accumulate_config(const PartitionLaunch& a, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* cluster) {
+  *cfg = {};
+  cfg->gridDim = dim3(a.n_parts, a.p, a.n_trees);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(K) * a.max_nodes * a.n_bins * sizeof(float);
+  cfg->stream = a.stream;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = a.clustered ? a.n_parts : 1;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg->attrs = cluster;
+  cfg->numAttrs = 1;
+  return cudaFuncSetAttribute(partition_accumulate<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(cfg->dynamicSmemBytes));
+}
+
 template <int K>
 cudaError_t launch_accumulate(const PartitionLaunch& a) {
-  const size_t smem = static_cast<size_t>(K) * a.max_nodes * a.n_bins * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(partition_accumulate<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  cudaError_t err = accumulate_config<K>(a, &cfg, &cluster);
   if (err != cudaSuccess) return err;
-  partition_accumulate<K><<<dim3(a.n_parts, a.p, a.n_trees), kThreads, smem, a.stream>>>(
-      a.codes, a.n, a.p, a.perm, a.seg, a.w, a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes,
-      a.n_bins, a.rows_per_block, a.out);
-  return cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, partition_accumulate<K>, a.codes, a.n, a.p, a.perm, a.seg,
+                           a.node_sorted, a.w_sorted, a.n_trees, a.n_parts, a.max_nodes, a.n_bins,
+                           rows_per_block(a), a.clustered, a.out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int K>
+cudaError_t max_active_clusters(const PartitionLaunch& a, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  const cudaError_t err = accumulate_config<K>(a, &cfg, &cluster);
+  return err != cudaSuccess ? err
+                            : cudaOccupancyMaxActiveClusters(count, partition_accumulate<K>, &cfg);
 }
 
 template <int K>
@@ -368,68 +515,112 @@ cudaError_t launch_accumulate_packed(const PartitionLaunch& a) {
   const dim3 grid(p3 * slot_groups * a.node_groups, a.n_trees);
   partition_accumulate_packed<K><<<grid, kThreads, smem, a.stream>>>(
       a.codes, a.n, a.p, a.slots, a.node_groups, group_nodes, a.ids, a.perm, a.seg, a.w,
-      a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes, a.n_bins, a.rows_per_block, a.out);
+      a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes, a.n_bins, rows_per_block(a), a.out);
   return cudaGetLastError();
 }
 
-// Step 1, then the accumulate pass. The unpacked pass writes one partial
-// slab per row range and the second pass adds them; the packed pass adds
-// its ranges itself (ranges_in_block), in the same order.
-template <typename Launch>
-int run_partition(PartitionLaunch a, int n_weights, void* perm, void* seg, void* partial,
-                  void* out, bool ranges_in_block, Launch accumulate) {
-  a.rows_per_block = (a.n + a.n_parts - 1) / a.n_parts;
+PartitionLaunch partition_launch(const void* codes, int64_t n, int p, const void* ids,
+                                 const void* perm, const void* seg, const void* w,
+                                 int64_t w_tree_stride, int n_trees, int max_nodes, int n_bins,
+                                 int n_parts, void* out, void* stream) {
+  PartitionLaunch a{};
+  a.codes = static_cast<const int32_t*>(codes);
+  a.n = n;
+  a.p = p;
+  a.ids = static_cast<const int32_t*>(ids);
   a.perm = static_cast<const int32_t*>(perm);
   a.seg = static_cast<const int32_t*>(seg);
-  a.out = static_cast<float*>(a.n_parts > 1 && !ranges_in_block ? partial : out);
-  cudaError_t err = launch_partition_rows(a.ids, a.n, a.n_trees, a.n_parts, a.max_nodes,
-                                          a.rows_per_block, static_cast<int32_t*>(perm),
-                                          static_cast<int32_t*>(seg), a.stream);
-  if (err == cudaSuccess) err = accumulate(a);
-  if (ranges_in_block) return static_cast<int>(err);
-  return static_cast<int>(finish(err, partial, a.n_parts, a.n_trees, n_weights, a.max_nodes, a.p,
-                                 a.n_bins, out, a.stream));
+  a.w = static_cast<const float*>(w);
+  a.w_tree_stride = w_tree_stride;
+  a.n_trees = n_trees;
+  a.n_parts = n_parts;
+  a.max_nodes = max_nodes;
+  a.n_bins = n_bins;
+  a.out = static_cast<float*>(out);
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+bool unpacked_args_ok(int n_weights, int clustered, int n_parts) {
+  return n_weights >= 1 && n_weights <= kMaxWeights &&
+         (!clustered || (n_parts >= 2 && n_parts <= kMaxClusterRanges));
 }
 
 }  // namespace
 
-extern "C" int ate_hist_partition(const void* codes, int64_t n, int p, const void* ids,
-                                  const void* w, int64_t w_tree_stride, int n_trees,
-                                  int n_weights, int max_nodes, int n_bins, int n_parts,
-                                  void* perm, void* seg, void* partial, void* out,
-                                  void* stream) {
-  if (n_weights < 1 || n_weights > kMaxWeights) return static_cast<int>(cudaErrorInvalidValue);
-  const PartitionLaunch a{static_cast<const int32_t*>(codes), n, p,
-                          static_cast<const int32_t*>(ids), nullptr, nullptr,
-                          static_cast<const float*>(w), w_tree_stride, n_trees, n_parts,
-                          max_nodes, n_bins, 1, 1, 0, nullptr, static_cast<cudaStream_t>(stream)};
-  return run_partition(a, n_weights, perm, seg, partial, out, false,
-                       [n_weights](const PartitionLaunch& b) {
-                         return ATE_WITH_K(n_weights, launch_accumulate, b);
-                       });
+// Step 1: the stable sort of each (tree, row range)'s rows by node into
+// perm (T, n) and the segment starts seg (T, n_parts, max_nodes + 1), which
+// both accumulate passes read; with node_sorted (T, n) and w_sorted (T,
+// n_weights, n), also each position's node and weights w (T, n_weights, n,
+// tree stride w_tree_stride) in perm order, for the unpacked pass. Null
+// node_sorted writes neither (w and w_sorted are then not read).
+extern "C" int ate_partition_sort(const void* ids, int64_t n, int n_trees, int max_nodes,
+                                  int n_parts, const void* w, int64_t w_tree_stride,
+                                  int n_weights, void* perm, void* seg, void* node_sorted,
+                                  void* w_sorted, void* stream) {
+  return static_cast<int>(launch_partition_rows(
+      static_cast<const int32_t*>(ids), n, n_trees, n_parts, max_nodes,
+      static_cast<int32_t*>(perm), static_cast<int32_t*>(seg), static_cast<const float*>(w),
+      w_tree_stride, n_weights, static_cast<int32_t*>(node_sorted), static_cast<float*>(w_sorted),
+      static_cast<cudaStream_t>(stream)));
 }
 
-// The packed pass: words (n, ceil(p/3)) int32 from ate_pack_codes; slots of a
-// word per block in [1, 3]; node_groups blocks split the nodes of a word.
-// Its blocks add their row ranges themselves: partial is not used.
+// Step 2, the unpacked pass over perm, seg, node_sorted and w_sorted from
+// ate_partition_sort, one feature per block: clustered (2..8 ranges) sums
+// the ranges in a cluster, else each range writes its slab of partial
+// (more than one range) and the second pass adds them into out.
+extern "C" int ate_hist_partition(const void* codes, int64_t n, int p, int n_trees,
+                                  int n_weights, int max_nodes, int n_bins, int n_parts,
+                                  int clustered, const void* perm, const void* seg,
+                                  const void* node_sorted, const void* w_sorted, void* partial,
+                                  void* out, void* stream) {
+  if (!unpacked_args_ok(n_weights, clustered, n_parts)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool slabs = n_parts > 1 && !clustered;
+  PartitionLaunch a = partition_launch(codes, n, p, nullptr, perm, seg, nullptr, 0, n_trees,
+                                       max_nodes, n_bins, n_parts, slabs ? partial : out, stream);
+  a.node_sorted = static_cast<const int32_t*>(node_sorted);
+  a.w_sorted = static_cast<const float*>(w_sorted);
+  a.clustered = clustered;
+  cudaError_t err = ATE_WITH_K(n_weights, launch_accumulate, a);
+  if (err != cudaSuccess || !slabs) return static_cast<int>(err);
+  const int64_t size = static_cast<int64_t>(n_trees) * n_weights * max_nodes * p * n_bins;
+  return static_cast<int>(launch_reduce(static_cast<const float*>(partial), n_parts, size,
+                                        static_cast<float*>(out), a.stream));
+}
+
+// How many clusters of the unpacked pass's launch the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *count.
+extern "C" int ate_hist_partition_clusters(int p, int n_trees, int n_weights, int max_nodes,
+                                           int n_bins, int n_parts, int clustered, void* count) {
+  if (!unpacked_args_ok(n_weights, clustered, n_parts)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PartitionLaunch a = partition_launch(nullptr, 0, p, nullptr, nullptr, nullptr, nullptr, 0,
+                                       n_trees, max_nodes, n_bins, n_parts, nullptr, nullptr);
+  a.clustered = clustered;
+  return static_cast<int>(ATE_WITH_K(n_weights, max_active_clusters, a, static_cast<int*>(count)));
+}
+
+// The packed pass over perm and seg from ate_partition_sort: words (n,
+// ceil(p/3)) int32 from ate_pack_codes; slots of a word per block in
+// [1, 3]; node_groups blocks split the nodes of a word. Its blocks add
+// their row ranges themselves.
 extern "C" int ate_hist_partition_packed(const void* words, int64_t n, int p, const void* ids,
                                          const void* w, int64_t w_tree_stride, int n_trees,
                                          int n_weights, int max_nodes, int n_bins, int n_parts,
-                                         int slots, int node_groups, void* perm, void* seg,
-                                         void* partial, void* out, void* stream) {
+                                         int slots, int node_groups, const void* perm,
+                                         const void* seg, void* out, void* stream) {
   if (n_weights < 1 || n_weights > kMaxWeights || slots < 1 || slots > kPackSlots ||
       node_groups < 1 || node_groups > max_nodes || n_bins > (1 << kSlotBits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PartitionLaunch a{static_cast<const int32_t*>(words), n, p,
-                          static_cast<const int32_t*>(ids), nullptr, nullptr,
-                          static_cast<const float*>(w), w_tree_stride, n_trees, n_parts,
-                          max_nodes, n_bins, slots, node_groups, 0, nullptr,
-                          static_cast<cudaStream_t>(stream)};
-  return run_partition(a, n_weights, perm, seg, partial, out, true,
-                       [n_weights](const PartitionLaunch& b) {
-                         return ATE_WITH_K(n_weights, launch_accumulate_packed, b);
-                       });
+  PartitionLaunch a = partition_launch(words, n, p, ids, perm, seg, w, w_tree_stride, n_trees,
+                                       max_nodes, n_bins, n_parts, out, stream);
+  a.slots = slots;
+  a.node_groups = node_groups;
+  return static_cast<int>(ATE_WITH_K(n_weights, launch_accumulate_packed, a));
 }
 
 extern "C" int ate_pack_codes(const void* codes, int64_t n, int p, void* words, void* stream) {

@@ -16,8 +16,9 @@ a stale build. ``ptxas``' register and
 shared-memory report lands beside each library as ``<name>-<hash>.log``.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception. Nothing here runs at import: the CPU tests import every
+``cudaGetLastError()`` (``hist_partition_clusters`` launches nothing: it
+writes the occupancy query's answer); :func:`check` turns a non-zero code
+into an exception. Nothing here runs at import: the CPU tests import every
 module on a machine without ``nvcc``.
 """
 
@@ -53,16 +54,20 @@ LIBRARIES = {
     "lookup": "lookup.cu",
 }
 
-# kernel name -> (library, C entry point, argtypes). Pointers and the
+# entry name -> (library, C entry point, argtypes). Pointers and the
 # stream go as c_void_p: ctypes would otherwise pass a 32-bit int.
 KERNELS = {
     "hist": ("hist", "ate_hist",
              [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "partition_sort": ("hist_partition", "ate_partition_sort",
+                       [_P, _I64, _I, _I, _I, _P, _I64, _I, _P, _P, _P, _P, _P]),
     "hist_partition": ("hist_partition", "ate_hist_partition",
-                       [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                       [_P, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "hist_partition_clusters": ("hist_partition", "ate_hist_partition_clusters",
+                                [_I, _I, _I, _I, _I, _I, _I, _P]),
     "hist_partition_packed": ("hist_partition", "ate_hist_partition_packed",
                               [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _P, _P, _P]),
+                               _P, _P, _P, _P]),
     "pack_codes": ("hist_partition", "ate_pack_codes", [_P, _I64, _I, _P, _P]),
     "route": ("route", "ate_route",
               [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P]),

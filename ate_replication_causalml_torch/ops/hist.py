@@ -34,6 +34,7 @@ wrappers, its partition-kernel launches in
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -73,6 +74,10 @@ _DENSE_WARPS_PER_LONE_FEATURE = 4
 # The packed pass's block (csrc/hist_partition.cu): 16 warps, four blocks
 # on an SM, so its three tiles stay within a quarter of the SM.
 _PACKED_SMEM_BUDGET = _SM_SMEM_BYTES // 4 - _BLOCK_RESERVED_BYTES
+# The unpacked partition pass's row ranges form one thread-block cluster
+# of at most 8 (the portable cluster size); more ranges keep the partial
+# slabs and the second pass.
+_MAX_CLUSTER_RANGES = 8
 # Weight channels one launch takes (kMaxWeights in csrc/hist_common.cuh).
 _MAX_WEIGHTS = 8
 # Row ranges split the rows only while (trees × features × ranges)
@@ -356,6 +361,94 @@ def packed_block_bytes(n_weights: int, max_nodes: int, n_bins: int) -> int:
     return 4 * packed_slots(n_weights, max_nodes, n_bins) * n_weights * group * n_bins
 
 
+def partition_cluster_ranges(n_parts: int) -> int:
+    """Row ranges one thread-block cluster of the unpacked partition pass
+    sums: all of them from 2 to 8 (the paths have 3), else 1: one range
+    writes its tile directly, and more than 8 write one slab each for the
+    second pass."""
+    return n_parts if 1 < n_parts <= _MAX_CLUSTER_RANGES else 1
+
+
+def partition_max_active_clusters(n: int, n_trees: int, n_weights: int, max_nodes: int, p: int,
+                                  n_bins: int) -> int:
+    """How many clusters (or blocks, without one) of the unpacked partition
+    pass's launch at this shape the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Needs a card."""
+    n_parts = _n_parts(n, n_trees, p)
+    count = ctypes.c_int(0)
+    k = build.kernel("hist_partition_clusters")
+    build.check(k, k.fn(p, n_trees, n_weights, max_nodes, n_bins, n_parts,
+                        int(partition_cluster_ranges(n_parts) > 1), ctypes.addressof(count)))
+    return count.value
+
+
+def partition_sort_plain(ids, max_nodes: int, n_parts: int, weights=None):
+    """The plain version of the partition passes' first step: per (tree,
+    row range), the rows whose id lies in [0, max_nodes), stably sorted by
+    id → (perm, seg, node_sorted, w_sorted). perm (T, n) int32: each
+    range's sorted rows from the range's first position, −1 after them;
+    seg (T, n_parts, max_nodes + 1) int32: each node's first position
+    within its range, the range's count last; with ``weights`` ((T, K, n),
+    or (K, n) shared by every tree), node_sorted (T, n) int32 and w_sorted
+    (T, K, n) float32: the node and weights of the row at each position
+    (−1 and 0.0 where perm is −1), else None and None."""
+    n_trees, n = ids.shape
+    span = -(-n // n_parts)
+    perm = torch.full((n_trees, n), -1, dtype=torch.int32, device=ids.device)
+    seg = torch.zeros((n_trees, n_parts, max_nodes + 1), dtype=torch.int32, device=ids.device)
+    for part in range(n_parts):
+        lo, hi = part * span, min(n, (part + 1) * span)
+        if lo >= hi:
+            continue
+        node = ids[:, lo:hi].long()
+        key = torch.where((node >= 0) & (node < max_nodes), node, max_nodes)
+        order = torch.sort(key, dim=1, stable=True).indices
+        counts = torch.zeros((n_trees, max_nodes + 1), dtype=torch.int64, device=ids.device)
+        counts.scatter_add_(1, key, torch.ones_like(key))
+        seg[:, part, 1:] = torch.cumsum(counts[:, :max_nodes], dim=1).to(torch.int32)
+        valid = torch.arange(hi - lo, device=ids.device)[None] < seg[:, part, -1:]
+        perm[:, lo:hi] = torch.where(valid, (order + lo).to(torch.int32), -1)
+    if weights is None:
+        return perm, seg, None, None
+    written = perm >= 0
+    rows = perm.long().clamp(min=0)
+    node_sorted = torch.where(written, torch.gather(ids, 1, rows), -1)
+    w = weights if weights.ndim == 3 else weights.expand(n_trees, *weights.shape)
+    w_sorted = torch.gather(w, 2, rows[:, None, :].expand(-1, w.shape[1], -1))
+    return perm, seg, node_sorted, torch.where(written[:, None, :], w_sorted, 0.0)
+
+
+def partition_sort(ids, max_nodes: int, n_parts: int, weights=None):
+    """The partition passes' first step on the card (``csrc/hist_partition.cu``
+    ``partition_rows``): :func:`partition_sort_plain`'s output, except that
+    positions after a range's sorted rows are not written; the plain
+    version for CPU tensors. The histogram wrappers run it within each
+    partition launch (with ``weights`` for the unpacked pass) and count it
+    there."""
+    if ids.device.type == "cpu":
+        return partition_sort_plain(ids, max_nodes, n_parts, weights)
+    if ids.dtype != torch.int32 or ids.ndim != 2 or not ids.is_contiguous():
+        raise TypeError(f"ids must be contiguous (T, n) int32, got {ids.dtype} {tuple(ids.shape)}")
+    n_trees, n = ids.shape
+    perm = torch.empty((n_trees, n), dtype=torch.int32, device=ids.device)
+    seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32, device=ids.device)
+    node_sorted = w_sorted = None
+    w_ptr = w_stride = k_w = node_ptr = ws_ptr = 0  # no weights: perm and seg alone
+    if weights is not None:
+        if weights.device != ids.device or not weights.is_contiguous():
+            raise ValueError("weights must be contiguous, on the device of ids")
+        k_w = weights.shape[-2]
+        w_ptr, w_stride = weights.data_ptr(), 0 if weights.ndim == 2 else k_w * n
+        node_sorted = torch.empty((n_trees, n), dtype=torch.int32, device=ids.device)
+        w_sorted = torch.empty((n_trees, k_w, n), dtype=torch.float32, device=ids.device)
+        node_ptr, ws_ptr = node_sorted.data_ptr(), w_sorted.data_ptr()
+    k = build.kernel("partition_sort")
+    build.check(k, k.fn(ids.data_ptr(), n, n_trees, max_nodes, n_parts, w_ptr, w_stride, k_w,
+                        perm.data_ptr(), seg.data_ptr(), node_ptr, ws_ptr,
+                        torch.cuda.current_stream(ids.device).cuda_stream))
+    return perm, seg, node_sorted, w_sorted
+
+
 def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter,
             packed=None) -> torch.Tensor:
     """Launch ``csrc/hist.cu`` (dense) or ``csrc/hist_partition.cu``
@@ -388,10 +481,14 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_parts = _n_parts(n, n_trees, p)
-    # One partial slab per row range, added by a second pass; the packed
-    # pass adds its ranges in the block and needs none.
+    cluster = partition_cluster_ranges(n_parts)
+    # One partial slab per row range, added by a second pass: the dense
+    # kernel's, and the unpacked partition pass's past 8 ranges. A cluster
+    # of the unpacked pass, or a block of the packed pass, adds its ranges
+    # itself.
+    slabs = n_parts > 1 and (base == "dense" or (not pack and cluster == 1))
     partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32,
-                           device=codes.device) if n_parts > 1 and not pack else out)
+                           device=codes.device) if slabs else out)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     tail = (ids.data_ptr(), weights.data_ptr(), w_tree_stride, n_trees, k_w, max_nodes, n_bins,
             n_parts)
@@ -404,19 +501,21 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
                             out.data_ptr(), stream))
         counter.launches += 1
         return out
-    perm = torch.empty((n_trees, n), dtype=torch.int32, device=codes.device)
-    seg = torch.empty((n_trees, n_parts, max_nodes + 1), dtype=torch.int32, device=codes.device)
-    scratch = (perm.data_ptr(), seg.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
     if pack:
+        perm, seg, _, _ = partition_sort(ids, max_nodes, n_parts)
         geometry = (packed_slots(k_w, max_nodes, n_bins),
                     packed_node_groups(k_w, max_nodes, n_bins))
         k = build.kernel("hist_partition_packed")
-        build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, *scratch))
+        build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, perm.data_ptr(),
+                            seg.data_ptr(), out.data_ptr(), stream))
         counter.packed_launches += 1
-    else:
-        k = build.kernel("hist_partition")
-        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *scratch))
-        counter.partition_launches += 1
+        return out
+    perm, seg, node_sorted, w_sorted = partition_sort(ids, max_nodes, n_parts, weights)
+    k = build.kernel("hist_partition")
+    build.check(k, k.fn(codes.data_ptr(), n, p, n_trees, k_w, max_nodes, n_bins, n_parts,
+                        int(cluster > 1), perm.data_ptr(), seg.data_ptr(), node_sorted.data_ptr(),
+                        w_sorted.data_ptr(), partial.data_ptr(), out.data_ptr(), stream))
+    counter.partition_launches += 1
     return out
 
 

@@ -9,8 +9,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
 1. device  — the card, and ``nvidia-smi``'s name and power limit line;
 2. build   — compiles every kernel library of ``csrc/`` with nvcc (sm_90a)
    and records each device function's registers and spill bytes from
-   ptxas; fails if ``hist_dense`` or ``partition_accumulate_packed``
-   (any K) spills;
+   ptxas; fails if ``hist_dense``, ``partition_accumulate`` or
+   ``partition_accumulate_packed`` (any K) spills;
 3. kernels — each kernel's wrapper on card tensors at the shapes the
    DR-RF, causal forest and DML paths give it, held against its plain
    PyTorch version: ``torch.equal`` on integer weights, on route, lookup
@@ -23,7 +23,11 @@ imports nothing of JAX. Phases, each printing one JSON line:
    launch gaps included (the method of PRs 1–3). Dense, partition and the packed pass
    (``partition+pack``) are timed at every width and must give the same
    bits, K=2 integer and K=5 float; the packed rows report their slots
-   and node groups per block;
+   and node groups per block, the partition rows their row ranges per
+   cluster, features per block and ``cudaOccupancyMaxActiveClusters``,
+   and the partition passes' first step (``hist.partition_sort``: the
+   sort and the gather into perm order) is held ``torch.equal`` to its
+   plain version at every width;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
@@ -54,7 +58,11 @@ imports nothing of JAX. Phases, each printing one JSON line:
    within ``TAU_BOUND`` of the CPU's;
 11. path_ipw — the Direct Method, Propensity_Weighting and
    Propensity_Regression rows on the card (no kernel of their own), with
-   τ, SE and the card-vs-CPU differences.
+   τ, SE and the card-vs-CPU differences;
+12. stages  — each partition row's device time by kernel (``stage_ms``:
+   the sort, the gather, the accumulate pass and any second pass, from
+   ``torch.profiler``), last: a process that has run the profiler
+   launches kernels more slowly afterwards.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -74,6 +82,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -183,10 +192,9 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_ms(fn, calls: int = 10, reps: int = 10) -> float:
-    """Device time of one call: ``calls`` calls captured in one CUDA graph,
-    replayed ``reps`` times between two events, so no host launch gap
-    enters (``time_ms`` times one call from the host, gaps included)."""
+def capture(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """``calls`` calls of ``fn`` captured in one CUDA graph (after a warm-up
+    call on the current and on a side stream), replayed once."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -199,6 +207,14 @@ def device_ms(fn, calls: int = 10, reps: int = 10) -> float:
             fn()
     graph.replay()
     sync()
+    return graph
+
+
+def device_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``reps`` times between two events, so no host launch gap
+    enters (``time_ms`` times one call from the host, gaps included)."""
+    graph = capture(fn, calls)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -206,6 +222,43 @@ def device_ms(fn, calls: int = 10, reps: int = 10) -> float:
     b.record()
     sync()
     return a.elapsed_time(b) / (calls * reps)
+
+
+# Device functions a histogram call launches, in match order (a name may
+# contain an earlier one).
+STAGES = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
+          "partition_gather", "hist_reduce", "hist_dense")
+
+
+# (partition row, its call): profiled by phase_stages, after the paths,
+# because a process that has run torch.profiler launches kernels more
+# slowly afterwards, and the paths' walls would show it.
+SPLITS: list = []
+
+
+def stage_ms(fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel one call of ``fn`` launches, by
+    device function (``STAGES``; anything else as "other"): device
+    activities from ``torch.profiler`` over one replay of a CUDA graph of
+    ``calls`` calls ("source": "graph"), or over ``calls`` calls launched
+    one by one where the trace shows no kernel of the graph ("eager")."""
+    graph = capture(fn, calls)
+
+    def profiled(run) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            sync()
+        us: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = next((st for st in STAGES if st in e.name), "other")
+                us[name] = us.get(name, 0.0) + e.time_range.elapsed_us()
+        return us
+
+    us, source = profiled(graph.replay), "graph"
+    if not any(st in us for st in STAGES):
+        us, source = profiled(lambda: [fn() for _ in range(calls)]), "eager"
+    return {"source": source, **{k: v / 1e3 / calls for k, v in sorted(us.items())}}
 
 
 def timed(row: dict, run, lib, calls: int = 10) -> dict:
@@ -297,9 +350,10 @@ def phase_device() -> tuple[str, str]:
 # Device functions of csrc/, as ptxas names them (mangled); K is the
 # template argument of the histogram kernels.
 DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
-                    "hist_dense", "hist_reduce", "pack_words", "route_kernel", "lookup_kernel")
+                    "partition_gather", "hist_dense", "hist_reduce", "pack_words", "route_kernel",
+                    "lookup_kernel")
 # Kernels that must not spill (every instantiation).
-NO_SPILL = ("hist_dense", "partition_accumulate_packed")
+NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
 
 
 def ptxas_functions(log: str) -> dict:
@@ -330,8 +384,9 @@ def phase_build() -> dict:
           "nvcc_seconds": max(b.seconds for b in built.values()), "functions": functions})
     spilled = {f: v for f, v in functions.items()
                if f.split("<")[0] in NO_SPILL and v.get("spill_bytes", 0)}
-    if spilled or not any(f.startswith("hist_dense<") for f in functions):
-        raise AssertionError(f"ptxas spills (or no hist_dense instantiation): {spilled}")
+    missing = [b for b in NO_SPILL if not any(f.startswith(b + "<") for f in functions)]
+    if spilled or missing:
+        raise AssertionError(f"ptxas spills {spilled}, or no instantiation of {missing}")
     return functions
 
 
@@ -537,6 +592,23 @@ def node_sums_row(ids, weights, leaves, shared, reps=20):
     return timed(row, run, lib)
 
 
+def check_sort(ids, weights, m, n_parts) -> None:
+    """The partition passes' first step, ``hist.partition_sort`` (the sort
+    into perm and seg, and the gather of each position's node and weights
+    into perm order), ``torch.equal`` to ``partition_sort_plain`` on every
+    position it writes. Its kernels are timed within the partition rows
+    (``stage_ms``: ``partition_rows``, ``partition_gather``)."""
+    got = hist.partition_sort(ids, m, n_parts, weights)
+    want = hist.partition_sort_plain(ids, m, n_parts, weights)
+    written = want[0] >= 0
+    name = f"partition_sort M={m} K={weights.shape[-2]}"
+    check_equal(f"{name} seg", got[1], want[1])
+    check_equal(f"{name} perm", got[0][written], want[0][written])
+    check_equal(f"{name} node_sorted", got[2][written], want[2][written])
+    check_equal(f"{name} w_sorted", got[3].transpose(1, 2)[written],
+                want[3].transpose(1, 2)[written])
+
+
 def strip(row: dict) -> dict:
     return {k: v for k, v in row.items() if k != "out"}
 
@@ -570,7 +642,19 @@ def phase_kernels(frame_mod) -> dict:
                                  f"to dense ({q['equal_to_dense']}, {q['packed_equal_to_dense']})")
         q["packed_ms"] = device_ms(run)
         q["packed_factor"] = q["packed_ms"] / q["library_ms"]
-        return strip(d), strip(q)
+        # The unpacked pass's geometry (one feature per block), its first
+        # step against the plain version, and where its device time goes.
+        n_parts = hist._n_parts(n, t, p)
+        check_sort(lid, w, m, n_parts)
+        q.update(ranges=n_parts, cluster=hist.partition_cluster_ranges(n_parts),
+                 features_per_block=1, sort_equal_to_plain=True,
+                 max_active_clusters=hist.partition_max_active_clusters(
+                     n, t, w.shape[-2], m, p, N_BINS))
+        # Its stage split is profiled after the paths (phase_stages).
+        row = strip(q)
+        SPLITS.append((row, lambda: wrapper(codes, lid, w, max_nodes=m, n_bins=N_BINS,
+                                            mode="partition")))
+        return strip(d), row
 
     # Per-tree weights, K=2 integer (classifier and nuisance levels).
     hist_rows, part_rows = map(list, zip(*(both_modes(weights, m, False)
@@ -981,6 +1065,16 @@ def phase_parity_dml(frame_mod) -> None:
         raise AssertionError(f"DML card vs CPU: |Δτ| {d_tau}, |Δse| {d_se} > {TAU_BOUND}")
 
 
+def phase_stages() -> None:
+    """The partition rows' stage split (``stage_ms``), last, so that the
+    profiler runs after every path's wall time was taken."""
+    rows = []
+    for row, run in SPLITS:
+        row["stage_ms"] = stage_ms(run)
+        rows.append({k: row[k] for k in ("M", "K", "weights", "ranges", "cluster", "stage_ms")})
+    emit({"phase": "stages", "kernel": "hist_partition", "rows": rows})
+
+
 def phase_path_ipw(frame_mod) -> None:
     """The Direct Method and the two propensity rows on the card, and the
     same rows from the CPU port."""
@@ -1050,6 +1144,7 @@ def main() -> int:
     by_path["dml"] = phase_path_dml(frame_mod)
     phase_parity_dml(frame_mod)
     phase_path_ipw(frame_mod)
+    phase_stages()
     kernels = []
     for k, (src, rep, device_fn) in SOURCES.items():
         row = timing[k]

@@ -1,15 +1,24 @@
-"""Where the DR-RF forest's time goes on the card (torch port).
+"""Where the forests' time goes on the card (torch port).
 
     python3 scripts/torch_forest_profile.py [--trees 256] [--depth 9]
+    python3 scripts/torch_forest_profile.py --causal [--cf-trees 256] [--nuisance-trees 64]
 
-Builds the notebook's biased frame (11,016 x 21) on the CUDA card,
-fits one warm-up forest, then fits ``--trees`` trees under
-``torch.profiler`` and prints one JSON object: wall time (with and
-without the profiler), summed device time, the device idle share of
-each wall (the profiler slows the host, so the share of the profiled
-wall overstates idleness; the share of the unprofiled wall assumes the
-device time is the same without the profiler), the port's three
-kernels' share, and the top device kernels by summed time. It needs a
+Builds the notebook's biased frame (11,016 x 21) on the CUDA card, then
+profiles the DR-RF row's classifier forest (``--trees`` trees of depth
+``--depth``, the row's key) and, with ``--causal``, the "Causal
+Forest(GRF)" row's grow stage as well (``--cf-trees`` trees of depth 8 on
+the residuals of two ``--nuisance-trees``-tree regression forests, the
+sweep's key split as ``fit_causal_forest`` splits it). Each stage runs
+once to warm up and once timed without the profiler (every stage before
+any profiling), then once under ``torch.profiler``, then once more
+timed without it (``wall_after_profiler_s``: whether a process that has
+run the profiler runs slower afterwards). Per stage: wall
+time (unprofiled, profiled, after the profiler), summed device time,
+the device idle share of each wall (the profiler slows the host, so the
+share of the profiled wall overstates idleness; the share of the
+unprofiled wall assumes the device time is the same without the
+profiler), the port's kernels' share of the device time, and the top
+device activities by summed time. Prints one JSON object. It needs a
 card (there is no CPU mode) and imports no JAX. A development tool:
 ``chip_smoke.py`` does not run it.
 """
@@ -21,6 +30,7 @@ import json
 import os
 import sys
 import time
+import zlib
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -29,35 +39,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
+from ate_replication_causalml_torch.models import causal_forest as cf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as fo  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 
-OUR_KERNELS = ("hist_accumulate", "hist_reduce", "route_kernel", "lookup_kernel")
+# The port's device functions (csrc/), by substring of the trace's names.
+OUR_KERNELS = ("hist_dense", "partition_", "hist_reduce", "pack_words", "route_kernel",
+               "lookup_kernel")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trees", type=int, default=256)
-    ap.add_argument("--depth", type=int, default=9)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_forest_profile: needs a CUDA card")
-    frame = prepare_dataset(make_ggl_like(120_000, seed=0), PrepConfig(), device="cuda")
-    frame_mod, _ = inject_bias(frame, PrepConfig())
-    key = rnd.key(12325, device="cuda")
-    fit = lambda: fo.fit_forest_classifier(frame_mod.x, frame_mod.w, key,
-                                           n_trees=args.trees, depth=args.depth)
-    fit()  # builds the kernels, warms the allocator
+def wall(fit) -> float:
+    """Seconds of one ``fit``, the device synchronized at both ends."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fit()
     torch.cuda.synchronize()
-    wall_unprofiled = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def profile_stage(fit, wall_unprofiled: float) -> dict:
+    """A profiled run of ``fit``, then an unprofiled one."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall_s = wall(fit)
     dev: dict[str, float] = {}  # device activity name -> summed microseconds
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -65,18 +68,55 @@ def main() -> int:
     total_us = sum(dev.values())
     ours_us = sum(v for k, v in dev.items() if any(o in k for o in OUR_KERNELS))
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({
-        "script": "scripts/torch_forest_profile.py", "device": torch.cuda.get_device_name(0),
-        "rows": frame_mod.n, "trees": args.trees, "depth": args.depth,
-        "wall_unprofiled_s": wall_unprofiled, "wall_s": wall, "device_busy_s": total_us / 1e6,
+    return {
+        "wall_unprofiled_s": wall_unprofiled, "wall_s": wall_s,
+        "wall_after_profiler_s": wall(fit), "device_busy_s": total_us / 1e6,
         # Busy over the profiled wall; not clipped, so a busy time that
         # double-counts overlapping activities shows as a negative share.
-        "device_idle_share": 1.0 - total_us / 1e6 / wall,
+        "device_idle_share": 1.0 - total_us / 1e6 / wall_s,
         "device_idle_share_unprofiled_wall": 1.0 - total_us / 1e6 / wall_unprofiled,
         "port_kernels_share_of_device": ours_us / total_us if total_us else None,
         "device_activities": len(dev),
         "top_device_us": [[k[:90], v] for k, v in top],
-    }, indent=1))
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", type=int, default=256)
+    ap.add_argument("--depth", type=int, default=9)
+    ap.add_argument("--causal", action="store_true",
+                    help="profile the causal row's grow stage as well")
+    ap.add_argument("--cf-trees", type=int, default=256)
+    ap.add_argument("--nuisance-trees", type=int, default=64)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_forest_profile: needs a CUDA card")
+    frame = prepare_dataset(make_ggl_like(120_000, seed=0), PrepConfig(), device="cuda")
+    frame_mod, _ = inject_bias(frame, PrepConfig())
+    x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
+    key = rnd.key(12325, device="cuda")
+    stages = {"classifier_forest": (
+        {"trees": args.trees, "depth": args.depth},
+        lambda: fo.fit_forest_classifier(x, w, key, n_trees=args.trees, depth=args.depth))}
+    if args.causal:
+        sweep = rnd.fold_in(rnd.key(0, device="cuda"), zlib.crc32(b"causal_forest"))
+        ky, kw, kc = rnd.split(sweep, 3).unbind(dim=0)
+        nuisance = dict(n_trees=args.nuisance_trees, depth=args.depth)
+        y_hat = fo.forest_oob_mean(fo.fit_forest_regressor(x, y, ky, **nuisance), x)
+        w_hat = fo.forest_oob_mean(fo.fit_forest_regressor(x, w, kw, **nuisance), x)
+        stages["causal_grow"] = (
+            {"trees": args.cf_trees, "depth": 8, "nuisance_trees": args.nuisance_trees},
+            lambda: cf.grow_causal_forest(x, w - w_hat, y - y_hat, kc, n_trees=args.cf_trees,
+                                          depth=8))
+    for _, fit in stages.values():
+        fit()  # builds the kernels, warms the allocator
+    walls = {name: wall(fit) for name, (_, fit) in stages.items()}
+    out = {"script": "scripts/torch_forest_profile.py", "device": torch.cuda.get_device_name(0),
+           "rows": frame_mod.n,
+           "stages": {name: {**shape, **profile_stage(fit, walls[name])}
+                      for name, (shape, fit) in stages.items()}}
+    print(json.dumps(out, indent=1))
     return 0
 
 

@@ -347,3 +347,113 @@ def test_dense_grid_fills_the_card_at_the_paths_shapes(k, m, p, n, f_per):
     groups = th.dense_node_groups(k, m, shape[3])
     assert 16 * n_parts * groups * -(-p // f_per) >= 330 or f_per == 1
     assert th.dense_warps_per_feature(*shape) == (4 if f_per == 1 else 1)
+
+
+def _node_runs(seg_r, runs):
+    """The unpacked partition pass's warp → node-run split as the kernel
+    computes it (``csrc/hist_partition.cu::partition_accumulate``): run r
+    takes the nodes whose segment midpoints lie in [r·chunk, (r + 1)·chunk),
+    the last run every node from its first on."""
+    m = len(seg_r) - 1
+    chunk2 = 2 * -(-int(seg_r[m]) // runs)
+    mids2 = seg_r[:m] + seg_r[1:]  # twice the midpoints, non-decreasing
+    first_by_mid = lambda q2: int(np.searchsorted(mids2, q2, side="left"))
+    return [(first_by_mid(r * chunk2), m if r + 1 == runs else first_by_mid((r + 1) * chunk2))
+            for r in range(runs)]
+
+
+def _seg_ids(shape, m, n, rng):
+    """Node ids of one tree: uniform with dropped rows, only every third
+    node used (empty nodes), every row in the last node, or every row in
+    node 0."""
+    if shape == "uniform":
+        return rng.integers(-1, m + 2, size=n)
+    if shape == "sparse":
+        return 3 * rng.integers(0, -(-m // 3), size=n)
+    return np.full(n, m - 1 if shape == "last" else 0)
+
+
+@pytest.mark.parametrize("shape", ["uniform", "sparse", "last", "first"])
+@pytest.mark.parametrize("n,n_trees", [(11016, 16), (5, 2), (15001, 3)])
+@pytest.mark.parametrize("k,m,p,n_bins", GEOMETRY_CASES)
+def test_partition_geometry_gives_each_cell_one_warp(k, m, p, n_bins, n, n_trees, shape):
+    """The unpacked partition pass's blocks (row range × feature) and
+    warps (node runs) give each (range, feature, node) cell exactly one
+    block and one warp, on segments with empty nodes and with one node
+    holding every row, at M not a multiple of 16; a run's rows start
+    where the last one's end (whole nodes, in order)."""
+    n_parts = th._n_parts(n, n_trees, p)
+    rng = np.random.default_rng(k * 1000 + m + p)
+    ids = _seg_ids(shape, m, min(n, 4000), rng).astype(np.int32)[None]
+    _, seg, _, _ = th.partition_sort_plain(torch.as_tensor(ids), m, n_parts)
+    for part in range(n_parts):
+        seg_r = seg[0, part].numpy()
+        node_runs = _node_runs(seg_r, 16)
+        owners = np.zeros(m, np.int64)  # per node, for each of the p feature blocks
+        for a, b in node_runs:
+            owners[a:b] += 1
+        assert (owners == 1).all(), part
+        bounds = [seg_r[a] for a, _ in node_runs] + [seg_r[node_runs[-1][1]]]
+        assert bounds[0] == 0 and bounds[-1] == seg_r[m] and np.all(np.diff(bounds) >= 0)
+
+
+def test_node_run_split_balances_uniform_nodes():
+    """Midpoints, not segment starts: at M=16 (one node per run) with
+    uniform ids, no run takes a second node; splitting at starts gave some
+    runs two (1.7× the rows)."""
+    rng = np.random.default_rng(5)
+    ids = rng.integers(-1, 16, size=(8, 3672)).astype(np.int32)
+    _, seg, _, _ = th.partition_sort_plain(torch.as_tensor(ids), 16, 1)
+    for tree in range(8):
+        assert _node_runs(seg[tree, 0].numpy(), 16) == [(r, r + 1) for r in range(16)]
+
+
+@pytest.mark.parametrize("n,k,m", [(11016, 2, 32), (11016, 2, 64), (11016, 2, 128), (11016, 5, 16),
+                                   (11016, 5, 32), (11016, 5, 64), (5508, 2, 128)])
+def test_partition_cluster_holds_the_ranges_at_the_paths_shapes(n, k, m):
+    """At the paths' partition widths (16 trees, p=21) the row ranges (3)
+    form one cluster, within the portable size of 8, so no partial slab is
+    written; a block takes one feature, so the grid (ranges × features ×
+    trees) has over 2.5 blocks per SM, and four of its (K, M, 64) tiles fit
+    an SM at K=2 M ≤ 64 and K=5 M ≤ 32, two at K=2 M=128 and K=5 M=64."""
+    n_parts = th._n_parts(n, 16, 21)
+    assert n_parts == 3 and th.partition_cluster_ranges(n_parts) == n_parts <= 8
+    assert n_parts * 21 * 16 >= 330
+    per_sm = th._SM_SMEM_BYTES // (4 * k * m * 64 + th._BLOCK_RESERVED_BYTES)
+    assert per_sm >= (4 if k * m <= 160 else 2)
+
+
+@pytest.mark.parametrize("n_parts,cluster", [(1, 1), (2, 2), (3, 3), (8, 8), (9, 1), (16, 1)])
+def test_partition_cluster_ranges(n_parts, cluster):
+    """One range needs no cluster; 2–8 form one; more keep the slabs."""
+    assert th.partition_cluster_ranges(n_parts) == cluster
+
+
+@pytest.mark.parametrize("n,m,n_parts", [(23, 5, 3), (1000, 100, 1), (4097, 16, 3), (300, 7, 16)])
+def test_partition_sort_plain_is_a_stable_sort_per_range(n, m, n_parts):
+    """perm lists each range's rows with an id in [0, M) once, by (id,
+    row), from the range's first position, −1 after them; seg holds each
+    node's first position and the range's count; node_sorted and w_sorted
+    hold each position's node and weights (per-tree or shared)."""
+    rng = np.random.default_rng(n + m)
+    ids = rng.integers(-2, m + 3, size=(3, n)).astype(np.int32)
+    w = rng.normal(size=(3, 2, n)).astype(np.float32)
+    perm, seg, node_sorted, w_sorted = th.partition_sort_plain(
+        torch.as_tensor(ids), m, n_parts, torch.as_tensor(w))
+    shared = th.partition_sort_plain(torch.as_tensor(ids), m, n_parts, torch.as_tensor(w[0]))
+    assert torch.equal(shared[0], perm) and torch.equal(shared[2], node_sorted)
+    span = -(-n // n_parts)
+    for t in range(3):
+        for part in range(n_parts):
+            lo, hi = min(n, part * span), min(n, (part + 1) * span)
+            rows = [r for r in range(lo, hi) if 0 <= ids[t, r] < m]
+            want = sorted(rows, key=lambda r: (ids[t, r], r))
+            got = perm[t, lo:hi].numpy()
+            assert list(got[: len(want)]) == want and (got[len(want):] == -1).all()
+            counts = np.bincount([ids[t, r] for r in rows], minlength=m)
+            assert list(seg[t, part].numpy()) == [0] + list(np.cumsum(counts))
+            k = len(want)
+            assert list(node_sorted[t, lo:lo + k].numpy()) == [ids[t, r] for r in want]
+            assert np.array_equal(w_sorted[t, :, lo:lo + k].numpy(), w[t][:, want])
+            assert np.array_equal(shared[3][t, :, lo:lo + k].numpy(), w[0][:, want])
+            assert (node_sorted[t, lo + k:hi] == -1).all() and not w_sorted[t, :, lo + k:hi].any()

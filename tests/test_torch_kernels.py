@@ -126,6 +126,65 @@ def test_shared_float_kernel_within_bound_and_stable(cuda, m):
     assert torch.equal(th.bin_histogram_batched(codes, ids, wt, max_nodes=m, n_bins=N_BINS), dense)
 
 
+# (n, T, p) → the row ranges of the unpacked partition pass: 1 (no
+# cluster), 2, 3 (the paths') and 8 (one cluster each), 16 (one slab per
+# range and the second pass); n, p ragged.
+RANGE_CASES = {1: (1000, 3, 21), 2: (3001, 3, 22), 3: (5000, 3, 20), 8: (15001, 3, 21),
+               16: (100_003, 3, 21)}
+
+
+@pytest.mark.parametrize("n_parts", sorted(RANGE_CASES))
+@pytest.mark.parametrize("k", range(1, 9))
+def test_partition_equals_dense_at_every_range_count(cuda, k, n_parts):
+    """The unpacked partition pass, clustered (2–8 ranges) or not (1 range;
+    16 ranges take the slabs): bitwise equal to dense, to the packed pass
+    and, for integer weights, to the plain version, for K = 1–8 at a
+    ragged M; float weights bitwise equal to dense and within the bound of
+    the plain version."""
+    n, t, p = RANGE_CASES[n_parts]
+    m = 100 if k % 2 == 0 else 77
+    assert th._n_parts(n, t, p) == n_parts
+    assert th.partition_cluster_ranges(n_parts) == (n_parts if 2 <= n_parts <= 8 else 1)
+    codes, ids, wi = _hist_case(k * 100 + n_parts, n, p, t, m, cuda, k)
+    wf = (wi * 0.37 + torch.rand(wi.shape, generator=torch.Generator().manual_seed(k)).to(cuda)).contiguous()
+    for w in (wi, wf):
+        run = lambda mode: th.bin_histogram_batched(codes, ids, w, max_nodes=m, n_bins=N_BINS,
+                                                    mode=mode)
+        before = th.bin_histogram_batched.partition_launches
+        part = run("partition")
+        torch.cuda.synchronize()
+        assert th.bin_histogram_batched.partition_launches == before + 1
+        assert torch.equal(part, run("dense")) and torch.equal(part, run("partition"))
+        assert torch.equal(part, run("partition+pack"))
+        want = th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS)
+        assert torch.equal(part, want) if w is wi else _float_bound(part, want, w)
+
+
+@pytest.mark.parametrize("n_parts", sorted(RANGE_CASES))
+def test_partition_sort_equals_plain(cuda, n_parts):
+    """The shared first step equals its plain version: perm and seg (which
+    both accumulate passes read) on every written position, and with
+    weights (per-tree and shared) the same perm and seg and each
+    position's node and weights in perm order."""
+    n, t, p = RANGE_CASES[n_parts]
+    for m in (1, 77, 128):
+        _, ids, w = _hist_case(m + n_parts, n, p, t, m, cuda, 3)
+        perm, seg, _, _ = th.partition_sort(ids, m, n_parts)
+        want = th.partition_sort_plain(ids.cpu(), m, n_parts, w.cpu())
+        written = want[0] >= 0
+        assert torch.equal(seg.cpu(), want[1])
+        assert torch.equal(perm.cpu()[written], want[0][written])
+        for weights, plain in ((w, want), (w[0].contiguous(),
+                                           th.partition_sort_plain(ids.cpu(), m, n_parts,
+                                                                   w[0].cpu()))):
+            got = th.partition_sort(ids, m, n_parts, weights)
+            assert torch.equal(got[0].cpu()[written], want[0][written])
+            assert torch.equal(got[1], seg)
+            assert torch.equal(got[2].cpu()[written], plain[2][written])
+            assert torch.equal(got[3].cpu().transpose(1, 2)[written],
+                               plain[3].transpose(1, 2)[written])
+
+
 @pytest.mark.parametrize("p", [20, 21, 22])
 def test_pack_kernel_equals_plain(cuda, p):
     rng = np.random.default_rng(p)
