@@ -32,7 +32,7 @@ import torch
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.estimators.base import EstimatorResult
-from ate_replication_causalml_torch.models.causal_forest import stage
+from ate_replication_causalml_torch.models.causal_forest import check_no_mesh, stage
 from ate_replication_causalml_torch.models.forest import fit_forest_classifier, predict_forest
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.linalg import ols_no_intercept_1d
@@ -103,7 +103,9 @@ def double_ml(
     key: torch.Tensor | None = None,
     se_mode: str = "r",
     crossfit: str = "r",
+    mesh=None,
     method: str = "Double Machine Learning",
+    *,
     device=None,
     stage_times: dict | None = None,
 ) -> EstimatorResult:
@@ -120,11 +122,13 @@ def double_ml(
     into full-sample residuals, and one no-intercept OLS gives (tau, se);
     ``se_mode`` is ignored there.
 
-    Runs on ``device`` (default ``cuda``; the frame moves there).
+    The JAX package's parameters in its order; ``mesh`` takes only None
+    (the sharded forests are not ported). Runs on ``device`` (default ``cuda``; the frame moves there).
     ``stage_times``, when given, receives the wall seconds of each
     forest fit and prediction: ``fit_w1``, ``predict_w1``, … where the
     letter is the target and the digit the fold the forest was trained on.
     """
+    check_no_mesh(mesh)
     if se_mode not in ("r", "pooled"):
         raise ValueError(f"se_mode must be 'r' or 'pooled', got {se_mode!r}")
     if crossfit not in ("r", "full"):

@@ -73,6 +73,12 @@ KERNELS = {
               [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P]),
     "lookup": ("lookup", "ate_lookup",
                [_P, _I, _I, _I, _P, _I64, _P, _P]),
+    "route_advance": ("route", "ate_route_advance",
+                      [_P, _I64, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]),
+    "traverse": ("lookup", "ate_traverse",
+                 [_P, _I64, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
+    "leaf_record": ("lookup", "ate_leaf_record",
+                    [_P, _I64, _I64, _I64, _P, _P, _I, _I, _P, _I64, _P, _P, _P]),
 }
 
 

@@ -14,11 +14,13 @@ honesty=TRUE)`` followed by ``estimate_average_effect``
   Each level is one shared-weights histogram of those channels
   (``ops/hist.py::bin_histogram_shared``, sibling subtraction), the
   split tables are built from it in PyTorch (``_tables``), and rows
-  route with the route kernel — the JAX package's streaming grower;
+  route with one ``route_advance`` launch per level — the JAX package's
+  streaming grower;
 * honesty: each tree's half-sample is split in two by a Bernoulli
   draw; the I half (grow mask) chooses splits, the J half (estimate
   mask) fills the leaves' five sufficient statistics
-  (``node_sums_shared``); membership rides in the kernels' ids as −1;
+  (``node_sums_shared``); membership rides in the kernels' ids as −1,
+  written by ``route_advance`` under the grow and estimate masks;
 * little bags: trees grow in groups of ``ci_group_size`` sharing one
   exact s-of-n half-sample; ``predict_cate`` estimates the CATE's
   variance from between- and within-group spread (grf's bootstrap of
@@ -35,10 +37,13 @@ Under the packed policy (``ATE_TPU_PREDICT_PACK=1`` or a "+pack"
 fit. ``compute_leaf_index`` and ``predict_cate`` take ``pack`` and
 resolve it as the JAX package does; the JAX package's packed routing is
 an XLA contraction with the same leaves, and the port routes with its
-route kernel either way, so ``pack`` changes no number.
+``traverse`` kernel either way (one launch routes a tree chunk's rows
+through every level to their leaves), so ``pack`` changes no number.
 
+The entry points take the JAX package's parameters in its order.
 Not ported: the non-streaming ``xla``/``onehot`` formulations, the
-sharded grower, the leaf-index cache, and the serving (AOT) wrappers.
+sharded grower (a ``mesh`` raises), the matmul row backends, and the
+serving (AOT) wrappers.
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ import torch
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.models.forest import (
+    HIST_BACKEND,
     binarize,
+    check_hist_backend,
     exact_subsample_mask,
     fit_forest_regressor,
     forest_oob_mean,
@@ -71,9 +78,11 @@ from ate_replication_causalml_torch.ops.hist import (
     resolve_hist_mode_packed,
 )
 from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
-from ate_replication_causalml_torch.ops.tree import route_bits, table_lookup
+from ate_replication_causalml_torch.ops.tree import table_lookup, traverse
 
 _EPS = 1e-12
+# The JAX package's defaults for rows per block of prediction and routing.
+DEFAULT_ROW_CHUNK = 65536
 # Little-bag groups grown together: 8 groups of 2 trees, one kernel
 # launch per level for 16 trees.
 DEFAULT_GROUP_CHUNK = 8
@@ -220,18 +229,16 @@ def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_n
     level_keys = rnd.split(tree_keys, depth + 1)[:, 1:]     # (T, depth, 2)
     n_trees = tree_keys.shape[0]
 
-    feats, bins, node_int = streaming_level_loop(
+    feats, bins, leaf_ids = streaming_level_loop(
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_shared(
-            codes, torch.where(grow_mask, ids, -1), mom5, max_nodes=m, n_bins=n_bins,
+            codes, ids, mom5, max_nodes=m, n_bins=n_bins,
             mode=mode_for_width(hist_mode, m, 5, p, n_bins), packed=words),
         tables_fn=lambda hist, level, perm: _tables(
             hist, level_keys, level, perm, p=p, n_bins=n_bins, mtry=mtry, min_node=min_node),
-        route_fn=lambda ids, bf, bb: route_bits(
-            codes, ids.contiguous(), bf.contiguous(), bb.contiguous()),
+        grow_mask=grow_mask, est_mask=est_mask,
     )
-    leaf_stats = node_sums_shared(torch.where(est_mask, node_int, -1), mom5,
-                                  1 << depth)       # (T, L, 5)
+    leaf_stats = node_sums_shared(leaf_ids, mom5, 1 << depth)       # (T, L, 5)
     return feats, bins, leaf_stats, base
 
 
@@ -309,14 +316,23 @@ def fit_causal_forest(
     depth: int = 8,
     nuisance_trees: int = 500,
     nuisance_depth: int = 9,
+    hist_backend: str = HIST_BACKEND,
     hist_mode: str | None = None,
+    mesh=None,
+    axis_name: str = "tree",
+    *,
     stage_times: dict | None = None,
     **grow_kwargs,
 ) -> FittedCausalForest:
     """grf-equivalent fit on one device: OOB regression forests for Ŷ and
     Ŵ, then the honest causal forest on the residuals
-    (``ate_replication.Rmd:250-255``). ``stage_times``, when given,
-    receives the wall seconds of "nuisance" and "causal_grow"."""
+    (``ate_replication.Rmd:250-255``). The JAX package's parameters in
+    its order: ``hist_backend`` takes only "auto", and ``mesh`` (with
+    ``axis_name``) only None — the sharded fit is not ported.
+    ``stage_times``, when given, receives the wall seconds of "nuisance"
+    and "causal_grow"."""
+    check_hist_backend(hist_backend)
+    check_no_mesh(mesh)
     if key is None:
         key = rnd.key(12345, device=frame.device)  # the seed grf is given (Rmd:255)
     ky, kw, kc = rnd.split(key.to(frame.device), 3).unbind(dim=0)
@@ -336,15 +352,19 @@ def fit_causal_forest(
     return FittedCausalForest(forest=forest, y_hat=y_hat, w_hat=w_hat, x=x, y=y, w=w)
 
 
+def check_no_mesh(mesh) -> None:
+    """The JAX package's ``mesh`` argument: the port runs on one device."""
+    if mesh is not None:
+        raise ValueError("mesh is not supported: the port's sharded (multi-GPU) fit is not "
+                         "ported; pass mesh=None")
+
+
 def _tree_route_stream(feats, bins, codes, depth):
-    """Leaf index of every (tree, row), (T, n) int32: one route launch per
-    level (the JAX package's ``_tree_route_stream``)."""
-    node = torch.zeros((feats.shape[0], codes.shape[0]), dtype=torch.int32, device=codes.device)
-    for level in range(depth):
-        m = 1 << level
-        node = node * 2 + route_bits(codes, node, feats[:, level, :m].contiguous(),
-                                     bins[:, level, :m].contiguous())
-    return node
+    """Leaf index of every (tree, row), (T, n) int32 (the JAX package's
+    ``_tree_route_stream``): one ``traverse`` launch through every level."""
+    if depth != feats.shape[1]:
+        raise ValueError(f"depth {depth} is not the split tables' {feats.shape[1]}")
+    return traverse(codes, feats.contiguous(), bins.contiguous())
 
 
 def _resolve_pack_for(forest: CausalForest, pack) -> bool:
@@ -356,12 +376,22 @@ def _resolve_pack_for(forest: CausalForest, pack) -> bool:
     return resolve_predict_pack(pack) and packable(int(forest.bin_edges.shape[1]) + 1)
 
 
+def _check_row_chunk(row_chunk: int) -> None:
+    if row_chunk < 1:
+        raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
+
+
 def compute_leaf_index(forest: CausalForest, x: torch.Tensor, tree_chunk: int = 32,
+                       row_chunk: int = DEFAULT_ROW_CHUNK,
                        pack: bool | str | None = None) -> torch.Tensor:
     """Per-(tree, row) leaf indices for a query matrix, (T, n), in the
-    JAX package's storage type (uint8 up to depth 8, else int16/int32).
-    ``pack`` is resolved as in the JAX package and changes nothing
-    (:func:`_resolve_pack_for`)."""
+    JAX package's storage type (uint8 up to depth 8, else int16/int32):
+    one ``traverse`` launch per block of ``tree_chunk`` trees, over every
+    row. ``row_chunk`` is validated (>= 1) and needs no blocking: it
+    bounds the JAX package's one-hot operands, which the port's kernels
+    do not have. ``pack`` is resolved as in the JAX package and changes
+    nothing (:func:`_resolve_pack_for`)."""
+    _check_row_chunk(row_chunk)
     _resolve_pack_for(forest, pack)
     codes = binarize(x, forest.bin_edges)
     depth = forest.depth
@@ -394,22 +424,32 @@ def _tau_from_sums(S, M):
     return tau, var
 
 
-def _chunk_moments(forest, codes, g0, g1, oob):
-    """The little-bag sums of groups [g0, g1) for every row: route (one
-    route launch per level), the leaf payload (one lookup launch), and
-    the per-chunk ψ-moments of the JAX package's ``chunk_fn``."""
+def _leaf_payload(forest, codes, t0, t1, leaf_index):
+    """(Tc, 5, n) leaf statistics of trees [t0, t1) at every row: one
+    ``traverse`` launch (the rows routed through every level, the payload
+    read in its stored (T, L, 5) layout) or, with ``leaf_index`` (T, n),
+    one lookup launch."""
+    if leaf_index is None:
+        return traverse(codes, forest.split_feat[t0:t1].contiguous(),
+                        forest.split_bin[t0:t1].contiguous(),
+                        forest.leaf_stats[t0:t1].contiguous())
+    return table_lookup(forest.leaf_stats[t0:t1].transpose(1, 2).contiguous(),
+                        leaf_index[t0:t1].to(torch.int32).contiguous())
+
+
+def _chunk_moments(forest, codes, g0, g1, oob, leaf_index, n):
+    """The little-bag sums of groups [g0, g1) for every row: the leaf
+    payload (:func:`_leaf_payload`) and the per-chunk ψ-moments of the JAX
+    package's ``chunk_fn``."""
     k = forest.ci_group_size
     t0, t1 = g0 * k, g1 * k
     gc = g1 - g0
-    node = _tree_route_stream(forest.split_feat[t0:t1], forest.split_bin[t0:t1], codes,
-                              forest.depth)
-    stats = table_lookup(forest.leaf_stats[t0:t1].transpose(1, 2).contiguous(), node)  # (Tc, 5, n)
+    stats = _leaf_payload(forest, codes, t0, t1, leaf_index)  # (Tc, 5, n)
     cnt = stats[:, 0]
     valid = cnt > 0
     if oob:
         valid = valid & ~forest.in_sample[t0:t1]
     m = torch.where(valid[:, None], stats / torch.clamp(cnt, min=1.0)[:, None], 0.0)
-    n = codes.shape[0]
     m = m.reshape(gc, k, 5, n)
     valid = valid.reshape(gc, k, n)
     mw, my, mww, mwy = (m[:, :, i] for i in (1, 2, 3, 4))
@@ -437,6 +477,9 @@ def predict_cate(
     x: torch.Tensor,
     oob: bool = True,
     tree_chunk: int = 32,
+    row_chunk: int = DEFAULT_ROW_CHUNK,
+    leaf_index: torch.Tensor | None = None,
+    row_backend: str | None = None,
     variance_compat: str = "unbiased",
     pack: bool | str | None = None,
 ) -> CatePredictions:
@@ -447,21 +490,40 @@ def predict_cate(
     (``ate_replication.Rmd:259``). Trees are taken ``tree_chunk`` at a
     time (whole groups), each chunk's ψ-moments at its own pooled τ_c
     and shifted to the global τ̂ afterwards, as in the JAX package.
-    ``variance_compat``: "unbiased" (gn − 1 between-group df) or "grf"
-    (grf's num_groups). ``pack`` as in :func:`compute_leaf_index`."""
+    ``row_chunk`` is validated (>= 1) and needs no blocking: the JAX
+    package blocks rows to bound its (rows, nodes) one-hot operands, and
+    the port's kernels have none. ``leaf_index``:
+    the (T, n) leaf ids of this ``x`` from :func:`compute_leaf_index`;
+    routing is skipped and the payload read through them, the same bits.
+    ``row_backend``: None or "pallas", the port's kernels (the JAX
+    package's matmul formulations are not ported). ``variance_compat``:
+    "unbiased" (gn − 1 between-group df) or "grf" (grf's num_groups).
+    ``pack`` as in :func:`compute_leaf_index`."""
     grf_df = _grf_df_flag(variance_compat)
+    if row_backend not in (None, "pallas"):
+        raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None or "
+                         "'pallas' (its CUDA kernels)")
+    _check_row_chunk(row_chunk)
     _resolve_pack_for(forest, pack)
-    if oob and x.shape[0] != forest.in_sample.shape[1]:
+    n = x.shape[0]
+    if oob and n != forest.in_sample.shape[1]:
         raise ValueError(
             "oob=True is only valid for the training matrix: forest was "
-            f"fit on {forest.in_sample.shape[1]} rows, got {x.shape[0]}; "
+            f"fit on {forest.in_sample.shape[1]} rows, got {n}; "
             "pass oob=False for new data"
         )
-    codes = binarize(x, forest.bin_edges)
+    codes = None
+    if leaf_index is None:
+        codes = binarize(x, forest.bin_edges)
+    else:
+        leaf_index = torch.as_tensor(leaf_index, device=x.device)
+        if tuple(leaf_index.shape) != (forest.n_trees, n):
+            raise ValueError(f"leaf_index must be (T, n) = {(forest.n_trees, n)}, "
+                             f"got {tuple(leaf_index.shape)}")
     k = forest.ci_group_size
     n_groups = forest.n_trees // k
     group_chunk = max(1, tree_chunk // k)
-    outs = [_chunk_moments(forest, codes, g, min(g + group_chunk, n_groups), oob)
+    outs = [_chunk_moments(forest, codes, g, min(g + group_chunk, n_groups), oob, leaf_index, n)
             for g in range(0, n_groups, group_chunk)]
     (S_c, M_c, tau_c, gn_c, gP_c, gB_c, gPP_c, gBB_c, gPB_c, w2_c, wPB_c, wBB_c) = (
         torch.stack(a) for a in zip(*outs))

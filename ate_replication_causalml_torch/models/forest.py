@@ -9,8 +9,11 @@ features, level-wise growth to a fixed depth, OOB vote probabilities.
 
 Trees grow in chunks along an explicit leading tree axis: each level of
 a chunk is one histogram launch (``ops/hist.py``), one split selection
-in PyTorch, and one route launch (``ops/tree.py``); each chunk ends with
-one leaf-sum launch and one leaf-lookup launch. The random streams are
+in PyTorch, and one ``route_advance`` launch (``ops/tree.py``: the route
+bits and the id updates of the level); each chunk ends with one leaf-sum
+launch and one ``leaf_record`` launch (the leaf values and the training
+rows' values). Prediction routes every (tree, row) to its leaf value in
+one ``traverse`` launch. The random streams are
 the JAX package's threefry streams bit for bit (``ops/random.py``), and
 with integer weights every histogram sum is exact, so a classifier
 forest grown here equals the JAX package's (split tables, leaf values,
@@ -44,10 +47,13 @@ from ate_replication_causalml_torch.ops.hist import (
     split_pack_mode,
 )
 from ate_replication_causalml_torch.ops.pack import pack_codes
-from ate_replication_causalml_torch.ops.tree import route_bits, table_lookup
+from ate_replication_causalml_torch.ops.tree import leaf_record, route_advance, traverse
 
 # Trees grown together: one kernel launch per level covers the chunk.
 DEFAULT_TREE_CHUNK = 16
+# The only histogram backend of the port: its kernels (the JAX package's
+# "auto" picks Pallas on a TPU and its own formulations elsewhere).
+HIST_BACKEND = "auto"
 # Rows per step of the compare-count binarization (bounds its (rows, p,
 # n_bins) boolean temporary).
 _BINARIZE_ROWS = 65_536
@@ -220,54 +226,59 @@ def bitrev_perm(level: int) -> tuple[int, ...]:
     return tuple(out)
 
 
-def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, route_fn):
+def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, grow_mask=None,
+                         est_mask=None):
     """The bit-reversed level loop of the streaming grower, over a
     leading tree axis.
 
     Per level: the full-level histogram assembles as
     ``cat([left, parent − left])`` in rev node order (sibling
     subtraction: only left children are histogrammed), splits are
-    chosen by ``tables_fn`` (rev order), rows route with the route
-    kernel, and both id streams advance: interleaved ``node_int`` (the
-    stored 2k/2k+1 layout) and ``node_rev`` (the new side bit becomes
-    the MSB).
+    chosen by ``tables_fn`` (rev order), and one ``route_advance`` launch
+    routes the rows, advances both id streams in place (interleaved
+    ``node_int``, the stored 2k/2k+1 layout; ``node_rev``, where the new
+    side bit becomes the MSB) and writes the ids the next step reads.
 
     Args:
       codes: (n, p) int32 bin codes.
       hist_fn: (ids (T, n), m) → (T, K, m, p, n_bins) histograms of the
         rows at the given rev node ids (−1 contributes nothing).
       tables_fn: (hist_full, level, perm) → (bf_rev, bb_rev), (T, m) each.
-      route_fn: (ids, bf_rev, bb_rev) → (T, n) int32 route bits.
+      grow_mask: optional (T, n) bool; rows outside it are −1 in every
+        histogram's ids (every row is routed).
+      est_mask: optional (T, n) bool; rows outside it are −1 in the leaf
+        ids returned.
 
-    Returns (feats (T, depth, 2^(depth−1)), bins (same), node_int (T, n)).
+    Returns (feats (T, depth, 2^(depth−1)), bins (same), leaf ids (T, n)).
     """
     n = codes.shape[0]
     dev = codes.device
     max_nodes = 1 << (depth - 1)
     node_int = torch.zeros((n_trees, n), dtype=torch.int32, device=dev)
     node_rev = torch.zeros((n_trees, n), dtype=torch.int32, device=dev)
+    # Level 0: every row at the root, rev id 0.
+    ids = node_rev if grow_mask is None else torch.where(grow_mask, node_rev, -1)
     prev = None
     feats_l, bins_l = [], []
     for level in range(depth):
         m = 1 << level
         if prev is None:
-            hist = hist_fn(node_rev, 1)
+            hist = hist_fn(ids, 1)
         else:
-            # Left children's rev id == their parent's rev id.
-            left_id = torch.where(node_int % 2 == 0, node_rev, -1)
-            hist_left = hist_fn(left_id, m // 2)
+            # The ids are the left children's: their rev id == their parent's.
+            hist_left = hist_fn(ids, m // 2)
             hist = torch.cat([hist_left, prev - hist_left], dim=2)
         prev = hist
         perm = bitrev_perm(level)
         bf_rev, bb_rev = tables_fn(hist, level, perm)
-        bit = route_fn(node_rev, bf_rev, bb_rev)
-        node_int = node_int * 2 + bit
-        node_rev = node_rev + bit * m
+        last = level == depth - 1
+        ids = route_advance(codes, node_int, node_rev, bf_rev.contiguous(), bb_rev.contiguous(),
+                            mask=est_mask if last else grow_mask, last=last)
         perm_t = torch.as_tensor(perm, device=dev)
         pad = max_nodes - m
         feats_l.append(torch.nn.functional.pad(bf_rev[:, perm_t], (0, pad)))
         bins_l.append(torch.nn.functional.pad(bb_rev[:, perm_t], (0, pad), value=n_bins - 1))
-    return torch.stack(feats_l, dim=1), torch.stack(bins_l, dim=1), node_int
+    return torch.stack(feats_l, dim=1), torch.stack(bins_l, dim=1), ids
 
 
 def select_split(score, lk, level_nodes, p, n_bins, mtry, perm=None):
@@ -335,23 +346,24 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode,
     feats, bins, node_of_row = streaming_level_loop(
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_batched(
-            codes, ids.contiguous(), weights2, max_nodes=m, n_bins=n_bins,
+            codes, ids, weights2, max_nodes=m, n_bins=n_bins,
             mode=mode_for_width(hist_mode, m, 2, p, n_bins), packed=words),
         tables_fn=lambda hist, level, perm: _split_tables(
             hist, level_keys[:, level], 1 << level, p, n_bins, mtry, perm),
-        route_fn=lambda ids, bf, bb: route_bits(
-            codes, ids.contiguous(), bf.contiguous(), bb.contiguous()),
     )
-    ls = node_sums(node_of_row.contiguous(), weights2, n_leaves)  # (T, L, 2)
-    leaf_c, leaf_y = ls[..., 0], ls[..., 1]
-    leaf_value = torch.where(
-        leaf_c > 0, base[:, None] + leaf_y / torch.clamp(leaf_c, min=1e-12), mu[:, None]
-    )
-    train_vals = table_lookup(leaf_value[:, None, :].contiguous(),
-                              node_of_row.contiguous())[:, 0]
+    ls = node_sums(node_of_row, weights2, n_leaves)  # (T, L, 2)
+    leaf_value, train_vals = leaf_record(ls, base, mu, node_of_row)
     # Counts persist only for the OOB mask (count == 0); the clamp can
     # never flip an in-bag row to OOB the way a wrapping cast could.
     return feats, bins, leaf_value, torch.clamp(counts, max=255).to(torch.uint8), train_vals
+
+
+def check_hist_backend(hist_backend: str) -> None:
+    """The JAX package's ``hist_backend`` argument: only "auto" (the
+    port's kernels) is taken; its other backends are not ported."""
+    if hist_backend != HIST_BACKEND:
+        raise ValueError(f"hist_backend={hist_backend!r} is not ported: the port takes only "
+                         f"{HIST_BACKEND!r} (its CUDA kernels)")
 
 
 def _is_binary01(y: torch.Tensor) -> bool:
@@ -367,14 +379,17 @@ def fit_forest_classifier(
     depth: int = 9,
     mtry: int | None = None,
     n_bins: int = 64,
-    tree_chunk: int = DEFAULT_TREE_CHUNK,
+    tree_chunk: int | None = DEFAULT_TREE_CHUNK,
+    hist_backend: str = HIST_BACKEND,
     hist_mode: str | None = None,
 ) -> Forest:
     """Fit a classification forest of ``n_trees`` depth-``depth`` trees.
 
     mtry defaults to floor(sqrt(p)) (randomForest's classification
     default). Tree ``i`` grows from ``split(key, n_trees)[i]``, so the
-    chunking does not change a single number. ``hist_mode`` is the
+    chunking does not change a single number (None: the default 16; the
+    JAX package sizes it to the TPU's memory). ``hist_backend`` takes
+    only "auto": the port's kernels. ``hist_mode`` is the
     histogram policy, "dense" | "partition" | "auto" with an optional
     "+pack", resolved as the JAX package does
     (:func:`~..ops.hist.resolve_hist_mode_packed`: ``ATE_TPU_HIST_MODE``
@@ -384,9 +399,11 @@ def fit_forest_classifier(
     here). Every formulation gives the same sums, so the mode does not
     change the forest.
     """
+    check_hist_backend(hist_backend)
     n, p = x.shape
     if mtry is None:
         mtry = max(1, int(np.sqrt(p)))
+    tree_chunk = DEFAULT_TREE_CHUNK if tree_chunk is None else tree_chunk
     hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
     center = 0.0 if _is_binary01(y) else 1.0
     edges = quantile_bins(x, n_bins)
@@ -436,15 +453,11 @@ class ForestPredictions(NamedTuple):
 
 
 def forest_apply(forest: Forest, codes: torch.Tensor) -> torch.Tensor:
-    """Leaf value of every (tree, row), (T, n), routing level by level
-    with the route kernel and reading leaves with the lookup kernel."""
-    node = torch.zeros((forest.n_trees, codes.shape[0]), dtype=torch.int32, device=codes.device)
-    for level in range(forest.depth):
-        m = 1 << level
-        bit = route_bits(codes, node, forest.split_feat[:, level, :m].contiguous(),
-                         forest.split_bin[:, level, :m].contiguous())
-        node = node * 2 + bit
-    return table_lookup(forest.leaf_value[:, None, :].contiguous(), node)[:, 0]
+    """Leaf value of every (tree, row), (T, n): one ``traverse`` launch
+    routes each row through every level and reads its leaf's value."""
+    table = forest.leaf_value[:, :, None].contiguous()
+    return traverse(codes, forest.split_feat.contiguous(), forest.split_bin.contiguous(),
+                    table)[:, 0]
 
 
 def _oob_reduce(leaf_vals, counts):

@@ -27,12 +27,21 @@ imports nothing of JAX. Phases, each printing one JSON line:
    cluster, features per block and ``cudaOccupancyMaxActiveClusters``,
    and the partition passes' first step (``hist.partition_sort``: the
    sort and the gather into perm order) is held ``torch.equal`` to its
-   plain version at every width;
+   plain version at every width. The fused row passes of ``ops/tree.py``:
+   ``route_advance`` at every grow width (with and without a mask, and
+   the last level), ``traverse`` at the causal predict chunk and at DML's
+   forest apply (leaf ids and payload), ``leaf_record`` at a classifier
+   chunk, each ``torch.equal`` to its plain version, two launches equal,
+   and timed beside the PyTorch sequence it replaces (``replaced_ms``,
+   one replayed graph of the old route and lookup kernels and the
+   elementwise ops around them);
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
    1,000-replicate bootstrap SE), with launch counts read around it and
-   τ held to its recorded value (``DR_TAU``);
+   τ held to its recorded value (``DR_TAU``); each path's counts of the
+   row kernels are held to the counts derived from its configuration
+   (``ROW_LAUNCHES``);
 5. parity  — the same path at 32 trees on the card and on the CPU: split
    tables, leaves and OOB votes equal, τ within a stated bound;
 6. path_cf — the notebook's "Causal Forest(GRF)" row through
@@ -56,6 +65,10 @@ imports nothing of JAX. Phases, each printing one JSON line:
    unpacked on the card, and on the CPU: forests and vote fractions
    ``torch.equal``, τ and SE bit for bit between the card runs and
    within ``TAU_BOUND`` of the CPU's;
+10b. path_leaf_index — ``predict_cate``'s ``leaf_index`` and ``row_chunk``
+   options on parity_cf's 32-tree card forest: ``compute_leaf_index``
+   (``traverse``, leaf ids) and ``predict_cate(leaf_index=…)`` (the lookup
+   kernel), with and without a ``row_chunk``, bit for bit the plain call;
 11. path_ipw — the Direct Method, Propensity_Weighting and
    Propensity_Regression rows on the card (no kernel of their own), with
    τ, SE and the card-vs-CPU differences;
@@ -288,11 +301,38 @@ COUNTERS = {  # kernel name -> (wrapper, its counter for that kernel)
     "hist_partition_packed": (hist.bin_histogram_batched, "packed_launches"),
     "hist_partition_shared_packed": (hist.bin_histogram_shared, "packed_launches"),
     "pack_codes": (pack.pack_codes, "launches"),
+    "route_advance": (tree.route_advance, "launches"),
+    "traverse": (tree.traverse, "launches"),
+    "leaf_record": (tree.leaf_record, "launches"),
 }
+
+# Launches of the row kernels each path must make, from its configuration
+# (16-tree chunks; 2,000 causal trees in 125 chunks of 8 two-tree groups;
+# predict_cate in 32-tree chunks):
+#   route_advance: one per level of every chunk — DR-RF 157 chunks x 9;
+#     causal 2 x 32 nuisance chunks x 9 + 125 x 8; DML 4 x 125 x 9;
+#   leaf_record: one per classifier/regressor chunk — 157; 64; 500;
+#   traverse: one per predict_cate chunk (63) and per forest_apply (4).
+# The per-level route and the lookup kernels are off these paths (0);
+# the lookup kernel serves predict_cate(leaf_index=...) (path_leaf_index:
+# the leaf ids once, then the row_chunk and the two index calls).
+ROW_LAUNCHES = {
+    "dr_rf": {"route_advance": 1413, "traverse": 0, "leaf_record": 157, "route": 0, "lookup": 0},
+    "causal_forest": {"route_advance": 1576, "traverse": 63, "leaf_record": 64, "route": 0,
+                      "lookup": 0},
+    "dml": {"route_advance": 4500, "traverse": 4, "leaf_record": 500, "route": 0, "lookup": 0},
+    # path_leaf_index: one 32-tree chunk, every row in one launch (the
+    # leaf ids and a row_chunk call: traverse; two calls through the ids).
+    "leaf_index": {"route_advance": 0, "traverse": 2, "leaf_record": 0, "route": 0, "lookup": 2},
+}
+ROW_LAUNCHES["causal_forest_packed"] = ROW_LAUNCHES["causal_forest"]
 
 
 PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack_codes")
-UNPACKED_KERNELS = tuple(k for k in COUNTERS if k not in PACKED_KERNELS)
+# The JAX package's per-level route and lookup kernels, which the paths
+# no longer call (ROW_LAUNCHES holds them at 0 there).
+OLD_ROW_KERNELS = ("route", "lookup")
+UNPACKED_KERNELS = tuple(k for k in COUNTERS if k not in PACKED_KERNELS + OLD_ROW_KERNELS)
 
 
 def reset_counts() -> None:
@@ -308,6 +348,14 @@ def require_launched(counts: dict, names, path: str) -> None:
     missing = [k for k in names if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing} ({counts})")
+
+
+def require_row_launches(counts: dict, path: str) -> None:
+    """The row kernels' counts on ``path`` equal ROW_LAUNCHES[path]."""
+    want = ROW_LAUNCHES[path]
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"row kernel launches on the {path} path: {got}, derived {want}")
 
 
 @contextlib.contextmanager
@@ -351,7 +399,7 @@ def phase_device() -> tuple[str, str]:
 # template argument of the histogram kernels.
 DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
                     "partition_gather", "hist_dense", "hist_reduce", "pack_words", "route_kernel",
-                    "lookup_kernel")
+                    "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel")
 # Kernels that must not spill (every instantiation).
 NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
 
@@ -609,6 +657,156 @@ def check_sort(ids, weights, m, n_parts) -> None:
                 want[3].transpose(1, 2)[written])
 
 
+# Grow widths of a depth-9 tree: route_advance's and route's rows.
+WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def check_same(name: str, pairs) -> None:
+    """``torch.equal`` on every (got, want) pair."""
+    for i, (got, want) in enumerate(pairs):
+        check_equal(f"{name} [{i}]", got, want)
+
+
+def advance_rows(codes, rng, t: int = 16) -> list:
+    """``route_advance`` at every grow width, unmasked (classifier levels)
+    and masked (causal levels), and the two last levels (width 256
+    unmasked, 128 masked): the ids and both advanced streams against the
+    plain version and between two launches; device times of the kernel
+    and of the sequence it replaces (route, ``node_int * 2 + bit``,
+    ``node_rev + bit * M``, the next level's ``where``, the mask's
+    ``where``). Timed on a frozen table (every row reads its code and
+    goes left), so repeated in-place calls keep every id in range: the
+    same bytes as a real level."""
+    dev = codes.device
+    n, p = codes.shape
+    mask = torch.as_tensor(rng.random((t, n)) < 0.5, device=dev)
+    cases = [(m, msk, False) for m in WIDTHS for msk in (None, mask)]
+    cases += [(256, None, True), (128, mask, True)]
+    rows = []
+    for m, msk, last in cases:
+        ni0 = torch.as_tensor(rng.integers(0, m, size=(t, n)).astype(np.int32), device=dev)
+        nr0 = torch.as_tensor(rng.integers(0, m, size=(t, n)).astype(np.int32), device=dev)
+        feat = torch.as_tensor(rng.integers(0, p, size=(t, m)).astype(np.int32), device=dev)
+        thr = torch.as_tensor(rng.integers(0, N_BINS, size=(t, m)).astype(np.int32), device=dev)
+        outs = []
+        for fn in (tree.route_advance, tree.route_advance, tree.route_advance_plain):
+            ni, nr = ni0.clone(), nr0.clone()
+            outs.append((fn(codes, ni, nr, feat, thr, msk, last), ni, nr))
+        name = f"route_advance M={m} mask={msk is not None} last={last}"
+        check_same(name + " (two launches)", zip(outs[0], outs[1]))
+        err = check_same(name, zip(outs[0], outs[2])) or 0.0
+        frozen = torch.full_like(thr, N_BINS - 1)
+        ti, tr = ni0.clone(), nr0.clone()
+
+        def replaced(m=m, msk=msk, last=last):
+            bit = tree.route_bits(codes, tr, feat, frozen)
+            ni2 = ti * 2 + bit
+            nr2 = tr + bit * m
+            ids = ni2 if last else torch.where(ni2 % 2 == 0, nr2, -1)
+            return (ids if msk is None else torch.where(msk, ids, -1)), ni2, nr2
+
+        run = lambda: tree.route_advance(codes, ti, tr, feat, frozen, msk, last)
+        plain = lambda: tree.route_advance_plain(codes, ti, tr, feat, frozen, msk, last)
+        nbytes = 4 * codes.numel() + 8 * feat.numel() + 20 * t * n + (t * n if msk is not None else 0)
+        b_ms, b_by = bound(nbytes, t * n)
+        ms = device_ms(run)
+        rows.append({"M": m, "n": n, "T": t, "mask": msk is not None, "last": last,
+                     "max_abs_err": err, "ms": ms, "call_ms": time_ms(run, 20),
+                     "plain_ms": time_ms(plain, 20), "replaced_ms": device_ms(replaced),
+                     "library_ms": None, "factor": None, "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def traverse_rows(codes, rng) -> list:
+    """``traverse`` at the causal predict chunk (32 trees of depth 8, the
+    5-channel payload, and the leaf ids) and at DML's forest apply (2,000
+    trees of depth 9, the leaf value, and the leaf ids), against the plain
+    version and between two launches, with the device time of the
+    sequence it replaces (a route launch, the slice copies and
+    ``node * 2 + bit`` per level, then the transposed payload's copy and
+    a lookup launch)."""
+    dev = codes.device
+    n, p = codes.shape
+    rows = []
+    for t, depth, k in ((32, CF_DEPTH, 5), (32, CF_DEPTH, None), (DML_TREES, DEPTH, 1),
+                        (DML_TREES, DEPTH, None)):
+        width = 1 << (depth - 1)
+        feat = torch.as_tensor(rng.integers(0, p, size=(t, depth, width)).astype(np.int32), device=dev)
+        thr = torch.as_tensor(rng.integers(0, N_BINS, size=(t, depth, width)).astype(np.int32),
+                              device=dev)
+        table = None if k is None else torch.as_tensor(
+            rng.random((t, 1 << depth, k)).astype(np.float32), device=dev)
+        run = lambda: tree.traverse(codes, feat, thr, table)
+        plain = lambda: tree.traverse_plain(codes, feat, thr, table)
+
+        def replaced(t=t, depth=depth, feat=feat, thr=thr, table=table):
+            node = torch.zeros((t, n), dtype=torch.int32, device=dev)
+            for level in range(depth):
+                m = 1 << level
+                node = node * 2 + tree.route_bits(codes, node, feat[:, level, :m].contiguous(),
+                                                  thr[:, level, :m].contiguous())
+            return node if table is None else tree.table_lookup(table.transpose(1, 2).contiguous(),
+                                                                node)
+
+        got, again = run(), run()
+        name = f"traverse T={t} depth={depth} K={k}"
+        check_equal(name + " (two launches)", got, again)
+        err = check_equal(name, got, plain())
+        check_equal(name + " (replaced sequence)", got, replaced())
+        # The split tables' live nodes only: level a reads its first 2^a.
+        nbytes = (4 * (got.numel() + codes.numel() + (0 if table is None else table.numel()))
+                  + 8 * t * ((1 << depth) - 1))
+        b_ms, b_by = bound(nbytes, t * n * depth)
+        calls = 2 if t > 100 else 10
+        rows.append({"T": t, "n": n, "depth": depth, "K": k, "output": "payload" if k else "leaf ids",
+                     "max_abs_err": err,
+                     "ms": device_ms(run, calls), "call_ms": time_ms(run, 10),
+                     "plain_ms": time_ms(plain, 5), "replaced_ms": device_ms(replaced, calls),
+                     "library_ms": None, "factor": None, "bound_ms": b_ms, "bound_by": b_by})
+        del got, again
+    return rows
+
+
+def leaf_record_rows(weights, ids, t: int = 16) -> list:
+    """``leaf_record`` at a classifier chunk (16 trees, 512 leaves, the
+    leaf sums as node_sums returns them on the card), binary (base 0) and
+    continuous (base = the tree's mean) targets: both outputs
+    ``torch.equal`` to the plain version and to the grower's old
+    sequence (the leaf values in PyTorch's CUDA ops: the division
+    IEEE-rounded on both sides), two launches equal; device times of the
+    kernel and that sequence."""
+    leaves = 1 << DEPTH
+    node = ids(leaves)
+    ls = hist.node_sums(node, weights, leaves)
+    dev = node.device
+    mu = torch.rand(t, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    rows = []
+    for center in (0.0, 1.0):
+        base = center * mu
+
+        def replaced(base=base):
+            leaf_c, leaf_y = ls[..., 0], ls[..., 1]
+            lv = torch.where(leaf_c > 0, base[:, None] + leaf_y / torch.clamp(leaf_c, min=1e-12),
+                             mu[:, None])
+            return lv, tree.table_lookup(lv[:, None, :].contiguous(), node)[:, 0]
+
+        run = lambda: tree.leaf_record(ls, base, mu, node)
+        plain = lambda: tree.leaf_record_plain(ls, base, mu, node)
+        name = f"leaf_record center={center}"
+        got = run()
+        check_same(name + " (two launches)", zip(got, run()))
+        err = check_same(name, zip(got, plain())) or 0.0
+        check_same(name + " (replaced sequence)", zip(got, replaced()))
+        nbytes = 4 * (ls.numel() + 2 * t + 2 * node.numel() + t * leaves)
+        b_ms, b_by = bound(nbytes, 2 * t * leaves)
+        rows.append({"T": t, "L": leaves, "n": node.shape[1], "center": center,
+                     "empty_leaves": int((ls[..., 0] == 0).sum()), "max_abs_err": err,
+                     "ms": device_ms(run), "call_ms": time_ms(run, 20), "plain_ms": time_ms(plain, 20),
+                     "replaced_ms": device_ms(replaced), "library_ms": None, "factor": None,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
 def strip(row: dict) -> dict:
     return {k: v for k, v in row.items() if k != "out"}
 
@@ -709,7 +907,7 @@ def phase_kernels(frame_mod) -> dict:
 
     # route: every level width of a depth-9 tree.
     route_rows = []
-    for m in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+    for m in WIDTHS:
         rid = ids(m)
         feat = torch.as_tensor(rng.integers(0, p, size=(t, m)).astype(np.int32), device=x.device)
         thr = torch.as_tensor(rng.integers(0, N_BINS, size=(t, m)).astype(np.int32), device=x.device)
@@ -744,6 +942,17 @@ def phase_kernels(frame_mod) -> dict:
                                  lambda: torch.gather(table, 2, gidx)))
     emit({"phase": "kernels", "kernel": "lookup", "rows": lookup_rows})
     summary["lookup"] = lookup_rows[0]
+
+    # The fused row passes.
+    adv = advance_rows(codes, rng)
+    emit({"phase": "kernels", "kernel": "route_advance", "rows": adv})
+    summary["route_advance"] = adv[-4]          # M=256, unmasked: the classifier's deepest level
+    trav = traverse_rows(codes, rng)
+    emit({"phase": "kernels", "kernel": "traverse", "rows": trav})
+    summary["traverse"] = trav[0]               # the causal predict chunk's payload
+    rec = leaf_record_rows(weights, ids)
+    emit({"phase": "kernels", "kernel": "leaf_record", "rows": rec})
+    summary["leaf_record"] = rec[0]
     return summary
 
 
@@ -781,8 +990,10 @@ def phase_path(frame, frame_mod) -> dict:
     for r in (oracle, naive, dr, dr_boot):
         if not (math.isfinite(r.ate) and math.isfinite(r.se) and r.se > 0):
             raise AssertionError(f"{r.method}: non-finite estimate or SE ({r})")
-    require_launched(counts, ("hist", "hist_partition", "node_sums", "route", "lookup"), "DR-RF")
+    require_launched(counts, ("hist", "hist_partition", "node_sums", "route_advance",
+                              "leaf_record"), "DR-RF")
     require_unpacked(counts, "DR-RF")
+    require_row_launches(counts, "dr_rf")
     if dr.ate != DR_TAU:
         raise AssertionError(f"DR-RF τ moved: {dr.ate!r}, recorded {DR_TAU!r}")
     out = {"phase": "path", "rows": frame_mod.n, "trees": DR_TREES, "depth": DEPTH,
@@ -842,6 +1053,7 @@ def phase_path_cf(frame_mod) -> tuple[dict, dict]:
         raise AssertionError(f"causal forest SE is not positive: {r.se}")
     require_launched(counts, UNPACKED_KERNELS, "causal forest")
     require_unpacked(counts, "causal forest")
+    require_row_launches(counts, "causal_forest")
     out = {"phase": "path_cf", "method": r.method, "rows": frame_mod.n, "trees": CF_TREES,
            "depth": CF_DEPTH, "nuisance_trees": CF_NUISANCE_TREES, "nuisance_depth": DEPTH,
            "ate": r.ate, "se": r.se, "ci": [r.lower_ci, r.upper_ci],
@@ -976,9 +1188,10 @@ def phase_path_cf_packed(frame_mod, cf_out: dict, card_32) -> dict:
                              "the unpacked card forest")
     if counts["hist_partition"] or counts["hist_partition_shared"]:
         raise AssertionError(f"unpacked partition launches under the packed policy: {counts}")
-    require_launched(counts, ("hist", "hist_shared", "node_sums", "node_sums_shared", "route",
-                              "lookup", "hist_partition_packed", "hist_partition_shared_packed",
-                              "pack_codes"), "packed causal forest")
+    require_launched(counts, ("hist", "hist_shared", "node_sums", "node_sums_shared",
+                              "route_advance", "traverse", "leaf_record", "hist_partition_packed",
+                              "hist_partition_shared_packed", "pack_codes"), "packed causal forest")
+    require_row_launches(counts, "causal_forest_packed")
     return counts
 
 
@@ -1024,8 +1237,9 @@ def phase_path_dml(frame_mod) -> dict:
           "stages": stages, "wall_s": wall, "launches": counts})
     if counts["hist_partition"]:
         raise AssertionError(f"unpacked partition launches under the packed policy: {counts}")
-    require_launched(counts, ("hist", "hist_partition_packed", "node_sums", "route", "lookup",
-                              "pack_codes"), "DML")
+    require_launched(counts, ("hist", "hist_partition_packed", "node_sums", "route_advance",
+                              "traverse", "leaf_record", "pack_codes"), "DML")
+    require_row_launches(counts, "dml")
     if (r.ate, r.se) != (DML_TAU, DML_SE):
         raise AssertionError(f"DML τ/SE moved: {r.ate!r}/{r.se!r}, recorded {DML_TAU!r}/{DML_SE!r}")
     return counts
@@ -1063,6 +1277,31 @@ def phase_parity_dml(frame_mod) -> None:
         raise AssertionError("DML: card and CPU forests or vote fractions differ")
     if not (d_tau <= TAU_BOUND and d_se <= TAU_BOUND):
         raise AssertionError(f"DML card vs CPU: |Δτ| {d_tau}, |Δse| {d_se} > {TAU_BOUND}")
+
+
+def phase_path_leaf_index(card_32) -> dict:
+    """``predict_cate``'s ``leaf_index`` and ``row_chunk`` options on
+    parity_cf's 32-tree card forest: ``compute_leaf_index`` (one traverse
+    launch, leaf ids), ``predict_cate`` through the index (one lookup
+    launch), and both again with ``row_chunk=4096`` (taken, no blocking);
+    each bit for bit the plain call's τ̂ and variance."""
+    forest, x = card_32.forest, card_32.x
+    whole = cf.predict_cate(forest, x)
+    reset_counts()
+    li = cf.compute_leaf_index(forest, x)
+    runs = {"leaf_index": cf.predict_cate(forest, x, leaf_index=li),
+            "row_chunk": cf.predict_cate(forest, x, row_chunk=4096),
+            "leaf_index_row_chunk": cf.predict_cate(forest, x, row_chunk=4096, leaf_index=li)}
+    sync()
+    counts = read_counts()
+    equal = {k: bool(torch.equal(r.cate, whole.cate) and torch.equal(r.variance, whole.variance))
+             for k, r in runs.items()}
+    emit({"phase": "path_leaf_index", "trees": forest.n_trees, "rows": x.shape[0],
+          "leaf_index_dtype": str(li.dtype), "equal_to_plain_call": equal, "launches": counts})
+    if not all(equal.values()):
+        raise AssertionError(f"predict_cate options change the bits: {equal}")
+    require_row_launches(counts, "leaf_index")
+    return counts
 
 
 def phase_stages() -> None:
@@ -1111,6 +1350,8 @@ def phase_path_ipw(frame_mod) -> None:
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
 _PART = "ate_replication_causalml_torch/csrc/hist_partition.cu"
 _TPU = "ate_replication_causalml_tpu/ops/"
+_ROUTE = "ate_replication_causalml_torch/csrc/route.cu"
+_LOOKUP = "ate_replication_causalml_torch/csrc/lookup.cu"
 SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device function)
     "hist": (_HIST, _TPU + "hist_pallas.py:243", "hist_dense"),
     "hist_partition": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
@@ -1118,10 +1359,14 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
     "hist_partition_shared": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
     "node_sums": (_HIST, _TPU + "hist_pallas.py:243", "hist_dense"),
     "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782", "hist_dense"),
-    "route": ("ate_replication_causalml_torch/csrc/route.cu", _TPU + "tree_pallas.py:198",
-              "route_kernel"),
-    "lookup": ("ate_replication_causalml_torch/csrc/lookup.cu", _TPU + "tree_pallas.py:67",
-               "lookup_kernel"),
+    "route": (_ROUTE, _TPU + "tree_pallas.py:198", "route_kernel"),
+    "lookup": (_LOOKUP, _TPU + "tree_pallas.py:67", "lookup_kernel"),
+    # The fused passes: the route kernel with the grower's id updates; the
+    # route kernel at every level with the lookup kernel; the lookup
+    # kernel with the grower's leaf values.
+    "route_advance": (_ROUTE, _TPU + "tree_pallas.py:198", "route_advance_kernel"),
+    "traverse": (_LOOKUP, _TPU + "tree_pallas.py:198", "traverse_kernel"),
+    "leaf_record": (_LOOKUP, _TPU + "tree_pallas.py:67", "leaf_record_kernel"),
     # The pack=True branch of _hist_kernel_batched_partition (:415-445, :463-484).
     "hist_partition_packed": (_PART, _TPU + "hist_pallas.py:463", "partition_accumulate_packed"),
     "hist_partition_shared_packed": (_PART, _TPU + "hist_pallas.py:463",
@@ -1140,6 +1385,7 @@ def main() -> int:
     phase_parity(frame_mod)
     by_path["causal_forest"], cf_out = phase_path_cf(frame_mod)
     card_32 = phase_parity_cf(frame_mod)
+    by_path["leaf_index"] = phase_path_leaf_index(card_32)
     by_path["causal_forest_packed"] = phase_path_cf_packed(frame_mod, cf_out, card_32)
     by_path["dml"] = phase_path_dml(frame_mod)
     phase_parity_dml(frame_mod)
@@ -1156,6 +1402,7 @@ def main() -> int:
                         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "factor": row.get("factor"), "call_ms": row.get("call_ms"),
+                        "replaced_ms": row.get("replaced_ms"),
                         "registers": max((v.get("registers", 0) for v in ptxas), default=None),
                         "spill_bytes": max((v.get("spill_bytes", 0) for v in ptxas), default=None)})
     out_dir = os.path.join(REPO, "build")

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_forest_profile.py [--trees 256] [--depth 9]
     python3 scripts/torch_forest_profile.py --causal [--cf-trees 256] [--nuisance-trees 64]
+    python3 scripts/torch_forest_profile.py --causal --repo DIR
 
 Builds the notebook's biased frame (11,016 x 21) on the CUDA card, then
 profiles the DR-RF row's classifier forest (``--trees`` trees of depth
@@ -17,9 +18,13 @@ time (unprofiled, profiled, after the profiler), summed device time,
 the device idle share of each wall (the profiler slows the host, so the
 share of the profiled wall overstates idleness; the share of the
 unprofiled wall assumes the device time is the same without the
-profiler), the port's kernels' share of the device time, and the top
-device activities by summed time. Prints one JSON object. It needs a
-card (there is no CPU mode) and imports no JAX. A development tool:
+profiler), the port's kernels' share of the device time, the number of
+device activities (kernels, copies, fills) and that number per grow
+level (a level of one chunk: chunks x depth), and the top device
+activities by summed time. ``--repo DIR`` profiles the package of
+another checkout (for example the parent commit, unpacked with ``git
+archive``) with this script. Prints one JSON object. It needs a card
+(there is no CPU mode) and imports no JAX. A development tool:
 ``chip_smoke.py`` does not run it.
 """
 
@@ -35,7 +40,16 @@ import zlib
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _package_root() -> str:
+    """The checkout to import the package from: ``--repo`` or this one."""
+    if "--repo" in sys.argv:
+        return os.path.abspath(sys.argv[sys.argv.index("--repo") + 1])
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+sys.path.insert(0, _package_root())
 
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
@@ -45,7 +59,7 @@ from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 
 # The port's device functions (csrc/), by substring of the trace's names.
 OUR_KERNELS = ("hist_dense", "partition_", "hist_reduce", "pack_words", "route_kernel",
-               "lookup_kernel")
+               "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel")
 
 
 def wall(fit) -> float:
@@ -57,14 +71,17 @@ def wall(fit) -> float:
     return time.perf_counter() - t0
 
 
-def profile_stage(fit, wall_unprofiled: float) -> dict:
-    """A profiled run of ``fit``, then an unprofiled one."""
+def profile_stage(fit, wall_unprofiled: float, levels: int) -> dict:
+    """A profiled run of ``fit`` (``levels`` grow levels), then an
+    unprofiled one."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = wall(fit)
     dev: dict[str, float] = {}  # device activity name -> summed microseconds
+    n_device = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_device += 1
     total_us = sum(dev.values())
     ours_us = sum(v for k, v in dev.items() if any(o in k for o in OUR_KERNELS))
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:15]
@@ -77,6 +94,8 @@ def profile_stage(fit, wall_unprofiled: float) -> dict:
         "device_idle_share_unprofiled_wall": 1.0 - total_us / 1e6 / wall_unprofiled,
         "port_kernels_share_of_device": ours_us / total_us if total_us else None,
         "device_activities": len(dev),
+        "device_kernels": n_device, "levels": levels,
+        "device_kernels_per_level": n_device / levels,
         "top_device_us": [[k[:90], v] for k, v in top],
     }
 
@@ -89,6 +108,8 @@ def main() -> int:
                     help="profile the causal row's grow stage as well")
     ap.add_argument("--cf-trees", type=int, default=256)
     ap.add_argument("--nuisance-trees", type=int, default=64)
+    ap.add_argument("--repo", default=None,
+                    help="profile the package of this checkout (default: this one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_forest_profile: needs a CUDA card")
@@ -96,8 +117,9 @@ def main() -> int:
     frame_mod, _ = inject_bias(frame, PrepConfig())
     x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
     key = rnd.key(12325, device="cuda")
+    chunks = -(-args.trees // fo.DEFAULT_TREE_CHUNK)
     stages = {"classifier_forest": (
-        {"trees": args.trees, "depth": args.depth},
+        {"trees": args.trees, "depth": args.depth}, chunks * args.depth,
         lambda: fo.fit_forest_classifier(x, w, key, n_trees=args.trees, depth=args.depth))}
     if args.causal:
         sweep = rnd.fold_in(rnd.key(0, device="cuda"), zlib.crc32(b"causal_forest"))
@@ -105,17 +127,19 @@ def main() -> int:
         nuisance = dict(n_trees=args.nuisance_trees, depth=args.depth)
         y_hat = fo.forest_oob_mean(fo.fit_forest_regressor(x, y, ky, **nuisance), x)
         w_hat = fo.forest_oob_mean(fo.fit_forest_regressor(x, w, kw, **nuisance), x)
+        groups = -(-args.cf_trees // 2)
         stages["causal_grow"] = (
             {"trees": args.cf_trees, "depth": 8, "nuisance_trees": args.nuisance_trees},
+            -(-groups // cf.DEFAULT_GROUP_CHUNK) * 8,
             lambda: cf.grow_causal_forest(x, w - w_hat, y - y_hat, kc, n_trees=args.cf_trees,
                                           depth=8))
-    for _, fit in stages.values():
+    for _, _, fit in stages.values():
         fit()  # builds the kernels, warms the allocator
-    walls = {name: wall(fit) for name, (_, fit) in stages.items()}
+    walls = {name: wall(fit) for name, (_, _, fit) in stages.items()}
     out = {"script": "scripts/torch_forest_profile.py", "device": torch.cuda.get_device_name(0),
-           "rows": frame_mod.n,
-           "stages": {name: {**shape, **profile_stage(fit, walls[name])}
-                      for name, (shape, fit) in stages.items()}}
+           "repo": _package_root(), "rows": frame_mod.n,
+           "stages": {name: {**shape, **profile_stage(fit, walls[name], levels)}
+                      for name, (shape, levels, fit) in stages.items()}}
     print(json.dumps(out, indent=1))
     return 0
 

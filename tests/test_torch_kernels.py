@@ -402,3 +402,113 @@ def test_forest_on_card_equals_forest_on_cpu(cuda):
                                     rnd.key(5, device="cpu"), **kw)
     for f in ("split_feat", "split_bin", "leaf_value", "counts", "bin_edges", "train_leaf", "train_fp"):
         assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
+
+
+def _advance_inputs(seed, n, t, m, masked, dev, p=21):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, N_BINS, size=(n, p)).astype(np.int32)
+    node_int = rng.integers(0, 1 << 20, size=(t, n)).astype(np.int32)
+    node_rev = rng.integers(-1, m + 2, size=(t, n)).astype(np.int32)
+    feat = rng.integers(-1, p + 1, size=(t, m)).astype(np.int32)
+    thr = rng.integers(0, N_BINS, size=(t, m)).astype(np.int32)
+    out = [torch.as_tensor(a, device=dev) for a in (codes, node_int, node_rev, feat, thr)]
+    out.append(torch.as_tensor(rng.random((t, n)) < 0.6, device=dev) if masked else None)
+    return out
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,m", [(11016, m) for m in (1, 2, 4, 8, 16, 32, 64, 128, 256)]
+                         + [(1001, 32), (3000, 8192)])
+def test_route_advance_kernel_equals_plain(cuda, n, m, masked, last):
+    """Every width of a depth-9 grow level at the notebook's rows (16-byte
+    streams), a row count that is not a multiple of 4 (scalar streams),
+    and a width past the shared-memory tables (8,192 nodes): the ids and
+    both advanced streams ``torch.equal`` to the plain version's."""
+    codes, node_int, node_rev, feat, thr, mask = _advance_inputs(m + n, n, 16, m, masked, cuda)
+    want_int, want_rev = node_int.clone(), node_rev.clone()
+    want = tt.route_advance_plain(codes, want_int, want_rev, feat, thr, mask, last)
+    before = tt.route_advance.launches
+    got = tt.route_advance(codes, node_int, node_rev, feat, thr, mask=mask, last=last)
+    torch.cuda.synchronize()
+    assert tt.route_advance.launches == before + 1
+    assert torch.equal(got, want) and torch.equal(node_int, want_int)
+    assert torch.equal(node_rev, want_rev)
+
+
+# (T, n, depth, K or None for the leaf ids, p, codes below): the causal
+# predict chunk, DML's forest apply (21 trees a block), an unaligned row
+# count, a payload at its shared budget (depth 11), staged tables past
+# 48 KB of shared memory with the codes (depth 12), tables and payload
+# past their budgets (depth 13), depth 1, codes too wide for the byte
+# tile (p = 45), and codes past 255 in some tiles (those blocks read
+# global codes).
+TRAVERSE_CASES = [(32, 11016, 8, 5, 21, 64), (32, 11016, 8, None, 21, 64),
+                  (2000, 11016, 9, 1, 21, 64), (16, 1001, 9, None, 21, 64),
+                  (3, 5000, 11, 2, 21, 64), (2, 3001, 12, None, 21, 64),
+                  (2, 3001, 13, 3, 21, 64), (5, 100, 1, 1, 21, 64),
+                  (4, 3000, 8, 2, 45, 64), (6, 5000, 7, None, 21, 300)]
+
+
+@pytest.mark.parametrize("t,n,depth,k,p,top", TRAVERSE_CASES)
+def test_traverse_kernel_equals_plain(cuda, t, n, depth, k, p, top):
+    rng = np.random.default_rng(depth * 7 + n)
+    codes = rng.integers(0, N_BINS, size=(n, p)).astype(np.int32)
+    if top > N_BINS:
+        codes[rng.random(n) < 0.001] = top  # a few rows: wide codes in some tiles only
+    codes = torch.as_tensor(codes, device=cuda)
+    width = 1 << (depth - 1)
+    feat = torch.as_tensor(rng.integers(-1, p + 1, size=(t, depth, width)).astype(np.int32),
+                           device=cuda)
+    thr = torch.as_tensor(rng.integers(0, top, size=(t, depth, width)).astype(np.int32),
+                          device=cuda)
+    table = None if k is None else torch.as_tensor(
+        rng.normal(size=(t, 1 << depth, k)).astype(np.float32), device=cuda)
+    before = tt.traverse.launches
+    got = tt.traverse(codes, feat, thr, table)
+    torch.cuda.synchronize()
+    assert tt.traverse.launches == before + 1
+    assert torch.equal(got, tt.traverse_plain(codes, feat, thr, table))
+
+
+@pytest.mark.parametrize("t,leaves,n", [(16, 512, 11016), (16, 512, 1001), (3, 16384, 5000),
+                                        (4, 8, 0)])
+def test_leaf_record_kernel_equals_plain(cuda, t, leaves, n):
+    """The leaf values (empty leaves included) and the training rows'
+    values ``torch.equal`` to the plain version: the same float32
+    division, IEEE-rounded, and add; leaf sums in node_sums' transposed
+    layout; staged (512 leaves) and unstaged (16,384) values."""
+    rng = np.random.default_rng(leaves + n)
+    counts = rng.poisson(1.0, size=(t, leaves)).astype(np.float32)
+    sums = (counts * rng.normal(size=(t, leaves))).astype(np.float32)
+    ls = torch.as_tensor(np.stack([counts, sums], axis=1), device=cuda).transpose(1, 2)
+    mu = torch.as_tensor(rng.random(t).astype(np.float32), device=cuda)
+    node = torch.as_tensor(rng.integers(-1, leaves + 2, size=(t, n)).astype(np.int32), device=cuda)
+    for base in (0.0 * mu, mu):
+        before = tt.leaf_record.launches
+        value, train = tt.leaf_record(ls, base, mu, node)
+        torch.cuda.synchronize()
+        assert tt.leaf_record.launches == before + 1
+        want_value, want_train = tt.leaf_record_plain(ls, base, mu, node)
+        assert torch.equal(value, want_value) and torch.equal(train, want_train)
+
+
+def test_leaf_index_and_row_chunk_on_card(cuda):
+    """compute_leaf_index on the card equals the CPU's, and predict_cate
+    with a leaf index or a row_chunk gives the bits of the plain call."""
+    rng = np.random.default_rng(6)
+    n, p = 3000, 21
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    wt = (rng.random(n) - 0.5).astype(np.float32)
+    yt = ((1.0 + x[:, 0]) * wt + 0.3 * rng.normal(size=n)).astype(np.float32)
+    forest = cf.grow_causal_forest(*(torch.as_tensor(a, device=cuda) for a in (x, wt, yt)),
+                                   rnd.key(3, device=cuda), n_trees=16, depth=8)
+    xc = torch.as_tensor(x, device=cuda)
+    li = cf.compute_leaf_index(forest, xc, 6, 1000)
+    host = cf.CausalForest(*(getattr(forest, f).cpu() for f in
+                             ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")))
+    assert torch.equal(li.cpu(), cf.compute_leaf_index(host, torch.as_tensor(x)))
+    whole = cf.predict_cate(forest, xc)
+    for kw in (dict(row_chunk=1000), dict(leaf_index=li), dict(row_chunk=1024, leaf_index=li)):
+        got = cf.predict_cate(forest, xc, **kw)
+        assert torch.equal(got.cate, whole.cate) and torch.equal(got.variance, whole.variance), kw

@@ -1,0 +1,228 @@
+"""The port's entry points bind positional arguments as the JAX package's
+do: each takes the JAX package's parameters, in its order, ahead of its
+own; a small call made positionally gives the same results in both
+packages; and every value of those parameters that the port does not
+support raises.
+
+Bounds (the same as the files that hold each entry point to the JAX
+package): forests of integer-weight classifiers and leaf indices exact;
+``predict_cate`` on one forest |Δ| ≤ 1e-6·(1 + |·|)
+(``test_torch_causal_forest.py``); DML τ and SE |Δ| ≤ 1e-6
+(``test_torch_dml.py``); the causal fit's nuisances within 1e-6 (OOB
+means of exact forests, summed over trees in another order), its
+half-samples exact and at least 90% of its split table equal (a float
+tie may flip a split).
+"""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ate_replication_causalml_torch.data.frame import CausalFrame as TFrame
+from ate_replication_causalml_torch.estimators import dml as td
+from ate_replication_causalml_torch.models import causal_forest as tcf
+from ate_replication_causalml_torch.models import forest as tf
+from ate_replication_causalml_torch.ops import random as rnd
+from ate_replication_causalml_tpu.data.frame import CausalFrame as JFrame
+from ate_replication_causalml_tpu.estimators import dml as jd
+from ate_replication_causalml_tpu.models import causal_forest as jcf
+from ate_replication_causalml_tpu.models import forest as jf
+
+ENTRY_POINTS = {
+    "predict_cate": (jcf.predict_cate, tcf.predict_cate),
+    "compute_leaf_index": (jcf.compute_leaf_index, tcf.compute_leaf_index),
+    "fit_causal_forest": (jcf.fit_causal_forest, tcf.fit_causal_forest),
+    "fit_forest_classifier": (jf.fit_forest_classifier, tf.fit_forest_classifier),
+    "double_ml": (jd.double_ml, td.double_ml),
+}
+CF_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")
+
+
+def _positional(fn):
+    return [name for name, prm in inspect.signature(fn).parameters.items()
+            if prm.kind in (prm.POSITIONAL_ONLY, prm.POSITIONAL_OR_KEYWORD)]
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_jax_parameters_are_a_prefix_in_order(name):
+    """Every positional parameter of the JAX entry point, in its order,
+    opens the port's positional list; the port's own extras come after
+    them as keywords."""
+    jax_fn, port_fn = ENTRY_POINTS[name]
+    ref, mine = _positional(jax_fn), _positional(port_fn)
+    assert mine[: len(ref)] == ref, (name, ref, mine)
+    assert mine == ref, f"{name}: the port's extras must be keyword-only ({mine[len(ref):]})"
+
+
+def _jax_key_pair(seed):
+    with jax.enable_x64(False):
+        k = jax.random.key(seed)
+        data = np.asarray(jax.random.key_data(k))
+    return k, rnd.key_from_jax(data, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A small causal forest made up from a seed (split tables with frozen
+    nodes, leaf statistics with empty leaves, in-sample rows), as both
+    packages' containers, and its query rows: 300 rows, 8 trees in
+    groups of 2, depth 5."""
+    rng = np.random.default_rng(21)
+    t, depth, n, p, n_bins = 8, 5, 300, 4, 16
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    edges = np.sort(rng.normal(size=(p, n_bins - 1)), axis=1).astype(np.float32)
+    width = 1 << (depth - 1)
+    feat = rng.integers(0, p, size=(t, depth, width)).astype(np.int32)
+    thr = rng.integers(0, n_bins, size=(t, depth, width)).astype(np.int32)
+    cnt = rng.poisson(3.0, size=(t, 1 << depth)).astype(np.float32)
+    wt = rng.normal(scale=0.3, size=(t, 1 << depth)).astype(np.float32)
+    yt = (wt + rng.normal(scale=0.5, size=(t, 1 << depth))).astype(np.float32)
+    stats = np.stack([cnt, cnt * wt, cnt * yt, cnt * (wt * wt + 0.1), cnt * (wt * yt + 0.05)],
+                     axis=2).astype(np.float32)
+    in_sample = rng.random((t, n)) < 0.5
+    fields = dict(split_feat=feat, split_bin=thr, leaf_stats=stats, in_sample=in_sample,
+                  bin_edges=edges)
+    jfo = jcf.CausalForest(**{f: jnp.asarray(a) for f, a in fields.items()})
+    return x, jfo, tcf.causal_forest_from_jax(fields, device="cpu")
+
+
+def test_compute_leaf_index_positional_row_chunk(carried):
+    """(forest, x, tree_chunk, row_chunk): blocks of 3 trees, and 128
+    rows (blocks in the JAX package, taken and validated by the port),
+    give the JAX package's index, dtype included."""
+    x, jfo, mine = carried
+    with jax.enable_x64(False):
+        ref = np.asarray(jcf.compute_leaf_index(jfo, jnp.asarray(x), 3, 128))
+    got = tcf.compute_leaf_index(mine, torch.as_tensor(x), 3, 128)
+    assert got.numpy().dtype == ref.dtype and np.array_equal(got.numpy(), ref)
+    assert torch.equal(got, tcf.compute_leaf_index(mine, torch.as_tensor(x)))
+
+
+def _close(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return bool(np.all(np.abs(a - b) <= 1e-6 * (1 + np.abs(b))))
+
+
+@pytest.mark.parametrize("with_leaf_index", [False, True])
+def test_predict_cate_positional_row_chunk_and_leaf_index(carried, with_leaf_index):
+    """(forest, x, oob, tree_chunk, row_chunk, leaf_index, row_backend,
+    variance_compat): row_chunk 128 (three blocks in the JAX package),
+    with and without the leaf index, "grf" df. Within the bound of the
+    JAX package's, and on the port the same bits as the call without
+    them (the index is the same routing)."""
+    x, jfo, mine = carried
+    xt = torch.as_tensor(x)
+    with jax.enable_x64(False):
+        li = jcf.compute_leaf_index(jfo, jnp.asarray(x), 4, 128) if with_leaf_index else None
+        ref = jcf.predict_cate(jfo, jnp.asarray(x), True, 4, 128, li, None, "grf")
+    tli = tcf.compute_leaf_index(mine, xt, 4, 128) if with_leaf_index else None
+    got = tcf.predict_cate(mine, xt, True, 4, 128, tli, None, "grf")
+    assert _close(got.cate, ref.cate) and _close(got.variance, ref.variance)
+    whole = tcf.predict_cate(mine, xt, True, 4, variance_compat="grf")
+    assert torch.equal(got.cate, whole.cate) and torch.equal(got.variance, whole.variance)
+    # "pallas" names the port's kernels as it names the JAX package's.
+    same = tcf.predict_cate(mine, xt, True, 4, 128, tli, "pallas", "grf")
+    assert torch.equal(same.cate, got.cate)
+
+
+def _frames(seed, n, p):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    w = (rng.random(n) < 1 / (1 + np.exp(-x[:, 0]))).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x[:, 1] + (0.5 + x[:, 2]) * w)))).astype(np.float32)
+    return x, w, y
+
+
+def test_fit_forest_classifier_positional():
+    """(x, y, key, n_trees, depth, mtry, n_bins, tree_chunk, hist_backend,
+    hist_mode): integer weights, so the same forest field for field (the
+    JAX package's "auto" backend on the CPU grows the same forest as its
+    kernels)."""
+    x, w, _ = _frames(2, 400, 5)
+    jk, tk = _jax_key_pair(3)
+    with jax.enable_x64(False):
+        ref = jf.fit_forest_classifier(jnp.asarray(x), jnp.asarray(w), jk, 8, 4, 2, 16, 4,
+                                       "auto", "dense")
+    got = tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), tk, 8, 4, 2, 16, 4,
+                                   "auto", "dense")
+    for f in ("split_feat", "split_bin", "leaf_value", "counts", "bin_edges", "train_leaf"):
+        assert np.array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f))), f
+
+
+def test_fit_causal_forest_positional():
+    """(frame, key, n_trees, depth, nuisance_trees, nuisance_depth,
+    hist_backend, hist_mode, mesh, axis_name)."""
+    x, w, y = _frames(5, 300, 4)
+    jk, tk = _jax_key_pair(7)
+    with jax.enable_x64(False):
+        ref = jcf.fit_causal_forest(JFrame(jnp.asarray(x), jnp.asarray(w), jnp.asarray(y)),
+                                    jk, 8, 3, 8, 3, "auto", "dense", None, "tree")
+    got = tcf.fit_causal_forest(TFrame(*(torch.as_tensor(a) for a in (x, w, y))),
+                                tk, 8, 3, 8, 3, "auto", "dense", None, "tree")
+    assert got.forest.split_feat.shape == tuple(ref.forest.split_feat.shape) == (8, 3, 4)
+    assert np.array_equal(got.forest.in_sample.numpy(), np.asarray(ref.forest.in_sample))
+    assert _close(got.y_hat, ref.y_hat) and _close(got.w_hat, ref.w_hat)
+    same = ((got.forest.split_feat.numpy() == np.asarray(ref.forest.split_feat))
+            & (got.forest.split_bin.numpy() == np.asarray(ref.forest.split_bin)))
+    live = np.zeros(same.shape, bool)
+    for lv in range(3):
+        live[:, lv, : 1 << lv] = True
+    assert same[live].mean() >= 0.9
+
+
+def test_double_ml_positional():
+    """(frame, n_trees, depth, key, se_mode, crossfit, mesh)."""
+    x, w, y = _frames(9, 600, 5)
+    jk, tk = _jax_key_pair(5)
+    with jax.enable_x64(False):
+        ref = jd.double_ml(JFrame(jnp.asarray(x), jnp.asarray(w), jnp.asarray(y)), 8, 4, jk,
+                           "pooled", "r", None)
+    got = td.double_ml(TFrame(*(torch.as_tensor(a) for a in (x, w, y))), 8, 4, tk, "pooled",
+                       "r", None, device="cpu")
+    assert got.method == ref.method
+    assert abs(got.ate - ref.ate) <= 1e-6 and abs(got.se - ref.se) <= 1e-6
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla", "onehot"])
+def test_unported_hist_backend_raises(backend):
+    x, w, y = _frames(1, 60, 3)
+    _, tk = _jax_key_pair(1)
+    with pytest.raises(ValueError, match="hist_backend"):
+        tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), tk, 2, 2, None, 16,
+                                 None, backend)
+    with pytest.raises(ValueError, match="hist_backend"):
+        tcf.fit_causal_forest(TFrame(*(torch.as_tensor(a) for a in (x, w, y))), tk, 2, 2, 2, 2,
+                              backend)
+
+
+def test_a_mesh_raises():
+    x, w, y = _frames(1, 60, 3)
+    frame = TFrame(*(torch.as_tensor(a) for a in (x, w, y)))
+    _, tk = _jax_key_pair(1)
+    mesh = object()
+    with pytest.raises(ValueError, match="mesh"):
+        tcf.fit_causal_forest(frame, tk, 2, 2, 2, 2, "auto", None, mesh)
+    with pytest.raises(ValueError, match="mesh"):
+        td.double_ml(frame, 2, 2, tk, "r", "r", mesh, device="cpu")
+
+
+@pytest.mark.parametrize("row_backend", ["matmul", "pallas_interpret", "gather"])
+def test_unported_row_backend_raises(carried, row_backend):
+    x, _, mine = carried
+    with pytest.raises(ValueError, match="row_backend"):
+        tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, row_backend)
+
+
+def test_bad_row_chunk_and_leaf_index_raise(carried):
+    x, _, mine = carried
+    xt = torch.as_tensor(x)
+    with pytest.raises(ValueError, match="row_chunk"):
+        tcf.predict_cate(mine, xt, True, 4, 0)
+    with pytest.raises(ValueError, match="row_chunk"):
+        tcf.compute_leaf_index(mine, xt, 4, 0)
+    with pytest.raises(ValueError, match="leaf_index"):
+        tcf.predict_cate(mine, xt, True, 4, 128, torch.zeros((8, 10), dtype=torch.uint8))
