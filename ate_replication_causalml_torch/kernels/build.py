@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_D = ctypes.c_double
 
 # library -> source file; each exports ate_<library>_error_string.
 LIBRARIES = {
@@ -52,6 +53,7 @@ LIBRARIES = {
     "hist_partition": "hist_partition.cu",
     "route": "route.cu",
     "lookup": "lookup.cu",
+    "lasso": "lasso.cu",
 }
 
 # entry name -> (library, C entry point, argtypes). Pointers and the
@@ -79,6 +81,8 @@ KERNELS = {
                  [_P, _I64, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P]),
     "leaf_record": ("lookup", "ate_leaf_record",
                     [_P, _I64, _I64, _I64, _P, _P, _I, _I, _P, _I64, _P, _P, _P]),
+    "cd_path": ("lasso", "ate_cd_path",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P, _P, _P]),
 }
 
 

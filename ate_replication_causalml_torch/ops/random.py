@@ -16,7 +16,11 @@ when ``jax_threefry_partitionable`` is on (its default):
 * ``uniform`` fills the mantissa of a number in [1, 2) and subtracts 1;
   ``randint`` folds two 32-bit draws into the span (jax's two-draw
   modulus, ``jax/_src/random.py::_randint``); ``bernoulli`` compares a
-  uniform draw with ``p``.
+  uniform draw with ``p``;
+* ``permutation`` shuffles as jax's ``_shuffle`` does: not Fisher–Yates
+  but ``ceil(3·ln n / ln(2**32 − 1))`` rounds, each splitting the key,
+  drawing 32-bit sort keys and reordering by a **stable** sort of them
+  (32-bit keys tie, and the tie order is part of the result).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding uint32 values; a
 leading batch of keys draws a batch of streams at once (the forest's
@@ -161,3 +165,26 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
     offset = (offset & _MASK) % span
     return (minval + offset).to(torch.int32)
+
+
+def shuffle_rounds(n: int) -> int:
+    """The number of sort rounds jax's ``_shuffle`` takes for ``n``
+    elements (``jax/_src/random.py::_shuffle``: exponent 3)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(k: torch.Tensor, x) -> torch.Tensor:
+    """``jax.random.permutation(key, x)``: an int ``x`` shuffles
+    ``arange(x)`` (int64 here, int32 in jax without x64: the same
+    values), a 1-D tensor is shuffled itself. jax's ``_shuffle``: each
+    round splits the key, draws one uint32 sort key per element from the
+    second half, and reorders by a stable sort of those keys."""
+    if isinstance(x, int):
+        x = torch.arange(x, device=k.device)
+    if x.ndim != 1:
+        raise ValueError(f"permutation takes an int or a 1-D tensor, got shape {tuple(x.shape)}")
+    for _ in range(shuffle_rounds(x.shape[0])):
+        k, sub = split(k).unbind(dim=-2)
+        order = torch.sort(bits(sub, x.shape), stable=True).indices
+        x = x[order.to(x.device)]
+    return x

@@ -34,7 +34,12 @@ imports nothing of JAX. Phases, each printing one JSON line:
    chunk, each ``torch.equal`` to its plain version, two launches equal,
    and timed beside the PyTorch sequence it replaces (``replaced_ms``,
    one replayed graph of the old route and lookup kernels and the
-   elementwise ops around them);
+   elementwise ops around them). The coordinate-descent kernel
+   (``ops/lasso.py::cd_path``, ``csrc/lasso.cu``) at the three shapes
+   the LASSO rows give it, its inputs captured from the rows' own
+   ``cv_glmnet`` calls: within ``CD_PATH_BOUND`` of its plain version,
+   two launches equal. The launch floor: a one-element PyTorch op in the
+   same graph-replay harness, beside ``pack_words``;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
@@ -69,9 +74,18 @@ imports nothing of JAX. Phases, each printing one JSON line:
    options on parity_cf's 32-tree card forest: ``compute_leaf_index``
    (``traverse``, leaf ids) and ``predict_cate(leaf_index=…)`` (the lookup
    kernel), with and without a ``row_chunk``, bit for bit the plain call;
-11. path_ipw — the Direct Method, Propensity_Weighting and
-   Propensity_Regression rows on the card (no kernel of their own), with
-   τ, SE and the card-vs-CPU differences;
+11. path_ipw — the Direct Method, Propensity_Weighting,
+   Propensity_Regression and "Doubly Robust with logistic regression PS"
+   rows on the card (no kernel of their own), with τ, SE and the
+   card-vs-CPU differences;
+11b. path_lasso — the four LASSO rows (Propensity_Weighting_LASSOPS,
+   Single-equation LASSO, Usual LASSO, Belloni et.al) at the sweep's
+   configuration on the card and on the CPU port: fold ids held to the
+   JAX package's digests, every ``cv_glmnet``'s selected indices to the
+   JAX package's, τ and SE to the JAX package's values within stated
+   bounds, card against CPU within the same bounds, stage walls and the
+   CD kernel's launches (one per gaussian CV, Belloni's two in one, and
+   one per IRLS iteration of the binomial one);
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``), last: a process that has run the profiler
@@ -85,6 +99,7 @@ non-zero and prints no result. Details go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -104,7 +119,13 @@ sys.path.insert(0, REPO)
 # this fails, and the script exits non-zero with no result.
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
-from ate_replication_causalml_torch.estimators.aipw import doubly_robust, outcome_model_mu  # noqa: E402
+from ate_replication_causalml_torch.estimators.aipw import (  # noqa: E402
+    doubly_robust,
+    doubly_robust_glm,
+    outcome_model_mu,
+)
+from ate_replication_causalml_torch.estimators import belloni as bel  # noqa: E402
+from ate_replication_causalml_torch.estimators import lasso_est  # noqa: E402
 from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report  # noqa: E402
 from ate_replication_causalml_torch.estimators import dml  # noqa: E402
 from ate_replication_causalml_torch.estimators.ipw import (  # noqa: E402
@@ -117,9 +138,10 @@ from ate_replication_causalml_torch.estimators.ols import ate_condmean_ols  # no
 from ate_replication_causalml_torch.kernels import build  # noqa: E402
 from ate_replication_causalml_torch.models import causal_forest as cf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as fo  # noqa: E402
-from ate_replication_causalml_torch.ops import hist, pack, tree  # noqa: E402
+from ate_replication_causalml_torch.ops import hist, lasso, pack, tree  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
+from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -177,6 +199,51 @@ DML_SE = 0.010522110387682915
 # Observed on an H100 80GB HBM3 at 700 W: |Δτ| at most 6.0e-7
 # (Propensity_Regression), |Δse| at most 3.7e-9.
 IPW_BOUND = 5e-6
+# The LASSO rows as the JAX package computes them on the CPU at this
+# configuration (float32; ``JAX_PLATFORMS=cpu python scripts/torch_parity.py
+# --rows lasso``, its "jax" side): fold ids (sha256 of the int64 ids, first
+# 16 hex digits) and (index_min, index_1se) of each cv_glmnet, τ and SE.
+LASSO_FOLDS = {"ps_lasso": "87afa6469388dd4d", "seq_lasso": "b35183f89db90569",
+               "usual_lasso": "19317ecdbe296609", "belloni_xw": "da74d1dde33fa74b",
+               "belloni_xy": "65104c64398d10f7"}
+LASSO_INDEX = {"ps_lasso": (35, 17), "seq_lasso": (47, 25), "usual_lasso": (46, 27),
+               "belloni_xw": (41, 30), "belloni_xy": (35, 23)}
+LASSO_JAX = {"Propensity_Weighting_LASSOPS": (-0.005371916573494673, 0.01176401600241661),
+             "Single-equation LASSO": (0.08433466404676437, math.nan),
+             "Usual LASSO": (0.044370125979185104, math.nan),
+             "Belloni et.al": (0.10991007089614868, 0.01186330895870924)}
+# |Δτ| and |ΔSE| against LASSO_JAX, and card against CPU port. The
+# coordinate descent stops once max_j G_jj·Δβ_j² < 1e-7, so two runs whose
+# dot products round differently can stop a sweep apart: path coefficients
+# then differ by up to ~sqrt(1e-7)·ys/xs (the CPU port against the JAX
+# package: 6.3e-6 on the two p = 22 paths, 6.8e-5 on the binomial one).
+# The outcome rows read W's coefficient (|Δτ| 3.9e-6 seen); LASSOPS
+# carries the binomial path through 1/(p(1−p)) (1.2e-5 seen); Belloni's τ
+# is an OLS on the selected support, held equal, so only the f32 OLS
+# remains (5.2e-7 seen).
+LASSO_BOUND = {"Propensity_Weighting_LASSOPS": 1e-4, "Single-equation LASSO": 5e-5,
+               "Usual LASSO": 5e-5, "Belloni et.al": 1e-5}
+# The CD kernel against its plain version at the rows' inputs (threshold
+# 1e-7): a standardized coefficient's last move is below sqrt(1e-7/G_jj)
+# ≈ 3.2e-4 (G_jj ≈ 1), so two runs that stop a sweep apart differ by about
+# that; 3× for the geometric tail of the following λs' warm starts.
+CD_PATH_BOUND = 1e-3
+# Belloni's path is compared with the plain version on two windows of
+# λs only (the plain version is ~12 launches per coordinate update at p =
+# 462): the first λs, where almost every coefficient is 0, and λs 50–59,
+# warm-started from the kernel's λ 49, where the 138-column support forms.
+CD_PLAIN_WINDOWS = ((0, 10), (50, 60))
+# The CD kernel's dependent chain (csrc/lasso.cu), a floor on its time: a
+# coordinate update is ceil(p/32) fused multiply-adds, a 5-step butterfly
+# of a shuffle and an add (10), and the scalar update (subtract, add, the
+# soft-threshold's subtract and max, copysign, a division of at least 5
+# dependent instructions, the store of β_j and its load after the warp
+# barrier: 12). Each is taken at the float32 pipe's 4-cycle dependent-issue
+# latency, at the card's maximum SM clock (nvidia-smi clocks.max.sm): on
+# the card shuffles, shared-memory round trips and the division take
+# longer, so the chain can only be slower.
+CHAIN_FIXED_STEPS = 10 + 12
+CHAIN_CYCLES_PER_STEP = 4
 
 RECORD: dict = {}
 
@@ -304,6 +371,7 @@ COUNTERS = {  # kernel name -> (wrapper, its counter for that kernel)
     "route_advance": (tree.route_advance, "launches"),
     "traverse": (tree.traverse, "launches"),
     "leaf_record": (tree.leaf_record, "launches"),
+    "cd_path": (lasso.cd_path, "launches"),
 }
 
 # Launches of the row kernels each path must make, from its configuration
@@ -332,7 +400,10 @@ PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack
 # The JAX package's per-level route and lookup kernels, which the paths
 # no longer call (ROW_LAUNCHES holds them at 0 there).
 OLD_ROW_KERNELS = ("route", "lookup")
-UNPACKED_KERNELS = tuple(k for k in COUNTERS if k not in PACKED_KERNELS + OLD_ROW_KERNELS)
+# The LASSO rows' kernel, off the forest paths.
+LASSO_KERNELS = ("cd_path",)
+UNPACKED_KERNELS = tuple(k for k in COUNTERS
+                         if k not in PACKED_KERNELS + OLD_ROW_KERNELS + LASSO_KERNELS)
 
 
 def reset_counts() -> None:
@@ -399,7 +470,8 @@ def phase_device() -> tuple[str, str]:
 # template argument of the histogram kernels.
 DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
                     "partition_gather", "hist_dense", "hist_reduce", "pack_words", "route_kernel",
-                    "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel")
+                    "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel",
+                    "cd_path_kernel")
 # Kernels that must not spill (every instantiation).
 NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
 
@@ -897,7 +969,13 @@ def phase_kernels(frame_mod) -> dict:
     summary["hist_partition_packed"] = pk_rows[2]         # M=128
     summary["hist_partition_shared_packed"] = pks_rows[2]  # M=64, the causal path's deepest
     summary["pack_codes"] = pack_row(fold)
+    # The launch floor: a one-element PyTorch op in the same harness.
+    one = torch.zeros(1, device=x.device)
+    summary["pack_codes"]["launch_floor_ms"] = device_ms(lambda: one.add_(1.0))
     emit({"phase": "kernels", "kernel": "pack_codes", "rows": [summary["pack_codes"]]})
+    emit({"phase": "kernels", "kernel": "launch_floor", "op": "one.add_(1.0), one float32",
+          "device_ms": summary["pack_codes"]["launch_floor_ms"],
+          "pack_words_ms": summary["pack_codes"]["ms"]})
 
     # Leaf sums: 512 leaves, K=2 integer (DR-RF); 256 leaves, K=5 float (causal).
     summary["node_sums"] = node_sums_row(ids(1 << DEPTH), weights, 1 << DEPTH, shared=False)
@@ -953,7 +1031,142 @@ def phase_kernels(frame_mod) -> dict:
     rec = leaf_record_rows(weights, ids)
     emit({"phase": "kernels", "kernel": "leaf_record", "rows": rec})
     summary["leaf_record"] = rec[0]
+
+    cd = cd_rows(frame_mod)
+    emit({"phase": "kernels", "kernel": "cd_path", "rows": cd})
+    summary["cd_path"] = cd[0]                  # Usual LASSO's path: plain timed on it whole
     return summary
+
+
+class _Recorder:
+    """Stands in for ``lasso.cd_path``: records each call's inputs and
+    calls the wrapper; its ``launches`` is the wrapper's own counter (the
+    wrapper counts through the module name it is looked up by)."""
+
+    def __init__(self, fn):
+        self.fn, self.seen = fn, []
+
+    def __call__(self, *a, **k):
+        self.seen.append((a, k))
+        return self.fn(*a, **k)
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def cd_capture():
+    """Record the inputs of every ``lasso.cd_path`` call made in the block
+    (``ops/lasso.py`` looks the name up at each call)."""
+    fn = lasso.cd_path
+    lasso.cd_path = _Recorder(fn)
+    try:
+        yield lasso.cd_path.seen
+    finally:
+        lasso.cd_path = fn
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def event_ms(fn):
+    """``fn()`` once between two CUDA events → (its result, ms)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    a.record()
+    out = fn()
+    b.record()
+    sync()
+    return out, a.elapsed_time(b)
+
+
+def cd_rows(frame_mod) -> list:
+    """The CD kernel at the three shapes the LASSO rows give it, inputs
+    captured from the rows' own CV calls: Usual LASSO's path (11 fits, p =
+    22, 100 λs), Belloni's two CV-LASSOs in one batch (22 fits, p = 462,
+    100 λs) and the binomial LASSO's first IRLS iteration (11 fits, p =
+    21, one λ). Each: two launches equal; within CD_PATH_BOUND of the
+    plain version (Belloni's on the windows CD_PLAIN_WINDOWS, each
+    warm-started from the kernel's coefficients at the λ before it);
+    device times of the kernel and of the plain version (host-timed, on
+    the same λs). ``bound_ms`` is the dependent chain's floor (the
+    longest fit's sweeps × p updates at CHAIN_FIXED_STEPS + ceil(p/32)
+    steps of CHAIN_CYCLES_PER_STEP cycles each), beside ``rate_bound_ms``:
+    bytes (the Gram systems, c, pf and λs read once, the coefficients and
+    sweep counts written once) or operations (this run's sweeps × p × (2p
+    + 10) float operations at the peak rate), whichever is larger."""
+    dev = frame_mod.device.type
+    x = frame_mod.x
+    clock = sm_clock_mhz()
+    keys = list(rnd.split(sweep_key("belloni", dev)).unbind(dim=-2))
+    cases = [("usual", lasso_est._xw_design(frame_mod), [frame_mod.y], "gaussian",
+              dict(foldids=[lasso.default_foldid(sweep_key("usual_lasso", dev), frame_mod.n)])),
+             ("belloni", bel.interaction_expand(x), [frame_mod.w, frame_mod.y], "gaussian",
+              dict(keys=keys)),
+             ("ps_irls_1", x, [frame_mod.w], "binomial",
+              dict(foldids=[lasso.default_foldid(sweep_key("ps_lasso", dev), frame_mod.n)]))]
+    rows = []
+    for name, xx, ys, family, kw in cases:
+        with cd_capture() as seen:
+            lasso.cv_glmnet_many(xx, ys, family, **kw)
+        (gram, xty, pf, lams, beta0, alpha, thresh), _ = seen[0]
+        calls = len(seen)
+        run = lambda: lasso.cd_path(gram, xty, pf, lams, beta0, alpha, thresh)
+        betas, sweeps = run()
+        again, sweeps2 = run()
+        check_equal(f"cd_path {name} (two launches)", again, betas)
+        check_equal(f"cd_path {name} sweeps (two launches)", sweeps2, sweeps)
+        big = name == "belloni"
+        n_fits, p, _ = gram.shape
+        n_lam = lams.shape[1]
+        windows = []
+        for lo, hi in CD_PLAIN_WINDOWS if big else ((0, n_lam),):
+            start = beta0 if lo == 0 else betas[:, lo - 1].contiguous()
+            plams = lams[:, lo:hi].contiguous()
+            plain = lambda: lasso.cd_path_plain(gram, xty, pf, plams, start, alpha, thresh)
+            if big:
+                (want, want_sweeps), plain_ms = event_ms(plain)
+            else:
+                (want, want_sweeps), plain_ms = plain(), time_ms(plain, 1)
+            err = float((betas[:, lo:hi] - want).abs().max())
+            if not err <= CD_PATH_BOUND:
+                raise AssertionError(f"cd_path {name} λs {lo}–{hi - 1}: kernel {err} from its "
+                                     f"plain version (bound {CD_PATH_BOUND})")
+            windows.append({"lambdas": [lo, hi], "max_abs_err": err, "plain_ms": plain_ms,
+                            "sweeps_equal_to_plain": float((sweeps[:, lo:hi] == want_sweeps)
+                                                           .double().mean())})
+        nbytes = 4 * (n_fits * p * p + 2 * n_fits * p + n_fits * n_lam
+                      + n_fits * n_lam * p + n_fits * n_lam)
+        rate_ms, rate_by = bound(nbytes, int(sweeps.sum()) * p * (2 * p + 10))
+        chain = int(sweeps.sum(dim=1).max()) * p
+        cycles = CHAIN_CYCLES_PER_STEP * (CHAIN_FIXED_STEPS + -(-p // 32))
+        chain_ms = chain * cycles / (clock * 1e3)
+        ms = device_ms(run, 1 if big else 10, 3 if big else 10)
+        rows.append({"case": name, "B": n_fits, "p": p, "L": n_lam, "dtype": str(gram.dtype),
+                     "staged_gram": p * p * 4 + 3 * 4 * ((p + 3) // 4 * 4) <= 200 * 1024,
+                     "calls_in_row": calls, "sweeps_total": int(sweeps.sum()),
+                     "sweeps_max": int(sweeps.max()), "chain_updates": chain,
+                     "max_abs_err": max(w["max_abs_err"] for w in windows),
+                     "plain_windows": windows,
+                     "ms": ms, "ns_per_chain_update": ms * 1e6 / chain,
+                     "call_ms": time_ms(run, 3 if big else 10),
+                     "plain_ms": windows[0]["plain_ms"], "library_ms": None, "factor": None,
+                     "bound_ms": max(chain_ms, rate_ms),
+                     # The chain is one of dependent operations.
+                     "bound_by": "operations" if chain_ms >= rate_ms else rate_by,
+                     "bound_kind": "chain" if chain_ms >= rate_ms else rate_by,
+                     "chain_cycles_per_update": cycles, "sm_clock_mhz": clock,
+                     "rate_bound_ms": rate_ms, "rate_bound_by": rate_by})
+    return rows
 
 
 def phase_path(frame, frame_mod) -> dict:
@@ -1315,8 +1528,9 @@ def phase_stages() -> None:
 
 
 def phase_path_ipw(frame_mod) -> None:
-    """The Direct Method and the two propensity rows on the card, and the
-    same rows from the CPU port."""
+    """The Direct Method, the two propensity rows and DR-GLM (its own
+    logistic propensity and outcome model, sandwich SE) on the card, and
+    the same rows from the CPU port."""
     stages = {}
 
     def rows(frame, times):
@@ -1331,6 +1545,9 @@ def phase_path_ipw(frame_mod) -> None:
         t0 = time.perf_counter()
         out = [direct, prop_score_weight(frame, p), prop_score_ols(frame, p)]
         times["weighting_rows_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out.append(doubly_robust_glm(frame))
+        times["dr_glm_s"] = time.perf_counter() - t0
         return out
 
     card = rows(frame_mod, stages)
@@ -1345,6 +1562,141 @@ def phase_path_ipw(frame_mod) -> None:
     bad = {m: d for m, d in diffs.items() if max(d) > IPW_BOUND}
     if bad:
         raise AssertionError(f"card vs CPU beyond {IPW_BOUND}: {bad}")
+
+
+@contextlib.contextmanager
+def cv_capture():
+    """Record every ``cv_glmnet`` result the LASSO estimators compute, in
+    call order."""
+    seen = []
+    # Belloni fits its two CV-LASSOs in one cv_glmnet_many call (a list).
+    fits = {(lasso_est, "cv_glmnet"): lasso_est.cv_glmnet, (bel, "cv_glmnet_many"): bel.cv_glmnet_many}
+
+    def wrap(fit):
+        def rec(*a, **k):
+            out = fit(*a, **k)
+            seen.extend(out if isinstance(out, list) else [out])
+            return out
+        return rec
+
+    for (m, name), fit in fits.items():
+        setattr(m, name, wrap(fit))
+    try:
+        yield seen
+    finally:
+        for (m, name), fit in fits.items():
+            setattr(m, name, fit)
+
+
+def fold_digest(foldid: torch.Tensor) -> str:
+    """sha256 of the fold ids as little-endian int64, first 16 hex digits."""
+    return hashlib.sha256(foldid.cpu().numpy().astype("<i8").tobytes()).hexdigest()[:16]
+
+
+def belloni_support(cv_xw, cv_xy) -> list:
+    """Belloni's selected columns under compat="r" from its two fits."""
+    lam = cv_xw.lambda_min
+    c_xw = bel._interp_coef_at(cv_xw.path.lambdas, cv_xw.path.coefs, lam)
+    c_xy = bel._interp_coef_at(cv_xy.path.lambdas, cv_xy.path.coefs, lam)
+    return torch.nonzero((c_xw > 0) | (c_xy > 0))[:, 0].tolist()
+
+
+def lasso_rows(frame, times: dict, launches: dict) -> tuple[list, list, dict]:
+    """The four LASSO rows as the sweep runs them (``pipeline.py:863-877,
+    931-945, 956-958``): fold ids from the sweep's keys, the LASSO
+    propensity into the IPW row, Belloni on its key. Returns the results,
+    the five cv_glmnet results and the fold ids."""
+    dev = frame.device.type
+    folds = {k: lasso.default_foldid(sweep_key(k, dev), frame.n)
+             for k in ("ps_lasso", "seq_lasso", "usual_lasso")}
+    kxw, kxy = rnd.split(sweep_key("belloni", dev)).unbind(dim=-2)
+    folds["belloni_xw"] = lasso.default_foldid(kxw, frame.n)
+    folds["belloni_xy"] = lasso.default_foldid(kxy, frame.n)
+    stages = (("lasso_ps", lambda: prop_score_weight(
+                  frame, lasso_est.prop_score_lasso(frame, folds["ps_lasso"]),
+                  method="Propensity_Weighting_LASSOPS")),
+              ("seq_lasso", lambda: lasso_est.ate_condmean_lasso(frame, folds["seq_lasso"])),
+              ("usual_lasso", lambda: lasso_est.ate_lasso(frame, folds["usual_lasso"])),
+              ("belloni", lambda: bel.belloni(frame, key=sweep_key("belloni", dev))))
+    out = []
+    kernel = COUNTERS["cd_path"][0]     # the wrapper itself, under the capture
+    with cv_capture() as cvs, cd_capture() as calls:
+        for name, fn in stages:
+            before, n_calls = kernel.launches, len(calls)
+            t0 = time.perf_counter()
+            out.append(fn())
+            if dev == "cuda":
+                sync()
+            times[f"{name}_s"] = time.perf_counter() - t0
+            launches[name] = {"launches": kernel.launches - before,
+                              "cd_path_calls": len(calls) - n_calls}
+    return out, list(cvs), folds
+
+
+def phase_path_lasso(frame_mod) -> dict:
+    """The four LASSO rows on the card (launch counts read around them) and
+    on the CPU port, held to the JAX package's fold ids, selected indices,
+    τ and SE (LASSO_FOLDS, LASSO_INDEX, LASSO_JAX within LASSO_BOUND) and
+    to each other within LASSO_BOUND, Belloni's support equal."""
+    stages, per_row = {}, {}
+    reset_counts()
+    card, card_cv, card_folds = lasso_rows(frame_mod, stages, per_row)
+    counts = read_counts()
+    cpu_stages, cpu_calls = {}, {}
+    host, host_cv, host_folds = lasso_rows(frame_mod.to("cpu"), cpu_stages, cpu_calls)
+    names = list(LASSO_INDEX)
+    index = {"card": {k: [int(c.index_min), int(c.index_1se)] for k, c in zip(names, card_cv)},
+             "cpu": {k: [int(c.index_min), int(c.index_1se)] for k, c in zip(names, host_cv)}}
+    digests = {"card": {k: fold_digest(v) for k, v in card_folds.items()},
+               "cpu": {k: fold_digest(v) for k, v in host_folds.items()}}
+    support = {"card": belloni_support(*card_cv[3:]), "cpu": belloni_support(*host_cv[3:])}
+    # Belloni's host step: R's aliasing rule on the selected columns
+    # (float64 Gram–Schmidt in numpy), timed again on its own.
+    cols = bel.interaction_expand(frame_mod.x)[:, support["card"]]
+    t0 = time.perf_counter()
+    alias_filter(cols, with_intercept=True)
+    stages["belloni_alias_filter_s"] = time.perf_counter() - t0
+    results = {r.method: {"card": [r.ate, r.se], "cpu": [h.ate, h.se], "jax": list(LASSO_JAX[r.method]),
+                          "abs_diff_card_jax": [abs(r.ate - LASSO_JAX[r.method][0]),
+                                                abs(r.se - LASSO_JAX[r.method][1])],
+                          "abs_diff_card_cpu": [abs(r.ate - h.ate), abs(r.se - h.se)],
+                          "bound": LASSO_BOUND[r.method]}
+               for r, h in zip(card, host)}
+    # The point-only rows have no SE (NaN): written as null.
+    printable = {m: {k: [None if isinstance(v, float) and math.isnan(v) else v for v in vals]
+                     if isinstance(vals, list) else vals for k, vals in r.items()}
+                 for m, r in results.items()}
+    emit({"phase": "path_lasso", "rows": frame_mod.n, "results": printable, "index": index,
+          "fold_digests": digests, "belloni_support_size": len(support["card"]),
+          "belloni_support_equal": support["card"] == support["cpu"], "stages": stages,
+          "cpu_stages": cpu_stages, "launches_by_row": per_row, "cpu_cd_path_calls": cpu_calls,
+          "launches": counts})
+    fails = []
+    for dev, got in digests.items():
+        if got != LASSO_FOLDS:
+            fails.append(f"{dev} fold ids {got} differ from the JAX package's {LASSO_FOLDS}")
+    for dev, got in index.items():
+        if got != {k: list(v) for k, v in LASSO_INDEX.items()}:
+            fails.append(f"{dev} selected indices {got}, the JAX package's {LASSO_INDEX}")
+    if support["card"] != support["cpu"]:
+        fails.append(f"Belloni support differs: card {support['card']}, cpu {support['cpu']}")
+    for method, r in results.items():
+        lim = LASSO_BOUND[method]
+        for what, (da, ds) in (("JAX", r["abs_diff_card_jax"]), ("CPU", r["abs_diff_card_cpu"])):
+            if not (da <= lim and (math.isnan(r["jax"][1]) or ds <= lim)):
+                fails.append(f"{method}: card vs {what} |Δτ| {da}, |ΔSE| {ds} > {lim}")
+        if not math.isfinite(r["card"][0]):
+            fails.append(f"{method}: τ is not finite")
+    gaussian = {"seq_lasso": 1, "usual_lasso": 1, "belloni": 1}
+    for row, c in per_row.items():
+        if c["launches"] != c["cd_path_calls"] or (row in gaussian and c["launches"] != gaussian[row]):
+            fails.append(f"{row}: {c['launches']} cd_path launches for {c['cd_path_calls']} calls")
+    require_launched(counts, LASSO_KERNELS, "LASSO")
+    if any(counts[k] for k in COUNTERS if k not in LASSO_KERNELS):
+        fails.append(f"forest kernels launched on the LASSO path: {counts}")
+    if fails:
+        raise AssertionError("path_lasso: " + "; ".join(fails))
+    return counts
 
 
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
@@ -1373,7 +1725,16 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
                                      "partition_accumulate_packed"),
     # Its in-kernel pack matmul.
     "pack_codes": (_PART, _TPU + "hist_pallas.py:441", "pack_words"),
+    # Not a TPU kernel: the XLA program of the coordinate descent
+    # (_cd_sweeps under the λ scan and the fold vmap).
+    "cd_path": ("ate_replication_causalml_torch/csrc/lasso.cu", _TPU + "lasso.py:95",
+                "cd_path_kernel"),
 }
+
+
+# The CD kernel's chain bound beside its byte-or-operation bound.
+CHAIN_KEYS = ("bound_kind", "rate_bound_ms", "rate_bound_by", "chain_updates",
+              "ns_per_chain_update", "chain_cycles_per_update", "sm_clock_mhz")
 
 
 def main() -> int:
@@ -1390,6 +1751,7 @@ def main() -> int:
     by_path["dml"] = phase_path_dml(frame_mod)
     phase_parity_dml(frame_mod)
     phase_path_ipw(frame_mod)
+    by_path["lasso"] = phase_path_lasso(frame_mod)
     phase_stages()
     kernels = []
     for k, (src, rep, device_fn) in SOURCES.items():
@@ -1403,6 +1765,8 @@ def main() -> int:
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "factor": row.get("factor"), "call_ms": row.get("call_ms"),
                         "replaced_ms": row.get("replaced_ms"),
+                        "launch_floor_ms": row.get("launch_floor_ms"),
+                        **{c: row[c] for c in CHAIN_KEYS if c in row},
                         "registers": max((v.get("registers", 0) for v in ptxas), default=None),
                         "spill_bytes": max((v.get("spill_bytes", 0) for v in ptxas), default=None)})
     out_dir = os.path.join(REPO, "build")

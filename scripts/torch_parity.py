@@ -28,7 +28,18 @@ JSON object:
 * ``dml`` — the "Double Machine Learning" row on the same frame with the
   sweep's key (``fold_in(key(0), crc32("dml"))``), ``--dml-trees`` trees
   of depth 9 per nuisance forest, ``crossfit="r"``, ``se_mode="r"``: the
-  four forests compared field for field, |Δτ| and |ΔSE|.
+  four forests compared field for field, |Δτ| and |ΔSE|;
+* ``lasso`` — the four LASSO rows (Propensity_Weighting_LASSOPS,
+  Single-equation LASSO, Usual LASSO, Belloni et.al under ``compat="r"``)
+  on the same frame with the sweep's fold ids (``default_foldid`` of
+  ``fold_in(key(0), crc32(name))``) and Belloni's key: each
+  ``cv_glmnet``'s selected indices in both packages, the cvm gap at them
+  against cvsd, the λ path and the coefficients in ulps, the fold ids'
+  digests, τ and SE.
+
+Every float comparison reports its max |Δ| and, under ``max_ulp_diff``,
+its max |Δ| in float32 ulps of the JAX package's value
+(``np.spacing``). ``--rows`` picks sections (default: all).
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import json
 import os
 import sys
 import time
+import hashlib
+import importlib
 import zlib
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -70,6 +83,16 @@ def maxdiff(a, b) -> float:
     return float(np.max(np.abs(a - b))) if a.size else 0.0
 
 
+def maxulp(a, b) -> float:
+    """max |a − b| in float32 ulps of ``b`` (the JAX package's value)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    if not a.size:
+        return 0.0
+    return float(np.max(np.abs(a - b) / np.spacing(np.abs(b).astype(np.float32)).astype(np.float64)))
+
+
 def dr_rf(jmod, tmod, trees: int) -> dict:
     x, w = np.asarray(jmod.x), np.asarray(jmod.w)
     ref, ref_pred, mine = forest_tests.classifier_pair(x, w, n_trees=trees, depth=9,
@@ -91,6 +114,12 @@ def dr_rf(jmod, tmod, trees: int) -> dict:
             "DR-RF tau (f32)": abs(ts.ate - js.ate),
             "DR-RF sandwich SE (f32)": abs(ts.se - js.se),
             "DR-RF bootstrap SE, 1000 replicates (f32)": abs(tb.se - jb.se),
+        },
+        "max_ulp_diff": {
+            "outcome GLM mu0, mu1 (f32)": max(maxulp(tmu0, jmu0), maxulp(tmu1, jmu1)),
+            "DR-RF tau (f32)": maxulp(ts.ate, js.ate),
+            "DR-RF sandwich SE (f32)": maxulp(ts.se, js.se),
+            "DR-RF bootstrap SE, 1000 replicates (f32)": maxulp(tb.se, jb.se),
         },
     }
 
@@ -140,6 +169,9 @@ def cf_small() -> dict:
             "carried forest tau max |diff|": maxdiff(tp.cate.numpy(), np.asarray(jp.cate)),
             "carried forest variance max |diff|": maxdiff(tp.variance.numpy(),
                                                           np.asarray(jp.variance)),
+            "max_ulp_diff": {"carried forest tau": maxulp(tp.cate.numpy(), np.asarray(jp.cate)),
+                             "carried forest variance": maxulp(tp.variance.numpy(),
+                                                               np.asarray(jp.variance))},
         }
     jframe, tframe = cf_tests._frames(5, 400, 5)
     kw = dict(n_trees=8, depth=4, nuisance_trees=8, nuisance_depth=4, n_bins=16, hist_mode="dense")
@@ -177,6 +209,122 @@ def dml_row(jmod, tmod, trees: int) -> dict:
             maxdiff(getattr(a, f).numpy(), np.asarray(getattr(b, f)))
             for a, b in zip(tforests, jforests) for f in dml_tests.FIELDS),
         "abs_dtau": abs(got.ate - ref.ate), "abs_dse": abs(got.se - ref.se),
+        "max_ulp_diff": {"tau": maxulp(got.ate, ref.ate), "se": maxulp(got.se, ref.se)},
+        "seconds": {"jax": t1 - t0, "torch": t2 - t1},
+    }
+
+
+def fold_digest(foldid) -> str:
+    """sha256 of the fold ids as little-endian int64, first 16 hex digits."""
+    return hashlib.sha256(np.asarray(foldid, "<i8").tobytes()).hexdigest()[:16]
+
+
+def _cv_capture(mp, *targets) -> list:
+    """Record every cv_glmnet result computed through the (module, name)
+    targets (``cv_glmnet``, or the port's ``cv_glmnet_many``: a list)."""
+    seen = []
+    for mod, name in targets:
+        fit = getattr(mod, name)
+
+        def rec(*a, _fit=fit, **k):
+            out = _fit(*a, **k)
+            seen.extend(out if isinstance(out, list) else [out])
+            return out
+
+        mp.setattr(mod, name, rec)
+    return seen
+
+
+def _cv_compare(got, ref) -> dict:
+    """One cv_glmnet in both packages: the selected indices, the cvm gap
+    at each package's index against cvsd, and the path in ulps."""
+    cvm, cvsd = np.asarray(ref.cvm, np.float64), np.asarray(ref.cvsd, np.float64)
+    out = {"index_min": [int(ref.index_min), int(got.index_min)],
+           "index_1se": [int(ref.index_1se), int(got.index_1se)]}
+    for name in ("index_min", "index_1se"):
+        i, j = out[name]
+        out[f"{name}_cvm_gap_over_cvsd"] = float(abs(cvm[i] - cvm[j]) / cvsd[i]) if i != j else 0.0
+    j1 = int(ref.index_1se)
+    out["max_ulp_diff"] = {
+        "lambdas": maxulp(got.path.lambdas.numpy(), np.asarray(ref.path.lambdas)),
+        "cvm": maxulp(got.cvm.numpy(), cvm),
+        "coefs at index_1se": maxulp(got.path.coefs[j1].numpy(), np.asarray(ref.path.coefs[j1])),
+    }
+    out["max_abs_diff"] = {
+        "coefs (whole path)": maxdiff(got.path.coefs.numpy(), np.asarray(ref.path.coefs)),
+        "intercepts (whole path)": maxdiff(got.path.intercepts.numpy(),
+                                           np.asarray(ref.path.intercepts)),
+        "cvm": maxdiff(got.cvm.numpy(), cvm),
+    }
+    return out
+
+
+def lasso_rows(jmod, tmod) -> dict:
+    """The four LASSO rows in both packages (float32), each on its own CPU
+    path, with the sweep's fold ids and keys."""
+    import pytest
+
+    jle = importlib.import_module("ate_replication_causalml_tpu.estimators.lasso_est")
+    jbe = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
+    jipw = importlib.import_module("ate_replication_causalml_tpu.estimators.ipw")
+    jlasso = importlib.import_module("ate_replication_causalml_tpu.ops.lasso")
+    from ate_replication_causalml_torch.estimators import belloni as tbe
+    from ate_replication_causalml_torch.estimators import ipw as tipw
+    from ate_replication_causalml_torch.estimators import lasso_est as tle
+    from ate_replication_causalml_torch.ops import lasso as tlasso
+
+    def jkey(name):
+        return jax.random.fold_in(jax.random.key(0), zlib.crc32(name.encode()))
+
+    def tkey(name):
+        return rnd.fold_in(rnd.key(0, device="cpu"), zlib.crc32(name.encode()))
+
+    def run_jax():
+        with pytest.MonkeyPatch.context() as mp, jax.enable_x64(False):
+            seen = _cv_capture(mp, (jle, "cv_glmnet"), (jbe, "cv_glmnet"))
+            folds = {k: jlasso.default_foldid(jkey(k), jmod.n)
+                     for k in ("ps_lasso", "seq_lasso", "usual_lasso")}
+            p = jle.prop_score_lasso(jmod, foldid=folds["ps_lasso"])
+            rows = [jipw.prop_score_weight(jmod, p, method="Propensity_Weighting_LASSOPS"),
+                    jle.ate_condmean_lasso(jmod, foldid=folds["seq_lasso"]),
+                    jle.ate_lasso(jmod, foldid=folds["usual_lasso"]),
+                    jbe.belloni(jmod, key=jkey("belloni"))]
+            kxw, kxy = jax.random.split(jkey("belloni"))
+            folds["belloni_xw"] = jlasso.default_foldid(kxw, jmod.n)
+            folds["belloni_xy"] = jlasso.default_foldid(kxy, jmod.n)
+            return rows, list(seen), {k: np.asarray(v) for k, v in folds.items()}, np.asarray(p)
+
+    def run_torch():
+        with pytest.MonkeyPatch.context() as mp:
+            seen = _cv_capture(mp, (tle, "cv_glmnet"), (tbe, "cv_glmnet_many"))
+            folds = {k: tlasso.default_foldid(tkey(k), tmod.n)
+                     for k in ("ps_lasso", "seq_lasso", "usual_lasso")}
+            p = tle.prop_score_lasso(tmod, folds["ps_lasso"])
+            rows = [tipw.prop_score_weight(tmod, p, method="Propensity_Weighting_LASSOPS"),
+                    tle.ate_condmean_lasso(tmod, folds["seq_lasso"]),
+                    tle.ate_lasso(tmod, folds["usual_lasso"]),
+                    tbe.belloni(tmod, key=tkey("belloni"))]
+            kxw, kxy = rnd.split(tkey("belloni")).unbind(dim=-2)
+            folds["belloni_xw"] = tlasso.default_foldid(kxw, tmod.n)
+            folds["belloni_xy"] = tlasso.default_foldid(kxy, tmod.n)
+            return rows, list(seen), {k: v.numpy() for k, v in folds.items()}, p.numpy()
+
+    t0 = time.perf_counter()
+    jrows, jcv, jfolds, jp = run_jax()
+    t1 = time.perf_counter()
+    trows, tcv, tfolds, tp = run_torch()
+    t2 = time.perf_counter()
+    names = ["ps_lasso", "seq_lasso", "usual_lasso", "belloni_xw", "belloni_xy"]
+    return {
+        "fold_digests": {k: [fold_digest(jfolds[k]), fold_digest(tfolds[k])] for k in names},
+        "folds_equal": all(np.array_equal(jfolds[k], tfolds[k]) for k in names),
+        "cv_glmnet": {k: _cv_compare(g, r) for k, g, r in zip(names, tcv, jcv)},
+        "lasso_propensity": {"max_abs_diff": maxdiff(tp, jp), "max_ulp_diff": maxulp(tp, jp)},
+        "rows": {r.method: {"jax": [r.ate, r.se], "torch": [g.ate, g.se],
+                            "abs_diff": [abs(g.ate - r.ate), abs(g.se - r.se)
+                                         if np.isfinite(r.se) else None],
+                            "max_ulp_diff": maxulp(g.ate, r.ate)}
+                 for g, r in zip(trows, jrows)},
         "seconds": {"jax": t1 - t0, "torch": t2 - t1},
     }
 
@@ -187,17 +335,27 @@ def main() -> int:
     ap.add_argument("--cf-trees", type=int, default=2000, help="causal forest trees")
     ap.add_argument("--cf-nuisance-trees", type=int, default=500)
     ap.add_argument("--dml-trees", type=int, default=2000, help="trees per DML nuisance forest")
+    ap.add_argument("--rows", default="dr_rf,causal_forest,dml,lasso",
+                    help="comma-separated sections to run")
     args = ap.parse_args()
+    rows = set(args.rows.split(","))
     t0 = time.perf_counter()
     _, jmod, _, tmod = aipw_tests.build_frames(120_000, 0, 50_000, dtypes=(np.float32,))[np.float32]
-    print(json.dumps({
-        "script": "scripts/torch_parity.py", "device": "cpu", "rows_biased": tmod.n,
-        "dr_rf": dr_rf(jmod, tmod, args.trees),
-        "causal_forest": {"notebook": cf_notebook(jmod, tmod, args.cf_trees, args.cf_nuisance_trees),
-                          "small": cf_small()},
-        "dml": dml_row(jmod, tmod, args.dml_trees),
-        "seconds": time.perf_counter() - t0,
-    }, indent=1))
+    sections = {
+        "dr_rf": lambda: dr_rf(jmod, tmod, args.trees),
+        "causal_forest": lambda: {
+            "notebook": cf_notebook(jmod, tmod, args.cf_trees, args.cf_nuisance_trees),
+            "small": cf_small()},
+        "dml": lambda: dml_row(jmod, tmod, args.dml_trees),
+        "lasso": lambda: lasso_rows(jmod, tmod),
+    }
+    unknown = rows - set(sections)
+    if unknown:
+        ap.error(f"unknown --rows {sorted(unknown)}")
+    out = {"script": "scripts/torch_parity.py", "device": "cpu", "rows_biased": tmod.n}
+    out.update({name: run() for name, run in sections.items() if name in rows})
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out, indent=1))
     return 0
 
 

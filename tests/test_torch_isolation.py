@@ -26,7 +26,8 @@ def test_port_lists_its_modules():
     for m in ("ops.random", "ops.hist", "ops.tree", "models.forest", "kernels.build",
               "estimators.aipw", "data.pipeline", "models.causal_forest",
               "estimators.causal_forest_est", "ops.pack", "ops.linalg", "estimators.dml",
-              "estimators.ols", "estimators.ipw"):
+              "estimators.ols", "estimators.ipw", "ops.lasso", "estimators.lasso_est",
+              "estimators.belloni"):
         assert f"{_PKG}.{m}" in mods
 
 

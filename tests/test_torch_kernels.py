@@ -16,6 +16,7 @@ from ate_replication_causalml_torch.estimators import dml
 from ate_replication_causalml_torch.models import causal_forest as cf
 from ate_replication_causalml_torch.models import forest as fo
 from ate_replication_causalml_torch.ops import hist as th
+from ate_replication_causalml_torch.ops import lasso as tl
 from ate_replication_causalml_torch.ops import pack as tp
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops import tree as tt
@@ -512,3 +513,114 @@ def test_leaf_index_and_row_chunk_on_card(cuda):
     for kw in (dict(row_chunk=1000), dict(leaf_index=li), dict(row_chunk=1024, leaf_index=li)):
         got = cf.predict_cate(forest, xc, **kw)
         assert torch.equal(got.cate, whole.cate) and torch.equal(got.variance, whole.variance), kw
+
+
+def _cd_case(seed, n_fits, p, dtype, dev, n_lam=5, zero_pf=0):
+    """Gram systems of standardized random designs (n = max(2p, 60) rows,
+    y on the first three columns plus noise), one per fit; penalty
+    factors 1 with the first ``zero_pf`` at 0, normalized to sum to p;
+    each fit's log-linear λ path from its own λ_max down to 1e-2 of it."""
+    rng = np.random.default_rng(seed)
+    n = max(2 * p, 60)
+    gram, xty = [], []
+    for _ in range(n_fits):
+        x = rng.normal(size=(n, p))
+        x = (x - x.mean(0)) / x.std(0)
+        y = x[:, :3] @ np.array([1.0, -0.5, 0.25])[: min(3, p)] + rng.normal(size=n)
+        gram.append(x.T @ x / n)
+        xty.append(x.T @ y / n)
+    pf = np.ones(p)
+    pf[:zero_pf] = 0.0
+    pf = pf * p / pf.sum()
+    xty = np.array(xty)
+    lam_max = np.max(np.abs(xty[:, pf > 0]) / pf[pf > 0], axis=1)
+    lams = lam_max[:, None] * np.exp(np.linspace(0.0, np.log(1e-2), n_lam))[None, :]
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    return as_t(np.array(gram)), as_t(xty), as_t(np.broadcast_to(pf, (n_fits, p))), as_t(lams)
+
+
+# Kernel against its plain version on the same card tensors. The two sum
+# each dot product G_j·β in other orders (the kernel: lane-strided fused
+# multiply-add chains and a shuffle butterfly; the plain version:
+# PyTorch's sum), so the iterates differ by rounding; the sweeps run to a
+# threshold far below that rounding's square (CD_THRESH), so both stop at
+# the fixed point to within a few ulps amplified by the conditioning.
+CD_THRESH = {torch.float32: 1e-13, torch.float64: 1e-26}
+CD_BOUND = {torch.float32: 2e-5, torch.float64: 1e-12}   # |Δβ| ≤ bound·(1 + |β|)
+
+
+def _cd_close(got, want, dtype):
+    return bool(torch.all((got - want).abs() <= CD_BOUND[dtype] * (1 + want.abs())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p,n_fits,n_lam,zero_pf", [
+    (1, 3, 5, 0), (21, 11, 8, 0), (22, 11, 8, 1), (33, 3, 5, 2), (224, 2, 3, 0),
+    (225, 2, 3, 0), (462, 2, 3, 0), (530, 2, 2, 0)])
+def test_cd_path_kernel_equals_plain(cuda, dtype, p, n_fits, n_lam, zero_pf):
+    """p = 1; the three small rows' 21 and 22 (W at penalty factor 0);
+    ragged 33; the largest staged Gram (224 in float32) and the first read
+    from L2 (225); Belloni's 462; 530, past the register-held rows (the
+    form that reads each row inside its dot product). One launch counted;
+    two launches equal bits; within CD_BOUND of the plain version."""
+    gram, xty, pf, lams = _cd_case(p, n_fits, p, dtype, cuda, n_lam, zero_pf)
+    thresh = CD_THRESH[dtype]
+    before = tl.cd_path.launches
+    betas, sweeps = tl.cd_path(gram, xty, pf, lams, thresh=thresh)
+    torch.cuda.synchronize()
+    assert tl.cd_path.launches == before + 1
+    again, sweeps_again = tl.cd_path(gram, xty, pf, lams, thresh=thresh)
+    assert torch.equal(betas, again) and torch.equal(sweeps, sweeps_again)
+    want, want_sweeps = tl.cd_path_plain(gram, xty, pf, lams, thresh=thresh)
+    assert _cd_close(betas, want, dtype), float((betas - want).abs().max())
+    assert bool((sweeps >= 1).all()) and bool((sweeps < tl.MAX_SWEEPS).all())
+    # A warm start: the path resumed from its second λ gives the same run.
+    resumed, _ = tl.cd_path(gram, xty, pf, lams[:, 2:].contiguous(), betas[:, 1].contiguous(),
+                            thresh=thresh)
+    assert torch.equal(resumed, betas[:, 2:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cd_path_kernel_runs_max_sweeps(cuda, dtype):
+    """A near-collinear pair (G_12 = 0.9995, c = (1, −1)) at a small λ:
+    Gauss–Seidel contracts by G_12² a sweep while each move stays above
+    sqrt(thresh), so the default threshold needs every one of MAX_SWEEPS;
+    both versions stop there, within a bound scaled by the conditioning
+    (κ ≈ 4,000)."""
+    g = torch.tensor([[[1.0, 0.9995], [0.9995, 1.0]]], dtype=dtype, device=cuda)
+    c = torch.tensor([[1.0, -1.0]], dtype=dtype, device=cuda)
+    pf = torch.ones((1, 2), dtype=dtype, device=cuda)
+    lams = torch.tensor([[0.5, 1e-6]], dtype=dtype, device=cuda)
+    betas, sweeps = tl.cd_path(g, c, pf, lams)
+    want, want_sweeps = tl.cd_path_plain(g, c, pf, lams)
+    assert int(sweeps[0, 1]) == int(want_sweeps[0, 1]) == tl.MAX_SWEEPS
+    assert bool(torch.all((betas - want).abs() <= 4000 * CD_BOUND[dtype] * (1 + want.abs())))
+
+
+def test_cv_glmnet_on_card_launches_only_the_kernel(cuda, monkeypatch):
+    """A CUDA tensor never reaches the plain CD path: with the plain
+    version made to raise, a gaussian cv_glmnet on the card is one launch
+    (the full fit and ten folds in one batch) and a binomial one a launch
+    per IRLS iteration; the selected indices equal the CPU port's."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain CD path ran on CUDA tensors")
+
+    rng = np.random.default_rng(8)
+    n, p = 600, 12
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    y = (x[:, 0] - 0.5 * x[:, 1] + rng.normal(size=n)).astype(np.float32)
+    w = (rng.random(n) < 1 / (1 + np.exp(-x[:, 2]))).astype(np.float32)
+    key = rnd.key(4, device="cpu")
+    host = {f: tl.cv_glmnet(torch.as_tensor(x), torch.as_tensor(t), f, key=key)
+            for f, t in (("gaussian", y), ("binomial", w))}
+    monkeypatch.setattr(tl, "cd_path_plain", refuse)
+    monkeypatch.setattr(tl, "_cd_sweeps", refuse)
+    xc = torch.as_tensor(x, device=cuda)
+    for family, t in (("gaussian", y), ("binomial", w)):
+        before = tl.cd_path.launches
+        got = tl.cv_glmnet(xc, torch.as_tensor(t, device=cuda), family, key=key.to(cuda))
+        launches = tl.cd_path.launches - before
+        assert launches == 1 if family == "gaussian" else 1 <= launches <= 100 * tl.MAX_IRLS
+        ref = host[family]
+        assert (int(got.index_min), int(got.index_1se)) == (int(ref.index_min), int(ref.index_1se))
+        assert torch.allclose(got.path.coefs.cpu(), ref.path.coefs, rtol=1e-3, atol=1e-4)

@@ -14,6 +14,7 @@ half-samples exact and at least 90% of its split table equal (a float
 tie may flip a split).
 """
 
+import importlib
 import inspect
 
 import jax
@@ -23,14 +24,23 @@ import pytest
 import torch
 
 from ate_replication_causalml_torch.data.frame import CausalFrame as TFrame
+from ate_replication_causalml_torch.estimators import belloni as tbe
 from ate_replication_causalml_torch.estimators import dml as td
+from ate_replication_causalml_torch.estimators import lasso_est as tle
 from ate_replication_causalml_torch.models import causal_forest as tcf
 from ate_replication_causalml_torch.models import forest as tf
+from ate_replication_causalml_torch.ops import lasso as tla
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_tpu.data.frame import CausalFrame as JFrame
 from ate_replication_causalml_tpu.estimators import dml as jd
 from ate_replication_causalml_tpu.models import causal_forest as jcf
 from ate_replication_causalml_tpu.models import forest as jf
+from ate_replication_causalml_tpu.ops import lasso as jla
+
+# The JAX package's estimators/__init__.py binds these module names to
+# functions; import the modules themselves.
+jbe = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
+jle = importlib.import_module("ate_replication_causalml_tpu.estimators.lasso_est")
 
 ENTRY_POINTS = {
     "predict_cate": (jcf.predict_cate, tcf.predict_cate),
@@ -38,6 +48,15 @@ ENTRY_POINTS = {
     "fit_causal_forest": (jcf.fit_causal_forest, tcf.fit_causal_forest),
     "fit_forest_classifier": (jf.fit_forest_classifier, tf.fit_forest_classifier),
     "double_ml": (jd.double_ml, td.double_ml),
+    "cv_glmnet": (jla.cv_glmnet, tla.cv_glmnet),
+    "elnet_gaussian": (jla.elnet_gaussian, tla.elnet_gaussian),
+    "lognet_binomial": (jla.lognet_binomial, tla.lognet_binomial),
+    "default_foldid": (jla.default_foldid, tla.default_foldid),
+    "predict_path": (jla.predict_path, tla.predict_path),
+    "ate_condmean_lasso": (jle.ate_condmean_lasso, tle.ate_condmean_lasso),
+    "ate_lasso": (jle.ate_lasso, tle.ate_lasso),
+    "prop_score_lasso": (jle.prop_score_lasso, tle.prop_score_lasso),
+    "belloni": (jbe.belloni, tbe.belloni),
 }
 CF_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")
 
@@ -226,3 +245,72 @@ def test_bad_row_chunk_and_leaf_index_raise(carried):
         tcf.compute_leaf_index(mine, xt, 4, 0)
     with pytest.raises(ValueError, match="leaf_index"):
         tcf.predict_cate(mine, xt, True, 4, 128, torch.zeros((8, 10), dtype=torch.uint8))
+
+
+def _lasso_frames(seed, n, p):
+    x, w, _ = _frames(seed, n, p)
+    rng = np.random.default_rng(seed + 1)
+    y = (x[:, 0] - 0.5 * x[:, 1] + 0.2 * w + rng.normal(size=n)).astype(np.float32)
+    return (JFrame(jnp.asarray(x), jnp.asarray(w), jnp.asarray(y)),
+            TFrame(*(torch.as_tensor(a) for a in (x, w, y))))
+
+
+def test_cv_glmnet_and_paths_positional():
+    """cv_glmnet(x, y, family, alpha, penalty_factor, nfolds, foldid, key,
+    nlambda, fold_axis), elnet_gaussian / lognet_binomial(x, y, weights,
+    penalty_factor, alpha, nlambda, lambdas, thresh), default_foldid(key,
+    n, nfolds), predict_path(path, x, index): the same selected indices,
+    paths within the float32 bound of ``tests/test_torch_lasso.py``."""
+    jframe, tframe = _lasso_frames(3, 300, 4)
+    pf = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
+    jk, tk = _jax_key_pair(6)
+    with jax.enable_x64(False):
+        jfold = jla.default_foldid(jk, 300, 5)
+        ref = jla.cv_glmnet(jframe.x, jframe.y, "gaussian", 1.0, jnp.asarray(pf), 5, None, jk, 20,
+                            None)
+        eta = np.asarray(jla.predict_path(ref.path, jframe.x, ref.index_min))
+        jpath = jla.lognet_binomial(jframe.x, jframe.w, None, jnp.asarray(pf), 1.0, 20, None, 1e-7)
+    assert np.array_equal(tla.default_foldid(tk, 300, 5).numpy(), np.asarray(jfold))
+    got = tla.cv_glmnet(tframe.x, tframe.y, "gaussian", 1.0, torch.as_tensor(pf), 5, None, tk, 20,
+                        None)
+    assert got.path.coefs.shape == (20, 4)
+    assert (int(got.index_min), int(got.index_1se)) == (int(ref.index_min), int(ref.index_1se))
+    rc = np.asarray(ref.path.coefs)
+    assert np.all(np.abs(got.path.coefs.numpy() - rc) <= 5e-4 * (1 + np.abs(rc)))
+    got_eta = tla.predict_path(got.path, tframe.x, got.index_min).numpy()
+    assert np.all(np.abs(got_eta - eta) <= 5e-3)
+    path = tla.lognet_binomial(tframe.x, tframe.w, None, torch.as_tensor(pf), 1.0, 20, None, 1e-7)
+    assert path.coefs.shape == (20, 4)
+    assert np.all(np.abs(path.coefs.numpy() - np.asarray(jpath.coefs)) <= 5e-4 * (
+        1 + np.abs(np.asarray(jpath.coefs))))
+    with pytest.raises(ValueError, match="fold_axis"):
+        tla.cv_glmnet(tframe.x, tframe.y, "gaussian", 1.0, None, 5, None, tk, 20, "fold")
+
+
+def test_lasso_estimators_positional():
+    """ate_condmean_lasso / ate_lasso(frame, foldid, key, fold_axis, method),
+    prop_score_lasso(frame, foldid, key, fold_axis), belloni(frame,
+    foldid_xw, foldid_xy, key, fold_axis, compat, method): the same rows
+    (float32 bounds of ``tests/test_torch_lasso_est.py``); a fold_axis
+    raises."""
+    jframe, tframe = _lasso_frames(4, 300, 3)
+    fold = np.resize(np.arange(1, 11), 300)[np.random.default_rng(0).permutation(300)]
+    fold2 = np.roll(fold, 7)
+    jk, tk = _jax_key_pair(9)
+    with jax.enable_x64(False):
+        ref = [jle.ate_condmean_lasso(jframe, jnp.asarray(fold), None, None, "seq"),
+               jle.ate_lasso(jframe, None, jk, None, "usual"),
+               jbe.belloni(jframe, jnp.asarray(fold), jnp.asarray(fold2), None, None, "fixed", "b")]
+        jp = np.asarray(jle.prop_score_lasso(jframe, None, jk, None))
+    got = [tle.ate_condmean_lasso(tframe, fold, None, None, "seq"),
+           tle.ate_lasso(tframe, None, tk, None, "usual"),
+           tbe.belloni(tframe, fold, fold2, None, None, "fixed", "b")]
+    for g, r, tol in zip(got, ref, (5e-5, 5e-5, 1e-5)):
+        assert g.method == r.method and abs(g.ate - r.ate) <= tol
+    assert abs(got[2].se - ref[2].se) <= 1e-5
+    assert np.all(np.abs(tle.prop_score_lasso(tframe, None, tk, None).numpy() - jp) <= 1e-4)
+    for call in (lambda: tle.ate_lasso(tframe, None, tk, "fold"),
+                 lambda: tle.prop_score_lasso(tframe, None, tk, "fold"),
+                 lambda: tbe.belloni(tframe, None, None, tk, "fold")):
+        with pytest.raises(ValueError, match="fold_axis"):
+            call()
