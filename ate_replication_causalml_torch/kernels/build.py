@@ -83,6 +83,11 @@ KERNELS = {
                     [_P, _I64, _I64, _I64, _P, _P, _I, _I, _P, _I64, _P, _P, _P]),
     "cd_path": ("lasso", "ate_cd_path",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P, _P, _P]),
+    # The same library's host-side queries (the delay d, the largest p) and
+    # the card tests' check of its float division.
+    "cd_delay": ("lasso", "ate_cd_delay", []),
+    "cd_max_p": ("lasso", "ate_cd_max_p", [_I]),
+    "cd_div_check": ("lasso", "ate_cd_div_check", [_P, _P, _I64, _P, _P]),
 }
 
 

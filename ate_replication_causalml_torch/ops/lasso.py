@@ -30,6 +30,7 @@ whether any fit goes on.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -187,9 +188,11 @@ def cd_path(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
 
     CPU tensors run :func:`cd_path_plain`; CUDA tensors launch
     ``csrc/lasso.cu``'s ``cd_path_kernel`` (one block per fit), counted
-    in ``cd_path.launches``. The kernel keeps Gram rows in registers for
-    p ≤ 512 and reads them in its dot product otherwise (the same
-    arithmetic)."""
+    in ``cd_path.launches``. The kernel takes each G_j·β in another
+    order than the plain version: the terms of the :func:`cd_delay`
+    coordinates updated last are added one by one, oldest first, to the
+    sum of the others, which is taken that many updates ahead. It takes
+    p up to :func:`cd_max_p` and raises past it."""
     _check_cd_inputs(gram, xty, pf, lambdas, beta0, max_sweeps)
     dev = gram.device
     if dev.type == "cpu":
@@ -207,6 +210,9 @@ def cd_path(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
         return betas, sweeps
     if n_fits > 2**31 - 1:
         raise ValueError("cd_path takes at most 2**31 - 1 fits a launch")
+    if p > cd_max_p(gram.dtype):
+        raise ValueError(f"cd_path takes p up to {cd_max_p(gram.dtype)} in {gram.dtype} "
+                         f"(its shared memory), got {p}")
     k = build.kernel("cd_path")
     build.check(k, k.fn(
         gram.data_ptr(), xty.data_ptr(), pf.data_ptr(), lambdas.data_ptr(),
@@ -220,6 +226,22 @@ def cd_path(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
 
 
 cd_path.launches = 0
+
+
+@functools.cache
+def cd_delay() -> int:
+    """The card kernel's delay d: coordinate j's sum takes the terms of
+    the d coordinates updated just before it last (p − 1 of them for
+    p ≤ d). Builds the kernels on first use."""
+    return int(build.kernel("cd_delay").fn())
+
+
+@functools.cache
+def cd_max_p(dtype: torch.dtype) -> int:
+    """The largest p the card kernel takes in ``dtype`` (float32 or
+    float64): its shared memory holds the coordinates' records and
+    divisors, β, the tail's band and a ring of Gram rows."""
+    return int(build.kernel("cd_max_p").fn(int(dtype == torch.float64)))
 
 
 def _penalty(penalty_factor, p: int, x: torch.Tensor) -> torch.Tensor:

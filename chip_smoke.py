@@ -38,8 +38,12 @@ imports nothing of JAX. Phases, each printing one JSON line:
    (``ops/lasso.py::cd_path``, ``csrc/lasso.cu``) at the three shapes
    the LASSO rows give it, its inputs captured from the rows' own
    ``cv_glmnet`` calls: within ``CD_PATH_BOUND`` of its plain version,
-   two launches equal. The launch floor: a one-element PyTorch op in the
-   same graph-replay harness, beside ``pack_words``;
+   two launches equal, bounded by the recurrence's floor (``bound_ms``)
+   with PR 7's order-specific chain beside it (``order_chain_ms``).
+   ``pack_words`` beside its yardstick, the JAX package's own form of
+   the step: one ``torch.matmul`` of the float32 codes by the pack
+   matrix. The launch floor: a one-element PyTorch op in the same
+   graph-replay harness, beside ``pack_words``;
 4. path    — the notebook's "Doubly Robust with Random Forest PS" row at
    its configuration (120k-row synthetic pool, 50k-row sample, bias
    injection to 11,016 rows; 2,500 trees of depth 9; sandwich and
@@ -233,17 +237,20 @@ CD_PATH_BOUND = 1e-3
 # 462): the first λs, where almost every coefficient is 0, and λs 50–59,
 # warm-started from the kernel's λ 49, where the 138-column support forms.
 CD_PLAIN_WINDOWS = ((0, 10), (50, 60))
-# The CD kernel's dependent chain (csrc/lasso.cu), a floor on its time: a
-# coordinate update is ceil(p/32) fused multiply-adds, a 5-step butterfly
-# of a shuffle and an add (10), and the scalar update (subtract, add, the
-# soft-threshold's subtract and max, copysign, a division of at least 5
-# dependent instructions, the store of β_j and its load after the warp
-# barrier: 12). Each is taken at the float32 pipe's 4-cycle dependent-issue
-# latency, at the card's maximum SM clock (nvidia-smi clocks.max.sm): on
-# the card shuffles, shared-memory round trips and the division take
-# longer, so the chain can only be slower.
-CHAIN_FIXED_STEPS = 10 + 12
+# The CD kernel's floor (csrc/lasso.cu): each update depends on the one
+# before, and the recurrence itself needs 11 dependent steps an update at
+# any p: the fused multiply-add of the newest coordinate's term, c_j − s,
+# + G_jj·β_j, the soft threshold's subtract and max, copysign, and a
+# division of at least 5. Each is taken at the float32 pipe's 4-cycle
+# dependent-issue latency, at the card's maximum SM clock (nvidia-smi
+# clocks.max.sm), times the longest fit's updates.
+RECURRENCE_STEPS = 11
 CHAIN_CYCLES_PER_STEP = 4
+# PR 7's order-specific chain, printed beside it as ``order_chain_ms``:
+# G_j·β summed whole on the chain, ceil(p/32) fused multiply-adds, a
+# 5-step butterfly of a shuffle and an add (10), and the scalar update
+# with β_j's store and load across the warp barrier (12).
+CHAIN_FIXED_STEPS = 10 + 12
 
 RECORD: dict = {}
 
@@ -471,7 +478,7 @@ def phase_device() -> tuple[str, str]:
 DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
                     "partition_gather", "hist_dense", "hist_reduce", "pack_words", "route_kernel",
                     "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel",
-                    "cd_path_kernel")
+                    "cd_path_kernel", "cd_path_small_kernel")
 # Kernels that must not spill (every instantiation).
 NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
 
@@ -483,7 +490,10 @@ def ptxas_functions(log: str) -> dict:
         if "Compiling entry function" in ln or "Function properties for" in ln:
             mangled = ln.split("'")[1] if "'" in ln else ln.rsplit(" ", 1)[-1]
             base = next((b for b in DEVICE_FUNCTIONS if b in mangled), mangled)
-            k = mangled.split(base + "ILi", 1)[1].split("E", 1)[0] if base + "ILi" in mangled else None
+            if base + "ILi" in mangled:
+                k = mangled.split(base + "ILi", 1)[1].split("E", 1)[0]
+            else:     # other template arguments, as mangled (cd_path_kernel<float, true, 1>: fLb1ELi1E)
+                k = mangled.split(base + "I", 1)[1].split("Ev", 1)[0] if base + "I" in mangled else None
             name = f"{base}<{k}>" if k else base
             out.setdefault(name, {})
         elif name and "spill stores" in ln:
@@ -664,18 +674,33 @@ def measure_packed(codes, weights, ids, m, shared, reps=20):
     return timed(row, run, lib)
 
 
+def pack_matrix(p: int, dev) -> torch.Tensor:
+    """The JAX package's pack matrix (``hist_pallas.py:433``): (p, ceil(p/3))
+    float32, column f // 3 of row f holding 128^(f % 3)."""
+    f = torch.arange(p, device=dev)
+    mat = torch.zeros((p, pack.packed_width(p)), dtype=torch.float32, device=dev)
+    mat[f, f // pack.PACK_SLOTS] = (float(pack.PACK_RADIX) ** (f % pack.PACK_SLOTS)).float()
+    return mat
+
+
 def pack_row(codes, reps=20):
-    """The pack kernel against its plain version at the path's codes."""
+    """The pack kernel against its plain version at the path's codes; its
+    yardstick is the JAX package's own form of the step (``hist_pallas.py:441``),
+    one ``torch.matmul`` of the float32 codes (made outside the timed call)
+    by the pack matrix, whose exact integer result must equal the words."""
     words = pack.pack_codes(codes)
     err = check_equal("pack_codes", words, pack.pack_codes_plain(codes))
     if not torch.equal(pack.unpack_codes(words, codes.shape[1]), codes):
         raise AssertionError("pack_codes: the words do not unpack to the codes")
+    codes_f, mat = codes.float(), pack_matrix(codes.shape[1], codes.device)
+    lib = lambda: torch.matmul(codes_f, mat)
+    check_equal("pack_codes (matmul yardstick)", lib().to(torch.int32), words)
     b_ms, b_by = bound(4 * (codes.numel() + words.numel()), codes.numel())
-    return {"n": codes.shape[0], "p": codes.shape[1], "max_abs_err": err,
-            "ms": device_ms(lambda: pack.pack_codes(codes)),
-            "call_ms": time_ms(lambda: pack.pack_codes(codes), reps),
-            "plain_ms": time_ms(lambda: pack.pack_codes_plain(codes), reps),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    row = {"n": codes.shape[0], "p": codes.shape[1], "max_abs_err": err,
+           "call_ms": time_ms(lambda: pack.pack_codes(codes), reps),
+           "plain_ms": time_ms(lambda: pack.pack_codes_plain(codes), reps),
+           "bound_ms": b_ms, "bound_by": b_by}
+    return timed(row, lambda: pack.pack_codes(codes), lib)
 
 
 def node_sums_row(ids, weights, leaves, shared, reps=20):
@@ -1089,24 +1114,14 @@ def event_ms(fn):
     return out, a.elapsed_time(b)
 
 
-def cd_rows(frame_mod) -> list:
-    """The CD kernel at the three shapes the LASSO rows give it, inputs
+def cd_inputs(frame_mod) -> list:
+    """The CD kernel's inputs at the three shapes the LASSO rows give it,
     captured from the rows' own CV calls: Usual LASSO's path (11 fits, p =
     22, 100 λs), Belloni's two CV-LASSOs in one batch (22 fits, p = 462,
     100 λs) and the binomial LASSO's first IRLS iteration (11 fits, p =
-    21, one λ). Each: two launches equal; within CD_PATH_BOUND of the
-    plain version (Belloni's on the windows CD_PLAIN_WINDOWS, each
-    warm-started from the kernel's coefficients at the λ before it);
-    device times of the kernel and of the plain version (host-timed, on
-    the same λs). ``bound_ms`` is the dependent chain's floor (the
-    longest fit's sweeps × p updates at CHAIN_FIXED_STEPS + ceil(p/32)
-    steps of CHAIN_CYCLES_PER_STEP cycles each), beside ``rate_bound_ms``:
-    bytes (the Gram systems, c, pf and λs read once, the coefficients and
-    sweep counts written once) or operations (this run's sweeps × p × (2p
-    + 10) float operations at the peak rate), whichever is larger."""
+    21, one λ). Each: (name, cd_path's arguments, the row's cd_path calls)."""
     dev = frame_mod.device.type
     x = frame_mod.x
-    clock = sm_clock_mhz()
     keys = list(rnd.split(sweep_key("belloni", dev)).unbind(dim=-2))
     cases = [("usual", lasso_est._xw_design(frame_mod), [frame_mod.y], "gaussian",
               dict(foldids=[lasso.default_foldid(sweep_key("usual_lasso", dev), frame_mod.n)])),
@@ -1114,12 +1129,31 @@ def cd_rows(frame_mod) -> list:
               dict(keys=keys)),
              ("ps_irls_1", x, [frame_mod.w], "binomial",
               dict(foldids=[lasso.default_foldid(sweep_key("ps_lasso", dev), frame_mod.n)]))]
-    rows = []
+    out = []
     for name, xx, ys, family, kw in cases:
         with cd_capture() as seen:
             lasso.cv_glmnet_many(xx, ys, family, **kw)
-        (gram, xty, pf, lams, beta0, alpha, thresh), _ = seen[0]
-        calls = len(seen)
+        out.append((name, seen[0][0], len(seen)))
+    return out
+
+
+def cd_rows(frame_mod) -> list:
+    """The CD kernel at the three shapes of ``cd_inputs``. Each: two
+    launches equal; within CD_PATH_BOUND of the plain version (Belloni's
+    on the windows CD_PLAIN_WINDOWS, each warm-started from the kernel's
+    coefficients at the λ before it); device times of the kernel and of
+    the plain version (host-timed, on the same λs). ``bound_ms`` is the
+    recurrence's floor: the longest fit's sweeps × p updates at
+    RECURRENCE_STEPS steps of CHAIN_CYCLES_PER_STEP cycles each, the same
+    at every p. Beside it ``order_chain_ms``, PR 7's floor of its own
+    summation order (CHAIN_FIXED_STEPS + ceil(p/32) steps an update), and
+    ``rate_bound_ms``: bytes (the Gram systems, c, pf and λs read once,
+    the coefficients and sweep counts written once) or operations (this
+    run's sweeps × p × (2p + 10) float operations at the peak rate),
+    whichever is larger."""
+    clock = sm_clock_mhz()
+    rows = []
+    for name, (gram, xty, pf, lams, beta0, alpha, thresh), calls in cd_inputs(frame_mod):
         run = lambda: lasso.cd_path(gram, xty, pf, lams, beta0, alpha, thresh)
         betas, sweeps = run()
         again, sweeps2 = run()
@@ -1148,11 +1182,13 @@ def cd_rows(frame_mod) -> list:
                       + n_fits * n_lam * p + n_fits * n_lam)
         rate_ms, rate_by = bound(nbytes, int(sweeps.sum()) * p * (2 * p + 10))
         chain = int(sweeps.sum(dim=1).max()) * p
-        cycles = CHAIN_CYCLES_PER_STEP * (CHAIN_FIXED_STEPS + -(-p // 32))
+        cycles = CHAIN_CYCLES_PER_STEP * RECURRENCE_STEPS
         chain_ms = chain * cycles / (clock * 1e3)
+        order_cycles = CHAIN_CYCLES_PER_STEP * (CHAIN_FIXED_STEPS + -(-p // 32))
         ms = device_ms(run, 1 if big else 10, 3 if big else 10)
         rows.append({"case": name, "B": n_fits, "p": p, "L": n_lam, "dtype": str(gram.dtype),
-                     "staged_gram": p * p * 4 + 3 * 4 * ((p + 3) // 4 * 4) <= 200 * 1024,
+                     "staged_gram": p * p * 4 + 4 * 4 * ((p + 3) // 4 * 4) <= 200 * 1024,
+                     "delay": lasso.cd_delay(),
                      "calls_in_row": calls, "sweeps_total": int(sweeps.sum()),
                      "sweeps_max": int(sweeps.max()), "chain_updates": chain,
                      "max_abs_err": max(w["max_abs_err"] for w in windows),
@@ -1165,6 +1201,8 @@ def cd_rows(frame_mod) -> list:
                      "bound_by": "operations" if chain_ms >= rate_ms else rate_by,
                      "bound_kind": "chain" if chain_ms >= rate_ms else rate_by,
                      "chain_cycles_per_update": cycles, "sm_clock_mhz": clock,
+                     "order_chain_ms": chain * order_cycles / (clock * 1e3),
+                     "order_chain_cycles_per_update": order_cycles,
                      "rate_bound_ms": rate_ms, "rate_bound_by": rate_by})
     return rows
 
@@ -1732,9 +1770,11 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
 }
 
 
-# The CD kernel's chain bound beside its byte-or-operation bound.
+# The CD kernel's recurrence bound beside PR 7's order chain and its
+# byte-or-operation bound.
 CHAIN_KEYS = ("bound_kind", "rate_bound_ms", "rate_bound_by", "chain_updates",
-              "ns_per_chain_update", "chain_cycles_per_update", "sm_clock_mhz")
+              "ns_per_chain_update", "chain_cycles_per_update", "sm_clock_mhz",
+              "order_chain_ms", "delay")
 
 
 def main() -> int:

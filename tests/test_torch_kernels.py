@@ -541,7 +541,8 @@ def _cd_case(seed, n_fits, p, dtype, dev, n_lam=5, zero_pf=0):
 
 # Kernel against its plain version on the same card tensors. The two sum
 # each dot product G_j·β in other orders (the kernel: lane-strided fused
-# multiply-add chains and a shuffle butterfly; the plain version:
+# multiply-add chains and a shuffle butterfly over all but the last d
+# coordinates updated, then those d terms oldest first; the plain version:
 # PyTorch's sum), so the iterates differ by rounding; the sweeps run to a
 # threshold far below that rounding's square (CD_THRESH), so both stop at
 # the fixed point to within a few ulps amplified by the conditioning.
@@ -553,17 +554,9 @@ def _cd_close(got, want, dtype):
     return bool(torch.all((got - want).abs() <= CD_BOUND[dtype] * (1 + want.abs())))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("p,n_fits,n_lam,zero_pf", [
-    (1, 3, 5, 0), (21, 11, 8, 0), (22, 11, 8, 1), (33, 3, 5, 2), (224, 2, 3, 0),
-    (225, 2, 3, 0), (462, 2, 3, 0), (530, 2, 2, 0)])
-def test_cd_path_kernel_equals_plain(cuda, dtype, p, n_fits, n_lam, zero_pf):
-    """p = 1; the three small rows' 21 and 22 (W at penalty factor 0);
-    ragged 33; the largest staged Gram (224 in float32) and the first read
-    from L2 (225); Belloni's 462; 530, past the register-held rows (the
-    form that reads each row inside its dot product). One launch counted;
-    two launches equal bits; within CD_BOUND of the plain version."""
-    gram, xty, pf, lams = _cd_case(p, n_fits, p, dtype, cuda, n_lam, zero_pf)
+def _cd_kernel_equals_plain(gram, xty, pf, lams, dtype):
+    """One launch counted; two launches equal bits; within CD_BOUND of the
+    plain version; a warm start from the second λ gives the same bits."""
     thresh = CD_THRESH[dtype]
     before = tl.cd_path.launches
     betas, sweeps = tl.cd_path(gram, xty, pf, lams, thresh=thresh)
@@ -578,6 +571,78 @@ def test_cd_path_kernel_equals_plain(cuda, dtype, p, n_fits, n_lam, zero_pf):
     resumed, _ = tl.cd_path(gram, xty, pf, lams[:, 2:].contiguous(), betas[:, 1].contiguous(),
                             thresh=thresh)
     assert torch.equal(resumed, betas[:, 2:])
+    return betas, sweeps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p,n_fits,n_lam,zero_pf", [
+    (1, 3, 5, 0), (2, 3, 5, 0), (3, 3, 5, 1), (21, 11, 8, 0), (22, 11, 8, 1), (33, 3, 5, 2),
+    (224, 2, 3, 0), (225, 2, 3, 0), (462, 2, 3, 0), (463, 2, 3, 0), (530, 2, 2, 0)])
+def test_cd_path_kernel_equals_plain(cuda, dtype, p, n_fits, n_lam, zero_pf):
+    """p = 1, 2, 3 (a window of the other p − 1 coordinates); the three
+    small rows' 21 and 22 (W at penalty factor 0); ragged 33; the largest
+    staged Gram (224 in float32) and the first streamed through the ring
+    (225); Belloni's 462 and odd 463 (rows 4 bytes off 8-byte alignment);
+    530, past 512. One launch counted; two launches equal bits; within
+    CD_BOUND of the plain version; the warm-start resume equal bits."""
+    _cd_kernel_equals_plain(*_cd_case(p, n_fits, p, dtype, cuda, n_lam, zero_pf), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("edge", [0, 1])
+def test_cd_path_kernel_at_the_delay(cuda, dtype, edge):
+    """p = d, the last p whose window holds the other p − 1 coordinates,
+    and p = d + 1, the first pipelined one (d = the kernel's delay)."""
+    p = tl.cd_delay() + edge
+    _cd_kernel_equals_plain(*_cd_case(100 + p, 4, p, dtype, cuda, 6, 1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [22, 462])
+def test_cd_path_kernel_fits_stop_apart(cuda, dtype, p):
+    """Three fits of one launch stop at other sweeps within each λ: one
+    with c = 0 (β stays 0: one sweep a λ, so a λ boundary every p
+    updates), two ordinary ones (one sweep at λ_max, several after). The
+    values the kernel sums ahead do not leak across a frozen fit or a λ
+    boundary: each fit launched alone gives the batch's bits, and the
+    batch holds to the plain version and resumes equal bits."""
+    gram, xty, pf, lams = _cd_case(7 + p, 3, p, dtype, cuda, 6, 0)
+    xty[0] = 0.0
+    lams[0] = lams[1]                     # fit 0's own λ_max would be 0
+    betas, sweeps = _cd_kernel_equals_plain(gram, xty, pf, lams, dtype)
+    assert bool((sweeps[0] == 1).all()) and bool((sweeps[1:, 1:] > 1).all())
+    for b in range(3):
+        alone = tl.cd_path(*(t[b : b + 1].contiguous() for t in (gram, xty, pf, lams)),
+                           thresh=CD_THRESH[dtype])
+        assert torch.equal(alone[0], betas[b : b + 1]) and torch.equal(alone[1], sweeps[b : b + 1])
+
+
+def test_cd_kernel_float_division_is_div_rn(cuda):
+    """The kernel divides a float32 update by the double reciprocal of its
+    divisor (taken once per λ), rounded to float: bit for bit IEEE
+    division, held here against the card's div_rn on 2^24 random bit
+    patterns of each operand (every class: zeros, subnormals, infinities,
+    NaN), on 2^24 pairs of the sizes the updates see, and on edge pairs."""
+    from ate_replication_causalml_torch.kernels import build
+
+    k = build.kernel("cd_div_check")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = 1 << 24
+    bits = torch.randint(-(2**31), 2**31, (2, n), dtype=torch.int64, device=cuda, generator=gen)
+    cases = [bits.to(torch.int32).view(torch.float32)]
+    ab = torch.rand((2, n), device=cuda, generator=gen)
+    cases.append(torch.stack([(ab[0] - 0.5) * 4.0, 0.5 + ab[1] * 2.0]))
+    f32 = torch.finfo(torch.float32)
+    edge = torch.tensor([0.0, -0.0, 1.0, -1.0, 3.0, f32.max, f32.tiny, f32.tiny / 8, 1e-45,
+                         float("inf"), float("-inf"), float("nan"), 1 + f32.eps, 1 - f32.eps / 2],
+                        device=cuda)
+    cases.append(torch.cartesian_prod(edge, edge).T.contiguous())
+    for a, b in cases:
+        a, b = a.contiguous(), b.contiguous()
+        bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+        build.check(k, k.fn(a.data_ptr(), b.data_ptr(), a.numel(), bad.data_ptr(),
+                            torch.cuda.current_stream(cuda).cuda_stream))
+        assert int(bad) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
