@@ -554,22 +554,22 @@ def _cd_close(got, want, dtype):
     return bool(torch.all((got - want).abs() <= CD_BOUND[dtype] * (1 + want.abs())))
 
 
-def _cd_kernel_equals_plain(gram, xty, pf, lams, dtype):
+def _cd_kernel_equals_plain(gram, xty, pf, lams, dtype, alpha=1.0):
     """One launch counted; two launches equal bits; within CD_BOUND of the
     plain version; a warm start from the second λ gives the same bits."""
-    thresh = CD_THRESH[dtype]
+    kw = dict(alpha=alpha, thresh=CD_THRESH[dtype])
     before = tl.cd_path.launches
-    betas, sweeps = tl.cd_path(gram, xty, pf, lams, thresh=thresh)
+    betas, sweeps = tl.cd_path(gram, xty, pf, lams, **kw)
     torch.cuda.synchronize()
     assert tl.cd_path.launches == before + 1
-    again, sweeps_again = tl.cd_path(gram, xty, pf, lams, thresh=thresh)
+    again, sweeps_again = tl.cd_path(gram, xty, pf, lams, **kw)
     assert torch.equal(betas, again) and torch.equal(sweeps, sweeps_again)
-    want, want_sweeps = tl.cd_path_plain(gram, xty, pf, lams, thresh=thresh)
+    want, want_sweeps = tl.cd_path_plain(gram, xty, pf, lams, **kw)
     assert _cd_close(betas, want, dtype), float((betas - want).abs().max())
     assert bool((sweeps >= 1).all()) and bool((sweeps < tl.MAX_SWEEPS).all())
     # A warm start: the path resumed from its second λ gives the same run.
     resumed, _ = tl.cd_path(gram, xty, pf, lams[:, 2:].contiguous(), betas[:, 1].contiguous(),
-                            thresh=thresh)
+                            **kw)
     assert torch.equal(resumed, betas[:, 2:])
     return betas, sweeps
 
@@ -595,6 +595,14 @@ def test_cd_path_kernel_at_the_delay(cuda, dtype, edge):
     and p = d + 1, the first pipelined one (d = the kernel's delay)."""
     p = tl.cd_delay() + edge
     _cd_kernel_equals_plain(*_cd_case(100 + p, 4, p, dtype, cuda, 6, 1), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [5, 22, 462])
+def test_cd_path_kernel_elastic_net(cuda, dtype, p):
+    """α = 0.5: the ridge part of the divisor, G_jj + λ(1 − α)·pf_j, which
+    the kernel prepares once per λ (and for p ≤ d in the update)."""
+    _cd_kernel_equals_plain(*_cd_case(50 + p, 3, p, dtype, cuda, 6, 1), dtype, alpha=0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
