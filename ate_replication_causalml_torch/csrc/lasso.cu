@@ -559,8 +559,8 @@ __global__ void __launch_bounds__(kWarp)
 template <typename T>
 using Kernel = decltype(&cd_path_small_kernel<T>);
 
-// Whether the Gram matrix at p is staged: PR 7's rule, the matrix and four
-// vectors in 200 KB.
+// Whether the Gram matrix at p is staged: the matrix and four vectors fit
+// in 200 KB (p <= 224 in float32).
 template <typename T>
 bool staged_at(int p) {
   return 4 * padded(p) * sizeof(T) + static_cast<size_t>(p) * p * sizeof(T) <= kMaxStagedBytes;

@@ -39,7 +39,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
    the LASSO rows give it, its inputs captured from the rows' own
    ``cv_glmnet`` calls: within ``CD_PATH_BOUND`` of its plain version,
    two launches equal, bounded by the recurrence's floor (``bound_ms``)
-   with PR 7's order-specific chain beside it (``order_chain_ms``).
+   with the chain of the whole-dot-product order beside it
+   (``order_chain_ms``).
    ``pack_words`` beside its yardstick, the JAX package's own form of
    the step: one ``torch.matmul`` of the float32 codes by the pack
    matrix. The launch floor: a one-element PyTorch op in the same
@@ -246,7 +247,8 @@ CD_PLAIN_WINDOWS = ((0, 10), (50, 60))
 # clocks.max.sm), times the longest fit's updates.
 RECURRENCE_STEPS = 11
 CHAIN_CYCLES_PER_STEP = 4
-# PR 7's order-specific chain, printed beside it as ``order_chain_ms``:
+# The chain of the order that keeps G_j·β whole on it (the kernel's first
+# form), printed beside it as ``order_chain_ms``:
 # G_j·β summed whole on the chain, ceil(p/32) fused multiply-adds, a
 # 5-step butterfly of a shuffle and an add (10), and the scalar update
 # with β_j's store and load across the warp barrier (12).
@@ -1145,12 +1147,12 @@ def cd_rows(frame_mod) -> list:
     the plain version (host-timed, on the same λs). ``bound_ms`` is the
     recurrence's floor: the longest fit's sweeps × p updates at
     RECURRENCE_STEPS steps of CHAIN_CYCLES_PER_STEP cycles each, the same
-    at every p. Beside it ``order_chain_ms``, PR 7's floor of its own
-    summation order (CHAIN_FIXED_STEPS + ceil(p/32) steps an update), and
-    ``rate_bound_ms``: bytes (the Gram systems, c, pf and λs read once,
-    the coefficients and sweep counts written once) or operations (this
-    run's sweeps × p × (2p + 10) float operations at the peak rate),
-    whichever is larger."""
+    at every p. Beside it ``order_chain_ms``, the floor of the order that
+    keeps G_j·β whole on the chain (CHAIN_FIXED_STEPS + ceil(p/32) steps an
+    update), and ``rate_bound_ms``: bytes (the Gram systems, c, pf and λs
+    read once, the coefficients and sweep counts written once) or
+    operations (this run's sweeps × p × (2p + 10) float operations at the
+    peak rate), whichever is larger."""
     clock = sm_clock_mhz()
     rows = []
     for name, (gram, xty, pf, lams, beta0, alpha, thresh), calls in cd_inputs(frame_mod):
@@ -1770,8 +1772,8 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
 }
 
 
-# The CD kernel's recurrence bound beside PR 7's order chain and its
-# byte-or-operation bound.
+# The CD kernel's recurrence bound beside the whole-dot-product order's
+# chain and its byte-or-operation bound.
 CHAIN_KEYS = ("bound_kind", "rate_bound_ms", "rate_bound_by", "chain_updates",
               "ns_per_chain_update", "chain_cycles_per_update", "sm_clock_mhz",
               "order_chain_ms", "delay")
