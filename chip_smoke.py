@@ -35,8 +35,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
    and timed beside the PyTorch sequence it replaces (``replaced_ms``,
    one replayed graph of the old route and lookup kernels and the
    elementwise ops around them). The coordinate-descent kernel
-   (``ops/lasso.py::cd_path``, ``csrc/lasso.cu``) at the three shapes
-   the LASSO rows give it, its inputs captured from the rows' own
+   (``ops/lasso.py::cd_path``, ``csrc/lasso.cu``) at the shapes
+   the LASSO and balancing rows give it, its inputs captured from the rows' own
    ``cv_glmnet`` calls: within ``CD_PATH_BOUND`` of its plain version,
    two launches equal, bounded by the recurrence's floor (``bound_ms``)
    with the chain of the whole-dot-product order beside it
@@ -91,9 +91,27 @@ imports nothing of JAX. Phases, each printing one JSON line:
    bounds, card against CPU within the same bounds, stage walls and the
    CD kernel's launches (one per gaussian CV, Belloni's two in one, and
    one per IRLS iteration of the binomial one);
+11c. path_balance — the residual_balancing row at the sweep's configuration
+   (its key, 12,000 ADMM iterations) on the card and on the CPU port: each
+   arm's rows, ADMM iterations, worst residual, QP and CV walls and
+   cd_path launches (one an arm); fold ids and index_min held to the JAX
+   package's (``BALANCE_FOLDS``, ``BALANCE_INDEX``), τ and SE to
+   ``BALANCE_JAX`` and card to CPU within ``BALANCE_BOUND``;
+11d. path_sweep — the whole notebook through ``pipeline.run_sweep`` at
+   ``SweepConfig()`` on the card (its default device) under
+   ``ATE_TPU_PREDICT_PACK=1``: every row held to the pin its phase holds
+   (the oracle and naive rows to path's, DR-RF to ``SWEEP_DR_TAU``, the
+   causal and DML rows bit for bit, the LASSO rows to ``LASSO_JAX``, the
+   IPW rows to path_ipw's CPU rows, residual_balancing to
+   ``BALANCE_JAX``), each row's wall, the kernels' launches
+   (``launches_by_path["sweep"]``, row kernels to ``ROW_LAUNCHES``),
+   report.json and REPORT.md parsed; then the same call again on the same
+   directory: all 14 records resumed, 0 computed, 0 launches, the same
+   rows;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
-   ``torch.profiler``), last: a process that has run the profiler
+   ``torch.profiler``) and the device activities of one ADMM iteration,
+   last: a process that has run the profiler
    launches kernels more slowly afterwards.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
@@ -108,6 +126,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -122,6 +141,7 @@ sys.path.insert(0, REPO)
 
 # Imported after the path is set; in a directory without the package
 # this fails, and the script exits non-zero with no result.
+from ate_replication_causalml_torch import pipeline  # noqa: E402
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
 from ate_replication_causalml_torch.estimators.aipw import (  # noqa: E402
@@ -129,6 +149,7 @@ from ate_replication_causalml_torch.estimators.aipw import (  # noqa: E402
     doubly_robust_glm,
     outcome_model_mu,
 )
+from ate_replication_causalml_torch.estimators import balance  # noqa: E402
 from ate_replication_causalml_torch.estimators import belloni as bel  # noqa: E402
 from ate_replication_causalml_torch.estimators import lasso_est  # noqa: E402
 from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report  # noqa: E402
@@ -143,7 +164,7 @@ from ate_replication_causalml_torch.estimators.ols import ate_condmean_ols  # no
 from ate_replication_causalml_torch.kernels import build  # noqa: E402
 from ate_replication_causalml_torch.models import causal_forest as cf  # noqa: E402
 from ate_replication_causalml_torch.models import forest as fo  # noqa: E402
-from ate_replication_causalml_torch.ops import hist, lasso, pack, tree  # noqa: E402
+from ate_replication_causalml_torch.ops import hist, lasso, pack, qp, tree  # noqa: E402
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
 from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
@@ -228,6 +249,35 @@ LASSO_JAX = {"Propensity_Weighting_LASSOPS": (-0.005371916573494673, 0.011764016
 # remains (5.2e-7 seen).
 LASSO_BOUND = {"Propensity_Weighting_LASSOPS": 1e-4, "Single-equation LASSO": 5e-5,
                "Usual LASSO": 5e-5, "Belloni et.al": 1e-5}
+# The residual_balancing row (SweepConfig.balance_iters ADMM iterations)
+# as the JAX package computes it on the CPU at this configuration
+# (float32 frame, float64 ADMM; ``JAX_PLATFORMS=cpu python
+# scripts/torch_parity.py --rows balance``, its "jax" side): each arm's fold
+# ids (digest as LASSO_FOLDS) and index_min, τ and SE. The JAX package's
+# ADMM stops the treated arm (2,077 rows) at 729 iterations, the control
+# arm (8,939 rows) at 284.
+BALANCE_ITERS = 12_000
+BALANCE_FOLDS = {"treated": "d8d0cda7590799bb", "control": "973ba1d3fb4f0653"}
+BALANCE_INDEX = {"treated": 37, "control": 44}
+BALANCE_JAX = (0.10578039288520813, 0.013546153903007507)
+# |Δτ| and |ΔSE| against BALANCE_JAX, and card against CPU port. γ is the
+# float64 ADMM iterate, which stops at the first iteration with both
+# residuals under 1e-7 (the treated arm 5e-12 under it), so a stop an
+# iteration apart moves γ by about the tolerance; the target is a float32
+# mean summed in another order (37 ulps, 1.1e-8 here); and the arm's
+# elastic net comes from coordinate descent that stops a sweep apart
+# (LASSO_BOUND's reason: path coefficients up to ~6e-6 apart). μ = target·β
+# + γ·resid is first-order insensitive to β where γ balances X, so the
+# bound is LASSO_BOUND's order. Seen: the CPU port against the JAX package
+# |Δτ| 2.7e-7, |ΔSE| 0.
+BALANCE_BOUND = 5e-5
+# The sweep's "Doubly Robust with Random Forest PS" row: its forest's key
+# is the sweep's fold_in(key(0), crc32("dr_rf_prop")), not DR_TAU's
+# key(12325); τ as first recorded on the card (integer histogram weights
+# and fixed-order reductions, so bit for bit).
+SWEEP_DR_TAU = 0.04571865499019623
+# The sweep's output directory (the results journal, report.json, REPORT.md).
+SWEEP_OUT = os.path.join(REPO, "build", "chip_smoke_sweep")
 # The CD kernel against its plain version at the rows' inputs (threshold
 # 1e-7): a standardized coefficient's last move is below sqrt(1e-7/G_jj)
 # ≈ 3.2e-4 (G_jj ≈ 1), so two runs that stop a sweep apart differ by about
@@ -255,6 +305,8 @@ CHAIN_CYCLES_PER_STEP = 4
 CHAIN_FIXED_STEPS = 10 + 12
 
 RECORD: dict = {}
+# Rows of the path phases that the sweep's rows are held to.
+ROWS: dict = {}
 
 
 def emit(obj: dict) -> None:
@@ -403,6 +455,13 @@ ROW_LAUNCHES = {
     "leaf_index": {"route_advance": 0, "traverse": 2, "leaf_record": 0, "route": 0, "lookup": 2},
 }
 ROW_LAUNCHES["causal_forest_packed"] = ROW_LAUNCHES["causal_forest"]
+# The sweep runs the DR-RF, causal and DML forests once each.
+ROW_LAUNCHES["sweep"] = {k: sum(ROW_LAUNCHES[p][k] for p in ("dr_rf", "causal_forest", "dml"))
+                         for k in ROW_LAUNCHES["dr_rf"]}
+# cd_path launches of the LASSO rows (LASSOPS 160 IRLS iterations, one
+# each for Single-equation, Usual and Belloni) and of residual_balancing
+# (one an arm).
+CD_LAUNCHES = {"lasso": 163, "balance": 2}
 
 
 PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack_codes")
@@ -1117,11 +1176,13 @@ def event_ms(fn):
 
 
 def cd_inputs(frame_mod) -> list:
-    """The CD kernel's inputs at the three shapes the LASSO rows give it,
-    captured from the rows' own CV calls: Usual LASSO's path (11 fits, p =
-    22, 100 λs), Belloni's two CV-LASSOs in one batch (22 fits, p = 462,
-    100 λs) and the binomial LASSO's first IRLS iteration (11 fits, p =
-    21, one λ). Each: (name, cd_path's arguments, the row's cd_path calls)."""
+    """The CD kernel's inputs at the shapes the LASSO and balancing rows
+    give it, captured from the rows' own CV calls: Usual LASSO's path (11
+    fits, p = 22, 100 λs), Belloni's two CV-LASSOs in one batch (22 fits,
+    p = 462, 100 λs), the binomial LASSO's first IRLS iteration (11 fits,
+    p = 21, one λ) and residual_balancing's two arms (11 fits each, p =
+    21, α = 0.9, 100 λs). Each: (name, cd_path's arguments, the row's
+    cd_path calls)."""
     dev = frame_mod.device.type
     x = frame_mod.x
     keys = list(rnd.split(sweep_key("belloni", dev)).unbind(dim=-2))
@@ -1131,6 +1192,11 @@ def cd_inputs(frame_mod) -> list:
               dict(keys=keys)),
              ("ps_irls_1", x, [frame_mod.w], "binomial",
               dict(foldids=[lasso.default_foldid(sweep_key("ps_lasso", dev), frame_mod.n)]))]
+    # residual_balancing's elastic nets (α = 0.9), one an arm, on their keys.
+    k0, k1 = rnd.split(sweep_key("balance", dev)).unbind(dim=-2)
+    treated = frame_mod.w > 0.5
+    for arm, rows, k in (("balance_treated", treated, k1), ("balance_control", ~treated, k0)):
+        cases.append((arm, x[rows], [frame_mod.y[rows]], "gaussian", dict(alpha=0.9, keys=[k])))
     out = []
     for name, xx, ys, family, kw in cases:
         with cd_capture() as seen:
@@ -1140,7 +1206,7 @@ def cd_inputs(frame_mod) -> list:
 
 
 def cd_rows(frame_mod) -> list:
-    """The CD kernel at the three shapes of ``cd_inputs``. Each: two
+    """The CD kernel at the shapes of ``cd_inputs``. Each: two
     launches equal; within CD_PATH_BOUND of the plain version (Belloni's
     on the windows CD_PLAIN_WINDOWS, each warm-started from the kernel's
     coefficients at the λ before it); device times of the kernel and of
@@ -1249,6 +1315,7 @@ def phase_path(frame, frame_mod) -> dict:
     require_row_launches(counts, "dr_rf")
     if dr.ate != DR_TAU:
         raise AssertionError(f"DR-RF τ moved: {dr.ate!r}, recorded {DR_TAU!r}")
+    ROWS.update(oracle=oracle, naive=naive)
     out = {"phase": "path", "rows": frame_mod.n, "trees": DR_TREES, "depth": DEPTH,
            "oracle": [oracle.ate, oracle.se], "naive": [naive.ate, naive.se],
            "dr_rf_sandwich": [dr.ate, dr.se], "dr_rf_bootstrap": [dr_boot.ate, dr_boot.se],
@@ -1557,14 +1624,47 @@ def phase_path_leaf_index(card_32) -> dict:
     return counts
 
 
-def phase_stages() -> None:
-    """The partition rows' stage split (``stage_ms``), last, so that the
-    profiler runs after every path's wall time was taken."""
+def admm_activities(frame_mod) -> dict:
+    """Device activities (kernels, copies, sets) of one ADMM iteration of
+    the treated arm's float64 solve, from ``torch.profiler``: c(n) the
+    activities of a solve capped at n iterations (the cap's freeze point
+    is n // 2), so c(2) − c(1) is an iteration that adapts ρ and c(3) −
+    c(2) one that does not."""
+    x = frame_mod.x[frame_mod.w > 0.5]
+    target = torch.mean(frame_mod.x, dim=0)
+
+    def count(iters: int) -> tuple[dict, dict]:
+        qp.balance_qp_x64(x, target, max_iters=iters)
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            qp.balance_qp_x64(x, target, max_iters=iters)
+            sync()
+        kinds, names = {"kernel": 0, "memcpy": 0, "memset": 0}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                low = e.name.lower()
+                kinds["memcpy" if "memcpy" in low else "memset" if "memset" in low else "kernel"] += 1
+                names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+        return kinds, names
+
+    (c1, _), (c2, n2), (c3, n3) = (count(n) for n in (1, 2, 3))
+    frozen_names = {k: n3.get(k, 0) - n2.get(k, 0) for k in n3}
+    return {"adapting": {k: c2[k] - c1[k] for k in c1}, "frozen": {k: c3[k] - c2[k] for k in c1},
+            "set_up_and_polish": {k: c1[k] - (c3[k] - c2[k]) for k in c1},
+            "frozen_by_name": dict(sorted(((k, v) for k, v in frozen_names.items() if v),
+                                          key=lambda kv: -kv[1]))}
+
+
+def phase_stages(frame_mod) -> None:
+    """The partition rows' stage split (``stage_ms``) and the ADMM
+    iteration's device activities, last, so that the profiler runs after
+    every path's wall time was taken."""
     rows = []
     for row, run in SPLITS:
         row["stage_ms"] = stage_ms(run)
         rows.append({k: row[k] for k in ("M", "K", "weights", "ranges", "cluster", "stage_ms")})
-    emit({"phase": "stages", "kernel": "hist_partition", "rows": rows})
+    emit({"phase": "stages", "kernel": "hist_partition", "rows": rows,
+          "admm_iteration_activities": admm_activities(frame_mod)})
 
 
 def phase_path_ipw(frame_mod) -> None:
@@ -1602,6 +1702,7 @@ def phase_path_ipw(frame_mod) -> None:
     bad = {m: d for m, d in diffs.items() if max(d) > IPW_BOUND}
     if bad:
         raise AssertionError(f"card vs CPU beyond {IPW_BOUND}: {bad}")
+    ROWS["ipw_cpu"] = {h.method: h for h in host}
 
 
 @contextlib.contextmanager
@@ -1739,6 +1840,206 @@ def phase_path_lasso(frame_mod) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def balance_capture(dev: str):
+    """Record, per arm in call order, what ``residual_balance_ate`` computes:
+    the QP's rows, ADMM iterations, worst residual and wall; the elastic
+    net's fold-id digest, index_min, wall and cd_path launches."""
+    qps, cvs = [], []
+    solve, fit = balance.approx_balance_sol, balance.cv_glmnet
+
+    def qp_rec(x, target, **k):
+        t0 = time.perf_counter()
+        out = solve(x, target, **k)
+        if dev == "cuda":
+            sync()
+        qps.append({"rows": x.shape[0], "admm_iters": out[2], "worst_resid": float(out[1]),
+                    "qp_s": time.perf_counter() - t0})
+        return out
+
+    def cv_rec(x, y, **k):
+        before, t0 = lasso.cd_path.launches, time.perf_counter()
+        out = fit(x, y, **k)
+        if dev == "cuda":
+            sync()
+        cvs.append({"index_min": int(out.index_min), "cv_s": time.perf_counter() - t0,
+                    "cd_path_launches": lasso.cd_path.launches - before,
+                    "fold_digest": fold_digest(lasso.default_foldid(k["key"], x.shape[0]))})
+        return out
+
+    balance.approx_balance_sol, balance.cv_glmnet = qp_rec, cv_rec
+    try:
+        yield qps, cvs
+    finally:
+        balance.approx_balance_sol, balance.cv_glmnet = solve, fit
+
+
+def balance_row(frame) -> tuple:
+    """The residual_balancing row as the sweep runs it (its key, its
+    budget) → (result, {arm: its QP and CV record}, wall seconds)."""
+    dev = frame.device.type
+    with balance_capture(dev) as (qps, cvs):
+        t0 = time.perf_counter()
+        r = balance.residual_balance_ate(frame, key=sweep_key("balance", dev),
+                                         max_iters=BALANCE_ITERS)
+        wall = time.perf_counter() - t0
+    arms = {arm: {**qps[i], **cvs[i]} for i, arm in enumerate(("treated", "control"))}
+    for a in arms.values():
+        a["ms_per_admm_iter"] = a["qp_s"] * 1e3 / max(a["admm_iters"], 1)
+    return r, arms, wall
+
+
+def phase_path_balance(frame_mod) -> dict:
+    """The residual_balancing row at the notebook's configuration on the
+    card (launch counts read around it) and on the CPU port: each arm's
+    fold ids and index_min held to the JAX package's (BALANCE_FOLDS,
+    BALANCE_INDEX), τ and SE to BALANCE_JAX and to each other within
+    BALANCE_BOUND, one cd_path launch an arm and no other kernel."""
+    reset_counts()
+    card, card_arms, wall = balance_row(frame_mod)
+    counts = read_counts()
+    host, host_arms, host_wall = balance_row(frame_mod.to("cpu"))
+    diffs = {"card_jax": [abs(card.ate - BALANCE_JAX[0]), abs(card.se - BALANCE_JAX[1])],
+             "cpu_jax": [abs(host.ate - BALANCE_JAX[0]), abs(host.se - BALANCE_JAX[1])],
+             "card_cpu": [abs(card.ate - host.ate), abs(card.se - host.se)]}
+    emit({"phase": "path_balance", "rows": frame_mod.n, "max_iters": BALANCE_ITERS,
+          "card": [card.ate, card.se], "cpu": [host.ate, host.se], "jax": list(BALANCE_JAX),
+          "abs_diff": diffs, "bound": BALANCE_BOUND, "arms": card_arms, "cpu_arms": host_arms,
+          "admm_iters_equal_card_cpu": all(card_arms[a]["admm_iters"] == host_arms[a]["admm_iters"]
+                                           for a in card_arms),
+          "wall_s": wall, "cpu_wall_s": host_wall, "launches": counts})
+    fails = []
+    for dev, arms in (("card", card_arms), ("cpu", host_arms)):
+        got = {a: v["fold_digest"] for a, v in arms.items()}
+        if got != BALANCE_FOLDS:
+            fails.append(f"{dev} fold ids {got}, the JAX package's {BALANCE_FOLDS}")
+        got = {a: v["index_min"] for a, v in arms.items()}
+        if got != BALANCE_INDEX:
+            fails.append(f"{dev} index_min {got}, the JAX package's {BALANCE_INDEX}")
+        if any(v["worst_resid"] > 1e-7 or v["admm_iters"] >= BALANCE_ITERS for v in arms.values()):
+            fails.append(f"{dev}: an arm's ADMM did not reach the tolerance ({arms})")
+    fails += [f"{k} |Δτ|, |ΔSE| {d} > {BALANCE_BOUND}" for k, d in diffs.items()
+              if max(d) > BALANCE_BOUND]
+    if not (math.isfinite(card.ate) and card.se > 0):
+        fails.append(f"non-finite estimate or SE ({card})")
+    if counts["cd_path"] != CD_LAUNCHES["balance"] or any(
+            v["cd_path_launches"] != 1 for v in card_arms.values()):
+        fails.append(f"cd_path launches {counts['cd_path']}, one an arm expected")
+    if any(counts[k] for k in COUNTERS if k not in LASSO_KERNELS):
+        fails.append(f"forest kernels launched on the balancing path: {counts}")
+    if fails:
+        raise AssertionError("path_balance: " + "; ".join(fails))
+    ROWS["balance_arms"] = card_arms
+    return counts
+
+
+def same_row(a, b) -> bool:
+    """Two result rows equal, NaN equal to NaN (the point-only rows' SE)."""
+    return pipeline._jsonsafe(a.to_dict()) == pipeline._jsonsafe(b.to_dict())
+
+
+def sweep_checks(rep) -> list:
+    """Each of the sweep's rows against the pin its own phase holds."""
+    rows = {r.method: r for r in rep.results}
+    fails = []
+    for label, want in (("oracle", ROWS["oracle"]), ("naive", ROWS["naive"])):
+        got = rep.oracle if label == "oracle" else rows["naive"]
+        if (got.ate, got.se) != (want.ate, want.se):
+            fails.append(f"{label} {got.ate!r}/{got.se!r}, path phase {want.ate!r}/{want.se!r}")
+    dr = rows["Doubly Robust with Random Forest PS"]
+    if dr.ate != SWEEP_DR_TAU:
+        fails.append(f"DR-RF τ {dr.ate!r}, recorded {SWEEP_DR_TAU!r}")
+    cf_row = rows["Causal Forest(GRF)"]
+    if (cf_row.ate, cf_row.se) != (CF_ATE, CF_SE):
+        fails.append(f"causal ATE/SE {cf_row.ate!r}/{cf_row.se!r}, recorded {CF_ATE!r}/{CF_SE!r}")
+    d = rows["Double Machine Learning"]
+    if (d.ate, d.se) != (DML_TAU, DML_SE):
+        fails.append(f"DML τ/SE {d.ate!r}/{d.se!r}, recorded {DML_TAU!r}/{DML_SE!r}")
+    for method, (tau, se) in LASSO_JAX.items():
+        r, lim = rows[method], LASSO_BOUND[method]
+        if not (abs(r.ate - tau) <= lim and (math.isnan(se) or abs(r.se - se) <= lim)):
+            fails.append(f"{method} {r.ate!r}/{r.se!r}, the JAX package's {tau}/{se} (bound {lim})")
+    for method, h in ROWS["ipw_cpu"].items():
+        r = rows[method]
+        if max(abs(r.ate - h.ate), abs(r.se - h.se)) > IPW_BOUND:
+            fails.append(f"{method} {r.ate!r}/{r.se!r}, CPU port {h.ate!r}/{h.se!r}")
+    b = rows["residual_balancing"]
+    if max(abs(b.ate - BALANCE_JAX[0]), abs(b.se - BALANCE_JAX[1])) > BALANCE_BOUND:
+        fails.append(f"residual_balancing {b.ate!r}/{b.se!r}, the JAX package's {BALANCE_JAX}")
+    for r in [rep.oracle, *rep.results]:
+        if r.status != "ok" or not math.isfinite(r.ate):
+            fails.append(f"{r.method}: status {r.status}, τ {r.ate}")
+    return fails
+
+
+def phase_path_sweep() -> dict:
+    """The notebook sweep through its entry point, ``pipeline.run_sweep``,
+    at the full configuration (``SweepConfig()``) on the card, the default
+    device, with the DML row's packed-code policy (``ATE_TPU_PREDICT_PACK=1``
+    for the whole run: integer histogram weights and the causal pass give
+    the bits of the unpacked policy); every row held to its phase's pin;
+    report.json and REPORT.md parsed; then the same call again on the same
+    directory: every record resumed, nothing computed, no kernel launched,
+    the same rows."""
+    shutil.rmtree(SWEEP_OUT, ignore_errors=True)
+    config = pipeline.SweepConfig()
+    logs, logs2 = [], []
+    with packed_policy():
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs.append)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        again = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs2.append)
+        wall2 = time.perf_counter() - t0
+        counts2 = read_counts()
+    with open(os.path.join(SWEEP_OUT, "report.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(SWEEP_OUT, "REPORT.md")) as f:
+        md = f.read()
+    n_rows = len(pipeline.SWEEP_METHODS) + 1
+    emit({"phase": "path_sweep", "config": "SweepConfig()", "policy": f"{pack.ENV_PACK}=1",
+          "rows_biased": rep.n_biased, "n_dropped": rep.n_dropped,
+          "results": {r.method: [r.ate, None if math.isnan(r.se) else r.se]
+                      for r in [rep.oracle, *rep.results]},
+          "incorrect_cf": [rep.incorrect_cf_ate, rep.incorrect_cf_se],
+          "seconds": rep.timings_s, "wall_s": wall, "computed": rep.computed,
+          "launches": counts, "resume": {"wall_s": wall2, "computed": again.computed,
+                                         "resumed": again.resumed, "launches": counts2}})
+    fails = sweep_checks(rep)
+    if [r["method"] for r in doc["results"]] != list(pipeline.SWEEP_METHODS):
+        fails.append(f"report.json rows {[r['method'] for r in doc['results']]}")
+    missing = [m for m in pipeline.SWEEP_METHODS if f"| {m} | {rep.results[m].ate:.4f} |" not in md]
+    if missing or f"## [1] {rep.n_dropped}" not in md:
+        fails.append(f"REPORT.md lacks rows {missing} or the drop count")
+    if rep.computed != n_rows or (again.computed, again.resumed) != (0, n_rows):
+        fails.append(f"computed {rep.computed}; the rerun computed {again.computed}, resumed "
+                     f"{again.resumed} of {n_rows}")
+    if sum("[resume]" in ln for ln in logs2) != n_rows:
+        fails.append("the rerun did not log every row as resumed")
+    if any(counts2.values()):
+        fails.append(f"the resumed run launched kernels: {counts2}")
+    if not (same_row(again.oracle, rep.oracle)
+            and all(same_row(a, b) for a, b in zip(again.results, rep.results))):
+        fails.append("the resumed rows differ from the computed ones")
+    unpacked = ("hist_partition", "hist_partition_shared")
+    if any(counts[k] for k in unpacked):
+        fails.append(f"unpacked partition launches under the packed policy: {counts}")
+    try:
+        require_launched(counts, [k for k in COUNTERS if k not in unpacked + OLD_ROW_KERNELS],
+                         "sweep")
+        require_row_launches(counts, "sweep")
+    except AssertionError as e:
+        fails.append(str(e))
+    if counts["cd_path"] != sum(CD_LAUNCHES.values()):
+        fails.append(f"cd_path launches {counts['cd_path']}, derived {sum(CD_LAUNCHES.values())}")
+    if fails:
+        raise AssertionError("path_sweep: " + "; ".join(fails))
+    return counts
+
+
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
 _PART = "ate_replication_causalml_torch/csrc/hist_partition.cu"
 _TPU = "ate_replication_causalml_tpu/ops/"
@@ -1794,7 +2095,9 @@ def main() -> int:
     phase_parity_dml(frame_mod)
     phase_path_ipw(frame_mod)
     by_path["lasso"] = phase_path_lasso(frame_mod)
-    phase_stages()
+    by_path["balance"] = phase_path_balance(frame_mod)
+    by_path["sweep"] = phase_path_sweep()
+    phase_stages(frame_mod)
     kernels = []
     for k, (src, rep, device_fn) in SOURCES.items():
         row = timing[k]

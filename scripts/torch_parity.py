@@ -37,6 +37,19 @@ JSON object:
   against cvsd, the λ path and the coefficients in ulps, the fold ids'
   digests, τ and SE.
 
+* ``balance`` — the residual_balancing row on the same frame with the
+  sweep's key (``fold_in(key(0), crc32("balance"))``) and budget (12,000
+  ADMM iterations): per arm its rows, ADMM iterations and worst residual
+  in both packages, γ's max |Δ|, the fold ids' digests and ``index_min``
+  (the values ``chip_smoke.py`` pins as ``BALANCE_FOLDS`` and
+  ``BALANCE_INDEX``), the float32 covariate mean (the QP's target) in
+  ulps, τ and SE (``BALANCE_JAX``);
+* ``sweep`` — both packages' ``run_sweep`` on the CPU (the JAX package
+  sequential, on one device, float32) at ``--sweep micro`` (the MICRO
+  configuration of ``tests/test_pipeline_driver.py``) or ``quick``
+  (``SweepConfig().quick()``, minutes): every row's τ and SE, and each
+  package's row walls.
+
 Every float comparison reports its max |Δ| and, under ``max_ulp_diff``,
 its max |Δ| in float32 ulps of the JAX package's value
 (``np.spacing``). ``--rows`` picks sections (default: all).
@@ -329,14 +342,136 @@ def lasso_rows(jmod, tmod) -> dict:
     }
 
 
+def _tkey(name):
+    return rnd.fold_in(rnd.key(0, device="cpu"), zlib.crc32(name.encode()))
+
+
+def _jkey(name):
+    return jax.random.fold_in(jax.random.key(0), zlib.crc32(name.encode()))
+
+
+def balance_row(jmod, tmod, max_iters: int = 12_000) -> dict:
+    """The residual_balancing row in both packages (float32 frames, the
+    float64 ADMM), each on its own CPU path, with the sweep's key."""
+    import pytest
+
+    jb = importlib.import_module("ate_replication_causalml_tpu.estimators.balance")
+    jlasso = importlib.import_module("ate_replication_causalml_tpu.ops.lasso")
+    from ate_replication_causalml_torch.estimators import balance as tb
+    from ate_replication_causalml_torch.ops import lasso as tlasso
+
+    def timed_capture(mp, mod, name, sink):
+        fn = getattr(mod, name)
+
+        def rec(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sink.append((out, time.perf_counter() - t0))
+            return out
+
+        mp.setattr(mod, name, rec)
+
+    treated = np.asarray(jmod.w) > 0.5
+    masks = {"treated": treated, "control": ~treated}
+    jqp, tqp, tcv = [], [], []
+    t0 = time.perf_counter()
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(False):
+        timed_capture(mp, jb, "approx_balance_sol", jqp)
+        ref = jb.residual_balance_ate(jmod, key=_jkey("balance"), max_iters=max_iters)
+        jtarget = np.asarray(jnp.mean(jmod.x, axis=0))
+        k0, k1 = jax.random.split(_jkey("balance"))
+        jarm = {}
+        for arm, k in (("treated", k1), ("control", k0)):
+            m = masks[arm]
+            cv = jlasso.cv_glmnet(jmod.x[m], jmod.y[m], family="gaussian", alpha=0.9, key=k)
+            jarm[arm] = (fold_digest(np.asarray(jlasso.default_foldid(k, int(m.sum())))),
+                         int(cv.index_min))
+    t1 = time.perf_counter()
+    with pytest.MonkeyPatch.context() as mp:
+        timed_capture(mp, tb, "approx_balance_sol", tqp)
+        timed_capture(mp, tb, "cv_glmnet", tcv)
+        got = tb.residual_balance_ate(tmod, key=_tkey("balance"), max_iters=max_iters)
+    t2 = time.perf_counter()
+    tk0, tk1 = rnd.split(_tkey("balance")).unbind(dim=-2)
+    ttarget = torch.mean(tmod.x, dim=0).numpy()
+    arms = {}
+    for i, (arm, k) in enumerate((("treated", tk1), ("control", tk0))):
+        (jg, jw, ji), jsec = jqp[i]
+        (tg, tw, ti), tsec = tqp[i]
+        n_arm = int(masks[arm].sum())
+        arms[arm] = {
+            "rows": n_arm,
+            "admm_iters": [int(ji), int(ti)],
+            "worst_resid": [float(jw), float(tw)],
+            "qp_seconds": [jsec, tsec],
+            "gamma f32 max |diff|": maxdiff(tg.numpy(), np.asarray(jg)),
+            "fold_digest": [jarm[arm][0],
+                            fold_digest(tlasso.default_foldid(k, n_arm).numpy())],
+            "index_min": [jarm[arm][1], int(tcv[i][0].index_min)],
+            "cv_seconds_torch": tcv[i][1],
+        }
+    return {
+        "max_iters": max_iters, "arms": arms,
+        "jax": [ref.ate, ref.se], "torch": [got.ate, got.se],
+        "abs_diff": [abs(got.ate - ref.ate), abs(got.se - ref.se)],
+        "max_abs_diff": {"target = mean(x, 0) (f32)": maxdiff(ttarget, jtarget)},
+        "max_ulp_diff": {"target = mean(x, 0) (f32)": maxulp(ttarget, jtarget),
+                         "tau": maxulp(got.ate, ref.ate), "se": maxulp(got.se, ref.se)},
+        "seconds": {"jax": t1 - t0, "torch": t2 - t1},
+    }
+
+
+def sweep_rows(size: str) -> dict:
+    """Both packages' run_sweep on the CPU at ``size`` ("micro" or
+    "quick"), matched row by row."""
+    import dataclasses
+
+    from ate_replication_causalml_torch import pipeline as tpipe
+    from ate_replication_causalml_torch.data.pipeline import PrepConfig as TPrep
+    from ate_replication_causalml_tpu import pipeline as jpipe
+    from ate_replication_causalml_tpu.data.pipeline import PrepConfig as JPrep
+
+    def config(mod, prep):
+        c = dataclasses.replace(mod.SweepConfig().quick(), use_mesh=False)
+        if size == "micro":
+            c = dataclasses.replace(c, prep=prep(n_obs=1200), synthetic_pool=3000, dr_trees=16,
+                                    dml_trees=16, cf_trees=16, cf_nuisance_trees=16,
+                                    forest_depth=4, balance_iters=600)
+        return c
+
+    quiet = lambda s: None
+    t0 = time.perf_counter()
+    with jax.enable_x64(False):
+        ref = jpipe.run_sweep(config(jpipe, JPrep), plots=False, log=quiet, scheduler="sequential")
+    t1 = time.perf_counter()
+    got = tpipe.run_sweep(config(tpipe, TPrep), plots=False, log=quiet, device="cpu")
+    t2 = time.perf_counter()
+    jrows = {"oracle": ref.oracle, **{r.method: r for r in ref.results}}
+    trows = {"oracle": got.oracle, **{r.method: r for r in got.results}}
+    rows = {}
+    for m, r in jrows.items():
+        g = trows[m]
+        rows[m] = {"jax": [r.ate, r.se], "torch": [g.ate, g.se],
+                   "abs_diff": [abs(g.ate - r.ate), abs(g.se - r.se) if np.isfinite(r.se) else None],
+                   "max_ulp_diff": maxulp(g.ate, r.ate),
+                   "seconds": [ref.timings_s.get(m), got.timings_s.get(m)]}
+    return {"size": size, "rows_biased": [ref.n_biased, got.n_biased],
+            "same_methods_in_order": ref.results.methods() == got.results.methods(),
+            "rows": rows, "torch_nuisance_seconds": {k: v for k, v in got.timings_s.items()
+                                                     if k.startswith("artifact:")},
+            "seconds": {"jax": t1 - t0, "torch": t2 - t1}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", type=int, default=32, help="DR-RF forest trees")
     ap.add_argument("--cf-trees", type=int, default=2000, help="causal forest trees")
     ap.add_argument("--cf-nuisance-trees", type=int, default=500)
     ap.add_argument("--dml-trees", type=int, default=2000, help="trees per DML nuisance forest")
-    ap.add_argument("--rows", default="dr_rf,causal_forest,dml,lasso",
+    ap.add_argument("--rows", default="dr_rf,causal_forest,dml,lasso,balance,sweep",
                     help="comma-separated sections to run")
+    ap.add_argument("--sweep", default="micro", choices=("micro", "quick"),
+                    help="configuration of the sweep section")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     t0 = time.perf_counter()
@@ -348,6 +483,8 @@ def main() -> int:
             "small": cf_small()},
         "dml": lambda: dml_row(jmod, tmod, args.dml_trees),
         "lasso": lambda: lasso_rows(jmod, tmod),
+        "balance": lambda: balance_row(jmod, tmod),
+        "sweep": lambda: sweep_rows(args.sweep),
     }
     unknown = rows - set(sections)
     if unknown:

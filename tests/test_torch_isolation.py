@@ -27,7 +27,7 @@ def test_port_lists_its_modules():
               "estimators.aipw", "data.pipeline", "models.causal_forest",
               "estimators.causal_forest_est", "ops.pack", "ops.linalg", "estimators.dml",
               "estimators.ols", "estimators.ipw", "ops.lasso", "estimators.lasso_est",
-              "estimators.belloni"):
+              "estimators.belloni", "ops.qp", "estimators.balance", "pipeline", "viz"):
         assert f"{_PKG}.{m}" in mods
 
 

@@ -697,3 +697,98 @@ def test_cv_glmnet_on_card_launches_only_the_kernel(cuda, monkeypatch):
         ref = host[family]
         assert (int(got.index_min), int(got.index_1se)) == (int(ref.index_min), int(ref.index_1se))
         assert torch.allclose(got.path.coefs.cpu(), ref.path.coefs, rtol=1e-3, atol=1e-4)
+
+
+# The balancing QP and the sweep on the card.
+
+def _arm(n, k, seed, shift):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, k)) + shift
+    return x, x.mean(axis=0) + rng.normal(size=k) * (0.3 if shift else 0.03)
+
+
+@pytest.mark.parametrize("n,k,seed,shift", [(40, 4, 0, 0.0), (300, 6, 1, 0.0), (2000, 21, 2, 0.2)])
+def test_balance_qp_x64_on_card_vs_cpu(cuda, n, k, seed, shift):
+    """The float64 ADMM on the card against the CPU port: the same
+    iterations, γ within 1e-11 (matrix products and sums in another
+    order, carried through the contracting iteration; the bound of
+    tests/test_torch_qp.py against the JAX package)."""
+    from ate_replication_causalml_torch.ops import qp
+
+    x, target = _arm(n, k, seed, shift)
+    host = qp.balance_qp_x64(torch.as_tensor(x, dtype=torch.float32), torch.as_tensor(target))
+    card = qp.balance_qp_x64(torch.as_tensor(x, dtype=torch.float32, device=cuda),
+                             torch.as_tensor(target, device=cuda))
+    assert card.gamma.device.type == "cuda" and card.gamma.dtype == torch.float64
+    assert card.iters == host.iters < 4000
+    assert float((card.gamma.cpu() - host.gamma).abs().max()) <= 1e-11
+
+
+def test_residual_balance_ate_on_card(cuda, monkeypatch):
+    """The residual_balancing row on the card: one cd_path launch an arm
+    (each arm's CV fit is one batch), each arm's ADMM iterations those of
+    the CPU port, τ and SE within 5e-5 of it (tests/test_torch_balance.py's
+    bound)."""
+    from ate_replication_causalml_torch.estimators import balance
+
+    rng = np.random.default_rng(9)
+    n, p = 2000, 21
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    w = (rng.random(n) < 1 / (1 + np.exp(-x[:, 0]))).astype(np.float32)
+    y = (x[:, 1] + 0.1 * w + rng.normal(size=n) > 0).astype(np.float32)
+    iters = []
+    solve = balance.approx_balance_sol
+
+    def record(*a, **k):
+        out = solve(*a, **k)
+        iters.append(out[2])
+        return out
+
+    monkeypatch.setattr(balance, "approx_balance_sol", record)
+    host = balance.residual_balance_ate(CausalFrame(*(torch.as_tensor(a) for a in (x, w, y))))
+    before = tl.cd_path.launches
+    card = balance.residual_balance_ate(
+        CausalFrame(*(torch.as_tensor(a, device=cuda) for a in (x, w, y))))
+    assert tl.cd_path.launches - before == 2
+    assert iters[:2] == iters[2:]
+    assert abs(card.ate - host.ate) <= 5e-5 and abs(card.se - host.se) <= 5e-5
+
+
+def _kernel_launches() -> int:
+    return sum(getattr(fn, attr) for fn, attr in (
+        (th.bin_histogram_batched, "launches"), (th.bin_histogram_batched, "partition_launches"),
+        (th.bin_histogram_batched, "packed_launches"), (th.bin_histogram_shared, "launches"),
+        (th.bin_histogram_shared, "partition_launches"),
+        (th.bin_histogram_shared, "packed_launches"), (th.node_sums, "launches"),
+        (th.node_sums_shared, "launches"), (tt.route_bits, "launches"),
+        (tt.table_lookup, "launches"), (tp.pack_codes, "launches"), (tt.route_advance, "launches"),
+        (tt.traverse, "launches"), (tt.leaf_record, "launches"), (tl.cd_path, "launches")))
+
+
+def test_run_sweep_on_card_then_resume(cuda, tmp_path):
+    """The MICRO sweep (tests/test_torch_pipeline.py's configuration) on
+    the card, the default device: every row finite, the kernels launched;
+    a second run on the same directory resumes all 14 records, launches
+    no kernel and returns the same rows."""
+    import dataclasses
+
+    from ate_replication_causalml_torch import pipeline
+    from ate_replication_causalml_torch.data.pipeline import PrepConfig
+
+    micro = dataclasses.replace(
+        pipeline.SweepConfig().quick(), prep=PrepConfig(n_obs=1200), synthetic_pool=3000,
+        dr_trees=16, dml_trees=16, cf_trees=16, cf_nuisance_trees=16, forest_depth=4,
+        balance_iters=600, use_mesh=False)
+    out = str(tmp_path / "sweep")
+    before = _kernel_launches()
+    first = pipeline.run_sweep(micro, outdir=out, plots=False, log=lambda s: None)
+    assert _kernel_launches() > before and tl.cd_path.launches > 0
+    assert first.results.methods() == list(pipeline.SWEEP_METHODS) and first.computed == 14
+    assert all(np.isfinite(r.ate) and r.status == "ok" for r in first.results)
+    before = _kernel_launches()
+    again = pipeline.run_sweep(micro, outdir=out, plots=False, log=lambda s: None)
+    assert _kernel_launches() == before
+    assert (again.computed, again.resumed) == (0, 14)
+    same = lambda a, b: pipeline._jsonsafe(a.to_dict()) == pipeline._jsonsafe(b.to_dict())
+    assert same(again.oracle, first.oracle)
+    assert all(same(a, b) for a, b in zip(again.results, first.results))

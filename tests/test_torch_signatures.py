@@ -11,11 +11,14 @@ package): forests of integer-weight classifiers and leaf indices exact;
 (``test_torch_dml.py``); the causal fit's nuisances within 1e-6 (OOB
 means of exact forests, summed over trees in another order), its
 half-samples exact and at least 90% of its split table equal (a float
-tie may flip a split).
+tie may flip a split); the balancing QP's iterations equal and γ within
+1e-11 (``test_torch_qp.py``), the residual_balancing row's τ and SE
+within 5e-5 (``test_torch_balance.py``).
 """
 
 import importlib
 import inspect
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,24 +26,30 @@ import numpy as np
 import pytest
 import torch
 
+from ate_replication_causalml_torch import pipeline as tpipe
 from ate_replication_causalml_torch.data.frame import CausalFrame as TFrame
+from ate_replication_causalml_torch.estimators import balance as tbal
 from ate_replication_causalml_torch.estimators import belloni as tbe
 from ate_replication_causalml_torch.estimators import dml as td
 from ate_replication_causalml_torch.estimators import lasso_est as tle
 from ate_replication_causalml_torch.models import causal_forest as tcf
 from ate_replication_causalml_torch.models import forest as tf
 from ate_replication_causalml_torch.ops import lasso as tla
+from ate_replication_causalml_torch.ops import qp as tqp
 from ate_replication_causalml_torch.ops import random as rnd
+from ate_replication_causalml_tpu import pipeline as jpipe
 from ate_replication_causalml_tpu.data.frame import CausalFrame as JFrame
 from ate_replication_causalml_tpu.estimators import dml as jd
 from ate_replication_causalml_tpu.models import causal_forest as jcf
 from ate_replication_causalml_tpu.models import forest as jf
 from ate_replication_causalml_tpu.ops import lasso as jla
+from ate_replication_causalml_tpu.ops import qp as jqp
 
 # The JAX package's estimators/__init__.py binds these module names to
 # functions; import the modules themselves.
 jbe = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
 jle = importlib.import_module("ate_replication_causalml_tpu.estimators.lasso_est")
+jbal = importlib.import_module("ate_replication_causalml_tpu.estimators.balance")
 
 ENTRY_POINTS = {
     "predict_cate": (jcf.predict_cate, tcf.predict_cate),
@@ -57,6 +66,11 @@ ENTRY_POINTS = {
     "ate_lasso": (jle.ate_lasso, tle.ate_lasso),
     "prop_score_lasso": (jle.prop_score_lasso, tle.prop_score_lasso),
     "belloni": (jbe.belloni, tbe.belloni),
+    "balance_qp": (jqp.balance_qp, tqp.balance_qp),
+    "balance_qp_x64": (jqp.balance_qp_x64, tqp.balance_qp_x64),
+    "approx_balance": (jbal.approx_balance, tbal.approx_balance),
+    "residual_balance_ate": (jbal.residual_balance_ate, tbal.residual_balance_ate),
+    "run_sweep": (jpipe.run_sweep, tpipe.run_sweep),
 }
 CF_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample", "bin_edges")
 
@@ -314,3 +328,69 @@ def test_lasso_estimators_positional():
                  lambda: tbe.belloni(tframe, None, None, tk, "fold")):
         with pytest.raises(ValueError, match="fold_axis"):
             call()
+
+
+def test_balance_qp_and_approx_balance_positional():
+    """balance_qp / balance_qp_x64(x, target, zeta, ub, rho, max_iters,
+    tol), approx_balance(x, target, zeta, ub, max_iters): a capped
+    problem with another zeta, rho and tol gives the same iterations and
+    weights."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(120, 5)) + 0.3
+    target = x.mean(axis=0) * 0.5
+    for jfn, tfn in ((jqp.balance_qp, tqp.balance_qp), (jqp.balance_qp_x64, tqp.balance_qp_x64)):
+        ref = jfn(jnp.asarray(x), jnp.asarray(target), 0.3, 0.05, 2.0, 3000, 1e-8)
+        got = tfn(torch.as_tensor(x), torch.as_tensor(target), 0.3, 0.05, 2.0, 3000, 1e-8)
+        assert got.iters == int(ref.iters) < 3000
+        assert np.max(np.abs(got.gamma.numpy() - np.asarray(ref.gamma))) <= 1e-11
+        assert float(got.gamma.max()) <= 0.05 + 1e-12
+    ref = np.asarray(jbal.approx_balance(jnp.asarray(x), jnp.asarray(target), 0.3, 0.05, 3000))
+    got = tbal.approx_balance(torch.as_tensor(x), torch.as_tensor(target), 0.3, 0.05, 3000)
+    assert got.dtype == torch.float32 and np.max(np.abs(got.numpy() - ref)) <= 1e-7
+
+
+def test_residual_balance_ate_positional():
+    """(frame, zeta, max_iters, key, method, estimate_se)."""
+    jframe, tframe = _lasso_frames(12, 400, 4)
+    jk, tk = _jax_key_pair(13)
+    with jax.enable_x64(False):
+        ref = jbal.residual_balance_ate(jframe, 0.4, 3000, jk, "rb", True)
+    got = tbal.residual_balance_ate(tframe, 0.4, 3000, tk, "rb", True)
+    assert got.method == ref.method == "rb"
+    assert abs(got.ate - ref.ate) <= 5e-5 and abs(got.se - ref.se) <= 5e-5
+    point = tbal.residual_balance_ate(tframe, 0.4, 3000, tk, "rb", False)
+    assert point.ate == got.ate and np.isnan(point.se)
+
+
+class _Reached(Exception):
+    pass
+
+
+def test_run_sweep_positional(tmp_path, monkeypatch):
+    """(config, csv_path, outdir, plots, log, scheduler, workers,
+    prefetch): both packages bind the same call the same way, up to the
+    point where the sweep reads its data; the port's own ``device`` is a
+    keyword, and the JAX package's concurrent scheduler, workers and
+    prefetch raise."""
+    seen = {}
+
+    def reached(pkg):
+        def fn(config, csv_path=None, **kw):
+            seen[pkg] = (config, csv_path)
+            raise _Reached
+        return fn
+
+    monkeypatch.setattr(jpipe, "build_frames", reached("jax"))
+    monkeypatch.setattr(tpipe, "build_frames", reached("torch"))
+    logs = []
+    for pkg, mod, extra in (("jax", jpipe, {}), ("torch", tpipe, {"device": "cpu"})):
+        config = mod.SweepConfig(seed=3, use_mesh=False)
+        with pytest.raises(_Reached):
+            mod.run_sweep(config, "data.csv", str(tmp_path / pkg), False, logs.append,
+                          "sequential", None, None, **extra)
+        assert seen[pkg] == (config, "data.csv")
+        assert os.path.isfile(os.path.join(tmp_path, pkg, "results.jsonl"))
+    config = tpipe.SweepConfig()
+    for args in (("concurrent", None, None), ("sequential", 2, None), (None, None, True)):
+        with pytest.raises(ValueError):
+            tpipe.run_sweep(config, None, None, False, logs.append, *args, device="cpu")
