@@ -191,6 +191,18 @@ def kernel(name: str) -> Built:
     return built if built is not None else build_all()[name]
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``, the launch count that tests and
+    ``chip_smoke.py`` read and reset, under a lock: the concurrent
+    sweep's workers launch from several threads, and a bare ``+= 1``
+    there can lose increments."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def check(built: Built, code: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:

@@ -296,16 +296,19 @@ def grow_causal_forest(
 @contextlib.contextmanager
 def stage(times: dict | None, name: str, device: torch.device):
     """Record the wall time of a block into ``times[name]`` (seconds,
-    the device synchronized at both ends); a no-op when ``times`` is None."""
+    the current stream synchronized at both ends); a no-op when ``times``
+    is None. The current stream, not the device: in the concurrent sweep
+    a device-wide sync would wait for every other worker's stream too
+    and charge their work to this stage."""
     if times is None:
         yield
         return
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     t0 = time.perf_counter()
     yield
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 

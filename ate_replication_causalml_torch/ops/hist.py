@@ -499,7 +499,7 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
         k = build.kernel("hist")
         build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *geometry, partial.data_ptr(),
                             out.data_ptr(), stream))
-        counter.launches += 1
+        build.count_launch(counter)
         return out
     if pack:
         perm, seg, _, _ = partition_sort(ids, max_nodes, n_parts)
@@ -508,14 +508,14 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
         k = build.kernel("hist_partition_packed")
         build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, perm.data_ptr(),
                             seg.data_ptr(), out.data_ptr(), stream))
-        counter.packed_launches += 1
+        build.count_launch(counter, "packed_launches")
         return out
     perm, seg, node_sorted, w_sorted = partition_sort(ids, max_nodes, n_parts, weights)
     k = build.kernel("hist_partition")
     build.check(k, k.fn(codes.data_ptr(), n, p, n_trees, k_w, max_nodes, n_bins, n_parts,
                         int(cluster > 1), perm.data_ptr(), seg.data_ptr(), node_sorted.data_ptr(),
                         w_sorted.data_ptr(), partial.data_ptr(), out.data_ptr(), stream))
-    counter.partition_launches += 1
+    build.count_launch(counter, "partition_launches")
     return out
 
 

@@ -221,7 +221,7 @@ def cd_path(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
         int(gram.dtype == torch.float64), betas.data_ptr(), sweeps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     ))
-    cd_path.launches += 1
+    build.count_launch(cd_path)
     return betas, sweeps
 
 

@@ -100,7 +100,7 @@ def pack_codes(codes: torch.Tensor) -> torch.Tensor:
     k = build.kernel("pack_codes")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     build.check(k, k.fn(codes.data_ptr(), n, p, words.data_ptr(), stream))
-    pack_codes.launches += 1
+    build.count_launch(pack_codes)
     return words
 
 

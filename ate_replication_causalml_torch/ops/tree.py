@@ -99,7 +99,7 @@ def route_bits(codes, ids, best_feat, best_bin) -> torch.Tensor:
         codes.data_ptr(), n, codes.shape[1], ids.data_ptr(), best_feat.data_ptr(),
         best_bin.data_ptr(), n_trees, best_feat.shape[1], out.data_ptr(), _stream(codes),
     ))
-    route_bits.launches += 1
+    build.count_launch(route_bits)
     return out
 
 
@@ -134,7 +134,7 @@ def table_lookup(table, ids) -> torch.Tensor:
         table.data_ptr(), n_trees, k_ch, n_slots, ids.data_ptr(), n, out.data_ptr(),
         _stream(table),
     ))
-    table_lookup.launches += 1
+    build.count_launch(table_lookup)
     return out
 
 
@@ -191,7 +191,7 @@ def route_advance(codes, node_int, node_rev, best_feat, best_bin, mask=None,
         n_trees, best_feat.shape[1], node_int.data_ptr(), node_rev.data_ptr(),
         None if mask is None else mask.data_ptr(), int(last), out.data_ptr(), _stream(codes),
     ))
-    route_advance.launches += 1
+    build.count_launch(route_advance)
     return out
 
 
@@ -249,7 +249,7 @@ def traverse(codes, split_feat, split_bin, table=None) -> torch.Tensor:
         width, None if table is None else table.data_ptr(), n_slots, n_chan, out.data_ptr(),
         _stream(codes),
     ))
-    traverse.launches += 1
+    build.count_launch(traverse)
     return out
 
 
@@ -299,7 +299,7 @@ def leaf_record(leaf_sums, base, mu, node) -> tuple[torch.Tensor, torch.Tensor]:
         n_leaves, node.data_ptr(), n, leaf_value.data_ptr(), train_vals.data_ptr(),
         _stream(node),
     ))
-    leaf_record.launches += 1
+    build.count_launch(leaf_record)
     return leaf_value, train_vals
 
 

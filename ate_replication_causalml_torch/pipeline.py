@@ -1,35 +1,42 @@
-"""The notebook-equivalent sweep, run one row after the other.
+"""The notebook-equivalent sweep.
 
 Port of ``ate_replication_causalml_tpu/pipeline.py``: data ingest →
 prep → bias injection → RCT oracle → every estimator row of
 ``ate_replication.Rmd`` in notebook order → one result table, with
 
-* **checkpoint/resume**: each row is appended to ``results.jsonl`` the
-  moment it finishes, under a fingerprint of the configuration, the data
-  source, the device and this package's name and version; a rerun on the
-  same output directory resumes the finished rows, and a journal written
+* **concurrent scheduling** (the default): the rows and their shared
+  nuisances are a DAG run by a pool of worker threads, one CUDA stream a
+  worker on the card (``scheduler/``); commits follow the notebook order,
+  and every row equals the sequential sweep's bit for bit.
+  ``scheduler="sequential"`` (``--sequential``, ``ATE_TPU_SWEEP_SEQUENTIAL=1``
+  or ``workers=1``) runs the same graph inline on the calling thread;
+* **checkpoint/resume**: each row is appended to ``results.jsonl`` as it
+  commits, under a fingerprint of the configuration, the data source,
+  the device and this package's name and version (not the scheduler: a
+  journal of either mode resumes under the other); a rerun on the same
+  output directory resumes the finished rows, and a journal written
   under another fingerprint (another config, device or package, the JAX
   package's included) is set aside as ``*.stale[.N]``;
 * **graceful degradation**: under ``fail_policy="degrade"`` a failing row
   becomes a ``status="failed"`` row (error, attempts, seconds), retried
-  on resume; ``"raise"`` aborts on the first failure;
+  on resume; ``"raise"`` aborts on the first failure in declared order;
 * **shared nuisances**: the logistic propensity, the AIPW outcome model,
   the LASSO fold ids, the LASSO propensity and the RF OOB propensity are
-  fitted once, by the first row that needs them, and handed to every
-  row that consumes them;
+  fitted once, ahead of the first row that needs them, and handed to
+  every row that consumes them;
 * ``report.json``, ``REPORT.md`` and, with ``plots=True``, the three
   figures.
 
 Every row runs on one device (``cuda`` unless ``device="cpu"`` is
-passed). The JAX package's concurrent scheduler, telemetry, tracing and
-chaos hooks are not ported: ``scheduler`` takes only ``None`` or
-"sequential", and ``workers`` and ``prefetch`` only ``None``.
+passed). The JAX package's telemetry exporters, tracing and chaos hooks
+are not ported: ``ATE_TPU_CHAOS`` set makes the sweep raise before any
+work.
 
 CLI::
 
     python -m ate_replication_causalml_torch.pipeline --out results/ \\
         [--csv socialpresswgeooneperhh_NEIGH.csv] [--quick] [--no-plots] \\
-        [--sequential] [--device cpu]
+        [--sequential] [--workers N] [--device cpu]
 """
 
 from __future__ import annotations
@@ -76,9 +83,16 @@ from ate_replication_causalml_torch.estimators.lasso_est import (
 )
 from ate_replication_causalml_torch.estimators.naive import naive_ate
 from ate_replication_causalml_torch.estimators.ols import ate_condmean_ols
+from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.models.forest import rf_oob_propensity
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.lasso import default_foldid
+from ate_replication_causalml_torch.scheduler import (
+    ArtifactSpec,
+    StageSpec,
+    SweepEngine,
+    default_workers,
+)
 from ate_replication_causalml_torch import viz
 
 PACKAGE = "ate_replication_causalml_torch"
@@ -278,17 +292,55 @@ def _fingerprint(config: SweepConfig, csv_path: str | None, dev: torch.device) -
             f"|package={PACKAGE}|version={__version__}")
 
 
-def _check_scheduler(scheduler, workers, prefetch) -> None:
-    if scheduler not in (None, "sequential"):
-        raise ValueError(f"scheduler must be None or 'sequential' (the concurrent scheduler is "
-                         f"not ported), got {scheduler!r}")
-    if workers is not None or prefetch is not None:
-        raise ValueError("workers and prefetch belong to the concurrent scheduler, which is not "
-                         f"ported; pass None (got workers={workers!r}, prefetch={prefetch!r})")
+_CHAOS_ENV = "ATE_TPU_CHAOS"
+
+
+def _resolve_scheduler(scheduler: str | None, workers: int | None) -> int:
+    """Worker-pool width from the scheduler mode and the env knobs
+    (``ATE_TPU_SWEEP_SEQUENTIAL``, ``ATE_TPU_SWEEP_WORKERS``). The mode
+    is not part of the journal's fingerprint: the concurrent and the
+    sequential sweep give the same bits, so either resumes the other's
+    journal."""
+    mode = scheduler
+    if mode is None:
+        mode = ("sequential"
+                if os.environ.get("ATE_TPU_SWEEP_SEQUENTIAL", "").strip().lower()
+                in ("1", "true", "yes", "on") else "concurrent")
+    if mode not in ("sequential", "concurrent"):
+        raise ValueError(f"scheduler must be 'sequential' or 'concurrent', got {mode!r}")
+    if mode == "sequential":
+        return 1
+    # Clamp like default_workers clamps the env var: --workers 0 must not
+    # reach the engine as a zero-thread pool.
+    return default_workers() if workers is None else max(1, workers)
+
+
+def _check_no_chaos() -> None:
+    """The JAX package's fault injection (``ATE_TPU_CHAOS``) is not
+    ported: refuse to run a fault-free sweep the caller did not ask for."""
+    if os.environ.get(_CHAOS_ENV, "").strip():
+        raise ValueError(f"{_CHAOS_ENV} is set, but this package has no fault injection; "
+                         f"unset it to run the sweep")
 
 
 def _nan_or(v):
     return float("nan") if v is None else v
+
+
+@dataclasses.dataclass
+class _StageOutcome:
+    """What a stage body hands the ordered committer: the row plus what
+    the commit journals and logs in declared order (bodies may finish in
+    any order; side effects are the committer's)."""
+
+    kind: str                   # "resumed" | "computed" | "failed"
+    res: EstimatorResult
+    record: dict | None = None  # checkpoint row (computed/failed)
+    extras: dict = dataclasses.field(default_factory=dict)
+    seconds: float = 0.0
+    retry_why: str = ""         # why a journaled row was not resumable
+    error: str = ""
+    attempts: int = 0
 
 
 def run_sweep(
@@ -303,22 +355,34 @@ def run_sweep(
     *,
     device=None,
 ) -> SweepReport:
-    """The full notebook run, checkpointed and timed, one row after the
-    other on ``device`` (``cuda`` unless ``device="cpu"``).
+    """The full notebook run, checkpointed and timed, on ``device``
+    (``cuda`` unless ``device="cpu"``).
+
+    ``scheduler`` is "concurrent" (the default: a pool of worker threads
+    over the DAG of stages and shared nuisances, one CUDA stream a worker
+    on the card; ``scheduler/engine.py``) or "sequential" (inline on the
+    calling thread and its stream); ``ATE_TPU_SWEEP_SEQUENTIAL=1`` picks
+    the latter when ``scheduler`` is None. ``workers`` bounds the pool
+    (default ``ATE_TPU_SWEEP_WORKERS`` or ``min(4, cpus)``; 1 runs
+    inline). ``prefetch`` overrides the kernel-build prefetch lane's
+    default (on for the card). Both modes give the same rows bit for bit
+    and write the same journal lines in the same order.
 
     Each stage's key is ``fold_in(key(config.seed), crc32(name))``, so a
     resumed run gives the remaining rows the keys a fresh run would.
     ``report.timings_s`` holds each computed row's wall seconds, and each
-    shared nuisance's under ``artifact:<name>`` (fitted by the first row
-    that needs it, outside that row's time)."""
-    _check_scheduler(scheduler, workers, prefetch)
+    shared nuisance's under ``artifact:<name>`` (fitted ahead of its
+    first consumer, outside that row's time)."""
+    _check_no_chaos()
+    n_workers = _resolve_scheduler(scheduler, workers)
     dev = resolve_device(device)
     if plots and outdir:
         viz.require_matplotlib()
     if outdir:
         os.makedirs(outdir, exist_ok=True)
-    ckpt = _Checkpoint(os.path.join(outdir, "results.jsonl") if outdir else None,
-                       _fingerprint(config, csv_path, dev), log=log)
+    fingerprint = _fingerprint(config, csv_path, dev)
+    ckpt = _Checkpoint(os.path.join(outdir, "results.jsonl") if outdir else None, fingerprint,
+                       log=log)
 
     df, df_mod, n_dropped = build_frames(config, csv_path, device=dev)
     log(f"prepared df n={df.n}, dropped {n_dropped} -> df_mod n={df_mod.n} on {dev.type}")
@@ -331,85 +395,175 @@ def run_sweep(
         return rnd.fold_in(root_key, zlib.crc32(name.encode()))
 
     def sync():
+        """Wait for this thread's current stream, the stage's own: a
+        device-wide sync would also wait for every other worker's work
+        and charge it to this row's seconds."""
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
 
-    # Shared nuisances: name -> (fit, the artifacts it needs).
-    artifacts = {
-        "p_logistic": (lambda: logistic_propensity(df_mod.x, df_mod.w), ()),
-        "outcome_mu": (lambda: outcome_model_mu(df_mod), ()),
-        "folds:ps_lasso": (lambda: default_foldid(key_for("ps_lasso"), df_mod.n), ()),
-        "folds:seq_lasso": (lambda: default_foldid(key_for("seq_lasso"), df_mod.n), ()),
-        "folds:usual_lasso": (lambda: default_foldid(key_for("usual_lasso"), df_mod.n), ()),
-        "lasso_ps": (lambda: prop_score_lasso(df_mod, foldid=cache["folds:ps_lasso"]),
-                     ("folds:ps_lasso",)),
-        "rf_oob_propensity": (lambda: rf_oob_propensity(
+    # The nodes that launch kernels carry the build as their prefetch
+    # hook (scheduler/prefetch.py); the CPU runs the plain versions.
+    warm = build.build_all if dev.type == "cuda" else None
+
+    def artifact(name, fit, needs=(), kernels=False):
+        def timed(c):
+            t0 = time.perf_counter()
+            value = fit(c)
+            sync()
+            timings[f"artifact:{name}"] = time.perf_counter() - t0
+            return value
+
+        return ArtifactSpec(name, fit=timed, needs=needs, key=(fingerprint,),
+                            warm=warm if kernels else None)
+
+    artifacts = [
+        artifact("p_logistic", lambda c: logistic_propensity(df_mod.x, df_mod.w)),
+        artifact("outcome_mu", lambda c: outcome_model_mu(df_mod)),
+        artifact("folds:ps_lasso", lambda c: default_foldid(key_for("ps_lasso"), df_mod.n)),
+        artifact("folds:seq_lasso", lambda c: default_foldid(key_for("seq_lasso"), df_mod.n)),
+        artifact("folds:usual_lasso", lambda c: default_foldid(key_for("usual_lasso"), df_mod.n)),
+        artifact("lasso_ps", lambda c: prop_score_lasso(df_mod, foldid=c.get("folds:ps_lasso")),
+                 needs=("folds:ps_lasso",), kernels=True),
+        artifact("rf_oob_propensity", lambda c: rf_oob_propensity(
             df_mod, key=key_for("dr_rf_prop"), n_trees=config.dr_trees,
-            depth=config.forest_depth), ()),
-    }
-    cache: dict = {}
+            depth=config.forest_depth), kernels=True),
+    ]
 
-    def ensure(name: str) -> None:
-        """Fit ``name`` (and what it needs) unless it is in the cache."""
-        if name in cache:
-            return
-        fit, needs = artifacts[name]
-        for dep in needs:
-            ensure(dep)
-        t0 = time.perf_counter()
-        cache[name] = fit()
-        sync()
-        timings[f"artifact:{name}"] = time.perf_counter() - t0
-
-    def cf_row():
+    def cf_row(c):
         cf = causal_forest_report(df_mod, key=key_for("causal_forest"), n_trees=config.cf_trees,
                                   nuisance_trees=config.cf_nuisance_trees)
         return cf.result, {"incorrect_ate": cf.incorrect_ate, "incorrect_se": cf.incorrect_se}
 
-    c = cache       # the decls' short name for it
-    stage_decls: list[tuple[str, Callable[[], object], tuple[str, ...]]] = [
-        ("oracle", lambda: naive_ate(df, method="oracle"), ()),
-        ("naive", lambda: naive_ate(df_mod), ()),
-        ("Direct Method", lambda: ate_condmean_ols(df_mod), ()),
-        ("Propensity_Weighting", lambda: prop_score_weight(df_mod, c["p_logistic"]),
-         ("p_logistic",)),
-        ("Propensity_Regression", lambda: prop_score_ols(df_mod, c["p_logistic"]),
-         ("p_logistic",)),
+    # (method, body, the artifacts it consumes, whether it launches kernels)
+    stage_decls: list[tuple[str, Callable[[object], object], tuple[str, ...], bool]] = [
+        ("oracle", lambda c: naive_ate(df, method="oracle"), (), False),
+        ("naive", lambda c: naive_ate(df_mod), (), False),
+        ("Direct Method", lambda c: ate_condmean_ols(df_mod), (), False),
+        ("Propensity_Weighting", lambda c: prop_score_weight(df_mod, c.get("p_logistic")),
+         ("p_logistic",), False),
+        ("Propensity_Regression", lambda c: prop_score_ols(df_mod, c.get("p_logistic")),
+         ("p_logistic",), False),
         ("Propensity_Weighting_LASSOPS",
-         lambda: prop_score_weight(df_mod, c["lasso_ps"], method="Propensity_Weighting_LASSOPS"),
-         ("lasso_ps",)),
+         lambda c: prop_score_weight(df_mod, c.get("lasso_ps"),
+                                     method="Propensity_Weighting_LASSOPS"),
+         ("lasso_ps",), False),
         ("Single-equation LASSO",
-         lambda: ate_condmean_lasso(df_mod, foldid=c["folds:seq_lasso"]), ("folds:seq_lasso",)),
-        ("Usual LASSO", lambda: ate_lasso(df_mod, foldid=c["folds:usual_lasso"]),
-         ("folds:usual_lasso",)),
+         lambda c: ate_condmean_lasso(df_mod, foldid=c.get("folds:seq_lasso")),
+         ("folds:seq_lasso",), True),
+        ("Usual LASSO", lambda c: ate_lasso(df_mod, foldid=c.get("folds:usual_lasso")),
+         ("folds:usual_lasso",), True),
         ("Doubly Robust with Random Forest PS",
-         lambda: doubly_robust(df_mod, lambda f: c["rf_oob_propensity"], key=key_for("dr_rf"),
-                               mu=c["outcome_mu"]),
-         ("rf_oob_propensity", "outcome_mu")),
+         lambda c: doubly_robust(df_mod, lambda f: c.get("rf_oob_propensity"),
+                                 key=key_for("dr_rf"), mu=c.get("outcome_mu")),
+         ("rf_oob_propensity", "outcome_mu"), False),
         ("Doubly Robust with logistic regression PS",
-         lambda: doubly_robust_glm(df_mod, key=key_for("dr_glm"), p=c["p_logistic"],
-                                   mu=c["outcome_mu"]),
-         ("p_logistic", "outcome_mu")),
-        ("Belloni et.al", lambda: belloni(df_mod, key=key_for("belloni")), ()),
+         lambda c: doubly_robust_glm(df_mod, key=key_for("dr_glm"), p=c.get("p_logistic"),
+                                     mu=c.get("outcome_mu")),
+         ("p_logistic", "outcome_mu"), False),
+        ("Belloni et.al", lambda c: belloni(df_mod, key=key_for("belloni")), (), True),
         ("Double Machine Learning",
-         lambda: double_ml(df_mod, n_trees=config.dml_trees, depth=config.forest_depth,
-                           key=key_for("dml"), device=dev), ()),
+         lambda c: double_ml(df_mod, n_trees=config.dml_trees, depth=config.forest_depth,
+                             key=key_for("dml"), device=dev), (), True),
         ("residual_balancing",
-         lambda: residual_balance_ate(df_mod, key=key_for("balance"),
-                                      max_iters=config.balance_iters), ()),
+         lambda c: residual_balance_ate(df_mod, key=key_for("balance"),
+                                        max_iters=config.balance_iters), (), True),
         # The result row plus the notebook's deliberately "incorrect"
         # aggregate (Rmd:258-262), carried in the checkpoint record.
-        ("Causal Forest(GRF)", cf_row, ()),
+        ("Causal Forest(GRF)", cf_row, (), True),
     ]
-    assert [m for m, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
+    assert [m for m, _, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
 
-    rows: dict[str, EstimatorResult] = {}
-    for method, fn, needs in stage_decls:
-        rows[method] = _run_stage(method, fn, needs, ckpt, ensure, sync, config, report, log)
+    def make_stage(method, fn, needs, kernels) -> StageSpec:
+        """One row as a scheduler stage. Resume is decided here, at build
+        time, from the loaded journal: a resumed stage declares no needs,
+        so a fully journaled rerun fits no nuisance at all. A body
+        returns a :class:`_StageOutcome`; only the committer journals and
+        logs. Under "degrade" an exception (or a non-finite ATE) becomes a
+        ``status="failed"`` outcome; ^C always propagates."""
+        cached = ckpt.get(method)
+        ok, why = _row_resumable(cached) if cached is not None else (False, "")
+        if ok:
+            res = EstimatorResult(method=cached["method"], ate=cached["ate"],
+                                  lower_ci=_nan_or(cached["lower_ci"]),
+                                  upper_ci=_nan_or(cached["upper_ci"]), se=_nan_or(cached["se"]))
+            outcome = _StageOutcome("resumed", res, seconds=cached.get("seconds", 0.0))
+            return StageSpec(method, lambda c: outcome)
+        prior = cached.get("attempts") if cached else 0
+        attempts = (int(prior) + 1
+                    if isinstance(prior, (int, float)) and not isinstance(prior, bool) else 1)
 
-    report.oracle = rows["oracle"]
+        def run(c):
+            t0 = time.perf_counter()
+            try:
+                out = fn(c)
+                sync()
+                res, extras = out if isinstance(out, tuple) else (out, {})
+                if not math.isfinite(res.ate):
+                    raise FloatingPointError(f"estimator returned ATE {res.ate!r} from finite "
+                                             "inputs; refusing to record it")
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if config.fail_policy != "degrade":
+                    raise
+                dt = time.perf_counter() - t0
+                err = f"{type(e).__name__}: {e}"
+                nan = float("nan")
+                res = EstimatorResult(method=method, ate=nan, lower_ci=nan, upper_ci=nan, se=nan,
+                                      status="failed")
+                return _StageOutcome("failed", res, seconds=dt, retry_why=why, error=err,
+                                     attempts=attempts,
+                                     record=dict(res.to_dict(), error=err, attempts=attempts,
+                                                 seconds=round(dt, 3)))
+            dt = time.perf_counter() - t0
+            return _StageOutcome("computed", res, extras=extras, seconds=dt, retry_why=why,
+                                 attempts=attempts,
+                                 record=dict(res.to_dict(), seconds=round(dt, 3),
+                                             attempts=attempts, **extras))
+
+        return StageSpec(method, run, needs=needs, warm=warm if kernels else None)
+
+    def commit(spec: StageSpec, outcome: _StageOutcome) -> None:
+        """Declared-order side effects: the journal append, the report's
+        counts and timings, the log lines. The engine runs commits in
+        stage order, one at a time, so ``results.jsonl`` holds the lines
+        a sequential sweep writes, in the same order."""
+        method, res = spec.name, outcome.res
+        if outcome.retry_why:
+            log(f"  [retry] {method}: checkpoint row not resumable ({outcome.retry_why}); "
+                "recomputing")
+        if outcome.kind == "resumed":
+            report.resumed += 1
+            timings[method] = outcome.seconds
+            log(f"  [resume] {method}: ate={res.ate:.4f}")
+            return
+        report.computed += 1
+        ckpt.put(outcome.record)
+        if outcome.kind == "failed":
+            report.failures[method] = {"error": outcome.error, "attempts": outcome.attempts,
+                                       "seconds": round(outcome.seconds, 3)}
+            log(f"  [FAILED] {method}: {outcome.error} (attempt {outcome.attempts}, "
+                f"{outcome.seconds:.1f}s); degrading, sweep continues")
+            return
+        timings[method] = outcome.seconds
+        if "incorrect_ate" in outcome.extras:
+            log(f"  Incorrect ATE: {outcome.extras['incorrect_ate']:.3f} "
+                f"(SE: {outcome.extras['incorrect_se']:.3f})"
+                "  [deliberate negative example, Rmd:262]")
+        log(f"  {method}: ate={res.ate:.4f} ci=[{res.lower_ci:.4f},{res.upper_ci:.4f}] "
+            f"({outcome.seconds:.1f}s)")
+
+    stages = [make_stage(*decl) for decl in stage_decls]
+    engine = SweepEngine(artifacts, stages, commit=commit, workers=n_workers, prefetch=prefetch,
+                         device=dev)
+    if n_workers > 1:
+        log(f"scheduler: concurrent sweep, {n_workers} workers"
+            + (", kernel-build prefetch on" if engine.prefetch else ""))
+    outcomes = engine.run()
+
+    report.oracle = outcomes["oracle"].res
     for m in SWEEP_METHODS:
-        report.results.append(rows[m])
+        report.results.append(outcomes[m].res)
     cf_rec = ckpt.get("Causal Forest(GRF)") or {}
     report.incorrect_cf_ate = cf_rec.get("incorrect_ate")
     report.incorrect_cf_se = cf_rec.get("incorrect_se")
@@ -433,62 +587,6 @@ def run_sweep(
     if outdir:
         log(f"report: {write_report_md(report, outdir, csv_path=csv_path)}")
     return report
-
-
-def _run_stage(method, fn, needs, ckpt, ensure, sync, config, report, log) -> EstimatorResult:
-    """One row: resumed from the checkpoint when its record is resumable,
-    else computed (its nuisances first) and journaled; under "degrade" a
-    failure becomes a ``status="failed"`` row. ^C always propagates."""
-    cached = ckpt.get(method)
-    if cached is not None:
-        ok, why = _row_resumable(cached)
-        if ok:
-            report.resumed += 1
-            report.timings_s[method] = cached.get("seconds", 0.0)
-            log(f"  [resume] {method}: ate={cached['ate']:.4f}")
-            return EstimatorResult(method=cached["method"], ate=cached["ate"],
-                                   lower_ci=_nan_or(cached["lower_ci"]),
-                                   upper_ci=_nan_or(cached["upper_ci"]),
-                                   se=_nan_or(cached["se"]))
-        log(f"  [retry] {method}: checkpoint row not resumable ({why}); recomputing")
-    prior = cached.get("attempts") if cached else 0
-    attempts = (int(prior) + 1 if isinstance(prior, (int, float)) and not isinstance(prior, bool)
-                else 1)
-    report.computed += 1
-    t0 = time.perf_counter()
-    try:
-        for name in needs:
-            ensure(name)
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        res, extras = out if isinstance(out, tuple) else (out, {})
-        if not math.isfinite(res.ate):
-            raise FloatingPointError(f"estimator returned ATE {res.ate!r} from finite inputs; "
-                                     "refusing to record it")
-    except (KeyboardInterrupt, SystemExit):
-        raise
-    except Exception as e:
-        if config.fail_policy != "degrade":
-            raise
-        dt = time.perf_counter() - t0
-        err = f"{type(e).__name__}: {e}"
-        nan = float("nan")
-        res = EstimatorResult(method=method, ate=nan, lower_ci=nan, upper_ci=nan, se=nan,
-                              status="failed")
-        report.failures[method] = {"error": err, "attempts": attempts, "seconds": round(dt, 3)}
-        ckpt.put(dict(res.to_dict(), error=err, attempts=attempts, seconds=round(dt, 3)))
-        log(f"  [FAILED] {method}: {err} (attempt {attempts}, {dt:.1f}s); degrading, "
-            "sweep continues")
-        return res
-    dt = time.perf_counter() - t0
-    report.timings_s[method] = dt
-    ckpt.put(dict(res.to_dict(), seconds=round(dt, 3), attempts=attempts, **extras))
-    if "incorrect_ate" in extras:
-        log(f"  Incorrect ATE: {extras['incorrect_ate']:.3f} (SE: {extras['incorrect_se']:.3f})"
-            "  [deliberate negative example, Rmd:262]")
-    log(f"  {method}: ate={res.ate:.4f} ci=[{res.lower_ci:.4f},{res.upper_ci:.4f}] ({dt:.1f}s)")
-    return res
 
 
 def write_report_md(report: SweepReport, outdir: str, csv_path: str | None = None) -> str:
@@ -606,9 +704,11 @@ def main(argv: Iterable[str] | None = None) -> SweepReport:
     ap.add_argument("--quick", action="store_true", help="small smoke-run sizes")
     ap.add_argument("--no-plots", action="store_true")
     ap.add_argument("--sequential", action="store_true",
-                    help="accepted: the port's sweep is always sequential")
+                    help="single-threaded sweep on the current stream (bit-identical to the "
+                         "concurrent default)")
     ap.add_argument("--workers", type=int, default=None,
-                    help="not supported (the concurrent scheduler is not ported): raises")
+                    help="worker-pool width of the concurrent sweep "
+                         "(default: ATE_TPU_SWEEP_WORKERS or min(4, cpus))")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv if argv is None else list(argv))
 
@@ -616,7 +716,8 @@ def main(argv: Iterable[str] | None = None) -> SweepReport:
     if args.quick:
         config = config.quick()
     report = run_sweep(config, csv_path=args.csv, outdir=args.out, plots=not args.no_plots,
-                       scheduler="sequential", workers=args.workers, device=args.device)
+                       scheduler="sequential" if args.sequential else None, workers=args.workers,
+                       device=args.device)
     print(repr(report.results))
     return report
 

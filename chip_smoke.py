@@ -98,7 +98,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
    package's (``BALANCE_FOLDS``, ``BALANCE_INDEX``), τ and SE to
    ``BALANCE_JAX`` and card to CPU within ``BALANCE_BOUND``;
 11d. path_sweep — the whole notebook through ``pipeline.run_sweep`` at
-   ``SweepConfig()`` on the card (its default device) under
+   ``SweepConfig()`` on the card (its default device), with the
+   sequential scheduler, under
    ``ATE_TPU_PREDICT_PACK=1``: every row held to the pin its phase holds
    (the oracle and naive rows to path's, DR-RF to ``SWEEP_DR_TAU``, the
    causal and DML rows bit for bit, the LASSO rows to ``LASSO_JAX``, the
@@ -108,6 +109,16 @@ imports nothing of JAX. Phases, each printing one JSON line:
    report.json and REPORT.md parsed; then the same call again on the same
    directory: all 14 records resumed, 0 computed, 0 launches, the same
    rows;
+11e. path_sweep_concurrent — the same sweep with the default scheduler
+   (the concurrent engine, its default worker count, one CUDA stream a
+   worker) into a fresh directory: every record bit for bit path_sweep's,
+   every kernel's launches equal, ``results.jsonl``'s lines (seconds
+   aside) in the same order, the pins of path_sweep held; then a
+   sequential rerun on this directory and a concurrent one on
+   path_sweep's, each resuming all 14 records with 0 computed and 0
+   launches. Prints both walls, the worker count, each node's start and
+   end offsets (the engine's spans), the overlap (the rows' and nuisances'
+   seconds over the wall) and the prefetch lane's outcome;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -141,6 +152,7 @@ sys.path.insert(0, REPO)
 
 # Imported after the path is set; in a directory without the package
 # this fails, and the script exits non-zero with no result.
+from ate_replication_causalml_torch import observability as obs  # noqa: E402
 from ate_replication_causalml_torch import pipeline  # noqa: E402
 from ate_replication_causalml_torch.data.pipeline import PrepConfig, inject_bias, prepare_dataset  # noqa: E402
 from ate_replication_causalml_torch.data.synthetic import make_ggl_like  # noqa: E402
@@ -276,8 +288,10 @@ BALANCE_BOUND = 5e-5
 # key(12325); τ as first recorded on the card (integer histogram weights
 # and fixed-order reductions, so bit for bit).
 SWEEP_DR_TAU = 0.04571865499019623
-# The sweep's output directory (the results journal, report.json, REPORT.md).
+# The sweep's output directories (the results journal, report.json,
+# REPORT.md): path_sweep's sequential run and path_sweep_concurrent's.
 SWEEP_OUT = os.path.join(REPO, "build", "chip_smoke_sweep")
+SWEEP_CONC_OUT = os.path.join(REPO, "build", "chip_smoke_sweep_concurrent")
 # The CD kernel against its plain version at the rows' inputs (threshold
 # 1e-7): a standardized coefficient's last move is below sqrt(1e-7/G_jj)
 # ≈ 3.2e-4 (G_jj ≈ 1), so two runs that stop a sweep apart differ by about
@@ -1987,12 +2001,14 @@ def phase_path_sweep() -> dict:
     with packed_policy():
         reset_counts()
         t0 = time.perf_counter()
-        rep = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs.append)
+        rep = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs.append,
+                                 scheduler="sequential")
         wall = time.perf_counter() - t0
         counts = read_counts()
         reset_counts()
         t0 = time.perf_counter()
-        again = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs2.append)
+        again = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs2.append,
+                                   scheduler="sequential")
         wall2 = time.perf_counter() - t0
         counts2 = read_counts()
     with open(os.path.join(SWEEP_OUT, "report.json")) as f:
@@ -2000,7 +2016,9 @@ def phase_path_sweep() -> dict:
     with open(os.path.join(SWEEP_OUT, "REPORT.md")) as f:
         md = f.read()
     n_rows = len(pipeline.SWEEP_METHODS) + 1
-    emit({"phase": "path_sweep", "config": "SweepConfig()", "policy": f"{pack.ENV_PACK}=1",
+    ROWS["sweep"] = {"report": rep, "wall_s": wall, "counts": counts}
+    emit({"phase": "path_sweep", "scheduler": "sequential", "config": "SweepConfig()",
+          "policy": f"{pack.ENV_PACK}=1", "overlap": overlap(rep, wall),
           "rows_biased": rep.n_biased, "n_dropped": rep.n_dropped,
           "results": {r.method: [r.ate, None if math.isnan(r.se) else r.se]
                       for r in [rep.oracle, *rep.results]},
@@ -2037,6 +2055,102 @@ def phase_path_sweep() -> dict:
         fails.append(f"cd_path launches {counts['cd_path']}, derived {sum(CD_LAUNCHES.values())}")
     if fails:
         raise AssertionError("path_sweep: " + "; ".join(fails))
+    return counts
+
+
+def overlap(rep, wall: float) -> float:
+    """The sum of the rows' and shared nuisances' seconds over the sweep's
+    wall: up to 1 for one row at a time, more where rows overlapped."""
+    return sum(rep.timings_s.values()) / wall
+
+
+def journal(out: str) -> list:
+    """``results.jsonl``'s records with their wall seconds taken out."""
+    with open(os.path.join(out, "results.jsonl")) as f:
+        return [{k: v for k, v in json.loads(ln).items() if k != "seconds"} for ln in f]
+
+
+def rerun(config, out: str, **kw) -> dict:
+    """The sweep again on ``out``: its wall, counts and launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = pipeline.run_sweep(config, outdir=out, plots=False, log=lambda s: None, **kw)
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "computed": rep.computed, "resumed": rep.resumed,
+            "launches": read_counts(), "report": rep}
+
+
+def phase_path_sweep_concurrent() -> dict:
+    """The notebook sweep through ``pipeline.run_sweep`` with the default
+    scheduler (the concurrent engine at its default worker count, one CUDA
+    stream a worker) at ``SweepConfig()`` under ``ATE_TPU_PREDICT_PACK=1``,
+    into a fresh directory: every record bit for bit path_sweep's
+    sequential row from this call, the launches of every kernel equal,
+    the journal's lines (seconds aside) in the same order, every pin of
+    ``sweep_checks``; then a sequential rerun on this directory and a
+    concurrent rerun on path_sweep's: all 14 resumed, 0 computed, 0
+    launches. Prints both sweeps' walls and overlap (the rows' and
+    nuisances' seconds over the wall), the worker count, each node's start
+    and end offsets from the engine's spans, and the prefetch lane's
+    outcome."""
+    seq = ROWS["sweep"]
+    shutil.rmtree(SWEEP_CONC_OUT, ignore_errors=True)
+    config = pipeline.SweepConfig()
+    obs.REGISTRY.reset()
+    obs.EVENTS.clear()
+    with packed_policy():
+        reset_counts()
+        start = time.monotonic()
+        t0 = time.perf_counter()
+        rep = pipeline.run_sweep(config, outdir=SWEEP_CONC_OUT, plots=False, log=lambda s: None)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        records, snap = obs.EVENTS.records(), obs.REGISTRY.snapshot()
+        same_journal = journal(SWEEP_CONC_OUT) == journal(SWEEP_OUT)
+        seq_again = rerun(config, SWEEP_CONC_OUT, scheduler="sequential")
+        conc_again = rerun(config, SWEEP_OUT)
+    nodes = sorted(({"node": r["attrs"]["node"], "kind": r["attrs"]["kind"],
+                     "worker": r["attrs"]["worker"], "start_s": r["start_mono_s"] - start,
+                     "end_s": r["end_mono_s"] - start}
+                    for r in records if r["name"] == "scheduler_node"),
+                   key=lambda n: n["start_s"])
+    workers = snap["gauges"].get("scheduler_workers", {}).get("")
+    n_rows = len(pipeline.SWEEP_METHODS) + 1
+    emit({"phase": "path_sweep_concurrent", "config": "SweepConfig()",
+          "policy": f"{pack.ENV_PACK}=1", "workers": workers,
+          "wall_s": wall, "sequential_wall_s": seq["wall_s"],
+          "overlap": overlap(rep, wall), "sequential_overlap": overlap(seq["report"], seq["wall_s"]),
+          "seconds": rep.timings_s, "nodes": nodes,
+          "prefetch": {"outcomes": snap["counters"].get("scheduler_prefetch_total", {}),
+                       "seconds": snap["histograms"].get("scheduler_prefetch_seconds", {})},
+          "cache": snap["counters"].get("nuisance_cache_requests_total", {}),
+          "launches": counts, "computed": rep.computed,
+          "sequential_rerun": {k: v for k, v in seq_again.items() if k != "report"},
+          "concurrent_rerun_of_sequential": {k: v for k, v in conc_again.items()
+                                             if k != "report"}})
+    fails = []
+    seq_rep = seq["report"]
+    pairs = [("oracle", rep.oracle, seq_rep.oracle)] + [
+        (a.method, a, b) for a, b in zip(rep.results, seq_rep.results)]
+    fails += [f"{m}: {a.ate!r}/{a.se!r}, sequential {b.ate!r}/{b.se!r}"
+              for m, a, b in pairs if not same_row(a, b)]
+    if counts != seq["counts"]:
+        fails.append(f"launches {counts}, sequential {seq['counts']}")
+    if not same_journal:
+        fails.append("results.jsonl differs from the sequential sweep's (seconds aside)")
+    fails += sweep_checks(rep)
+    if rep.computed != n_rows or not workers or workers < 2:
+        fails.append(f"computed {rep.computed} of {n_rows} on {workers} workers")
+    for label, again in (("sequential rerun", seq_again), ("concurrent rerun", conc_again)):
+        if (again["computed"], again["resumed"]) != (0, n_rows) or any(again["launches"].values()):
+            fails.append(f"{label}: computed {again['computed']}, resumed {again['resumed']}, "
+                         f"launches {again['launches']}")
+        r = again["report"]
+        if not (same_row(r.oracle, rep.oracle)
+                and all(same_row(a, b) for a, b in zip(r.results, rep.results))):
+            fails.append(f"{label}: the resumed rows differ")
+    if fails:
+        raise AssertionError("path_sweep_concurrent: " + "; ".join(fails))
     return counts
 
 
@@ -2097,6 +2211,7 @@ def main() -> int:
     by_path["lasso"] = phase_path_lasso(frame_mod)
     by_path["balance"] = phase_path_balance(frame_mod)
     by_path["sweep"] = phase_path_sweep()
+    by_path["sweep_concurrent"] = phase_path_sweep_concurrent()
     phase_stages(frame_mod)
     kernels = []
     for k, (src, rep, device_fn) in SOURCES.items():

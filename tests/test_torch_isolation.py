@@ -27,7 +27,10 @@ def test_port_lists_its_modules():
               "estimators.aipw", "data.pipeline", "models.causal_forest",
               "estimators.causal_forest_est", "ops.pack", "ops.linalg", "estimators.dml",
               "estimators.ols", "estimators.ipw", "ops.lasso", "estimators.lasso_est",
-              "estimators.belloni", "ops.qp", "estimators.balance", "pipeline", "viz"):
+              "estimators.belloni", "ops.qp", "estimators.balance", "pipeline", "viz",
+              "scheduler", "scheduler.dag", "scheduler.cache", "scheduler.engine",
+              "scheduler.prefetch", "observability", "observability.registry",
+              "observability.events", "resilience", "resilience.watchdog"):
         assert f"{_PKG}.{m}" in mods
 
 

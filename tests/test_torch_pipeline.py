@@ -2,10 +2,12 @@
 one MICRO sweep (``tests/test_pipeline_driver.py``'s shapes: 1,200-row
 sample → 252 biased rows, 16-tree forests of depth 4, a 600-iteration
 balancing budget) through both packages on the CPU (the JAX package
-sequential, on one device, float32), matched row by row; then the
-journal's mechanics on copies of the port's output directory: resume,
-stale set-aside, torn lines, failed rows, degrade against raise, and
-the report.
+sequential, on one device, float32), matched row by row; the port's
+concurrent sweep (4 workers) held to its sequential one bit for bit, row
+by row and journal line by journal line, and resumed across modes both
+ways; then the journal's mechanics on copies of the port's output
+directory: resume, stale set-aside, torn lines, failed rows, degrade
+against raise, and the report.
 
 Each row is held to the bound the port's test of its estimator states
 (``BOUNDS``: file, |Δ| on τ and SE). The causal forest differs only at
@@ -88,10 +90,12 @@ def sweeps(tmp_path_factory):
     with jax.enable_x64(False):
         ref = jp.run_sweep(_micro(jp, JPrep), outdir=str(root / "jax"), plots=False,
                            log=lambda s: None, scheduler="sequential")
-    logs = []
+    logs, conc_logs = [], []
     got = tp.run_sweep(MICRO, outdir=str(root / "port"), plots=True, log=logs.append,
-                       device="cpu")
-    return dict(ref=ref, got=got, root=root, logs=logs)
+                       scheduler="sequential", device="cpu")
+    conc = tp.run_sweep(MICRO, outdir=str(root / "concurrent"), plots=False,
+                        log=conc_logs.append, workers=4, device="cpu")
+    return dict(ref=ref, got=got, conc=conc, root=root, logs=logs, conc_logs=conc_logs)
 
 
 def _copy(sweeps, tmp_path, name="out") -> str:
@@ -103,6 +107,11 @@ def _copy(sweeps, tmp_path, name="out") -> str:
 def _journal(out) -> list[str]:
     with open(os.path.join(out, "results.jsonl")) as f:
         return f.readlines()
+
+
+def _stripped(out) -> list[dict]:
+    """The journal's records without their wall seconds."""
+    return [{k: v for k, v in json.loads(ln).items() if k != "seconds"} for ln in _journal(out)]
 
 
 def test_methods_in_the_jax_packages_order(sweeps):
@@ -123,6 +132,50 @@ def test_row_equals_jax(sweeps, method):
         assert math.isnan(got.se)
     else:
         assert abs(got.se - ref.se) <= bound(ref.se), (source, got.se, ref.se)
+
+
+@pytest.mark.parametrize("method", ["oracle", *tp.SWEEP_METHODS])
+def test_concurrent_row_equals_sequential(sweeps, method):
+    """The 4-worker sweep's row is the sequential sweep's, bit for bit."""
+    got, want = _rows(sweeps["conc"])[method], _rows(sweeps["got"])[method]
+    assert got.status == "ok" and _same(got, want), (got, want)
+
+
+@pytest.mark.parametrize("method", ["oracle", *tp.SWEEP_METHODS])
+def test_concurrent_row_equals_jax(sweeps, method):
+    got, ref = _rows(sweeps["conc"])[method], _rows(sweeps["ref"])[method]
+    source, bound = BOUNDS[method]
+    assert abs(got.ate - ref.ate) <= bound(ref.ate), (source, got.ate, ref.ate)
+    assert math.isnan(got.se) if math.isnan(ref.se) else abs(got.se - ref.se) <= bound(ref.se)
+
+
+def test_concurrent_journal_equals_sequential(sweeps):
+    """The concurrent sweep commits in notebook order: its journal lines,
+    seconds aside, are the sequential sweep's, in the same order; so are
+    the incorrect aggregate and the counts."""
+    conc, seq = sweeps["conc"], sweeps["got"]
+    assert _stripped(str(sweeps["root"] / "concurrent")) == _stripped(str(sweeps["root"] / "port"))
+    assert (conc.computed, conc.resumed) == (len(tp.SWEEP_METHODS) + 1, 0)
+    assert (conc.incorrect_cf_ate, conc.incorrect_cf_se) == (seq.incorrect_cf_ate,
+                                                             seq.incorrect_cf_se)
+    assert any("concurrent sweep, 4 workers" in ln for ln in sweeps["conc_logs"])
+    assert not any("scheduler:" in ln for ln in sweeps["logs"])
+    rows = [ln for ln in sweeps["conc_logs"] if ln.startswith("  ") and "ate=" in ln]
+    assert [ln.split(":")[0].strip() for ln in rows] == ["oracle", *tp.SWEEP_METHODS]
+
+
+@pytest.mark.parametrize("source,kw", [("concurrent", dict(scheduler="sequential")),
+                                       ("port", dict(workers=4))],
+                         ids=["sequential_resumes_concurrent", "concurrent_resumes_sequential"])
+def test_resume_across_modes(sweeps, tmp_path, source, kw):
+    """The journal's fingerprint is mode-free: either mode resumes the
+    other's journal, computing nothing."""
+    out = str(tmp_path / "out")
+    shutil.copytree(str(sweeps["root"] / source), out)
+    again = tp.run_sweep(MICRO, outdir=out, plots=False, log=lambda s: None, device="cpu", **kw)
+    assert (again.computed, again.resumed) == (0, len(tp.SWEEP_METHODS) + 1)
+    first = _rows(sweeps["got"])
+    assert all(_same(r, first[m]) for m, r in _rows(again).items())
 
 
 def test_incorrect_causal_aggregate_equals_jax(sweeps):
@@ -240,13 +293,30 @@ def test_degrade_and_raise(sweeps, tmp_path, monkeypatch):
 
 
 def test_unsupported_arguments_raise_before_any_work(tmp_path, monkeypatch):
+    """An unknown scheduler, ``ATE_TPU_CHAOS`` (no fault injection in the
+    port), a sharded artifact or stage layout (multi-GPU is not ported),
+    the card without one, and figures without matplotlib all raise before
+    any frame is built."""
+    from ate_replication_causalml_torch.scheduler import ArtifactSpec, DagError, StageSpec
+
     def no_frames(*a, **k):
         raise AssertionError("the sweep started")
 
     monkeypatch.setattr(tp, "build_frames", no_frames)
-    for kw in (dict(scheduler="concurrent"), dict(workers=2), dict(prefetch=True)):
-        with pytest.raises(ValueError):
-            tp.run_sweep(MICRO, plots=False, device="cpu", **kw)
+    with pytest.raises(ValueError, match="scheduler"):
+        tp.run_sweep(MICRO, plots=False, device="cpu", scheduler="threads")
+    monkeypatch.setenv("ATE_TPU_SWEEP_SEQUENTIAL", "1")
+    with pytest.raises(ValueError, match="scheduler"):
+        tp.run_sweep(MICRO, plots=False, device="cpu", scheduler="parallel")
+    monkeypatch.setenv("ATE_TPU_CHAOS", "stage:p=1.0")
+    with pytest.raises(ValueError, match="ATE_TPU_CHAOS"):
+        tp.run_sweep(MICRO, plots=False, device="cpu", scheduler="sequential")
+    monkeypatch.delenv("ATE_TPU_CHAOS")
+    with pytest.raises(DagError, match="multi-GPU"):
+        ArtifactSpec("p_logistic", fit=lambda c: None, sharding=object())
+    with pytest.raises(DagError, match="multi-GPU"):
+        StageSpec("naive", run=lambda c: None, needs=("p_logistic",),
+                  consumes_sharding={"p_logistic": "device"})
     if not torch.cuda.is_available():       # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.run_sweep(MICRO, plots=False)
@@ -255,11 +325,28 @@ def test_unsupported_arguments_raise_before_any_work(tmp_path, monkeypatch):
         tp.run_sweep(MICRO, outdir=str(tmp_path / "p"), plots=True, device="cpu")
 
 
+def test_scheduler_resolution(monkeypatch):
+    """None is the concurrent default at ``default_workers()``;
+    "sequential", ``ATE_TPU_SWEEP_SEQUENTIAL`` or ``workers=1`` run
+    inline; ``workers`` below 1 clamps."""
+    monkeypatch.delenv("ATE_TPU_SWEEP_SEQUENTIAL", raising=False)
+    monkeypatch.setenv("ATE_TPU_SWEEP_WORKERS", "3")
+    assert tp._resolve_scheduler(None, None) == 3
+    assert tp._resolve_scheduler("concurrent", 2) == 2
+    assert tp._resolve_scheduler(None, 0) == 1
+    assert tp._resolve_scheduler("sequential", 8) == 1
+    monkeypatch.setenv("ATE_TPU_SWEEP_SEQUENTIAL", "yes")
+    assert tp._resolve_scheduler(None, 4) == 1
+    assert tp._resolve_scheduler("concurrent", 4) == 4
+
+
 def test_main_arguments(monkeypatch):
-    """The CLI's flags reach run_sweep; --workers raises there."""
+    """The CLI's flags reach run_sweep: --workers as the pool width,
+    --sequential as the sequential scheduler, neither as the default."""
     seen = {}
 
     def fake_run_sweep(config, **kw):
+        seen.clear()
         seen.update(config=config, **kw)
         return tp.SweepReport(oracle=None, results=tp.ResultTable(), n_dropped=0, n_biased=0)
 
@@ -267,6 +354,7 @@ def test_main_arguments(monkeypatch):
     tp.main(["--out", "o", "--quick", "--no-plots", "--sequential", "--device", "cpu"])
     assert seen["config"] == tp.SweepConfig().quick() and seen["outdir"] == "o"
     assert seen["plots"] is False and seen["device"] == "cpu" and seen["workers"] is None
-    monkeypatch.undo()
-    with pytest.raises(ValueError, match="workers"):
-        tp.main(["--out", "o", "--workers", "2", "--device", "cpu"])
+    assert seen["scheduler"] == "sequential"
+    tp.main(["--out", "o", "--workers", "2", "--device", "cpu"])
+    assert seen["workers"] == 2 and seen["scheduler"] is None
+    assert seen["config"] == tp.SweepConfig() and seen["plots"] is True

@@ -369,9 +369,9 @@ class _Reached(Exception):
 def test_run_sweep_positional(tmp_path, monkeypatch):
     """(config, csv_path, outdir, plots, log, scheduler, workers,
     prefetch): both packages bind the same call the same way, up to the
-    point where the sweep reads its data; the port's own ``device`` is a
-    keyword, and the JAX package's concurrent scheduler, workers and
-    prefetch raise."""
+    point where the sweep reads its data, in either scheduler mode; the
+    port's own ``device`` is a keyword, and an unknown scheduler raises
+    in both."""
     seen = {}
 
     def reached(pkg):
@@ -385,12 +385,12 @@ def test_run_sweep_positional(tmp_path, monkeypatch):
     logs = []
     for pkg, mod, extra in (("jax", jpipe, {}), ("torch", tpipe, {"device": "cpu"})):
         config = mod.SweepConfig(seed=3, use_mesh=False)
-        with pytest.raises(_Reached):
-            mod.run_sweep(config, "data.csv", str(tmp_path / pkg), False, logs.append,
-                          "sequential", None, None, **extra)
-        assert seen[pkg] == (config, "data.csv")
+        for mode in (("sequential", None, None), ("concurrent", 2, False)):
+            seen.pop(pkg, None)
+            with pytest.raises(_Reached):
+                mod.run_sweep(config, "data.csv", str(tmp_path / pkg), False, logs.append,
+                              *mode, **extra)
+            assert seen[pkg] == (config, "data.csv")
         assert os.path.isfile(os.path.join(tmp_path, pkg, "results.jsonl"))
-    config = tpipe.SweepConfig()
-    for args in (("concurrent", None, None), ("sequential", 2, None), (None, None, True)):
-        with pytest.raises(ValueError):
-            tpipe.run_sweep(config, None, None, False, logs.append, *args, device="cpu")
+        with pytest.raises(ValueError, match="scheduler"):
+            mod.run_sweep(config, None, None, False, logs.append, "threads", None, None, **extra)
