@@ -1,18 +1,15 @@
 """In-process telemetry of the port: the metrics registry
 (``counter``, ``gauge``, ``histogram``; ``REGISTRY``) and the event log
-(``span``, ``emit``; ``EVENTS``). Host-side only; ``ATE_TPU_TELEMETRY=0``
-turns both off."""
+(``span``, ``emit``; ``EVENTS``). Host-side only."""
 
 from ate_replication_causalml_torch.observability.events import EVENTS, EventLog, emit, span
 from ate_replication_causalml_torch.observability.registry import (
     REGISTRY,
     MetricsRegistry,
     counter,
-    enabled,
     gauge,
     histogram,
-    set_enabled,
 )
 
-__all__ = ["EVENTS", "EventLog", "MetricsRegistry", "REGISTRY", "counter", "emit", "enabled",
-           "gauge", "histogram", "set_enabled", "span"]
+__all__ = ["EVENTS", "EventLog", "MetricsRegistry", "REGISTRY", "counter", "emit", "gauge",
+           "histogram", "span"]

@@ -10,7 +10,6 @@ The ``events.jsonl`` exporter is not ported yet.
 Parentage is tracked per thread; ``parent_id`` overrides it for work
 handed across threads. The log is a ring (``max_events``): the oldest
 records go first and are counted in :attr:`EventLog.dropped`.
-``ATE_TPU_TELEMETRY=0`` makes :func:`span` a shared no-op.
 """
 
 from __future__ import annotations
@@ -21,8 +20,6 @@ import itertools
 import threading
 import time
 from typing import Iterator
-
-from ate_replication_causalml_torch.observability.registry import enabled
 
 
 class Span:
@@ -60,21 +57,6 @@ class Span:
         }
 
 
-class _NullSpan:
-    """Shared do-nothing span for disabled telemetry."""
-
-    __slots__ = ()
-
-    def set_status(self, status: str) -> None:
-        pass
-
-    def set_attr(self, key: str, value) -> None:
-        pass
-
-
-_NULL_SPAN = _NullSpan()
-
-
 class EventLog:
     """Thread-safe in-memory span/event collector."""
 
@@ -102,13 +84,10 @@ class EventLog:
             self._records.append(rec)
 
     @contextlib.contextmanager
-    def span(self, name: str, parent_id: str | None = None, **attrs) -> Iterator[Span | _NullSpan]:
+    def span(self, name: str, parent_id: str | None = None, **attrs) -> Iterator[Span]:
         """Open a span; its record lands in the log when the block exits.
         An exception marks it ``error`` (its type in the attrs) and
         propagates."""
-        if not enabled():
-            yield _NULL_SPAN
-            return
         stack = self._stack()
         if parent_id is None:
             parent_id = stack[-1].span_id if stack else None
@@ -126,8 +105,6 @@ class EventLog:
 
     def emit(self, name: str, status: str = "event", **attrs) -> None:
         """Zero-duration point event (parented like a span)."""
-        if not enabled():
-            return
         stack = self._stack()
         sp = Span(name, self._next_id(), stack[-1].span_id if stack else None, dict(attrs))
         sp.status = status

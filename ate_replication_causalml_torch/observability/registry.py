@@ -5,38 +5,16 @@ counters, gauges and summary histograms with labels, thread-safe, read
 back as a plain dict (:meth:`MetricsRegistry.snapshot`). The sweep
 engine, the nuisance cache and the prefetch lane write here. Exporters
 (``metrics.json``, the Prometheus textfile), bucketed histograms and
-collectors are not ported yet.
-
-``ATE_TPU_TELEMETRY=0`` turns every mutator into one cached-bool check.
-Telemetry is host-side only: estimator outputs are bit-identical with
-it on or off.
+collectors are not ported yet. Telemetry is host-side only: it never
+touches an estimator's tensors.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 
-_ENV = "ATE_TPU_TELEMETRY"
-_enabled_cache: bool | None = None
-
 SCHEMA_VERSION = 1
-
-
-def enabled() -> bool:
-    """Telemetry master switch: on unless ``ATE_TPU_TELEMETRY=0``; the
-    env var is read once and cached (:func:`set_enabled` overrides)."""
-    global _enabled_cache
-    if _enabled_cache is None:
-        _enabled_cache = os.environ.get(_ENV, "1") != "0"
-    return _enabled_cache
-
-
-def set_enabled(value: bool | None) -> None:
-    """Override the master switch (``None`` re-reads the env var)."""
-    global _enabled_cache
-    _enabled_cache = value if value is None else bool(value)
 
 
 def _label_key(labels: dict) -> str:
@@ -62,8 +40,6 @@ class Counter:
     def inc(self, value: float = 1.0, **labels) -> None:
         """Add ``value`` (>= 0); ``inc(0, **labels)`` makes a sample that
         is present but zero."""
-        if not enabled():
-            return
         if value < 0:
             raise ValueError(f"counter {self.name}: negative increment {value}")
         key = _label_key(labels)
@@ -83,8 +59,6 @@ class Gauge:
         self.samples: dict[str, float] = {}
 
     def set(self, value: float, **labels) -> None:
-        if not enabled():
-            return
         with self._lock:
             self.samples[_label_key(labels)] = float(value)
 
@@ -101,8 +75,6 @@ class Histogram:
         self.samples: dict[str, dict] = {}
 
     def observe(self, value: float, **labels) -> None:
-        if not enabled():
-            return
         value = float(value)
         key = _label_key(labels)
         with self._lock:

@@ -401,11 +401,14 @@ def run_sweep(
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
 
-    # The nodes that launch kernels carry the build as their prefetch
-    # hook (scheduler/prefetch.py); the CPU runs the plain versions.
+    # The kernel build is the prefetch lane's one item (scheduler/prefetch.py),
+    # carried by lasso_ps: a kernel node that waits on a need, so the lane
+    # reaches it before a worker can take it. Where that row is resumed
+    # there is no item, and the first kernel call builds. The CPU runs the
+    # plain versions and builds nothing.
     warm = build.build_all if dev.type == "cuda" else None
 
-    def artifact(name, fit, needs=(), kernels=False):
+    def artifact(name, fit, needs=(), warm=None):
         def timed(c):
             t0 = time.perf_counter()
             value = fit(c)
@@ -414,7 +417,7 @@ def run_sweep(
             return value
 
         return ArtifactSpec(name, fit=timed, needs=needs, key=(fingerprint,),
-                            warm=warm if kernels else None)
+                            warm=warm)
 
     artifacts = [
         artifact("p_logistic", lambda c: logistic_propensity(df_mod.x, df_mod.w)),
@@ -423,10 +426,10 @@ def run_sweep(
         artifact("folds:seq_lasso", lambda c: default_foldid(key_for("seq_lasso"), df_mod.n)),
         artifact("folds:usual_lasso", lambda c: default_foldid(key_for("usual_lasso"), df_mod.n)),
         artifact("lasso_ps", lambda c: prop_score_lasso(df_mod, foldid=c.get("folds:ps_lasso")),
-                 needs=("folds:ps_lasso",), kernels=True),
+                 needs=("folds:ps_lasso",), warm=warm),
         artifact("rf_oob_propensity", lambda c: rf_oob_propensity(
             df_mod, key=key_for("dr_rf_prop"), n_trees=config.dr_trees,
-            depth=config.forest_depth), kernels=True),
+            depth=config.forest_depth)),
     ]
 
     def cf_row(c):
@@ -434,46 +437,46 @@ def run_sweep(
                                   nuisance_trees=config.cf_nuisance_trees)
         return cf.result, {"incorrect_ate": cf.incorrect_ate, "incorrect_se": cf.incorrect_se}
 
-    # (method, body, the artifacts it consumes, whether it launches kernels)
-    stage_decls: list[tuple[str, Callable[[object], object], tuple[str, ...], bool]] = [
-        ("oracle", lambda c: naive_ate(df, method="oracle"), (), False),
-        ("naive", lambda c: naive_ate(df_mod), (), False),
-        ("Direct Method", lambda c: ate_condmean_ols(df_mod), (), False),
+    # (method, body, the artifacts it consumes)
+    stage_decls: list[tuple[str, Callable[[object], object], tuple[str, ...]]] = [
+        ("oracle", lambda c: naive_ate(df, method="oracle"), ()),
+        ("naive", lambda c: naive_ate(df_mod), ()),
+        ("Direct Method", lambda c: ate_condmean_ols(df_mod), ()),
         ("Propensity_Weighting", lambda c: prop_score_weight(df_mod, c.get("p_logistic")),
-         ("p_logistic",), False),
+         ("p_logistic",)),
         ("Propensity_Regression", lambda c: prop_score_ols(df_mod, c.get("p_logistic")),
-         ("p_logistic",), False),
+         ("p_logistic",)),
         ("Propensity_Weighting_LASSOPS",
          lambda c: prop_score_weight(df_mod, c.get("lasso_ps"),
                                      method="Propensity_Weighting_LASSOPS"),
-         ("lasso_ps",), False),
+         ("lasso_ps",)),
         ("Single-equation LASSO",
          lambda c: ate_condmean_lasso(df_mod, foldid=c.get("folds:seq_lasso")),
-         ("folds:seq_lasso",), True),
+         ("folds:seq_lasso",)),
         ("Usual LASSO", lambda c: ate_lasso(df_mod, foldid=c.get("folds:usual_lasso")),
-         ("folds:usual_lasso",), True),
+         ("folds:usual_lasso",)),
         ("Doubly Robust with Random Forest PS",
          lambda c: doubly_robust(df_mod, lambda f: c.get("rf_oob_propensity"),
                                  key=key_for("dr_rf"), mu=c.get("outcome_mu")),
-         ("rf_oob_propensity", "outcome_mu"), False),
+         ("rf_oob_propensity", "outcome_mu")),
         ("Doubly Robust with logistic regression PS",
          lambda c: doubly_robust_glm(df_mod, key=key_for("dr_glm"), p=c.get("p_logistic"),
                                      mu=c.get("outcome_mu")),
-         ("p_logistic", "outcome_mu"), False),
-        ("Belloni et.al", lambda c: belloni(df_mod, key=key_for("belloni")), (), True),
+         ("p_logistic", "outcome_mu")),
+        ("Belloni et.al", lambda c: belloni(df_mod, key=key_for("belloni")), ()),
         ("Double Machine Learning",
          lambda c: double_ml(df_mod, n_trees=config.dml_trees, depth=config.forest_depth,
-                             key=key_for("dml"), device=dev), (), True),
+                             key=key_for("dml"), device=dev), ()),
         ("residual_balancing",
          lambda c: residual_balance_ate(df_mod, key=key_for("balance"),
-                                        max_iters=config.balance_iters), (), True),
+                                        max_iters=config.balance_iters), ()),
         # The result row plus the notebook's deliberately "incorrect"
         # aggregate (Rmd:258-262), carried in the checkpoint record.
-        ("Causal Forest(GRF)", cf_row, (), True),
+        ("Causal Forest(GRF)", cf_row, ()),
     ]
-    assert [m for m, _, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
+    assert [m for m, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
 
-    def make_stage(method, fn, needs, kernels) -> StageSpec:
+    def make_stage(method, fn, needs) -> StageSpec:
         """One row as a scheduler stage. Resume is decided here, at build
         time, from the loaded journal: a resumed stage declares no needs,
         so a fully journaled rerun fits no nuisance at all. A body
@@ -521,7 +524,7 @@ def run_sweep(
                                  record=dict(res.to_dict(), seconds=round(dt, 3),
                                              attempts=attempts, **extras))
 
-        return StageSpec(method, run, needs=needs, warm=warm if kernels else None)
+        return StageSpec(method, run, needs=needs)
 
     def commit(spec: StageSpec, outcome: _StageOutcome) -> None:
         """Declared-order side effects: the journal append, the report's

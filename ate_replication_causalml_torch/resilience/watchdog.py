@@ -2,11 +2,11 @@
 
 Port of the part of ``ate_replication_causalml_tpu/resilience/watchdog.py``
 the engine uses: the per-lane staleness bound read from the environment
-(``ATE_TPU_WATCHDOG_<LANE>_S``; <= 0 or unset = unwatched), the poll
-cadence (``ATE_TPU_WATCHDOG_POLL_MS``) and the registry every worker
-stamps around each unit of work. The engine's own monitor thread reads
-the registry's ages when it reports a stall. The standalone ``Watchdog``
-class (stall episodes, callbacks) is not ported yet.
+(``ATE_TPU_WATCHDOG_<LANE>_S``; <= 0 or unset = unwatched) and the
+registry every worker stamps around each unit of work. The engine's own
+monitor thread reads the registry's ages when it reports a stall. The
+standalone ``Watchdog`` class (stall episodes, callbacks, the
+``ATE_TPU_WATCHDOG_POLL_MS`` cadence it polls at) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,9 +19,6 @@ from typing import Callable
 #: env prefix for per-lane staleness bounds: ``ATE_TPU_WATCHDOG_<LANE>_S``
 #: (lane upper-cased, any other character → ``_``).
 ENV_PREFIX = "ATE_TPU_WATCHDOG_"
-
-#: default poll cadence (seconds); ``ATE_TPU_WATCHDOG_POLL_MS`` overrides.
-DEFAULT_POLL_S = 0.25
 
 
 def _env_name(lane: str) -> str:
@@ -39,16 +36,6 @@ def lane_bound_s(lane: str, default: float = 0.0) -> float:
         return float(raw)
     except ValueError as e:
         raise ValueError(f"{_env_name(lane)}={raw!r} is not a number of seconds") from e
-
-
-def poll_s_from_env(default: float = DEFAULT_POLL_S) -> float:
-    raw = os.environ.get(ENV_PREFIX + "POLL_MS", "").strip()
-    if not raw:
-        return float(default)
-    try:
-        return float(raw) / 1e3
-    except ValueError as e:
-        raise ValueError(f"{ENV_PREFIX}POLL_MS={raw!r} is not a number of ms") from e
 
 
 class HeartbeatRegistry:

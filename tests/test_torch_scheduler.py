@@ -452,7 +452,6 @@ def test_lane_bound_env_parsing(monkeypatch):
     from ate_replication_causalml_torch.resilience.watchdog import (
         HeartbeatRegistry,
         lane_bound_s,
-        poll_s_from_env,
     )
 
     monkeypatch.setenv("ATE_TPU_WATCHDOG_SWEEP_S", "2.5")
@@ -464,8 +463,6 @@ def test_lane_bound_env_parsing(monkeypatch):
     monkeypatch.setenv("ATE_TPU_WATCHDOG_SWEEP_S", "soonish")
     with pytest.raises(ValueError, match="SWEEP"):
         lane_bound_s("sweep", 30.0)
-    monkeypatch.setenv("ATE_TPU_WATCHDOG_POLL_MS", "40")
-    assert poll_s_from_env() == 0.04
     t = [0.0]
     hb = HeartbeatRegistry(clock=lambda: t[0])
     hb.beat("worker/a")
@@ -514,7 +511,7 @@ def test_launch_counter_loses_no_increment():
 def test_telemetry_registry_and_events():
     """The port's registry and event log: labelled samples, summary
     histograms, snapshot and reset; spans with explicit parentage across
-    threads; the master switch."""
+    threads."""
     from ate_replication_causalml_torch import observability as obs
 
     reg = obs.MetricsRegistry()
@@ -544,10 +541,3 @@ def test_telemetry_registry_and_events():
     recs = log.records()
     assert [r["name"] for r in recs] == ["outer", "remote", "child"] and log.dropped == 2
     assert recs[1]["parent_id"] == root.span_id and recs[2]["parent_id"] is None
-    obs.set_enabled(False)
-    try:
-        with log.span("off") as sp:
-            sp.set_status("x")
-        assert [r["name"] for r in log.records()][-1] == "child"
-    finally:
-        obs.set_enabled(None)
