@@ -15,11 +15,16 @@ library's file name carries a hash of its source, the shared headers
 a stale build. ``ptxas``' register and
 shared-memory report lands beside each library as ``<name>-<hash>.log``.
 
+The hash-named libraries are the port's compile cache:
+``compile_cache_hits_total`` counts a library found on disk,
+``compile_cache_misses_total`` an ``nvcc`` run.
+
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` (``hist_partition_clusters`` launches nothing: it
 writes the occupancy query's answer); :func:`check` turns a non-zero code
-into an exception. Nothing here runs at import: the CPU tests import every
-module on a machine without ``nvcc``.
+into a :class:`~..resilience.errors.CudaKernelError`, as is a failed
+build: the shard runner retries neither. Nothing here runs at import: the CPU tests import
+every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ate_replication_causalml_torch import observability as obs
+from ate_replication_causalml_torch.resilience.errors import CudaKernelError
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -114,7 +122,7 @@ def _nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+        raise CudaKernelError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
     return found
 
 
@@ -155,10 +163,14 @@ def build_all() -> dict[str, Built]:
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
         t0 = time.perf_counter()
+        hits = obs.counter("compile_cache_hits_total", "kernel libraries found built")
+        misses = obs.counter("compile_cache_misses_total", "kernel libraries built by nvcc")
         for lib in sorted({KERNELS[k][0] for k in todo}):
             src, so, log = _target(lib)
             if os.path.isfile(so) and os.path.isfile(log):
+                hits.inc(1)
                 continue
+            misses.inc(1)
             tmp = f"{so}.{os.getpid()}.tmp"
             logf = open(log + ".tmp", "w")
             procs[lib] = (subprocess.Popen(
@@ -176,7 +188,7 @@ def build_all() -> dict[str, Built]:
             os.replace(tmp, so)
             os.replace(log + ".tmp", log)
         if failures:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+            raise CudaKernelError("CUDA kernel build failed:\n" + "\n".join(failures))
         seconds = time.perf_counter() - t0
         for name in todo:
             lib = KERNELS[name][0]
@@ -207,4 +219,4 @@ def check(built: Built, code: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
         msg = built.error_string(code).decode(errors="replace")
-        raise RuntimeError(f"CUDA kernel {built.name!r} failed: error {code} ({msg})")
+        raise CudaKernelError(f"CUDA kernel {built.name!r} failed: error {code} ({msg})")

@@ -56,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.models.forest import (
@@ -78,6 +79,7 @@ from ate_replication_causalml_torch.ops.hist import (
     resolve_hist_mode_packed,
 )
 from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
+from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
 from ate_replication_causalml_torch.ops.tree import table_lookup, traverse
 
 _EPS = 1e-12
@@ -282,12 +284,16 @@ def grow_causal_forest(
     mom5 = _moments_stack(wt, yt).T.contiguous()            # (5, n), shared by every tree
     s = max(2, int(n * sample_fraction))
     group_keys = rnd.split(key.to(x.device), n_groups)
-    chunks = [
-        _grow_groups(group_keys[g : g + group_chunk], codes, mom5, n=n, s=s, k=k,
-                     depth=depth, mtry=mtry, n_bins=n_bins, min_node=min_node,
-                     honesty=honesty, hist_mode=hist_mode, words=words)
-        for g in range(0, n_groups, group_chunk)
-    ]
+
+    def chunk_shard(i: int):
+        g = i * group_chunk
+        return _grow_groups(group_keys[g : g + group_chunk], codes, mom5, n=n, s=s, k=k,
+                            depth=depth, mtry=mtry, n_bins=n_bins, min_node=min_node,
+                            honesty=honesty, hist_mode=hist_mode, words=words)
+
+    # Classified retry, as the classifier's chunks (parallel/retry.py).
+    chunks = require_all(run_shards(obs.instrument_dispatch("causal_forest", chunk_shard),
+                                    -(-n_groups // group_chunk), pool="causal_forest"))
     cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
     return CausalForest(split_feat=cat(0), split_bin=cat(1), leaf_stats=cat(2),
                         in_sample=cat(3), bin_edges=edges, ci_group_size=k)

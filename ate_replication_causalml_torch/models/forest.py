@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.ops import random as rnd
@@ -48,6 +49,7 @@ from ate_replication_causalml_torch.ops.hist import (
 )
 from ate_replication_causalml_torch.ops.pack import pack_codes
 from ate_replication_causalml_torch.ops.tree import leaf_record, route_advance, traverse
+from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
 
 # Trees grown together: one kernel launch per level covers the chunk.
 DEFAULT_TREE_CHUNK = 16
@@ -411,11 +413,17 @@ def fit_forest_classifier(
     words = packed_codes_for(codes, hist_mode)
     yf = y.to(torch.float32)
     tree_keys = rnd.split(key.to(x.device), n_trees)
-    chunks = [
-        _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center, depth=depth, mtry=mtry,
-                    n_bins=n_bins, hist_mode=hist_mode, words=words)
-        for s in range(0, n_trees, tree_chunk)
-    ]
+
+    def chunk_shard(i: int):
+        s = i * tree_chunk
+        return _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center, depth=depth,
+                           mtry=mtry, n_bins=n_bins, hist_mode=hist_mode, words=words)
+
+    # Classified retry (parallel/retry.py): a transient failure re-runs
+    # only its chunk, bit for bit (its keys are explicit); a programming
+    # or CUDA error raises on the first attempt.
+    chunks = require_all(run_shards(obs.instrument_dispatch("forest_classifier", chunk_shard),
+                                    -(-n_trees // tree_chunk), pool="forest_classifier"))
     cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
     return Forest(
         split_feat=cat(0),

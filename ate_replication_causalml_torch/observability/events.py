@@ -2,10 +2,12 @@
 
 Port of ``ate_replication_causalml_tpu/observability/events.py``:
 span-shaped records (name, start and end in monotonic and wall time,
-status, attributes, parent span) kept in memory. The sweep engine's
-node, commit and prefetch spans land here, so a reader can rebuild the
-run's timeline (which worker ran what, when) without parsing prints.
-The ``events.jsonl`` exporter is not ported yet.
+status, attributes, parent span) kept in memory and exported as
+``events.jsonl`` (:meth:`EventLog.to_jsonl`). The sweep's root and stage
+spans, the engine's node, commit and prefetch spans and the resilience
+layer's events land here, so a reader can rebuild the run's timeline
+(which worker ran what, when, what was retried or injected) without
+parsing prints.
 
 Parentage is tracked per thread; ``parent_id`` overrides it for work
 handed across threads. The log is a ring (``max_events``): the oldest
@@ -17,9 +19,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import json
 import threading
 import time
 from typing import Iterator
+
+from ate_replication_causalml_torch.observability.registry import SCHEMA_VERSION
 
 
 class Span:
@@ -123,6 +128,14 @@ class EventLog:
         with self._lock:
             self._records.clear()
             self._dropped = 0
+
+    def to_jsonl(self) -> str:
+        """The events.jsonl payload: a versioned header line, then one
+        record per line in arrival order."""
+        header = {"schema_version": SCHEMA_VERSION, "kind": "events_header",
+                  "dropped": self.dropped}
+        lines = [json.dumps(header)] + [json.dumps(r) for r in self.records()]
+        return "\n".join(lines) + "\n"
 
 
 #: The process-global default event log.

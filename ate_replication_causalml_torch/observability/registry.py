@@ -1,20 +1,34 @@
 """Process-global metrics registry.
 
-Port of the in-process part of ``ate_replication_causalml_tpu/observability/registry.py``:
+Port of ``ate_replication_causalml_tpu/observability/registry.py``:
 counters, gauges and summary histograms with labels, thread-safe, read
-back as a plain dict (:meth:`MetricsRegistry.snapshot`). The sweep
-engine, the nuisance cache and the prefetch lane write here. Exporters
-(``metrics.json``, the Prometheus textfile), bucketed histograms and
-collectors are not ported yet. Telemetry is host-side only: it never
-touches an estimator's tensors.
+back as a plain dict (:meth:`MetricsRegistry.snapshot`, the
+``metrics.json`` payload, in the JAX package's layout and schema
+version). The sweep driver, the engine, the nuisance cache, the prefetch
+lane, the shard runner and the kernel build write here. The serving
+plane's bucketed histograms and the snapshot-time collectors are not
+ported (the ``bucket_histograms`` section stays empty). Telemetry is
+host-side only: it never touches an estimator's tensors.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 import time
 
+#: metrics.json / events.jsonl schema version (the JAX package's;
+#: ``scripts/check_metrics_schema.py`` validates against it).
 SCHEMA_VERSION = 1
+
+_LABEL_SAFE = re.compile(r"[^A-Za-z0-9_-]")
+
+
+def sanitize_label(label: str) -> str:
+    """Map any character outside ``[A-Za-z0-9_-]`` to ``_``: sweep method
+    names (``Causal Forest(GRF)``, ``Belloni et.al``) become file names
+    and profiler labels."""
+    return _LABEL_SAFE.sub("_", label)
 
 
 def _label_key(labels: dict) -> str:
@@ -115,11 +129,23 @@ class MetricsRegistry:
     def histogram(self, name: str, help: str = "") -> Histogram:
         return self._get(Histogram, name, help)
 
+    def peek(self, name: str) -> dict[str, float] | None:
+        """One family's samples as ``{label_key: value}`` (a histogram's
+        ``sum``), or None when it was never created: the trace sampler's
+        cheap read."""
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                return None
+            if m.kind == "histogram":
+                return {k: float(v["sum"]) for k, v in m.samples.items()}
+            return dict(m.samples)
+
     def snapshot(self) -> dict:
-        """Versioned plain-dict snapshot; families never sampled are left
-        out."""
+        """Versioned plain-dict snapshot (the metrics.json payload);
+        families never sampled are left out."""
         out = {"schema_version": SCHEMA_VERSION, "created_unix": time.time(),
-               "counters": {}, "gauges": {}, "histograms": {}}
+               "counters": {}, "gauges": {}, "histograms": {}, "bucket_histograms": {}}
         with self._lock:
             for m in self._metrics.values():
                 if m.samples:

@@ -27,10 +27,23 @@ prep → bias injection → RCT oracle → every estimator row of
 * ``report.json``, ``REPORT.md`` and, with ``plots=True``, the three
   figures.
 
+* **telemetry**: the run is a ``run_sweep`` span, each row a
+  ``sweep_stage`` span whose status says computed, resumed or failed;
+  with an ``outdir`` the run writes ``metrics.json``, ``events.jsonl``,
+  ``metrics.prom``, ``trace.json`` and ``overlap_report.json`` beside
+  ``report.json`` (the JAX package's files and schemas; ``ATE_TPU_TRACE=0``
+  drops the last two), a failing run included;
+* **fault injection**: ``ATE_TPU_CHAOS`` arms the scopes the JAX
+  package's sweep honours (``stage:fail=``, ``fs:torn_write``,
+  ``tamper:journal``, ``hang:scope=worker``, and ``shard:`` and
+  ``device:drop`` in the forests' classified retry); a malformed spec
+  raises before any work;
+* **device profiling**: ``ATE_TPU_TRACE_DIR`` captures each computed row
+  with ``torch.profiler``, ``ATE_TPU_XPROF`` the whole run with a
+  ``record_function`` range a row; either runs the sweep sequentially.
+
 Every row runs on one device (``cuda`` unless ``device="cpu"`` is
-passed). The JAX package's telemetry exporters, tracing and chaos hooks
-are not ported: ``ATE_TPU_CHAOS`` set makes the sweep raise before any
-work.
+passed).
 
 CLI::
 
@@ -53,6 +66,7 @@ import numpy as np
 import torch
 
 from ate_replication_causalml_torch import __version__, resolve_device
+from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.data.pipeline import (
     PrepConfig,
@@ -86,12 +100,26 @@ from ate_replication_causalml_torch.estimators.ols import ate_condmean_ols
 from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.models.forest import rf_oob_propensity
 from ate_replication_causalml_torch.ops import random as rnd
+from ate_replication_causalml_torch.observability.trace import run_meta
 from ate_replication_causalml_torch.ops.lasso import default_foldid
+from ate_replication_causalml_torch.resilience import chaos
+from ate_replication_causalml_torch.resilience.errors import (
+    ChaosSpecError,
+    ChaosStageFault,
+    NonFiniteResult,
+)
 from ate_replication_causalml_torch.scheduler import (
     ArtifactSpec,
     StageSpec,
     SweepEngine,
     default_workers,
+)
+from ate_replication_causalml_torch.utils.profiling import (
+    StageTimer,
+    device_profiling_armed,
+    xla_trace,
+    xprof_annotation,
+    xprof_run,
 )
 from ate_replication_causalml_torch import viz
 
@@ -181,22 +209,17 @@ def _jsonsafe(obj):
     return obj
 
 
-def _atomic_write_text(path: str, text: str) -> None:
-    """Write ``text`` to a temporary file beside ``path``, then rename it
-    over ``path``: a kill leaves the old file or the new one, never half."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        f.write(text)
-    os.replace(tmp, path)
-
-
 class _Checkpoint:
     """Append-only JSONL of finished result rows, keyed by method name.
 
     The first record is a config fingerprint; a journal written under
     another fingerprint is set aside (renamed ``*.stale`` / ``*.stale.N``,
     never clobbering an earlier one) instead of being reused. Torn lines
-    (a kill mid-append) are skipped and logged; the row is recomputed.
+    (a kill mid-append, or chaos ``fs:torn_write``) are skipped, logged
+    and counted in ``checkpoint_torn_lines_total``; the row is
+    recomputed. The journal stays append-only, so a torn line is counted
+    again on every resume of the same directory: the counter reports the
+    file's state.
     """
 
     def __init__(self, path: str | None, fingerprint: str, log=print):
@@ -204,6 +227,7 @@ class _Checkpoint:
         self.done: dict[str, dict] = {}
         if path and os.path.exists(path):
             recs = []
+            torn = 0
             with open(path) as f:
                 for line in f:
                     if not line.strip():
@@ -211,7 +235,12 @@ class _Checkpoint:
                     try:
                         recs.append(json.loads(line))
                     except json.JSONDecodeError:
+                        torn += 1
                         log(f"checkpoint {path}: skipping unparsable line")
+            if torn:
+                obs.counter("checkpoint_torn_lines_total",
+                            "unparsable results.jsonl lines skipped on resume").inc(torn)
+                obs.emit("checkpoint_torn_lines", status="warning", path=path, lines=torn)
             header = next((r for r in recs if r.get("method") == "__config__"), None)
             if header is None or header.get("fingerprint") != fingerprint:
                 stale = _unused_stale_path(path)
@@ -221,18 +250,28 @@ class _Checkpoint:
             else:
                 self.done = {r["method"]: r for r in recs if r["method"] != "__config__"}
         if path and not self.done and not os.path.exists(path):
-            _atomic_write_text(path, json.dumps({"method": "__config__",
-                                                 "fingerprint": fingerprint}) + "\n")
+            obs.atomic_write_text(path, json.dumps({"method": "__config__",
+                                                    "fingerprint": fingerprint}) + "\n")
 
     def get(self, method: str) -> dict | None:
         return self.done.get(method)
 
     def put(self, rec: dict) -> None:
+        """Append one row (the engine's committer calls this one row at a
+        time). Under chaos, ``tamper:journal`` persists a valid line with
+        a perturbed ate, or else ``fs:torn_write`` persists the line
+        torn, the way a kill mid-append would; the in-memory copy keeps
+        this run's rows right either way."""
         rec = _jsonsafe(rec)
         self.done[rec["method"]] = rec
         if self.path:
+            line = json.dumps(rec) + "\n"
+            inj = chaos.active()
+            if inj is not None:
+                tampered = inj.tamper_line(line, site=self.path)
+                line = inj.torn_line(line, site=self.path) if tampered == line else tampered
             with open(self.path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+                f.write(line)
 
 
 def _unused_stale_path(path: str) -> str:
@@ -292,15 +331,16 @@ def _fingerprint(config: SweepConfig, csv_path: str | None, dev: torch.device) -
             f"|package={PACKAGE}|version={__version__}")
 
 
-_CHAOS_ENV = "ATE_TPU_CHAOS"
-
-
-def _resolve_scheduler(scheduler: str | None, workers: int | None) -> int:
+def _resolve_scheduler(scheduler: str | None, workers: int | None,
+                       log: Callable[[str], None] = print) -> int:
     """Worker-pool width from the scheduler mode and the env knobs
     (``ATE_TPU_SWEEP_SEQUENTIAL``, ``ATE_TPU_SWEEP_WORKERS``). The mode
     is not part of the journal's fingerprint: the concurrent and the
     sequential sweep give the same bits, so either resumes the other's
-    journal."""
+    journal. A device capture (``ATE_TPU_TRACE_DIR``, ``ATE_TPU_XPROF``)
+    forces the sequential sweep: ``torch.profiler`` is process-global,
+    and concurrent rows would interleave in one timeline. The host trace
+    (``trace.json``) needs no profiler and stays concurrent."""
     mode = scheduler
     if mode is None:
         mode = ("sequential"
@@ -308,6 +348,10 @@ def _resolve_scheduler(scheduler: str | None, workers: int | None) -> int:
                 in ("1", "true", "yes", "on") else "concurrent")
     if mode not in ("sequential", "concurrent"):
         raise ValueError(f"scheduler must be 'sequential' or 'concurrent', got {mode!r}")
+    if mode == "concurrent" and device_profiling_armed():
+        log("device profiling armed (ATE_TPU_TRACE_DIR/ATE_TPU_XPROF): forcing the sequential "
+            "sweep; host-span tracing alone does not require this")
+        mode = "sequential"
     if mode == "sequential":
         return 1
     # Clamp like default_workers clamps the env var: --workers 0 must not
@@ -315,32 +359,8 @@ def _resolve_scheduler(scheduler: str | None, workers: int | None) -> int:
     return default_workers() if workers is None else max(1, workers)
 
 
-def _check_no_chaos() -> None:
-    """The JAX package's fault injection (``ATE_TPU_CHAOS``) is not
-    ported: refuse to run a fault-free sweep the caller did not ask for."""
-    if os.environ.get(_CHAOS_ENV, "").strip():
-        raise ValueError(f"{_CHAOS_ENV} is set, but this package has no fault injection; "
-                         f"unset it to run the sweep")
-
-
 def _nan_or(v):
     return float("nan") if v is None else v
-
-
-@dataclasses.dataclass
-class _StageOutcome:
-    """What a stage body hands the ordered committer: the row plus what
-    the commit journals and logs in declared order (bodies may finish in
-    any order; side effects are the committer's)."""
-
-    kind: str                   # "resumed" | "computed" | "failed"
-    res: EstimatorResult
-    record: dict | None = None  # checkpoint row (computed/failed)
-    extras: dict = dataclasses.field(default_factory=dict)
-    seconds: float = 0.0
-    retry_why: str = ""         # why a journaled row was not resumable
-    error: str = ""
-    attempts: int = 0
 
 
 def run_sweep(
@@ -362,8 +382,9 @@ def run_sweep(
     over the DAG of stages and shared nuisances, one CUDA stream a worker
     on the card; ``scheduler/engine.py``) or "sequential" (inline on the
     calling thread and its stream); ``ATE_TPU_SWEEP_SEQUENTIAL=1`` picks
-    the latter when ``scheduler`` is None. ``workers`` bounds the pool
-    (default ``ATE_TPU_SWEEP_WORKERS`` or ``min(4, cpus)``; 1 runs
+    the latter when ``scheduler`` is None, and so does a device capture
+    (``ATE_TPU_TRACE_DIR``, ``ATE_TPU_XPROF``). ``workers`` bounds the
+    pool (default ``ATE_TPU_SWEEP_WORKERS`` or ``min(4, cpus)``; 1 runs
     inline). ``prefetch`` overrides the kernel-build prefetch lane's
     default (on for the card). Both modes give the same rows bit for bit
     and write the same journal lines in the same order.
@@ -372,22 +393,117 @@ def run_sweep(
     resumed run gives the remaining rows the keys a fresh run would.
     ``report.timings_s`` holds each computed row's wall seconds, and each
     shared nuisance's under ``artifact:<name>`` (fitted ahead of its
-    first consumer, outside that row's time)."""
-    _check_no_chaos()
-    n_workers = _resolve_scheduler(scheduler, workers)
+    first consumer, outside that row's time).
+
+    Telemetry: the run is a ``run_sweep`` span, each row a
+    ``sweep_stage`` span with status computed, resumed or failed. With
+    an ``outdir``, ``metrics.json``, ``events.jsonl`` and ``metrics.prom``
+    land beside ``report.json``, and (unless ``ATE_TPU_TRACE=0``)
+    ``trace.json`` (worker, lane, prefetch and committer tracks,
+    artifact-to-stage flow arrows, counter tracks) and
+    ``overlap_report.json`` (critical path, per-lane busy and wait,
+    overlap). They are written when the run fails too, and an export
+    error never replaces the run's own exception."""
+    obs.install_monitoring()
+    n_workers = _resolve_scheduler(scheduler, workers, log)
     dev = resolve_device(device)
     if plots and outdir:
         viz.require_matplotlib()
+    # The event log is process-global: the trace keeps the records from
+    # this instant on.
+    t_start = time.monotonic()
+    sampler = None
+    if outdir and n_workers > 1 and obs.trace_enabled():
+        # Counter tracks for the trace. A thread only for a concurrent
+        # run: the sequential sweep takes one inline sample at the end.
+        sampler = obs.MetricSampler()
+        sampler.start()
+    try:
+        with obs.span("run_sweep", out=outdir or "", csv=csv_path or "synthetic") as root_sp:
+            return _run_sweep_impl(config, csv_path, outdir, plots, log, dev, n_workers,
+                                   prefetch, root_sp.span_id)
+    finally:
+        if outdir:
+            _export_telemetry(outdir, t_start, n_workers, csv_path, sampler, log)
+        elif sampler is not None:
+            sampler.stop()
+
+
+def _export_telemetry(outdir: str, t_start: float, workers: int, csv_path: str | None,
+                      sampler, log) -> None:
+    """The device-memory gauges, the sampler's last sample, then the
+    exporters, each step guarded: the sampler must stop whatever an
+    earlier step raised, and a failing export is logged, never raised
+    over the run's own exception (a full disk, a deleted outdir)."""
+    try:
+        obs.record_device_memory(context="run_sweep")
+    except Exception as e:  # noqa: BLE001 — an observer must not replace the run's error
+        log(f"telemetry export failed: {e!r}")
+    if sampler is not None:
+        sampler.stop()
+    elif obs.trace_enabled():
+        sampler = obs.MetricSampler()
+        sampler.sample_once()
+    try:
+        written = obs.write_run_artifacts(outdir)
+        written += _write_trace_artifacts(outdir, t_start, workers, csv_path, sampler)
+        log(f"telemetry: {', '.join(written)}")
+    except Exception as e:  # noqa: BLE001 — as above
+        log(f"telemetry export failed: {e!r}")
+
+
+def _write_trace_artifacts(outdir: str, t_start: float, workers: int, csv_path: str | None,
+                           sampler) -> list[str]:
+    """``trace.json`` and ``overlap_report.json`` of this run's records
+    (the event log filtered to its monotonic window); the run's wall
+    seconds, worker count and the sampler's ticks and period ride the
+    trace header. Nothing when ``ATE_TPU_TRACE=0``."""
+    if not obs.trace_enabled():
+        return []
+    records = [r for r in obs.EVENTS.records() if r.get("start_mono_s", 0.0) >= t_start - 1e-6]
+    run_rec = next((r for r in records if r["name"] == "run_sweep"), None)
+    tr = obs.build_trace(records, meta=run_meta(
+        workers=workers, wall_s=run_rec["dur_s"] if run_rec else None, out=outdir,
+        csv=csv_path or "synthetic", events_dropped=obs.EVENTS.dropped,
+        sampler_ticks=sampler.ticks,
+        sampler_interval_s=sampler.interval_s if workers > 1 else None))
+    return obs.write_trace_artifacts(outdir, tr)
+
+
+@dataclasses.dataclass
+class _StageOutcome:
+    """What a stage body hands the ordered committer: the row plus what
+    the commit journals and logs in declared order (bodies may finish in
+    any order; side effects are the committer's)."""
+
+    kind: str                   # "resumed" | "computed" | "failed"
+    res: EstimatorResult
+    record: dict | None = None  # checkpoint row (computed/failed)
+    extras: dict = dataclasses.field(default_factory=dict)
+    seconds: float = 0.0
+    retry_why: str = ""         # why a journaled row was not resumable
+    error: str = ""
+    attempts: int = 0
+
+
+def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | None, plots: bool,
+                    log: Callable[[str], None], dev: torch.device, n_workers: int,
+                    prefetch: bool | None, root_span_id: str) -> SweepReport:
     if outdir:
         os.makedirs(outdir, exist_ok=True)
+    # Arm chaos now, with fresh fault budgets for this run: a malformed
+    # ATE_TPU_CHAOS raises ChaosSpecError here, before any work.
+    chaos.reset()
+    chaos.active()
     fingerprint = _fingerprint(config, csv_path, dev)
     ckpt = _Checkpoint(os.path.join(outdir, "results.jsonl") if outdir else None, fingerprint,
                        log=log)
 
     df, df_mod, n_dropped = build_frames(config, csv_path, device=dev)
     log(f"prepared df n={df.n}, dropped {n_dropped} -> df_mod n={df_mod.n} on {dev.type}")
+    timer = StageTimer()
     report = SweepReport(oracle=None, results=ResultTable(), n_dropped=n_dropped,
-                         n_biased=df_mod.n)
+                         n_biased=df_mod.n, timings_s=timer.seconds)
     timings = report.timings_s
     root_key = rnd.key(config.seed, device=dev)
 
@@ -476,13 +592,21 @@ def run_sweep(
     ]
     assert [m for m, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
 
-    def make_stage(method, fn, needs) -> StageSpec:
-        """One row as a scheduler stage. Resume is decided here, at build
-        time, from the loaded journal: a resumed stage declares no needs,
-        so a fully journaled rerun fits no nuisance at all. A body
-        returns a :class:`_StageOutcome`; only the committer journals and
-        logs. Under "degrade" an exception (or a non-finite ATE) becomes a
-        ``status="failed"`` outcome; ^C always propagates."""
+    stage_c = obs.counter("sweep_stage_total", "sweep stages by resume-vs-computed status")
+    # Chaos stage faults are planned in declared order before any worker
+    # starts (the ``times`` budget is order-sensitive, and worker
+    # completion order must not decide which rows it selects); the
+    # injection is recorded when the fault is raised.
+    fault_plan: set[str] = set()
+
+    def make_stage(method, fn, needs) -> tuple[StageSpec, bool]:
+        """One row as a scheduler stage, and whether it is resumed.
+        Resume is decided here, at build time, from the loaded journal: a
+        resumed stage declares no needs, so a fully journaled rerun fits
+        no nuisance at all. A body returns a :class:`_StageOutcome`; only
+        the committer journals and logs. Under "degrade" an exception (or
+        a non-finite ATE) becomes a ``status="failed"`` outcome; ^C and a
+        malformed chaos spec always propagate."""
         cached = ckpt.get(method)
         ok, why = _row_resumable(cached) if cached is not None else (False, "")
         if ok:
@@ -490,51 +614,71 @@ def run_sweep(
                                   lower_ci=_nan_or(cached["lower_ci"]),
                                   upper_ci=_nan_or(cached["upper_ci"]), se=_nan_or(cached["se"]))
             outcome = _StageOutcome("resumed", res, seconds=cached.get("seconds", 0.0))
-            return StageSpec(method, lambda c: outcome)
+
+            def run_resumed(c):
+                with obs.span("sweep_stage", parent_id=root_span_id, method=method) as sp:
+                    sp.set_status("resumed")
+                    return outcome
+
+            return StageSpec(method, run_resumed), True
         prior = cached.get("attempts") if cached else 0
         attempts = (int(prior) + 1
                     if isinstance(prior, (int, float)) and not isinstance(prior, bool) else 1)
 
         def run(c):
-            t0 = time.perf_counter()
-            try:
-                out = fn(c)
-                sync()
-                res, extras = out if isinstance(out, tuple) else (out, {})
-                if not math.isfinite(res.ate):
-                    raise FloatingPointError(f"estimator returned ATE {res.ate!r} from finite "
-                                             "inputs; refusing to record it")
-            except (KeyboardInterrupt, SystemExit):
-                raise
-            except Exception as e:
-                if config.fail_policy != "degrade":
+            with obs.span("sweep_stage", parent_id=root_span_id, method=method) as sp:
+                if why:
+                    obs.emit("checkpoint_row_rejected", status="retrying", method=method,
+                             reason=why)
+                sp.set_status("computed")
+                try:
+                    with timer.stage(method), xla_trace(method), xprof_annotation(method):
+                        if method in fault_plan:
+                            chaos.active().record_stage_fault(method)
+                            raise ChaosStageFault(f"chaos: injected stage fault on {method!r}")
+                        out = fn(c)
+                        sync()
+                    res, extras = out if isinstance(out, tuple) else (out, {})
+                    if not math.isfinite(res.ate):
+                        raise NonFiniteResult(f"estimator returned ATE {res.ate!r} from finite "
+                                              "inputs; refusing to record it")
+                except (KeyboardInterrupt, SystemExit, ChaosSpecError):
                     raise
-                dt = time.perf_counter() - t0
-                err = f"{type(e).__name__}: {e}"
-                nan = float("nan")
-                res = EstimatorResult(method=method, ate=nan, lower_ci=nan, upper_ci=nan, se=nan,
-                                      status="failed")
-                return _StageOutcome("failed", res, seconds=dt, retry_why=why, error=err,
+                except Exception as e:
+                    if config.fail_policy != "degrade":
+                        raise
+                    dt = timer.seconds.get(method, 0.0)
+                    err = f"{type(e).__name__}: {e}"
+                    sp.set_status("failed")
+                    sp.set_attr("error", err)
+                    obs.emit("sweep_stage_failed", status="error", method=method, error=err,
+                             attempts=attempts)
+                    nan = float("nan")
+                    res = EstimatorResult(method=method, ate=nan, lower_ci=nan, upper_ci=nan,
+                                          se=nan, status="failed")
+                    return _StageOutcome("failed", res, seconds=dt, retry_why=why, error=err,
+                                         attempts=attempts,
+                                         record=dict(res.to_dict(), error=err, attempts=attempts,
+                                                     seconds=round(dt, 3)))
+                dt = timer.seconds[method]
+                sp.set_attr("seconds", round(dt, 3))
+                return _StageOutcome("computed", res, extras=extras, seconds=dt, retry_why=why,
                                      attempts=attempts,
-                                     record=dict(res.to_dict(), error=err, attempts=attempts,
-                                                 seconds=round(dt, 3)))
-            dt = time.perf_counter() - t0
-            return _StageOutcome("computed", res, extras=extras, seconds=dt, retry_why=why,
-                                 attempts=attempts,
-                                 record=dict(res.to_dict(), seconds=round(dt, 3),
-                                             attempts=attempts, **extras))
+                                     record=dict(res.to_dict(), seconds=round(dt, 3),
+                                                 attempts=attempts, **extras))
 
-        return StageSpec(method, run, needs=needs)
+        return StageSpec(method, run, needs=needs), False
 
     def commit(spec: StageSpec, outcome: _StageOutcome) -> None:
         """Declared-order side effects: the journal append, the report's
-        counts and timings, the log lines. The engine runs commits in
-        stage order, one at a time, so ``results.jsonl`` holds the lines
-        a sequential sweep writes, in the same order."""
+        counts and timings, the stage counter, the log lines. The engine
+        runs commits in stage order, one at a time, so ``results.jsonl``
+        holds the lines a sequential sweep writes, in the same order."""
         method, res = spec.name, outcome.res
         if outcome.retry_why:
             log(f"  [retry] {method}: checkpoint row not resumable ({outcome.retry_why}); "
                 "recomputing")
+        stage_c.inc(1, method=method, status=outcome.kind)
         if outcome.kind == "resumed":
             report.resumed += 1
             timings[method] = outcome.seconds
@@ -548,7 +692,6 @@ def run_sweep(
             log(f"  [FAILED] {method}: {outcome.error} (attempt {outcome.attempts}, "
                 f"{outcome.seconds:.1f}s); degrading, sweep continues")
             return
-        timings[method] = outcome.seconds
         if "incorrect_ate" in outcome.extras:
             log(f"  Incorrect ATE: {outcome.extras['incorrect_ate']:.3f} "
                 f"(SE: {outcome.extras['incorrect_se']:.3f})"
@@ -556,13 +699,20 @@ def run_sweep(
         log(f"  {method}: ate={res.ate:.4f} ci=[{res.lower_ci:.4f},{res.upper_ci:.4f}] "
             f"({outcome.seconds:.1f}s)")
 
-    stages = [make_stage(*decl) for decl in stage_decls]
+    built = [make_stage(*decl) for decl in stage_decls]
+    stages = [spec for spec, _ in built]
+    inj = chaos.active()
+    if inj is not None:
+        fault_plan.update(inj.plan_stage_faults([spec.name for spec, resumed in built
+                                                 if not resumed]))
     engine = SweepEngine(artifacts, stages, commit=commit, workers=n_workers, prefetch=prefetch,
-                         device=dev)
+                         device=dev, span_parent=root_span_id)
     if n_workers > 1:
         log(f"scheduler: concurrent sweep, {n_workers} workers"
             + (", kernel-build prefetch on" if engine.prefetch else ""))
-    outcomes = engine.run()
+    # One whole-run device capture under ATE_TPU_XPROF (a no-op without).
+    with xprof_run("run_sweep"):
+        outcomes = engine.run()
 
     report.oracle = outcomes["oracle"].res
     for m in SWEEP_METHODS:
@@ -572,7 +722,7 @@ def run_sweep(
     report.incorrect_cf_se = cf_rec.get("incorrect_se")
 
     if outdir:
-        _atomic_write_text(os.path.join(outdir, "report.json"), json.dumps(_jsonsafe({
+        obs.atomic_write_json(os.path.join(outdir, "report.json"), _jsonsafe({
             "oracle": report.oracle.to_dict(),
             "results": [r.to_dict() for r in report.results],
             "n_dropped": report.n_dropped,
@@ -581,7 +731,7 @@ def run_sweep(
             "timings_s": {k: round(v, 3) for k, v in report.timings_s.items()},
             "failures": report.failures,
             "device": dev.type,
-        }), indent=1))
+        }))
     if plots and outdir:
         # A degraded oracle cannot anchor the reference band.
         oracle_fig = report.oracle if math.isfinite(report.oracle.ate) else None
@@ -693,7 +843,7 @@ def write_report_md(report: SweepReport, outdir: str, csv_path: str | None = Non
     if len(figs) >= 3:
         lines += [f"![causal ML methods]({figs[2]})", ""]
     path = os.path.join(outdir, "REPORT.md")
-    _atomic_write_text(path, "\n".join(lines))
+    obs.atomic_write_text(path, "\n".join(lines))
     return path
 
 

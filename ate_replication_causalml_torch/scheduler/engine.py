@@ -29,6 +29,10 @@ Determinism contract (asserted in ``tests/test_torch_scheduler.py`` and
   (^C, SystemExit) stop scheduling at once; the committed prefix is
   best-effort, as it is sequentially.
 
+Under ``ATE_TPU_CHAOS`` ``hang:scope=worker`` a selected node sleeps
+before it runs (``resilience/chaos.py``): the stall the watchdog below
+must report; nothing else changes.
+
 ``workers=1`` is the sequential escape hatch: the same node graph,
 executed inline on the calling thread and its current stream in priority
 order (an artifact just before its first consumer), with no thread, no
@@ -47,6 +51,7 @@ from typing import Callable, Iterable
 import torch
 
 from ate_replication_causalml_torch import observability as obs
+from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.watchdog import HeartbeatRegistry, lane_bound_s
 from ate_replication_causalml_torch.scheduler.cache import NuisanceCache
 from ate_replication_causalml_torch.scheduler.dag import ArtifactSpec, StageSpec, validate
@@ -95,6 +100,7 @@ class SweepEngine:
         prefetch: bool | None = None,
         device=None,
         stall_bound_s: float | None = None,
+        span_parent: str | None = None,
     ):
         arts = list(artifacts)
         self.dag = validate(arts, stages)
@@ -109,6 +115,9 @@ class SweepEngine:
         self.cache = NuisanceCache(arts, device=self.device if self._streams else None)
         self.prefetch = default_enabled(dev) if prefetch is None else prefetch
         self._commit_fn = commit
+        # Node, commit and prefetch spans open on threads where the
+        # caller's root span is not on the thread-local stack.
+        self._span_parent = span_parent
         self._mu = threading.Condition()
         # Shared scheduling state: every mutation below is under self._mu.
         self._ready: list[tuple] = []           # heap of (priority, name)
@@ -185,7 +194,8 @@ class SweepEngine:
             warm_of = {**{a.name: a.warm for a in self.dag.artifacts.values()},
                        **{s.name: s.warm for s in self.dag.stages}}
             prefetcher = CompilePrefetcher([(n.name, warm_of.get(n.name)) for n in items],
-                                           started=self._was_started)
+                                           started=self._was_started,
+                                           span_parent=self._span_parent)
             prefetcher.start()
         monitor = None
         if self.stall_bound_s > 0:
@@ -331,7 +341,14 @@ class SweepEngine:
         self.heartbeats.beat(worker_lane)
         if node.exclusive is not None:
             self.heartbeats.beat(f"lane/{node.exclusive}")
-        with obs.span("scheduler_node", node=node.name,
+        inj = chaos.active()
+        if inj is not None:
+            # hang:scope=worker: a deterministic stall inside the stamped
+            # unit of work, keyed on the node's name; nothing raises.
+            stall = inj.hang_delay_s("worker", node.name)
+            if stall > 0:
+                time.sleep(stall)
+        with obs.span("scheduler_node", parent_id=self._span_parent, node=node.name,
                       kind=node.kind, lane=node.exclusive or "",
                       worker=threading.current_thread().name, stage_idx=node.stage_idx,
                       needs=",".join(node.deps)) as nsp:
@@ -481,7 +498,8 @@ class SweepEngine:
                 self._commit_busy = True
             try:
                 if self._commit_fn is not None:
-                    with obs.span("commit", stage=spec.name, stage_idx=idx, track="committer"):
+                    with obs.span("commit", parent_id=self._span_parent, stage=spec.name,
+                                  stage_idx=idx, track="committer"):
                         self._commit_fn(spec, value)
             except BaseException as e:  # noqa: BLE001 — a failed commit (a
                 # full disk mid-append) aborts the run at this stage.

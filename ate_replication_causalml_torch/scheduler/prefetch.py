@@ -52,9 +52,13 @@ class CompilePrefetcher:
         self,
         items: Sequence[tuple[str, Callable[[], object] | None]],
         started: Callable[[str], bool] = lambda name: False,
+        span_parent: str | None = None,
     ):
         self._items = [(n, w) for n, w in items if w is not None]
         self._started = started
+        # The lane's spans open on its own thread, away from the run's
+        # root span.
+        self._span_parent = span_parent
         self._stop = threading.Event()
         # Guards the handle: start() and stop() may come from different
         # threads, and a double start must not leak a second lane.
@@ -92,7 +96,8 @@ class CompilePrefetcher:
                 continue
             t0 = time.perf_counter()
             try:
-                with obs.span("prefetch_compile", node=name, track="prefetch"):
+                with obs.span("prefetch_compile", parent_id=self._span_parent, node=name,
+                              track="prefetch"):
                     warm()
             except Exception as e:  # noqa: BLE001 — recorded, never raised: the
                 # stage does the work for itself.

@@ -118,12 +118,32 @@ imports nothing of JAX. Phases, each printing one JSON line:
    path_sweep's, each resuming all 14 records with 0 computed and 0
    launches. Prints both walls, the worker count, each node's start and
    end offsets (the engine's spans), the overlap (the rows' and nuisances'
-   seconds over the wall) and the prefetch lane's outcome;
+   seconds over the wall) and the prefetch lane's outcome. Both sweeps'
+   telemetry files (``metrics.json``, ``events.jsonl``, ``metrics.prom``,
+   ``trace.json``, ``overlap_report.json``) are read with plain json and
+   checked (a ``sweep_stage`` span a record with the report's status,
+   ``sweep_stage_total`` equal to the rows computed, each lane's busy time
+   within the wall, the critical path done by the last commit,
+   ``device_memory_bytes`` recorded), and their ``overlap_report.json``
+   printed: the critical path, each lane's busy and wait, the sampler's
+   samples and period, beside the walls;
+11f. path_sweep_chaos — path_sweep's directory copied without the
+   journal lines of two light rows (``CHAOS_ROWS``), swept under
+   ``ATE_TPU_CHAOS=CHAOS_SPEC`` (one stage fault, one torn append): one
+   failed row, the injections the spec predicts, every other record
+   resumed; then a clean sweep: the torn line counted, both rows
+   recomputed bit for bit path_sweep's, with their share of the launches;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
-   last: a process that has run the profiler
-   launches kernels more slowly afterwards.
+   late: a process that has run the profiler
+   launches kernels more slowly afterwards;
+13. path_xprof — ``ATE_TPU_XPROF`` at ``SweepConfig().quick()``, last: a
+   quick sweep, then its directory without ``XPROF_ROWS``' journal lines
+   swept again under the whole-run ``torch.profiler`` capture with the
+   default scheduler: the knob forces the sequential sweep, the Chrome
+   trace holds each recomputed row's ``record_function`` range and
+   launches of ``XPROF_KERNELS``, the rows equal the quick sweep's.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -292,6 +312,22 @@ SWEEP_DR_TAU = 0.04571865499019623
 # REPORT.md): path_sweep's sequential run and path_sweep_concurrent's.
 SWEEP_OUT = os.path.join(REPO, "build", "chip_smoke_sweep")
 SWEEP_CONC_OUT = os.path.join(REPO, "build", "chip_smoke_sweep_concurrent")
+SWEEP_CHAOS_OUT = os.path.join(REPO, "build", "chip_smoke_sweep_chaos")
+XPROF_OUT = os.path.join(REPO, "build", "chip_smoke_xprof")
+# The telemetry files run_sweep(outdir=...) writes beside report.json.
+TELEMETRY = ("metrics.json", "events.jsonl", "metrics.prom", "trace.json", "overlap_report.json")
+# path_sweep_chaos: two light rows dropped from path_sweep's journal, the
+# second made to fail and the first's append torn. Their share of the
+# launches: one cd_path each (the path_lasso phase's per-row counts).
+CHAOS_ROWS = ("Single-equation LASSO", "Usual LASSO")
+CHAOS_SPEC = "stage:fail=Usual LASSO;fs:torn_write"
+CHAOS_ROWS_LAUNCHES = {"cd_path": 2}
+# path_xprof: the rows recomputed under the whole-run profiler at
+# SweepConfig().quick(), kept small: the quick balancing row's ADMM takes
+# 2,623 iterations of ~1,220 kernels (CPU port count), too many events
+# for one Chrome trace.
+XPROF_ROWS = ("Direct Method", "Doubly Robust with Random Forest PS")
+XPROF_KERNELS = ("route_advance_kernel", "hist_dense")
 # The CD kernel against its plain version at the rows' inputs (threshold
 # 1e-7): a standardized coefficient's last move is below sqrt(1e-7/G_jj)
 # ≈ 3.2e-4 (G_jj ≈ 1), so two runs that stop a sweep apart differ by about
@@ -1986,6 +2022,66 @@ def sweep_checks(rep) -> list:
     return fails
 
 
+def telemetry(out: str, rep, wall: float) -> tuple[dict, list]:
+    """Read the five telemetry files of a sweep into ``out`` with plain
+    json (the port's own formats, no other parser) and check them: one
+    ``sweep_stage`` span a record with the report's status,
+    ``sweep_stage_total`` summing to the rows computed, each lane busy at
+    most the wall, the critical path done by the last commit (in the
+    sequential sweep: ending at the last row), ``device_memory_bytes``
+    recorded. Returns the summary the phases print (critical path, each
+    lane's busy and wait, the sampler's samples and period, the wall) and
+    the failures."""
+    fails = [f"{out}: {f} missing" for f in TELEMETRY if not os.path.exists(os.path.join(out, f))]
+    if fails:
+        return {}, fails
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(out, "events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f.read().splitlines()[1:]]
+    with open(os.path.join(out, "trace.json")) as f:
+        other = json.load(f)["otherData"]
+    with open(os.path.join(out, "overlap_report.json")) as f:
+        overlap = json.load(f)
+    want = {r.method: "computed" if r.method not in rep.failures else "failed"
+            for r in [rep.oracle, *rep.results]}
+    if rep.resumed:
+        want = None     # the phases read the telemetry of fully computed sweeps
+    stages = {r["attrs"]["method"]: r["status"] for r in events if r["name"] == "sweep_stage"}
+    if want is not None and stages != want:
+        fails.append(f"sweep_stage spans {stages}, the report's {want}")
+    computed = sum(v for k, v in metrics["counters"]["sweep_stage_total"].items()
+                   if "status=computed" in k)
+    if computed != rep.computed:
+        fails.append(f"sweep_stage_total computed {computed}, the report's {rep.computed}")
+    busy = {t: v["busy_s"] for t, v in overlap["tracks"].items()}
+    if any(b > overlap["wall_s"] + 1e-6 for b in busy.values()):
+        fails.append(f"lane busy {busy} over the wall {overlap['wall_s']}")
+    commits = sorted((r for r in events if r["name"] == "commit"), key=lambda r: r["end_mono_s"])
+    path = overlap["critical_path"]
+    tail_end = path[-1]["start_s"] + path[-1]["dur_s"] if path else 0.0
+    last_commit = commits[-1]["end_mono_s"] - other["mono_origin_s"] if commits else 0.0
+    if not path or tail_end > last_commit + 1e-3:
+        fails.append(f"critical path ends at {tail_end} s, the last commit at {last_commit} s")
+    if overlap["workers"] == 1 and path and path[-1]["name"] != commits[-1]["attrs"]["stage"]:
+        fails.append(f"sequential critical path ends at {path[-1]['name']}")
+    if not metrics["gauges"].get("device_memory_bytes"):
+        fails.append("no device_memory_bytes gauge")
+    summary = {"wall_s": wall, "run_sweep_s": overlap["wall_s"], "workers": overlap["workers"],
+               "critical_path": [[e["name"], e["dur_s"], e["wait_s"]] for e in path],
+               "critical_path_s": overlap["critical_path_s"],
+               "overlap_efficiency": overlap["overlap_efficiency"],
+               "lanes": {t: {"busy_s": v["busy_s"], "wait_s": v["wait_s"], "nodes": v["nodes"]}
+                         for t, v in overlap["tracks"].items()},
+               "committer_busy_s": overlap["serialization"]["committer"]["busy_s"],
+               "sampler": {"samples": other.get("sampler_ticks"),
+                           "period_s": other.get("sampler_interval_s")},
+               "device_memory_peak_bytes": max(
+                   (v for k, v in metrics["gauges"].get("device_memory_bytes", {}).items()
+                    if "allocated_bytes.all.peak" in k), default=None)}
+    return summary, fails
+
+
 def phase_path_sweep() -> dict:
     """The notebook sweep through its entry point, ``pipeline.run_sweep``,
     at the full configuration (``SweepConfig()``) on the card, the default
@@ -1994,10 +2090,13 @@ def phase_path_sweep() -> dict:
     the bits of the unpacked policy); every row held to its phase's pin;
     report.json and REPORT.md parsed; then the same call again on the same
     directory: every record resumed, nothing computed, no kernel launched,
-    the same rows."""
+    the same rows. The first run's telemetry files are read and checked
+    (:func:`telemetry`), and its critical path, lanes and sampler printed."""
     shutil.rmtree(SWEEP_OUT, ignore_errors=True)
     config = pipeline.SweepConfig()
     logs, logs2 = [], []
+    obs.REGISTRY.reset()
+    obs.EVENTS.clear()
     with packed_policy():
         reset_counts()
         t0 = time.perf_counter()
@@ -2005,6 +2104,7 @@ def phase_path_sweep() -> dict:
                                  scheduler="sequential")
         wall = time.perf_counter() - t0
         counts = read_counts()
+        tele, fails = telemetry(SWEEP_OUT, rep, wall)
         reset_counts()
         t0 = time.perf_counter()
         again = pipeline.run_sweep(config, outdir=SWEEP_OUT, plots=False, log=logs2.append,
@@ -2016,7 +2116,7 @@ def phase_path_sweep() -> dict:
     with open(os.path.join(SWEEP_OUT, "REPORT.md")) as f:
         md = f.read()
     n_rows = len(pipeline.SWEEP_METHODS) + 1
-    ROWS["sweep"] = {"report": rep, "wall_s": wall, "counts": counts}
+    ROWS["sweep"] = {"report": rep, "wall_s": wall, "counts": counts, "telemetry": tele}
     emit({"phase": "path_sweep", "scheduler": "sequential", "config": "SweepConfig()",
           "policy": f"{pack.ENV_PACK}=1", "overlap": overlap(rep, wall),
           "rows_biased": rep.n_biased, "n_dropped": rep.n_dropped,
@@ -2024,9 +2124,10 @@ def phase_path_sweep() -> dict:
                       for r in [rep.oracle, *rep.results]},
           "incorrect_cf": [rep.incorrect_cf_ate, rep.incorrect_cf_se],
           "seconds": rep.timings_s, "wall_s": wall, "computed": rep.computed,
-          "launches": counts, "resume": {"wall_s": wall2, "computed": again.computed,
-                                         "resumed": again.resumed, "launches": counts2}})
-    fails = sweep_checks(rep)
+          "launches": counts, "telemetry": tele,
+          "resume": {"wall_s": wall2, "computed": again.computed, "resumed": again.resumed,
+                     "launches": counts2}})
+    fails += sweep_checks(rep)
     if [r["method"] for r in doc["results"]] != list(pipeline.SWEEP_METHODS):
         fails.append(f"report.json rows {[r['method'] for r in doc['results']]}")
     missing = [m for m in pipeline.SWEEP_METHODS if f"| {m} | {rep.results[m].ate:.4f} |" not in md]
@@ -2091,8 +2192,10 @@ def phase_path_sweep_concurrent() -> dict:
     concurrent rerun on path_sweep's: all 14 resumed, 0 computed, 0
     launches. Prints both sweeps' walls and overlap (the rows' and
     nuisances' seconds over the wall), the worker count, each node's start
-    and end offsets from the engine's spans, and the prefetch lane's
-    outcome."""
+    and end offsets from the engine's spans, the prefetch lane's outcome,
+    and both sweeps' telemetry summaries (critical path, each lane's busy
+    and wait, the sampler's samples), this sweep's files checked as
+    path_sweep's are."""
     seq = ROWS["sweep"]
     shutil.rmtree(SWEEP_CONC_OUT, ignore_errors=True)
     config = pipeline.SweepConfig()
@@ -2106,6 +2209,7 @@ def phase_path_sweep_concurrent() -> dict:
         wall = time.perf_counter() - t0
         counts = read_counts()
         records, snap = obs.EVENTS.records(), obs.REGISTRY.snapshot()
+        tele, fails = telemetry(SWEEP_CONC_OUT, rep, wall)
         same_journal = journal(SWEEP_CONC_OUT) == journal(SWEEP_OUT)
         seq_again = rerun(config, SWEEP_CONC_OUT, scheduler="sequential")
         conc_again = rerun(config, SWEEP_OUT)
@@ -2124,11 +2228,11 @@ def phase_path_sweep_concurrent() -> dict:
           "prefetch": {"outcomes": snap["counters"].get("scheduler_prefetch_total", {}),
                        "seconds": snap["histograms"].get("scheduler_prefetch_seconds", {})},
           "cache": snap["counters"].get("nuisance_cache_requests_total", {}),
-          "launches": counts, "computed": rep.computed,
+          "launches": counts, "computed": rep.computed, "telemetry": tele,
+          "sequential_telemetry": seq["telemetry"],
           "sequential_rerun": {k: v for k, v in seq_again.items() if k != "report"},
           "concurrent_rerun_of_sequential": {k: v for k, v in conc_again.items()
                                              if k != "report"}})
-    fails = []
     seq_rep = seq["report"]
     pairs = [("oracle", rep.oracle, seq_rep.oracle)] + [
         (a.method, a, b) for a, b in zip(rep.results, seq_rep.results)]
@@ -2152,6 +2256,144 @@ def phase_path_sweep_concurrent() -> dict:
     if fails:
         raise AssertionError("path_sweep_concurrent: " + "; ".join(fails))
     return counts
+
+
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """``name=value`` in the environment for the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def drop_rows(src: str, out: str, methods) -> None:
+    """A copy of the sweep directory ``src`` whose journal lacks the lines
+    of ``methods``."""
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(src, out)
+    path = os.path.join(out, "results.jsonl")
+    with open(path) as f:
+        lines = [ln for ln in f if json.loads(ln)["method"] not in methods]
+    with open(path, "w") as f:
+        f.writelines(lines)
+
+
+def injections(out: str) -> list:
+    with open(os.path.join(out, "events.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f.read().splitlines()[1:]]
+    return [[r["attrs"]["scope"], r["attrs"]["site"]] for r in recs if r["name"] == "chaos_inject"]
+
+
+def phase_path_sweep_chaos() -> None:
+    """Fault injection at the full configuration, cheaply: path_sweep's
+    directory copied with the journal lines of two light rows
+    (``CHAOS_ROWS``) dropped, then the default (concurrent) sweep under
+    ``ATE_TPU_CHAOS=CHAOS_SPEC`` with ``fail_policy="degrade"``: one
+    failed row (the one the spec names), the other's journal append torn,
+    every other record resumed; then a clean sequential sweep on the same
+    directory: the torn line counted, the two rows recomputed bit for bit
+    path_sweep's, with exactly their share of the launches
+    (``CHAOS_ROWS_LAUNCHES``)."""
+    seq = ROWS["sweep"]["report"]
+    want = {r.method: r for r in [seq.oracle, *seq.results]}
+    drop_rows(SWEEP_OUT, SWEEP_CHAOS_OUT, CHAOS_ROWS)
+    config = pipeline.SweepConfig()
+    obs.REGISTRY.reset()
+    obs.EVENTS.clear()
+    with packed_policy():
+        with env("ATE_TPU_CHAOS", CHAOS_SPEC):
+            faulty = rerun(config, SWEEP_CHAOS_OUT)
+        injected = injections(SWEEP_CHAOS_OUT)
+        obs.REGISTRY.reset()
+        obs.EVENTS.clear()
+        clean = rerun(config, SWEEP_CHAOS_OUT, scheduler="sequential")
+    with open(os.path.join(SWEEP_CHAOS_OUT, "metrics.json")) as f:
+        torn = json.load(f)["counters"]["checkpoint_torn_lines_total"]
+    n_rows = len(pipeline.SWEEP_METHODS) + 1
+    frep, crep = faulty["report"], clean["report"]
+    emit({"phase": "path_sweep_chaos", "config": "SweepConfig()", "spec": CHAOS_SPEC,
+          "rows": list(CHAOS_ROWS), "policy": f"{pack.ENV_PACK}=1",
+          "faulty": {"wall_s": faulty["wall_s"], "computed": faulty["computed"],
+                     "resumed": faulty["resumed"], "failures": frep.failures,
+                     "injections": injected, "launches": faulty["launches"]},
+          "resume": {"wall_s": clean["wall_s"], "computed": clean["computed"],
+                     "resumed": clean["resumed"], "torn_lines": torn,
+                     "launches": clean["launches"]}})
+    fails = []
+    if set(frep.failures) != {"Usual LASSO"} or (faulty["computed"], faulty["resumed"]) != (
+            2, n_rows - 2):
+        fails.append(f"chaos run: failures {list(frep.failures)}, computed {faulty['computed']}, "
+                     f"resumed {faulty['resumed']}")
+    if injected != [["stage", "Usual LASSO"],
+                    ["fs", os.path.join(SWEEP_CHAOS_OUT, "results.jsonl")]]:
+        fails.append(f"injections {injected}")
+    if torn.get("") != 1.0 or (clean["computed"], clean["resumed"]) != (2, n_rows - 2):
+        fails.append(f"resume: torn lines {torn}, computed {clean['computed']}, "
+                     f"resumed {clean['resumed']}")
+    for label, rep in (("chaos run", frep), ("resume", crep)):
+        fails += [f"{label}: {r.method} {r.ate!r}/{r.se!r}, path_sweep's "
+                  f"{want[r.method].ate!r}/{want[r.method].se!r}"
+                  for r in [rep.oracle, *rep.results]
+                  if r.method not in rep.failures and not same_row(r, want[r.method])]
+    share = {k: v for k, v in clean["launches"].items() if v}
+    if share != CHAOS_ROWS_LAUNCHES:
+        fails.append(f"resume launches {share}, the rows' share {CHAOS_ROWS_LAUNCHES}")
+    half = {k: v for k, v in faulty["launches"].items() if v}
+    if half != {"cd_path": 1}:
+        fails.append(f"chaos run launches {half}: only the computed row's one cd_path expected")
+    if fails:
+        raise AssertionError("path_sweep_chaos: " + "; ".join(fails))
+
+
+def phase_path_xprof() -> None:
+    """``ATE_TPU_XPROF`` on the card at ``SweepConfig().quick()``, last (a
+    process that has run the profiler launches more slowly): a quick sweep
+    without the profiler, then a copy of its directory with the journal
+    lines of ``XPROF_ROWS`` dropped, rerun with the default scheduler and
+    the whole-run capture. The knob must force the sequential sweep; the
+    Chrome trace must hold each recomputed row's ``record_function`` range
+    and launches of the port's kernels (``XPROF_KERNELS``); the rows must
+    equal the sweep's without the profiler."""
+    config = pipeline.SweepConfig().quick()
+    plain_out = XPROF_OUT + "_plain"
+    shutil.rmtree(plain_out, ignore_errors=True)
+    plain = rerun(config, plain_out, scheduler="sequential")
+    drop_rows(plain_out, XPROF_OUT, XPROF_ROWS)
+    prof_dir = os.path.join(XPROF_OUT, "xprof")
+    logs = []
+    with env("ATE_TPU_XPROF", prof_dir):
+        t0 = time.perf_counter()
+        rep = pipeline.run_sweep(config, outdir=XPROF_OUT, plots=False, log=logs.append)
+        wall = time.perf_counter() - t0
+    path = os.path.join(prof_dir, "run_sweep.trace.json")
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    ranges = [obs.sanitize_label(m) for m in XPROF_ROWS]
+    kernels = {k: sum(k in n for n in names) for k in XPROF_KERNELS}
+    forced = any("forcing the sequential sweep" in ln for ln in logs)
+    emit({"phase": "path_xprof", "config": "SweepConfig().quick()", "rows": list(XPROF_ROWS),
+          "plain_wall_s": plain["wall_s"], "wall_s": wall, "forced_sequential": forced,
+          "trace_bytes": os.path.getsize(path), "trace_events": len(names),
+          "ranges": {r: r in names for r in ranges}, "kernel_events": kernels})
+    fails = []
+    if not forced or any("concurrent sweep" in ln for ln in logs):
+        fails.append("ATE_TPU_XPROF did not force the sequential sweep")
+    if rep.computed != len(XPROF_ROWS) or not all(r in names for r in ranges):
+        fails.append(f"computed {rep.computed}; ranges in the trace {[r in names for r in ranges]}")
+    if not any(kernels.values()):
+        fails.append(f"no launch of {XPROF_KERNELS} in the trace")
+    pr = plain["report"]
+    fails += [f"{a.method}: {a.ate!r}/{a.se!r}, without the profiler {b.ate!r}/{b.se!r}"
+              for a, b in zip([rep.oracle, *rep.results], [pr.oracle, *pr.results])
+              if not same_row(a, b)]
+    if fails:
+        raise AssertionError("path_xprof: " + "; ".join(fails))
 
 
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
@@ -2212,7 +2454,9 @@ def main() -> int:
     by_path["balance"] = phase_path_balance(frame_mod)
     by_path["sweep"] = phase_path_sweep()
     by_path["sweep_concurrent"] = phase_path_sweep_concurrent()
+    phase_path_sweep_chaos()
     phase_stages(frame_mod)
+    phase_path_xprof()
     kernels = []
     for k, (src, rep, device_fn) in SOURCES.items():
         row = timing[k]

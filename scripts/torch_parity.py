@@ -48,7 +48,10 @@ JSON object:
   sequential, on one device, float32) at ``--sweep micro`` (the MICRO
   configuration of ``tests/test_pipeline_driver.py``) or ``quick``
   (``SweepConfig().quick()``, minutes): every row's τ and SE, and each
-  package's row walls.
+  package's row walls; at ``--sweep full`` only the
+  "Doubly Robust with Random Forest PS" stage at ``SweepConfig()`` in both
+  packages (votes, outcome model, τ), each τ held to the card's
+  ``chip_smoke.SWEEP_DR_TAU`` within the DR-RF bound.
 
 Every float comparison reports its max |Δ| and, under ``max_ulp_diff``,
 its max |Δ| in float32 ulps of the JAX package's value
@@ -421,9 +424,64 @@ def balance_row(jmod, tmod, max_iters: int = 12_000) -> dict:
     }
 
 
+def sweep_dr_rf_full() -> dict:
+    """The sweep stage "Doubly Robust with Random Forest PS" at
+    ``SweepConfig()`` on the CPU in both packages, as their ``run_sweep``
+    computes it (the sweep's frames, its keys ``fold_in(key(0),
+    crc32(name))``, 2,500 trees of depth 9, the shared outcome model,
+    float32): the OOB votes and the outcome model compared, and each τ
+    held to the card's that ``chip_smoke.py`` pins (``SWEEP_DR_TAU``)
+    within the DR-RF bound."""
+    from ate_replication_causalml_torch import pipeline as tpipe
+    from ate_replication_causalml_torch.estimators import aipw as taipw
+    from ate_replication_causalml_tpu import pipeline as jpipe
+    from ate_replication_causalml_tpu.estimators.aipw import doubly_robust, outcome_model_mu
+    from ate_replication_causalml_tpu.models.forest import rf_oob_propensity
+    import chip_smoke
+
+    config = jpipe.SweepConfig()
+    tag = lambda name: zlib.crc32(name.encode())
+    t0 = time.perf_counter()
+    with jax.enable_x64(False):
+        _, jdf, _ = jpipe.build_frames(config)
+        jkey = lambda name: jax.random.fold_in(jax.random.key(config.seed), tag(name))
+        jp = rf_oob_propensity(jdf, key=jkey("dr_rf_prop"), n_trees=config.dr_trees,
+                               depth=config.forest_depth)
+        jmu = outcome_model_mu(jdf)
+        jrow = doubly_robust(jdf, lambda f: jp, key=jkey("dr_rf"), mu=jmu)
+    t1 = time.perf_counter()
+    _, tdf, _ = tpipe.build_frames(tpipe.SweepConfig(), device="cpu")
+    root = rnd.key(config.seed, device="cpu")
+    tkey = lambda name: rnd.fold_in(root, tag(name))
+    tp = tf.rf_oob_propensity(tdf, key=tkey("dr_rf_prop"), n_trees=config.dr_trees,
+                              depth=config.forest_depth)
+    tmu = taipw.outcome_model_mu(tdf)
+    trow = taipw.doubly_robust(tdf, lambda f: tp, key=tkey("dr_rf"), mu=tmu)
+    t2 = time.perf_counter()
+    card, bound = chip_smoke.SWEEP_DR_TAU, chip_smoke.TAU_BOUND
+    return {"size": "full", "method": jrow.method, "rows_biased": [jdf.n, tdf.n],
+            "trees": config.dr_trees, "depth": config.forest_depth, "card_tau": card,
+            "bound": bound, "jax": [jrow.ate, jrow.se], "torch_cpu": [trow.ate, trow.se],
+            "max_abs_diff": {
+                "OOB votes, torch CPU vs jax (exact)": maxdiff(tp.numpy(), jp),
+                "outcome GLM mu0, mu1, torch CPU vs jax (f32)":
+                    max(maxdiff(tmu[0].numpy(), jmu[0]), maxdiff(tmu[1].numpy(), jmu[1])),
+                "tau, torch CPU vs jax": abs(trow.ate - jrow.ate),
+                "tau, card vs jax": abs(card - jrow.ate),
+                "tau, card vs torch CPU": abs(card - trow.ate),
+            },
+            "max_ulp_diff": {"tau, card vs jax": maxulp(card, jrow.ate),
+                             "tau, torch CPU vs jax": maxulp(trow.ate, jrow.ate)},
+            "card_within_bound_of_jax": abs(card - jrow.ate) <= bound,
+            "seconds": {"jax": t1 - t0, "torch_cpu": t2 - t1}}
+
+
 def sweep_rows(size: str) -> dict:
     """Both packages' run_sweep on the CPU at ``size`` ("micro" or
-    "quick"), matched row by row."""
+    "quick"), matched row by row; at "full" only the DR-RF stage
+    (:func:`sweep_dr_rf_full`)."""
+    if size == "full":
+        return sweep_dr_rf_full()
     import dataclasses
 
     from ate_replication_causalml_torch import pipeline as tpipe
@@ -470,8 +528,8 @@ def main() -> int:
     ap.add_argument("--dml-trees", type=int, default=2000, help="trees per DML nuisance forest")
     ap.add_argument("--rows", default="dr_rf,causal_forest,dml,lasso,balance,sweep",
                     help="comma-separated sections to run")
-    ap.add_argument("--sweep", default="micro", choices=("micro", "quick"),
-                    help="configuration of the sweep section")
+    ap.add_argument("--sweep", default="micro", choices=("micro", "quick", "full"),
+                    help="configuration of the sweep section (full: the DR-RF stage only)")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     t0 = time.perf_counter()

@@ -30,7 +30,11 @@ def test_port_lists_its_modules():
               "estimators.belloni", "ops.qp", "estimators.balance", "pipeline", "viz",
               "scheduler", "scheduler.dag", "scheduler.cache", "scheduler.engine",
               "scheduler.prefetch", "observability", "observability.registry",
-              "observability.events", "resilience", "resilience.watchdog"):
+              "observability.events", "resilience", "resilience.watchdog",
+              "observability.export", "observability.promtext", "observability.device",
+              "observability.trace", "observability.critical_path", "resilience.errors",
+              "resilience.backoff", "resilience.deadline", "resilience.chaos", "parallel",
+              "parallel.retry", "utils.profiling"):
         assert f"{_PKG}.{m}" in mods
 
 
