@@ -363,6 +363,22 @@ def _nan_or(v):
     return float("nan") if v is None else v
 
 
+@dataclasses.dataclass
+class _StageOutcome:
+    """What a stage body hands the ordered committer: the row plus what
+    the commit journals and logs in declared order (bodies may finish in
+    any order; side effects are the committer's)."""
+
+    kind: str                   # "resumed" | "computed" | "failed"
+    res: EstimatorResult
+    record: dict | None = None  # checkpoint row (computed/failed)
+    extras: dict = dataclasses.field(default_factory=dict)
+    seconds: float = 0.0
+    retry_why: str = ""         # why a journaled row was not resumable
+    error: str = ""
+    attempts: int = 0
+
+
 def run_sweep(
     config: SweepConfig = SweepConfig(),
     csv_path: str | None = None,
@@ -468,22 +484,6 @@ def _write_trace_artifacts(outdir: str, t_start: float, workers: int, csv_path: 
         sampler_ticks=sampler.ticks,
         sampler_interval_s=sampler.interval_s if workers > 1 else None))
     return obs.write_trace_artifacts(outdir, tr)
-
-
-@dataclasses.dataclass
-class _StageOutcome:
-    """What a stage body hands the ordered committer: the row plus what
-    the commit journals and logs in declared order (bodies may finish in
-    any order; side effects are the committer's)."""
-
-    kind: str                   # "resumed" | "computed" | "failed"
-    res: EstimatorResult
-    record: dict | None = None  # checkpoint row (computed/failed)
-    extras: dict = dataclasses.field(default_factory=dict)
-    seconds: float = 0.0
-    retry_why: str = ""         # why a journaled row was not resumable
-    error: str = ""
-    attempts: int = 0
 
 
 def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | None, plots: bool,

@@ -548,18 +548,23 @@ def require_row_launches(counts: dict, path: str) -> None:
 
 
 @contextlib.contextmanager
-def packed_policy():
-    """``ATE_TPU_PREDICT_PACK=1`` for the block; the old value restored in
-    a finally (an exception in the block propagates)."""
-    old = os.environ.get(pack.ENV_PACK)
-    os.environ[pack.ENV_PACK] = "1"
+def env(name: str, value: str):
+    """``name=value`` in the environment for the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop(pack.ENV_PACK, None)
+            os.environ.pop(name, None)
         else:
-            os.environ[pack.ENV_PACK] = old
+            os.environ[name] = old
+
+
+def packed_policy():
+    """``ATE_TPU_PREDICT_PACK=1`` for the block; the old value restored in
+    a finally (an exception in the block propagates)."""
+    return env(pack.ENV_PACK, "1")
 
 
 def require_unpacked(counts: dict, path: str) -> None:
@@ -2043,12 +2048,11 @@ def telemetry(out: str, rep, wall: float) -> tuple[dict, list]:
         other = json.load(f)["otherData"]
     with open(os.path.join(out, "overlap_report.json")) as f:
         overlap = json.load(f)
-    want = {r.method: "computed" if r.method not in rep.failures else "failed"
+    # The phases read the telemetry of sweeps that computed every row.
+    want = {r.method: "failed" if r.method in rep.failures else "computed"
             for r in [rep.oracle, *rep.results]}
-    if rep.resumed:
-        want = None     # the phases read the telemetry of fully computed sweeps
     stages = {r["attrs"]["method"]: r["status"] for r in events if r["name"] == "sweep_stage"}
-    if want is not None and stages != want:
+    if stages != want:
         fails.append(f"sweep_stage spans {stages}, the report's {want}")
     computed = sum(v for k, v in metrics["counters"]["sweep_stage_total"].items()
                    if "status=computed" in k)
@@ -2256,20 +2260,6 @@ def phase_path_sweep_concurrent() -> dict:
     if fails:
         raise AssertionError("path_sweep_concurrent: " + "; ".join(fails))
     return counts
-
-
-@contextlib.contextmanager
-def env(name: str, value: str):
-    """``name=value`` in the environment for the block, restored after."""
-    old = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = old
 
 
 def drop_rows(src: str, out: str, methods) -> None:
