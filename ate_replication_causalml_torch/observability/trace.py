@@ -294,49 +294,24 @@ def build_trace(records: list[dict] | None = None,
     }
 
 
-def write_trace_json(path: str, records: list[dict] | None = None,
-                     meta: dict | None = None,
-                     trace: dict | None = None) -> str | None:
-    """Atomically write the catapult trace to ``path``; returns the path
-    or None when tracing is disabled (no husk files). Callers that also
-    analyze the trace pass the prebuilt ``trace`` object — the write
-    recipe (compact separators + trailing newline, atomic) lives only
-    here."""
-    if not trace_enabled():
-        return None
-    from ate_replication_causalml_torch.observability.export import atomic_write_text
-
-    if trace is None:
-        trace = build_trace(records, meta=meta)
-    # Compact separators: a quick sweep's trace is ~1-2k events and the
-    # file is read by machines (Perfetto, the analyzer), not humans.
-    atomic_write_text(path, json.dumps(trace, separators=(",", ":")) + "\n")
-    return path
-
-
-def write_trace_artifacts(outdir: str, trace: dict,
-                          overlap_needs_nodes: bool = False) -> list[str]:
-    """Write the ``trace.json`` + ``overlap_report.json`` pair into
-    ``outdir`` — THE one write recipe both the sweep driver and bench
-    use. With ``overlap_needs_nodes``, the overlap report is skipped
-    when the trace scheduled no nodes (a forest-only bench has no DAG
-    to analyze); the sweep always writes it (a fully resumed run's
-    empty report is itself the answer). Returns the paths written
-    ([] when tracing is disabled)."""
+def write_trace_artifacts(outdir: str, trace: dict) -> list[str]:
+    """Write ``trace`` as ``trace.json`` (compact: machines read it) and
+    its ``overlap_report.json`` into ``outdir``, atomically; a fully
+    resumed run's empty report is itself the answer. Returns the paths
+    written ([] when tracing is off)."""
     if not trace_enabled():
         return []
     from ate_replication_causalml_torch.observability import critical_path as _cpath
-    from ate_replication_causalml_torch.observability.export import atomic_write_json
+    from ate_replication_causalml_torch.observability.export import (
+        atomic_write_json,
+        atomic_write_text,
+    )
 
     tpath = os.path.join(outdir, TRACE_BASENAME)
-    write_trace_json(tpath, trace=trace)
-    paths = [tpath]
-    if overlap_needs_nodes and not _cpath.nodes_from_trace(trace):
-        return paths
+    atomic_write_text(tpath, json.dumps(trace, separators=(",", ":")) + "\n")
     opath = os.path.join(outdir, OVERLAP_BASENAME)
     atomic_write_json(opath, _cpath.overlap_report(trace))
-    paths.append(opath)
-    return paths
+    return [tpath, opath]
 
 
 class MetricSampler:
