@@ -11,9 +11,9 @@ re-execution:
   **classified** retry (``resilience/errors.py::classify``): transient
   failures retry after a capped exponential backoff with deterministic
   per-``(pool, shard, attempt)`` jitter; programming errors and CUDA
-  errors raise at once. A per-pool ``deadline_s`` bounds the whole pool;
-  repeated device-origin failures trigger a :func:`probe_devices`
-  re-probe. A retried shard gives the bits the failed attempt would have;
+  errors raise at once. Repeated device-origin failures trigger a
+  :func:`probe_devices` re-probe. A retried shard gives the bits the
+  failed attempt would have;
 * :func:`require_all`: every shard's result, or the pool's failure;
 * :func:`inject_failures`: plan-based fault injection
   (``resilience/chaos.py::plan_faults``); probabilistic injection comes
@@ -31,12 +31,10 @@ import torch
 from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.backoff import jittered_backoff_delay
-from ate_replication_causalml_torch.resilience.deadline import Budget
-from ate_replication_causalml_torch.resilience.errors import (
-    ChaosFault,
-    DeadlineExceeded,
-    classify,
-)
+from ate_replication_causalml_torch.resilience.errors import ChaosFault, classify
+
+#: Device-origin failures of one pool between two re-probes.
+_REPROBE_AFTER = 2
 
 
 def probe_devices(devices: Sequence | None = None) -> list:
@@ -63,15 +61,13 @@ def probe_devices(devices: Sequence | None = None) -> list:
 
 @dataclasses.dataclass
 class ShardOutcome:
-    """One shard's execution. ``deadline`` marks a shard the pool
-    deadline cut (against one that exhausted its retries)."""
+    """One shard's execution."""
 
     index: int
     result: object = None
     attempts: int = 0
     ok: bool = False
     error: str | None = None
-    deadline: bool = False
 
 
 def backoff_delay(pool: str, shard: int, attempt: int, base_s: float) -> float:
@@ -85,33 +81,23 @@ def run_shards(
     n_shards: int,
     max_attempts: int = 3,
     backoff_s: float = 0.25,
-    log: Callable[[str], None] | None = None,
-    retriable: tuple[type[BaseException], ...] | None = None,
     pool: str = "shards",
-    deadline_s: float | None = None,
     probe: Callable[[], list] | None = None,
-    redispatch: Callable[[list], Callable[[int], object]] | None = None,
-    reprobe_after: int = 2,
 ) -> list[ShardOutcome]:
     """Run ``shard_fn(i)`` for every shard ``i`` in order, with
     classified retry.
 
     A shard that exhausts ``max_attempts`` is reported failed in its
     :class:`ShardOutcome`; the others still run (:func:`require_all`
-    raises on any failure). With ``retriable=None`` errors are classified
+    raises on any failure). Errors are classified
     (:func:`~..resilience.errors.classify`): transient ones retry, fatal
-    ones (programming errors, CUDA errors) raise at once. An explicit
-    ``retriable`` tuple retries exactly those types (and injected chaos
-    faults). ``KeyboardInterrupt`` is never caught.
+    ones (programming errors, CUDA errors) raise at once.
+    ``KeyboardInterrupt`` is never caught.
 
-    ``deadline_s`` bounds the pool's wall clock: once it passes no
-    attempt starts and no backoff begins; unfinished shards fail with a
-    ``DeadlineExceeded`` error string (event ``shard_deadline``).
-    After ``reprobe_after`` device-origin failures (out of device memory,
-    or an injected chaos fault standing for a preemption) the runner re-probes (``probe``, default
-    :func:`probe_devices`, event ``device_reprobe``) and, with
-    ``redispatch``, runs the remaining shards through
-    ``redispatch(healthy)``.
+    After every second device-origin failure of the pool (out of device
+    memory, or an injected chaos fault standing for a preemption) the
+    runner re-probes the devices (``probe``, default
+    :func:`probe_devices`, event ``device_reprobe``).
 
     ``pool`` labels the telemetry: attempts, retries, failures and
     backoff-seconds counters, created at zero up front, and
@@ -127,54 +113,32 @@ def run_shards(
     inj = chaos.active()
     if inj is not None:
         shard_fn = inj.wrap_shard(shard_fn, pool=pool)
-    catch = retriable if retriable is not None else (Exception,)
-    if inj is not None and retriable is not None:
-        # An injected fault stands for a preemption: it walks the retry
-        # path under an explicit tuple too.
-        catch = tuple(catch) + (ChaosFault,)
-    budget = None if deadline_s is None else Budget.after(deadline_s)
     device_failures = 0
-    deadline_shards = 0
 
     outcomes = [ShardOutcome(index=i) for i in range(n_shards)]
     for out in outcomes:
-        cut = False
         while out.attempts < max_attempts and not out.ok:
-            if budget is not None and budget.expired():
-                cut = True
-                break
             out.attempts += 1
             attempts_c.inc(1, pool=pool)
             try:
                 out.result = shard_fn(out.index)
                 out.ok = True
                 out.error = None
-            except catch as e:  # noqa: PERF203 — retry loop
-                if retriable is None and classify(e) == "fatal":
+            except Exception as e:  # noqa: PERF203 — retry loop
+                if classify(e) == "fatal":
                     obs.emit("shard_fatal", status="error", pool=pool, shard=out.index,
                              attempt=out.attempts, error=f"{type(e).__name__}: {e}")
                     raise
                 out.error = f"{type(e).__name__}: {e}"
-                if log:
-                    log(f"shard {out.index} attempt {out.attempts} failed: {out.error}")
                 if isinstance(e, (ChaosFault, torch.OutOfMemoryError)):
                     device_failures += 1
-                    if reprobe_after and device_failures >= reprobe_after:
+                    if device_failures >= _REPROBE_AFTER:
                         device_failures = 0
                         healthy = (probe or probe_devices)()
                         obs.emit("device_reprobe", status="ok", pool=pool,
                                  healthy=len(healthy), after_shard=out.index)
-                        if redispatch is not None:
-                            shard_fn = redispatch(healthy)
-                            if inj is not None:
-                                shard_fn = inj.wrap_shard(shard_fn, pool=pool)
                 if out.attempts < max_attempts:
                     delay = backoff_delay(pool, out.index, out.attempts, backoff_s)
-                    if budget is not None and not budget.affords(delay):
-                        # The backoff does not fit before the deadline:
-                        # cut the shard now; no retry is counted.
-                        cut = True
-                        break
                     retries_c.inc(1, pool=pool)
                     obs.emit("shard_retry", status="retrying", pool=pool, shard=out.index,
                              attempt=out.attempts, error=out.error)
@@ -182,35 +146,18 @@ def run_shards(
                     time.sleep(delay)
         if not out.ok:
             failures_c.inc(1, pool=pool)
-            if cut:
-                out.deadline = True
-                tail = f"; last error: {out.error}" if out.error else ""
-                out.error = (f"DeadlineExceeded: pool {pool!r} deadline of {deadline_s}s "
-                             f"reached after {out.attempts} attempt(s){tail}")
-                deadline_shards += 1
-                obs.emit("shard_deadline", status="error", pool=pool, shard=out.index,
-                         attempt=out.attempts, error=out.error)
-            else:
-                obs.emit("shard_failed", status="error", pool=pool, shard=out.index,
-                         attempt=out.attempts, error=out.error)
-    if deadline_shards:
-        obs.emit("pool_deadline", status="error", pool=pool, deadline_s=deadline_s,
-                 shards_cut=deadline_shards)
+            obs.emit("shard_failed", status="error", pool=pool, shard=out.index,
+                     attempt=out.attempts, error=out.error)
     return outcomes
 
 
 def require_all(outcomes: Iterable[ShardOutcome]) -> list:
-    """Every shard's result; raises if any shard failed:
-    :class:`~..resilience.errors.DeadlineExceeded` when the pool deadline
-    cut one, ``RuntimeError`` otherwise."""
+    """Every shard's result; ``RuntimeError`` if any shard failed."""
     outcomes = list(outcomes)
     failed = [o for o in outcomes if not o.ok]
     if failed:
         detail = "; ".join(f"shard {o.index}: {o.error}" for o in failed[:5])
-        msg = f"{len(failed)}/{len(outcomes)} shards failed: {detail}"
-        if any(o.deadline for o in failed):
-            raise DeadlineExceeded(msg)
-        raise RuntimeError(msg)
+        raise RuntimeError(f"{len(failed)}/{len(outcomes)} shards failed: {detail}")
     return [o.result for o in outcomes]
 
 

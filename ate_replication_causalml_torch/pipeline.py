@@ -503,7 +503,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
     log(f"prepared df n={df.n}, dropped {n_dropped} -> df_mod n={df_mod.n} on {dev.type}")
     timer = StageTimer()
     report = SweepReport(oracle=None, results=ResultTable(), n_dropped=n_dropped,
-                         n_biased=df_mod.n, timings_s=timer.seconds)
+                         n_biased=df_mod.n)
     timings = report.timings_s
     root_key = rnd.key(config.seed, device=dev)
 
@@ -632,7 +632,9 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
                              reason=why)
                 sp.set_status("computed")
                 try:
-                    with timer.stage(method), xla_trace(method), xprof_annotation(method):
+                    # The capture opens first, so the row's seconds exclude
+                    # the profiler's start and its trace export.
+                    with xla_trace(method), xprof_annotation(method), timer.stage(method):
                         if method in fault_plan:
                             chaos.active().record_stage_fault(method)
                             raise ChaosStageFault(f"chaos: injected stage fault on {method!r}")
@@ -692,6 +694,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
             log(f"  [FAILED] {method}: {outcome.error} (attempt {outcome.attempts}, "
                 f"{outcome.seconds:.1f}s); degrading, sweep continues")
             return
+        timings[method] = outcome.seconds
         if "incorrect_ate" in outcome.extras:
             log(f"  Incorrect ATE: {outcome.extras['incorrect_ate']:.3f} "
                 f"(SE: {outcome.extras['incorrect_se']:.3f})"

@@ -5,14 +5,12 @@
   seeded and deterministic, every injection an observability event;
 * :mod:`.errors`: the fatal-against-transient classification the shard
   runner retries by (CUDA errors fatal), and the typed failures;
-* :mod:`.backoff` and :mod:`.deadline`: the shard runner's jittered
-  backoff and wall-clock budget;
+* :mod:`.backoff`: the shard runner's jittered backoff;
 * :mod:`.watchdog`: the heartbeat registry and lane bounds the sweep
   engine stamps.
 """
 
 from ate_replication_causalml_torch.resilience import chaos
-from ate_replication_causalml_torch.resilience.deadline import Budget
 from ate_replication_causalml_torch.resilience.errors import (
     FATAL_ERRORS,
     ChaosFault,
@@ -28,7 +26,7 @@ from ate_replication_causalml_torch.resilience.errors import (
 )
 from ate_replication_causalml_torch.resilience.watchdog import HeartbeatRegistry, lane_bound_s
 
-__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosShardFault", "ChaosSpecError",
+__all__ = ["FATAL_ERRORS", "ChaosFault", "ChaosShardFault", "ChaosSpecError",
            "ChaosStageFault", "CheckpointCorrupt", "CudaKernelError", "DeadlineExceeded",
            "HeartbeatRegistry", "NonFiniteResult", "chaos", "classify", "lane_bound_s",
            "transient_errors"]

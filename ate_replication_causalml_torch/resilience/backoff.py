@@ -13,8 +13,8 @@ from __future__ import annotations
 import zlib
 
 #: Backoff growth is capped at this multiple of the base delay: after a
-#: few doublings a longer sleep buys no recovery, only burns the pool
-#: deadline.
+#: few doublings a longer sleep buys no recovery, only burns the run's
+#: time.
 BACKOFF_CAP_MULT = 8.0
 
 

@@ -34,7 +34,8 @@ honours, where the JAX package's sweep honours them:
 The other scopes (``serve``, ``daemon``, ``rotate``, ``fs:corrupt_npz``,
 ``hang:scope=dispatch|retrain``) belong to the serving plane and the
 checkpoint writer: they parse and have no effect in a sweep, as in the
-JAX package.
+JAX package. The injector has no decision for them yet: the slices that
+port those writers bring their injection points with them.
 
 Injection decisions are pure functions of ``(seed, scope, site)``, never
 of call order or a global RNG, so a chaos run is reproducible and,
@@ -58,7 +59,6 @@ from ate_replication_causalml_torch.observability import registry as _registry
 from ate_replication_causalml_torch.resilience.errors import (
     ChaosShardFault,
     ChaosSpecError,
-    ChaosStageFault,
 )
 
 ENV_VAR = "ATE_TPU_CHAOS"
@@ -213,30 +213,15 @@ class ChaosInjector:
         self._lock = threading.Lock()
         self._shard_left: dict[tuple[str, int], int] = {}
         fs = config.scope("fs") or _SCOPE_DEFAULTS["fs"]
-        self._fs_left = {
-            kind: (int(fs["times"]) if fs.get(kind) else 0)
-            for kind in ("torn_write", "corrupt_npz")
-        }
+        self._torn_left = int(fs["times"]) if fs.get("torn_write") else 0
         dev = config.scope("device")
         self._device_left = int(dev["times"]) if dev else 0
         self._device_unlimited = bool(dev) and int(dev["times"]) == 0
         stage = config.scope("stage")
         self._stage_left = int(stage["times"]) if stage else 0
-        self._serve_attempts: dict[str, int] = {}
         self._hang_attempts: dict[str, int] = {}
-        rot = config.scope("rotate") or _SCOPE_DEFAULTS["rotate"]
-        self._rotate_left = {
-            kind: (int(rot["times"]) if rot.get(kind) else 0)
-            for kind in ("corrupt", "mid_swap", "retrain")
-        }
-        self._rotate_verify_left = (
-            int(rot["times"]) if float(rot["verify_ms"]) > 0 else 0
-        )
         tam = config.scope("tamper") or _SCOPE_DEFAULTS["tamper"]
         self._tamper_left = int(tam["times"]) if tam.get("journal") else 0
-        # daemon scope: one kill per planned backend, ever (a SIGKILL
-        # is not repeatable); the set guards double-recording.
-        self._daemon_killed: set[str] = set()
 
     # ── bookkeeping ───────────────────────────────────────────────────
 
@@ -287,39 +272,20 @@ class ChaosInjector:
 
     # ── fs scope ──────────────────────────────────────────────────────
 
-    def _fs_take(self, kind: str) -> bool:
-        with self._lock:
-            if self._fs_left.get(kind, 0) <= 0:
-                return False
-            self._fs_left[kind] -= 1
-        return True
-
     def torn_line(self, line: str, site: str) -> str:
         """Checkpoint-journal injection point: return ``line`` truncated
         mid-record (the artifact a kill mid-append leaves) while the
         budget lasts. The newline is kept so the tear stays confined to
         this record — the run continues, and the reader's torn-line
         skip + recompute-on-resume path is what gets exercised."""
-        if not self._fs_take("torn_write"):
-            return line
+        with self._lock:
+            if self._torn_left <= 0:
+                return line
+            self._torn_left -= 1
         body = line.rstrip("\n")
         cut = max(1, len(body) // 2)
         self._record("fs", site, kind="torn_write", dropped_chars=len(body) - cut)
         return body[:cut] + "\n"
-
-    def truncate_npz(self, nbytes: int, site: str) -> int | None:
-        """Checkpoint-writer injection point: the length to truncate an
-        ``nbytes``-long archive to (or None: budget spent / scope off),
-        so the on-disk file is exactly what a torn write would leave —
-        the load side must refuse it (CheckpointCorrupt), never hand
-        back wrong arrays. Size-based so the writer can stream the
-        archive to disk and ``os.truncate`` it, instead of buffering
-        it in memory for us to slice."""
-        if not self._fs_take("corrupt_npz"):
-            return None
-        cut = max(1, (nbytes * 3) // 5)
-        self._record("fs", site, kind="corrupt_npz", dropped_bytes=nbytes - cut)
-        return cut
 
     # ── tamper scope ──────────────────────────────────────────────────
 
@@ -414,35 +380,6 @@ class ChaosInjector:
             m for m in methods if self.take_stage_fault(m, record=False)
         )
 
-    # ── serve scope ───────────────────────────────────────────────────
-
-    def take_serve_fault(self, request_id: str | int) -> bool:
-        """Serving-request injection point: whether THIS attempt of
-        ``request_id`` draws an injected fault. Selection is the pure
-        ``(seed, "serve", id)`` hash — per id, not per arrival order —
-        and a selected id's first ``times`` attempts fault (mirroring
-        the ``shard`` scope's per-site semantics), so a client that
-        retries under the same id converges: attempt ``times``+1 is
-        served. With client-stable ids the planned reject set is
-        identical run to run regardless of server-side concurrency."""
-        cfg = self.config.scope("serve")
-        if cfg is None or cfg["p"] <= 0.0:
-            return False
-        rid = str(request_id)
-        # Selection first (pure hash, stateless): attempt bookkeeping is
-        # kept ONLY for selected ids, so a long soak at small p does not
-        # grow the attempts dict by every request id ever seen.
-        if _unit(int(cfg["seed"]), "serve", rid) >= float(cfg["p"]):
-            return False
-        with self._lock:
-            attempt = self._serve_attempts.get(rid, 0) + 1
-            self._serve_attempts[rid] = attempt
-        if attempt > int(cfg["times"]):
-            return False
-        self._record("serve", f"req/{rid}", request_id=rid,
-                     attempt=attempt)
-        return True
-
     # ── hang scope ────────────────────────────────────────────────────
 
     def hang_delay_s(self, scope: str, site: str) -> float:
@@ -450,8 +387,8 @@ class ChaosInjector:
        : seconds THIS unit of work must sleep, or 0.0. Only
         the configured ``scope`` lane is eligible; selection is the
         pure ``(seed, "hang", scope, site)`` hash (per site, not per
-        arrival order — the serve-scope discipline), and a selected
-        site's first ``times`` units stall. The sleep happens INSIDE
+        arrival order), and a selected site's first ``times`` units
+        stall. The sleep happens INSIDE
         the stamped work unit, so the lane's heartbeat age grows and
         the watchdog's detection path is exactly what a real wedge
         would walk. Nothing raises and no result changes — a stall-free
@@ -474,82 +411,6 @@ class ChaosInjector:
         self._record("hang", key, lane=scope, delay_s=delay,
                      attempt=attempt)
         return delay
-
-    # ── rotate scope ──────────────────────────────────────────────────
-
-    def take_rotate_fault(self, kind: str, site: str) -> bool:
-        """Fleet-rotation injection point: whether this ``kind``
-        (``corrupt`` / ``mid_swap`` / ``retrain``) draws a fault,
-        consuming one unit of its ``times`` budget. The three kinds are
-        budgeted independently so one spec can stack failure modes
-        (``rotate:retrain,corrupt,times=2``)."""
-        with self._lock:
-            if self._rotate_left.get(kind, 0) <= 0:
-                return False
-            self._rotate_left[kind] -= 1
-        self._record("rotate", site, kind=kind)
-        return True
-
-    def rotate_verify_delay_s(self, site: str) -> float:
-        """Slow-verify injection point: seconds the rotation's verify
-        step must sleep (0.0 when the scope is off or the budget is
-        spent). Serving must be provably unaffected for the window."""
-        cfg = self.config.scope("rotate")
-        if cfg is None or float(cfg["verify_ms"]) <= 0:
-            return 0.0
-        with self._lock:
-            if self._rotate_verify_left <= 0:
-                return 0.0
-            self._rotate_verify_left -= 1
-        delay = float(cfg["verify_ms"]) / 1e3
-        self._record("rotate", site, kind="slow_verify", delay_s=delay)
-        return delay
-
-    def maybe_fail_stage(self, method: str) -> None:
-        """Sweep-stage injection point: raise for the first ``times``
-        stages whose method name contains the configured substring."""
-        if self.take_stage_fault(method):
-            cfg = self.config.scope("stage")
-            raise ChaosStageFault(
-                f"chaos: injected stage fault on {method!r} "
-                f"(fail={cfg['fail']!r})"
-            )
-
-    # ── daemon scope ──────────────────────────────────────────────────
-
-    def daemon_kill_plan(self, names: Sequence[str]) -> tuple[str, ...]:
-        """Which fleet daemons a ``daemon:kill=k,seed=..`` spec SIGKILLs
-       : rank ``names`` by the pure ``(seed, "daemon",
-        name)`` hash and take the ``k`` lowest — per name, not per
-        process id or startup order, so the same fleet draws the same
-        victims in every run and the invariant registry can recompute
-        the plan from the spec alone. The plan never selects the WHOLE
-        fleet (``k`` is capped at ``len(names) - 1``): with every
-        backend dead, zero-silent-drops is unachievable by definition
-        and the episode would prove nothing. Selection only — recording
-        happens at :meth:`record_daemon_kill`, when the signal is
-        actually sent."""
-        cfg = self.config.scope("daemon")
-        if cfg is None or int(cfg["kill"]) < 1 or not names:
-            return ()
-        k = min(int(cfg["kill"]), len(names) - 1)
-        ranked = sorted(
-            names, key=lambda n: _unit(int(cfg["seed"]), "daemon", str(n))
-        )
-        return tuple(ranked[:k])
-
-    def record_daemon_kill(self, name: str) -> bool:
-        """Emit the injection event/counter for a planned daemon kill at
-        the moment SIGKILL is sent (the stage scope's plan/record
-        split). Returns False — and records nothing — on a repeat for
-        the same daemon: one SIGKILL per victim, ever."""
-        with self._lock:
-            if name in self._daemon_killed:
-                return False
-            self._daemon_killed.add(name)
-        self._record("daemon", f"daemon/{name}", kind="kill")
-        return True
-
 
 def plan_faults(
     shard_fn: Callable[[int], object], fail_plan: dict[int, int]

@@ -6,7 +6,6 @@ Port of ``ate_replication_causalml_tpu/utils/profiling.py``, with
 * :class:`StageTimer`: accumulates wall seconds per named stage; the
   sweep times every computed row through one. Callers synchronize their
   device work inside the stage themselves;
-* :func:`stage`: one block's duration, logged;
 * :func:`xla_trace`: with ``ATE_TPU_TRACE_DIR`` set (or ``trace_dir``
   given), one ``torch.profiler`` capture of the block, exported as a
   Chrome trace ``<dir>/<label>.trace.json``, the label sanitized; a no-op
@@ -54,20 +53,6 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.seconds[name] = self.seconds.get(name, 0.0) + dt
             obs.histogram("stage_seconds", "StageTimer stage durations").observe(dt, stage=name)
-
-
-@contextlib.contextmanager
-def stage(name: str, log=None) -> Iterator[None]:
-    """Time one block; ``log`` (e.g. ``print``) receives ``name: N.NNNs``."""
-    t0 = time.perf_counter()
-    try:
-        with obs.span("stage", stage=name):
-            yield
-    finally:
-        dt = time.perf_counter() - t0
-        obs.histogram("stage_seconds", "StageTimer stage durations").observe(dt, stage=name)
-        if log is not None:
-            log(f"{name}: {dt:.3f}s")
 
 
 def device_profiling_armed() -> bool:

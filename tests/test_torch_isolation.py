@@ -33,7 +33,7 @@ def test_port_lists_its_modules():
               "observability.events", "resilience", "resilience.watchdog",
               "observability.export", "observability.promtext", "observability.device",
               "observability.trace", "observability.critical_path", "resilience.errors",
-              "resilience.backoff", "resilience.deadline", "resilience.chaos", "parallel",
+              "resilience.backoff", "resilience.chaos", "parallel",
               "parallel.retry", "utils.profiling"):
         assert f"{_PKG}.{m}" in mods
 
