@@ -17,7 +17,10 @@ shared-memory report lands beside each library as ``<name>-<hash>.log``.
 
 The hash-named libraries are the port's compile cache:
 ``compile_cache_hits_total`` counts a library found on disk,
-``compile_cache_misses_total`` an ``nvcc`` run.
+``compile_cache_misses_total`` an ``nvcc`` run, and
+``kernel_builds_total`` every library loaded into the process, either
+way: the serving daemon's proof that nothing is built after its warm
+phase reads it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` (``hist_partition_clusters`` launches nothing: it
@@ -194,6 +197,8 @@ def build_all() -> dict[str, Built]:
             lib = KERNELS[name][0]
             _, so, log = _target(lib)
             _built[name] = _load(name, so, log, seconds if lib in procs else 0.0)
+        obs.counter("kernel_builds_total", "kernel libraries built or loaded").inc(
+            len({KERNELS[k][0] for k in todo}))
         return dict(_built)
 
 
@@ -206,13 +211,14 @@ def kernel(name: str) -> Built:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, attr: str = "launches") -> None:
-    """Add one to ``wrapper.<attr>``, the launch count that tests and
-    ``chip_smoke.py`` read and reset, under a lock: the concurrent
-    sweep's workers launch from several threads, and a bare ``+= 1``
-    there can lose increments."""
+def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` (one launch by default; a CUDA graph replay adds the
+    launches it replays) to ``wrapper.<attr>``, the launch count that
+    tests and ``chip_smoke.py`` read and reset, under a lock: the
+    concurrent sweep's workers launch from several threads, and a bare
+    ``+= 1`` there can lose increments."""
     with _count_lock:
-        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 def check(built: Built, code: int) -> None:

@@ -41,9 +41,12 @@ an XLA contraction with the same leaves, and the port routes with its
 through every level to their leaves), so ``pack`` changes no number.
 
 The entry points take the JAX package's parameters in its order.
+The serving daemon's counterparts of the JAX package's AOT lowers,
+:func:`lower_predict_cate` and :func:`lower_predict_cate_masked`, return
+a :class:`WarmPredict` for one query shape: on the card one CUDA graph
+of ``predict_cate`` captured around static input and forest buffers.
 Not ported: the non-streaming ``xla``/``onehot`` formulations, the
-sharded grower (a ``mesh`` raises), the matmul row backends, and the
-serving (AOT) wrappers.
+sharded grower (a ``mesh`` raises) and the matmul row backends.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from ate_replication_causalml_torch.ops.hist import (
 )
 from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
 from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
+from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.ops.tree import table_lookup, traverse
 
 _EPS = 1e-12
@@ -446,10 +450,30 @@ def _leaf_payload(forest, codes, t0, t1, leaf_index):
                         leaf_index[t0:t1].to(torch.int32).contiguous())
 
 
+def _sum_lead(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading dim by pairwise halving, every step one
+    elementwise add. A row's sum is then the same bits whatever the
+    other rows and their count: PyTorch's reductions pick their order
+    by shape (the CPU's vectorized outer sums, the card's launch
+    configuration), so a ``sum(dim=0)`` of 3 rows and of 256 rows can
+    round one row differently, and serving pads a request into a larger
+    batch. The JAX package's predict is row-independent the same way."""
+    while t.shape[0] > 1:
+        h = t.shape[0] // 2
+        s = t[:h] + t[h : 2 * h]
+        t = torch.cat((s, t[2 * h :])) if t.shape[0] % 2 else s
+    return t[0]
+
+
 def _chunk_moments(forest, codes, g0, g1, oob, leaf_index, n):
     """The little-bag sums of groups [g0, g1) for every row: the leaf
     payload (:func:`_leaf_payload`) and the per-chunk ψ-moments of the JAX
-    package's ``chunk_fn``."""
+    package's ``chunk_fn``. Returns the chunk's (5, n) moment sums, its
+    pooled τ_c (n,) and its nine group-level sums (9, n): the count of
+    groups whose every tree is valid, ΣP_g, ΣB_g, ΣP_g², ΣB_g², ΣP_gB_g,
+    and the within-group Σdev_P², Σdev_P·dev_B, Σdev_B². Every sum over
+    trees or groups is :func:`_sum_lead`'s, so each row's bits are
+    independent of the other rows."""
     k = forest.ci_group_size
     t0, t1 = g0 * k, g1 * k
     gc = g1 - g0
@@ -459,26 +483,25 @@ def _chunk_moments(forest, codes, g0, g1, oob, leaf_index, n):
     if oob:
         valid = valid & ~forest.in_sample[t0:t1]
     m = torch.where(valid[:, None], stats / torch.clamp(cnt, min=1.0)[:, None], 0.0)
+    S_sum = _sum_lead(m)                 # (5, n)
     m = m.reshape(gc, k, 5, n)
     valid = valid.reshape(gc, k, n)
     mw, my, mww, mwy = (m[:, :, i] for i in (1, 2, 3, 4))
     A_t = mwy - mw * my                  # per-tree Cov(w̃, ỹ)
     B_t = mww - mw * mw                  # per-tree Var(w̃)
     ok_g = valid.all(dim=1).to(torch.float32)   # groups whose every tree is valid
-    A_g = A_t.mean(dim=1)
-    B_g = B_t.mean(dim=1)
-    S_sum = m.sum(dim=(0, 1))            # (5, n)
-    M_sum = m[:, :, 0].sum(dim=(0, 1))   # (n,)
-    tau_c, _ = _tau_from_sums(S_sum, M_sum)
+    A_g = _sum_lead(A_t.transpose(0, 1)) / k
+    B_g = _sum_lead(B_t.transpose(0, 1)) / k
+    tau_c, _ = _tau_from_sums(S_sum, S_sum[0])
     P_t = A_t - tau_c * B_t
     P_g = A_g - tau_c * B_g
     devP = (P_t - P_g[:, None]) * ok_g[:, None]
     devB = (B_t - B_g[:, None]) * ok_g[:, None]
-    return (S_sum, M_sum, tau_c, ok_g.sum(dim=0), (ok_g * P_g).sum(dim=0),
-            (ok_g * B_g).sum(dim=0), (ok_g * P_g * P_g).sum(dim=0),
-            (ok_g * B_g * B_g).sum(dim=0), (ok_g * P_g * B_g).sum(dim=0),
-            (devP * devP).sum(dim=(0, 1)), (devP * devB).sum(dim=(0, 1)),
-            (devB * devB).sum(dim=(0, 1)))
+    within = _sum_lead(torch.stack((devP * devP, devP * devB, devB * devB), dim=2)
+                       .transpose(0, 1))  # (gc, 3, n)
+    groups = torch.stack((ok_g, ok_g * P_g, ok_g * B_g, ok_g * P_g * P_g, ok_g * B_g * B_g,
+                          ok_g * P_g * B_g), dim=1)
+    return S_sum, tau_c, _sum_lead(torch.cat((groups, within), dim=1))
 
 
 def predict_cate(
@@ -498,7 +521,9 @@ def predict_cate(
     subsample from its contributions, grf's in-sample ``predict(forest)``
     (``ate_replication.Rmd:259``). Trees are taken ``tree_chunk`` at a
     time (whole groups), each chunk's ψ-moments at its own pooled τ_c
-    and shifted to the global τ̂ afterwards, as in the JAX package.
+    and shifted to the global τ̂ afterwards, as in the JAX package. Every
+    row is computed on its own: its bits do not depend on the other rows
+    of ``x`` (:func:`_sum_lead`), which serving relies on.
     ``row_chunk`` is validated (>= 1) and needs no blocking: the JAX
     package blocks rows to bound its (rows, nodes) one-hot operands, and
     the port's kernels have none. ``leaf_index``:
@@ -509,9 +534,7 @@ def predict_cate(
     "unbiased" (gn − 1 between-group df) or "grf" (grf's num_groups).
     ``pack`` as in :func:`compute_leaf_index`."""
     grf_df = _grf_df_flag(variance_compat)
-    if row_backend not in (None, "pallas"):
-        raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None or "
-                         "'pallas' (its CUDA kernels)")
+    _check_row_backend(row_backend)
     _check_row_chunk(row_chunk)
     _resolve_pack_for(forest, pack)
     n = x.shape[0]
@@ -534,16 +557,16 @@ def predict_cate(
     group_chunk = max(1, tree_chunk // k)
     outs = [_chunk_moments(forest, codes, g, min(g + group_chunk, n_groups), oob, leaf_index, n)
             for g in range(0, n_groups, group_chunk)]
-    (S_c, M_c, tau_c, gn_c, gP_c, gB_c, gPP_c, gBB_c, gPB_c, w2_c, wPB_c, wBB_c) = (
-        torch.stack(a) for a in zip(*outs))
-    S_b = S_c.sum(dim=0)
-    M_b = M_c.sum(dim=0)
-    tau, H = _tau_from_sums(S_b, M_b)
+    S_c, tau_c, G_c = (torch.stack(a) for a in zip(*outs))
+    S_b = _sum_lead(S_c)
+    tau, H = _tau_from_sums(S_b, S_b[0])
     d = tau[None, :] - tau_c             # shift each chunk's ψ-moments to the global τ̂
-    gn = gn_c.sum(dim=0)
-    SP = (gP_c - d * gB_c).sum(dim=0)
-    SP2 = (gPP_c - 2.0 * d * gPB_c + d * d * gBB_c).sum(dim=0)
-    ssw = (w2_c - 2.0 * d * wPB_c + d * d * wBB_c).sum(dim=0)
+    gn, SP, SP2, ssw = _sum_lead(torch.stack((
+        G_c[:, 0],
+        G_c[:, 1] - d * G_c[:, 2],
+        G_c[:, 3] - 2.0 * d * G_c[:, 5] + d * d * G_c[:, 4],
+        G_c[:, 6] - 2.0 * d * G_c[:, 7] + d * d * G_c[:, 8],
+    ), dim=1))
     # Var(τ̂) = max(V_between(ψ) − V_within(ψ)/k, 0) / H².
     ngr = torch.clamp(gn, min=1.0)
     mean_psi = SP / ngr
@@ -553,6 +576,167 @@ def predict_cate(
     var_psi = torch.clamp(v_between - v_within / k, min=0.0)
     variance = torch.where(H > _EPS, var_psi / torch.clamp(H, min=_EPS) ** 2, 0.0)
     return CatePredictions(cate=tau, variance=variance)
+
+
+def _check_row_backend(row_backend) -> None:
+    if row_backend not in (None, "pallas"):
+        raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None or "
+                         "'pallas' (its CUDA kernels)")
+
+
+#: The forest's tensor fields, the buffers a warmed predict reads.
+_CF_TENSORS = tuple(_CF_DTYPES)
+
+
+class WarmPredict:
+    """A predict warmed for one query shape ``(batch, p)``, the port's
+    counterpart of the JAX package's AOT executable. Call it as
+    ``warm(forest, x)`` (masked: ``warm(forest, x, mask)``) with host
+    ``x`` (batch, p) float32; it returns :class:`CatePredictions` of host
+    float32 numpy arrays.
+
+    On the card: at construction the kernels are built, ``predict_cate``
+    runs once on a side stream (``warm-up``) and is captured as one
+    ``torch.cuda.CUDAGraph`` around static buffers: the query, the mask,
+    and a copy of the forest's tensors. The forest is the call's runtime
+    argument: a call with another forest object of the same geometry
+    (a degraded-mode reload, a same-shape fleet model) copies its
+    tensors into the captured buffers first, and nothing is captured
+    again. A call is one copy into the static query buffer, one replay
+    and one host read. Every replay adds the ``traverse`` launches it
+    runs to ``traverse.launches`` (the capture's own recorded launches
+    are taken back out), and every capture counts in
+    ``graph_captures_total``.
+
+    On the CPU the same callable runs ``predict_cate`` on the given forest
+    and query directly, without a graph.
+
+    Masked: the outputs are multiplied by a (batch,) 0/1 row mask, as the
+    JAX package's fused executable does: real rows keep their bits (×1.0
+    is exact), masked rows are exact zeros."""
+
+    def __init__(self, forest: CausalForest, batch: int, *, masked: bool, oob: bool,
+                 tree_chunk: int, row_chunk: int, row_backend: str | None,
+                 variance_compat: str, pack: bool | str | None):
+        _grf_df_flag(variance_compat)
+        _check_row_backend(row_backend)
+        _check_row_chunk(row_chunk)
+        _resolve_pack_for(forest, pack)
+        self.batch = int(batch)
+        self.p = int(forest.bin_edges.shape[0])
+        self.masked = masked
+        self._kw = dict(oob=oob, tree_chunk=tree_chunk, row_chunk=row_chunk,
+                        row_backend=row_backend, variance_compat=variance_compat, pack=pack)
+        self.device = forest.bin_edges.device
+        self.shapes = {f: tuple(getattr(forest, f).shape) for f in _CF_TENSORS}
+        self.graph = None
+        self.traverse_per_replay = 0
+        self._bound = None
+        if self.device.type == "cuda":
+            self._capture(forest)
+
+    def _run(self, forest, x, mask):
+        out = predict_cate(forest, x, **self._kw)
+        both = torch.stack((out.cate, out.variance))
+        return both * mask if mask is not None else both
+
+    def _capture(self, forest) -> None:
+        dev = self.device
+        build.build_all()
+        self._forest = CausalForest(**{f: getattr(forest, f).clone() for f in _CF_TENSORS},
+                                    ci_group_size=forest.ci_group_size)
+        self._bound = forest
+        self._x = torch.zeros((self.batch, self.p), dtype=torch.float32, device=dev)
+        self._mask = (torch.ones((self.batch,), dtype=torch.float32, device=dev)
+                      if self.masked else None)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run(self._forest, self._x, self._mask)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = traverse.launches
+        with torch.cuda.graph(graph):
+            self._out = self._run(self._forest, self._x, self._mask)
+        # The capture records the launches; they run at each replay.
+        self.traverse_per_replay = traverse.launches - before
+        build.count_launch(traverse, n=-self.traverse_per_replay)
+        obs.counter("graph_captures_total", "CUDA graphs captured").inc(1, kind="predict_cate")
+        self.graph = graph
+
+    def _bind(self, forest) -> None:
+        """Copy another forest's tensors into the captured buffers."""
+        if forest.ci_group_size != self._forest.ci_group_size or any(
+                tuple(getattr(forest, f).shape) != self.shapes[f] for f in _CF_TENSORS):
+            raise ValueError("forest geometry differs from the warmed predict's; "
+                             "warm a new one")
+        for f in _CF_TENSORS:
+            getattr(self._forest, f).copy_(getattr(forest, f))
+        self._bound = forest
+
+    def __call__(self, forest: CausalForest, x, mask=None) -> CatePredictions:
+        if (mask is not None) != self.masked:
+            raise TypeError("a masked warmed predict takes (forest, x, mask); an unmasked "
+                            "one (forest, x)")
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if tuple(x.shape) != (self.batch, self.p):
+            raise ValueError(f"x must be {(self.batch, self.p)}, got {tuple(x.shape)}")
+        if self.graph is None:
+            m = None if mask is None else torch.as_tensor(mask, dtype=torch.float32)
+            both = self._run(forest, x.to(self.device), m)
+        else:
+            if forest is not self._bound:
+                self._bind(forest)
+            self._x.copy_(x)
+            if mask is not None:
+                self._mask.copy_(torch.as_tensor(mask, dtype=torch.float32))
+            self.graph.replay()
+            build.count_launch(traverse, n=self.traverse_per_replay)
+            both = self._out
+        host = both.cpu().numpy()
+        return CatePredictions(cate=host[0].copy(), variance=host[1].copy())
+
+
+def lower_predict_cate(
+    forest: CausalForest,
+    batch: int,
+    *,
+    oob: bool = False,
+    tree_chunk: int = 32,
+    row_chunk: int = DEFAULT_ROW_CHUNK,
+    row_backend: str | None = None,
+    variance_compat: str = "unbiased",
+    pack: bool | str | None = None,
+) -> WarmPredict:
+    """The predict for a fixed ``(batch, p)`` query shape, warmed (on the
+    card: built and captured), called as ``warm(forest, x)``: the
+    counterpart of the JAX package's AOT lower, whose ``.compile()``
+    executable the daemon calls as ``compiled(forest, x, None)``. The
+    forest is a runtime argument, so a same-shape reload reuses it. The
+    JAX package's ``donate`` has no counterpart: the warmed predict
+    copies the query into its own buffer."""
+    return WarmPredict(forest, batch, masked=False, oob=oob, tree_chunk=tree_chunk,
+                       row_chunk=row_chunk, row_backend=row_backend,
+                       variance_compat=variance_compat, pack=pack)
+
+
+def lower_predict_cate_masked(
+    forest: CausalForest,
+    batch: int,
+    *,
+    oob: bool = False,
+    tree_chunk: int = 32,
+    row_chunk: int = DEFAULT_ROW_CHUNK,
+    row_backend: str | None = None,
+    variance_compat: str = "unbiased",
+    pack: bool | str | None = None,
+) -> WarmPredict:
+    """:func:`lower_predict_cate` for a fused bucket group, called as
+    ``warm(forest, x, mask)`` with a (batch,) float32 0/1 row mask: real
+    rows bit-identical to the unmasked predict, masked rows exactly 0."""
+    return WarmPredict(forest, batch, masked=True, oob=oob, tree_chunk=tree_chunk,
+                       row_chunk=row_chunk, row_backend=row_backend,
+                       variance_compat=variance_compat, pack=pack)
 
 
 def _aipw_from_cate(w, y, y_hat, w_hat, tau_i, clip=0.01):

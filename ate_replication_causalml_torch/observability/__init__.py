@@ -1,8 +1,10 @@
 """Telemetry of the port, the JAX package's ``observability`` surface
-for the sweep:
+for the sweep and the serving daemon:
 
-* the metrics registry (``counter``, ``gauge``, ``histogram``;
-  ``REGISTRY``) and the event log (``span``, ``emit``; ``EVENTS``);
+* the metrics registry (``counter``, ``gauge``, ``histogram``,
+  ``bucket_histogram``; ``REGISTRY``) and the event log (``span``,
+  ``emit``; ``EVENTS``);
+* the serving daemon's SLO engine (:mod:`.slo`);
 * the exporters: ``metrics.json``, ``events.jsonl`` and the Prometheus
   textfile (:mod:`.export`, :mod:`.promtext`), all written atomically;
 * device and build capture (:mod:`.device`);
@@ -31,9 +33,11 @@ from ate_replication_causalml_torch.observability.export import (
     write_run_artifacts,
 )
 from ate_replication_causalml_torch.observability.registry import (
+    PAD_FRACTION_BOUNDS,
     REGISTRY,
     SCHEMA_VERSION,
     MetricsRegistry,
+    bucket_histogram,
     counter,
     gauge,
     histogram,
@@ -46,8 +50,9 @@ from ate_replication_causalml_torch.observability.trace import (
     write_trace_artifacts,
 )
 
-__all__ = ["EVENTS", "EventLog", "MetricSampler", "MetricsRegistry", "REGISTRY",
-           "SCHEMA_VERSION", "atomic_write_json", "atomic_write_text", "build_trace", "counter",
+__all__ = ["EVENTS", "EventLog", "MetricSampler", "MetricsRegistry", "PAD_FRACTION_BOUNDS",
+           "REGISTRY", "SCHEMA_VERSION", "atomic_write_json", "atomic_write_text",
+           "bucket_histogram", "build_trace", "counter",
            "emit", "gauge", "histogram", "install_monitoring", "instrument_dispatch",
            "record_device_memory", "sanitize_label", "span", "trace_enabled",
            "write_events_jsonl", "write_metrics_json", "write_run_artifacts",

@@ -5,9 +5,9 @@ renders the registry in the Prometheus text exposition format, so a
 run's output directory can be scraped through the node exporter's
 textfile collector (``--collector.textfile.directory``). Names carry the
 JAX package's ``ate_tpu_`` prefix, so one dashboard reads both packages.
-Histograms export as summaries (``_count`` / ``_sum``) plus ``_min`` /
-``_max``: no bucket boundaries, matching the registry's summary
-histograms.
+Summary histograms export as ``_count`` / ``_sum`` plus ``_min`` /
+``_max``; bucketed histograms as Prometheus histograms, cumulative
+``_bucket{le=...}`` lines ending at ``+Inf`` == ``_count``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,13 @@ def _prom_labels(label_key: str) -> str:
     return "{" + ",".join(parts) + "}"
 
 
+def _labels_with_le(label_key: str, le: str) -> str:
+    """Registry label key plus the Prometheus ``le`` bucket label."""
+    base = _prom_labels(label_key)
+    pair = f'le="{le}"'
+    return "{" + pair + "}" if not base else base[:-1] + "," + pair + "}"
+
+
 def render_prom_from_snapshot(snap: dict) -> str:
     """The exposition text of a registry snapshot (``metrics.json``)."""
     lines: list[str] = []
@@ -53,6 +60,18 @@ def render_prom_from_snapshot(snap: dict) -> str:
             lb = _prom_labels(key)
             for stat in ("count", "sum", "min", "max"):
                 lines.append(f"{pname}_{stat}{lb} {s[stat]!r}")
+    for name, samples in sorted(snap.get("bucket_histograms", {}).items()):
+        pname = _prom_name(name)
+        lines.append(f"# TYPE {pname} histogram")
+        for key, s in sorted(samples.items()):
+            cum = 0
+            for bound, c in zip(s["bounds"], s["buckets"]):
+                cum += c
+                lines.append(f"{pname}_bucket{_labels_with_le(key, repr(bound))} {cum}")
+            lines.append(f"{pname}_bucket{_labels_with_le(key, '+Inf')} {s['count']}")
+            lb = _prom_labels(key)
+            lines.append(f"{pname}_sum{lb} {s['sum']!r}")
+            lines.append(f"{pname}_count{lb} {s['count']}")
     return "\n".join(lines) + ("\n" if lines else "")
 
 

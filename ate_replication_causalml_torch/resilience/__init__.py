@@ -7,7 +7,9 @@
   runner retries by (CUDA errors fatal), and the typed failures;
 * :mod:`.backoff`: the shard runner's jittered backoff;
 * :mod:`.watchdog`: the heartbeat registry and lane bounds the sweep
-  engine stamps.
+  engine stamps, and the watchdog over the serving dispatcher;
+* :mod:`.deadline`: the wall-clock :class:`~.deadline.Budget` a serving
+  request carries.
 """
 
 from ate_replication_causalml_torch.resilience import chaos
@@ -24,9 +26,14 @@ from ate_replication_causalml_torch.resilience.errors import (
     classify,
     transient_errors,
 )
-from ate_replication_causalml_torch.resilience.watchdog import HeartbeatRegistry, lane_bound_s
+from ate_replication_causalml_torch.resilience.deadline import Budget
+from ate_replication_causalml_torch.resilience.watchdog import (
+    HeartbeatRegistry,
+    Watchdog,
+    lane_bound_s,
+)
 
-__all__ = ["FATAL_ERRORS", "ChaosFault", "ChaosShardFault", "ChaosSpecError",
+__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosShardFault", "ChaosSpecError",
            "ChaosStageFault", "CheckpointCorrupt", "CudaKernelError", "DeadlineExceeded",
            "HeartbeatRegistry", "NonFiniteResult", "chaos", "classify", "lane_bound_s",
-           "transient_errors"]
+           "transient_errors", "Watchdog"]

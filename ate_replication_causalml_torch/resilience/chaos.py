@@ -19,23 +19,28 @@ honours, where the JAX package's sweep honours them:
 * ``device``: ``drop=k``: ``probe_devices`` reports the last ``k``
   devices unhealthy (``times`` probes affected; 0 = every probe);
 * ``fs``: ``torn_write``: the next journal append is written truncated,
-  the artifact a kill mid-append leaves; ``times`` budgets it;
+  the artifact a kill mid-append leaves; ``corrupt_npz``: the next
+  checkpoint archive (``utils/checkpoint.py::save_fitted``) is written
+  truncated, which ``load_fitted`` must refuse; ``times`` budgets each;
 * ``stage``: ``fail=<substring>``: the first ``times`` sweep stages whose
   name contains the substring raise :class:`~.errors.ChaosStageFault`
   (graceful degradation);
 * ``hang``: ``scope=worker,ms=..,p=..,seed=..,times=..``: a selected
   engine node (hashed by name) sleeps ``ms`` before it runs, the stall
-  the engine's watchdog must report; nothing raises;
+  the engine's watchdog must report (``scope=dispatch``: the serving
+  dispatcher sleeps inside a batch); nothing raises;
 * ``tamper``: ``journal,delta=..,times=..``: the next journaled row's
   ``ate`` is perturbed by ``delta`` after the in-memory copy was taken,
   silent corruption only a bit-identity check against a fault-free run
-  can catch.
+  can catch;
+* ``serve``: ``p``, ``seed``, ``times``: a request id selected by the
+  pure ``(seed, "serve", id)`` hash is refused typed on its first
+  ``times`` attempts while the daemon degrades and reloads its
+  checkpoint (``serving/daemon.py``).
 
-The other scopes (``serve``, ``daemon``, ``rotate``, ``fs:corrupt_npz``,
-``hang:scope=dispatch|retrain``) belong to the serving plane and the
-checkpoint writer: they parse and have no effect in a sweep, as in the
-JAX package. The injector has no decision for them yet: the slices that
-port those writers bring their injection points with them.
+The ``daemon`` and ``rotate`` scopes and ``hang:scope=retrain`` belong
+to the parts of the serving plane not ported yet (kills behind a router,
+rotation, retraining): they parse and have no effect, as in a JAX sweep.
 
 Injection decisions are pure functions of ``(seed, scope, site)``, never
 of call order or a global RNG, so a chaos run is reproducible and,
@@ -214,6 +219,8 @@ class ChaosInjector:
         self._shard_left: dict[tuple[str, int], int] = {}
         fs = config.scope("fs") or _SCOPE_DEFAULTS["fs"]
         self._torn_left = int(fs["times"]) if fs.get("torn_write") else 0
+        self._corrupt_left = int(fs["times"]) if fs.get("corrupt_npz") else 0
+        self._serve_attempts: dict[str, int] = {}
         dev = config.scope("device")
         self._device_left = int(dev["times"]) if dev else 0
         self._device_unlimited = bool(dev) and int(dev["times"]) == 0
@@ -286,6 +293,18 @@ class ChaosInjector:
         cut = max(1, len(body) // 2)
         self._record("fs", site, kind="torn_write", dropped_chars=len(body) - cut)
         return body[:cut] + "\n"
+
+    def truncate_npz(self, nbytes: int, site: str) -> int | None:
+        """Checkpoint-writer injection point: the length to truncate an
+        ``nbytes``-long archive to (None: budget spent or scope off), so
+        the file on disk is what a torn write would leave."""
+        with self._lock:
+            if self._corrupt_left <= 0:
+                return None
+            self._corrupt_left -= 1
+        cut = max(1, (nbytes * 3) // 5)
+        self._record("fs", site, kind="corrupt_npz", dropped_bytes=nbytes - cut)
+        return cut
 
     # ── tamper scope ──────────────────────────────────────────────────
 
@@ -379,6 +398,28 @@ class ChaosInjector:
         return frozenset(
             m for m in methods if self.take_stage_fault(m, record=False)
         )
+
+    # ── serve scope ───────────────────────────────────────────────────
+
+    def take_serve_fault(self, request_id: str | int) -> bool:
+        """Serving-request injection point: whether THIS attempt of
+        ``request_id`` draws an injected fault. Selection is the pure
+        ``(seed, "serve", id)`` hash, per id and not per arrival order;
+        a selected id's first ``times`` attempts fault, so a client that
+        retries under the same id converges."""
+        cfg = self.config.scope("serve")
+        if cfg is None or cfg["p"] <= 0.0:
+            return False
+        rid = str(request_id)
+        if _unit(int(cfg["seed"]), "serve", rid) >= float(cfg["p"]):
+            return False
+        with self._lock:
+            attempt = self._serve_attempts.get(rid, 0) + 1
+            self._serve_attempts[rid] = attempt
+        if attempt > int(cfg["times"]):
+            return False
+        self._record("serve", f"req/{rid}", request_id=rid, attempt=attempt)
+        return True
 
     # ── hang scope ────────────────────────────────────────────────────
 

@@ -59,6 +59,24 @@ imports nothing of JAX. Phases, each printing one JSON line:
    trees of depth 8, 500 nuisance trees of depth 9, the sweep's key),
    with stage times and launch counts read around it and the ATE and SE
    held to their recorded values (``CF_ATE``, ``CF_SE``);
+6b. path_serve — the CATE serving daemon (``serving/``) on the causal
+   row's forest (fit again with path_cf's key): ``save_fitted`` into
+   ``build/chip_smoke_serve/``, ``CateServer(ServeConfig(...)).startup()``
+   on the card (buckets 1,8,64,256, a 2 ms window, depth 64: one CUDA
+   graph a bucket), ``SERVE_REQUESTS`` requests of real covariate rows
+   (sizes cycling through ``SERVE_SIZES``) from ``SERVE_PRODUCERS``
+   threads through ``submit``, ``SERVE_SEQUENTIAL`` one at a time (the
+   per-bucket latency), ``SERVE_WIRE`` through the port's client over
+   ``serve_socket``, a burst past the admission depth (typed
+   ``overloaded`` rejects) and a ``SERVE_CHAOS`` run (the planned
+   faults, degraded mode, verified reloads); every served row bit for
+   bit the offline ``predict_cate(forest, x, oob=False)`` on the card,
+   ``traverse`` held to its plain version at the serving shapes and
+   launched ``traverse_per_replay`` times a replay (warm-up, warm and
+   every batch), no kernel build and no graph capture after warm
+   (``stop()`` asserts it); prints the startup phases, p50/p99 latency
+   per bucket, rows/s, the close reasons and the card's name and power
+   limit;
 7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
    card and on the CPU, held to stated bounds (split agreement, leaf
    statistics, τ̂ and its variance, the ATE and its SE);
@@ -160,6 +178,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -200,6 +219,16 @@ from ate_replication_causalml_torch.ops import hist, lasso, pack, qp, tree  # no
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
 from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
+from ate_replication_causalml_torch.resilience import chaos  # noqa: E402
+from ate_replication_causalml_torch.serving.client import CateClient  # noqa: E402
+from ate_replication_causalml_torch.serving.coalescer import BucketPlan  # noqa: E402
+from ate_replication_causalml_torch.serving.daemon import (  # noqa: E402
+    CateServer,
+    RejectedRequest,
+    ServeConfig,
+    serve_socket,
+)
+from ate_replication_causalml_torch.utils.checkpoint import save_fitted  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -353,6 +382,18 @@ CHAIN_CYCLES_PER_STEP = 4
 # 5-step butterfly of a shuffle and an add (10), and the scalar update
 # with β_j's store and load across the warp barrier (12).
 CHAIN_FIXED_STEPS = 10 + 12
+
+# path_serve: the daemon at its defaults (buckets 1,8,64,256, a 2 ms window,
+# depth 64) on path_cf's forest; request sizes cycle so every bucket
+# serves; 4 producer threads, then requests one at a time (each rides its
+# own bucket: the per-bucket latency), the port's client over a socket,
+# one burst past the admission depth, one chaos run of SERVE_CHAOS.
+SERVE_BUCKETS = "1,8,64,256"
+SERVE_SIZES = (1, 3, 8, 17, 64, 100, 256)
+SERVE_REQUESTS, SERVE_PRODUCERS, SERVE_SEQUENTIAL = 504, 4, 56
+SERVE_WIRE, SERVE_CHAOS_REQUESTS = 24, 40
+SERVE_CHAOS = "serve:p=0.25,seed=11"
+SERVE_CKPT = os.path.join(REPO, "build", "chip_smoke_serve", "forest.npz")
 
 RECORD: dict = {}
 # Rows of the path phases that the sweep's rows are held to.
@@ -1441,6 +1482,211 @@ def phase_path_cf(frame_mod) -> tuple[dict, dict]:
     return counts, out
 
 
+def serve_submit(server, rid: str, x, on_fault=None):
+    """submit(), retried on the typed retryable rejects as a client does."""
+    for _ in range(2000):
+        try:
+            return server.submit(rid, x)
+        except RejectedRequest as rej:
+            if rej.code == "serve_fault" and on_fault is not None:
+                on_fault(rid)
+            elif rej.code not in ("overloaded", "degraded", "serve_fault"):
+                raise
+            time.sleep(rej.retry_after_s or 0.002)
+    raise AssertionError(f"path_serve: no progress on {rid}")
+
+
+def phase_path_serve(frame_mod, smi: str) -> dict:
+    """The CATE serving daemon on the causal row's forest: save_fitted,
+    CateServer(...).startup() on the card, requests from producer
+    threads through submit() and from the port's client over
+    serve_socket, then stop(), which holds the window to no kernel build
+    and no graph capture. Every served row is held bit for bit to
+    offline ``predict_cate(forest, x, oob=False)`` on the card."""
+    fitted = cf.fit_causal_forest(frame_mod, key=sweep_key("causal_forest", "cuda"),
+                                  n_trees=CF_TREES, depth=CF_DEPTH,
+                                  nuisance_trees=CF_NUISANCE_TREES, nuisance_depth=DEPTH)
+    forest = fitted.forest
+    shutil.rmtree(os.path.dirname(SERVE_CKPT), ignore_errors=True)
+    t0 = time.perf_counter()
+    save_fitted(SERVE_CKPT, fitted)
+    save_s = time.perf_counter() - t0
+    # Real covariate rows of the frame, new data to the forest (oob=False).
+    x_all = frame_mod.x.float().cpu().numpy()
+    n_req = SERVE_REQUESTS + SERVE_SEQUENTIAL + SERVE_WIRE
+    xs, off = [], 0
+    for i in range(n_req):
+        m = SERVE_SIZES[i % len(SERVE_SIZES)]
+        if off + m > x_all.shape[0]:
+            off = 0
+        xs.append(np.ascontiguousarray(x_all[off:off + m]))
+        off += m
+    ref = cf.predict_cate(forest, torch.as_tensor(np.concatenate(xs), device="cuda"), oob=False)
+    ref_c, ref_v = ref.cate.cpu().numpy(), ref.variance.cpu().numpy()
+    starts = np.cumsum([0] + [x.shape[0] for x in xs])
+    # The kernel at this path's shapes against its plain version (a
+    # 32-tree chunk, the largest and the smallest bucket), uncounted.
+    for rows in (256, 1):
+        codes = fo.binarize(torch.as_tensor(x_all[:rows], device="cuda"), forest.bin_edges)
+        args = (codes, forest.split_feat[:32].contiguous(), forest.split_bin[:32].contiguous(),
+                forest.leaf_stats[:32].contiguous())
+        if not torch.equal(tree.traverse(*args), tree.traverse_plain(*args)):
+            raise AssertionError(f"path_serve: traverse differs from its plain version at "
+                                 f"{rows} rows")
+    fails: list[str] = []
+
+    def check(label: str, i: int, got) -> None:
+        c, v = got
+        a, b = starts[i], starts[i + 1]
+        if not (np.array_equal(c, ref_c[a:b]) and np.array_equal(v, ref_v[a:b])):
+            fails.append(f"{label} request {i} differs from offline predict_cate")
+
+    batches0 = sum((obs.REGISTRY.peek("serving_batches_total") or {}).values())
+    reset_counts()
+    t0 = time.perf_counter()
+    server = CateServer(ServeConfig(checkpoint=SERVE_CKPT, buckets=BucketPlan.parse(SERVE_BUCKETS),
+                                    window_s=0.002, max_depth=64, device="cuda"))
+    phases = server.startup()
+    startup_wall = time.perf_counter() - t0
+    warm_traverse = tree.traverse.launches
+    per_replay = server._predicts[next(iter(server._predicts))].traverse_per_replay
+    # Producers: SERVE_PRODUCERS threads, each its share of the requests.
+    done: dict[int, object] = {}
+    errors: list[str] = []
+
+    def producer(k: int) -> None:
+        try:
+            mine = [(i, serve_submit(server, f"r{i}", xs[i]))
+                    for i in range(k, SERVE_REQUESTS, SERVE_PRODUCERS)]
+            for i, req in mine:
+                if not req.wait(60) or req.error is not None:
+                    errors.append(f"r{i}: {req.error}")
+                done[i] = req
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(f"producer {k}: {type(e).__name__}: {e}")
+
+    # The port's client over a socket, concurrently.
+    bound: list[int] = []
+    sock_thread = threading.Thread(target=serve_socket, args=(server, "127.0.0.1", 0),
+                                   kwargs={"on_bound": bound.append}, daemon=True)
+    sock_thread.start()
+    t_wait = time.monotonic()
+    while not bound and time.monotonic() - t_wait < 30:
+        time.sleep(0.01)
+    wire_lat = []
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(k,)) for k in range(SERVE_PRODUCERS)]
+    for t in threads:
+        t.start()
+    with CateClient.connect("127.0.0.1", bound[0]) as client:
+        if client.ping()["state"] != "serving":
+            fails.append("ping: not serving")
+        for j in range(SERVE_WIRE):
+            i = SERVE_REQUESTS + SERVE_SEQUENTIAL + j
+            t1 = time.perf_counter()
+            got = client.predict(xs[i], request_id=f"w{i}")
+            wire_lat.append(time.perf_counter() - t1)
+            check("wire", i, got)
+        for t in threads:
+            t.join()
+        serve_wall = time.perf_counter() - t0
+        wire_stats = client.stats()
+    if errors:
+        raise AssertionError("path_serve: " + "; ".join(errors[:5]))
+    for i, req in done.items():
+        check("submit", i, req.result)
+    served_rows = sum(x.shape[0] for x in xs[:SERVE_REQUESTS]) + sum(
+        x.shape[0] for x in xs[SERVE_REQUESTS + SERVE_SEQUENTIAL:])
+    loaded: dict[int, list] = {}
+    for req in done.values():
+        loaded.setdefault(req.batch_bucket, []).append(req.resolved_mono - req.enqueued_mono)
+    lat: dict[int, list] = {}
+    for i in range(SERVE_REQUESTS, SERVE_REQUESTS + SERVE_SEQUENTIAL):
+        req = serve_submit(server, f"s{i}", xs[i])
+        if not req.wait(60) or req.error is not None:
+            fails.append(f"s{i}: {req.error}")
+            continue
+        check("sequential", i, req.result)
+        lat.setdefault(req.batch_bucket, []).append(req.resolved_mono - req.enqueued_mono)
+    # A burst past the admission depth: typed rejects, never a queue.
+    burst_codes: dict[str, int] = {}
+    burst = []
+    for i in range(4 * 64):
+        try:
+            burst.append(server.submit(f"b{i}", xs[6]))
+        except RejectedRequest as rej:
+            burst_codes[rej.code] = burst_codes.get(rej.code, 0) + 1
+    for req in burst:
+        if not req.wait(60) or req.error is not None:
+            fails.append(f"burst request {req.request_id}: {req.error}")
+        else:
+            check("burst", 6, req.result)
+    if not burst_codes.get("overloaded"):
+        fails.append(f"burst past depth 64 drew no overloaded reject: {burst_codes}")
+    # Chaos: a seeded serve: fault set, degraded mode, verified reload.
+    faulted: list[str] = []
+    ids = [f"c{i}" for i in range(SERVE_CHAOS_REQUESTS)]
+    t1 = time.perf_counter()
+    with chaos.override(SERVE_CHAOS):
+        for i, rid in enumerate(ids):
+            req = serve_submit(server, rid, xs[i], on_fault=faulted.append)
+            if not req.wait(60) or req.error is not None:
+                fails.append(f"chaos request {rid}: {req.error}")
+            else:
+                check("chaos", i, req.result)
+    chaos_s = time.perf_counter() - t1
+    expected = [rid for rid in ids if chaos._unit(11, "serve", rid) < 0.25]
+    if faulted != expected or not expected:
+        fails.append(f"chaos faulted {faulted}, planned {expected}")
+    if server.lifecycle.state != "serving" or server.lifecycle.reload_count < 1:
+        fails.append(f"chaos: state {server.lifecycle.state}, "
+                     f"reloads {server.lifecycle.reload_count}")
+    window = server.builds_in_window()
+    stats = server.stats()
+    server.stop()
+    sock_thread.join(10)
+    counts = read_counts()
+    batches = sum((obs.REGISTRY.peek("serving_batches_total") or {}).values()) - batches0
+    n_warm = len(server.config.buckets.sizes)
+    if counts["traverse"] != per_replay * (2 * n_warm + batches):
+        fails.append(f"traverse launches {counts['traverse']}, want {per_replay} x "
+                     f"({2 * n_warm} warm-up and warm + {batches} batches)")
+    if any(window.values()):
+        fails.append(f"builds in the serving window: {window}")
+    require_launched(counts, ("traverse",), "serve")
+    others = {k: v for k, v in counts.items() if k != "traverse" and v}
+    if others:
+        fails.append(f"kernels other than traverse launched: {others}")
+    used = {int(k.split("=")[1]) for k, v in (obs.REGISTRY.peek("serving_batches_total") or {}
+                                              ).items() if v and k}
+    if used != set(BucketPlan.parse(SERVE_BUCKETS).sizes) or set(lat) != used:
+        fails.append(f"buckets used {sorted(used)}, one at a time {sorted(lat)}")
+    pct = lambda v, q: float(np.percentile(np.asarray(v) * 1e3, q))
+    out = {"phase": "path_serve", "nvidia_smi": smi, "trees": CF_TREES, "depth": CF_DEPTH,
+           "features": int(x_all.shape[1]), "buckets": SERVE_BUCKETS,
+           "checkpoint_mb": os.path.getsize(SERVE_CKPT) / 2**20, "save_s": save_s,
+           "startup_s": phases, "startup_wall_s": startup_wall,
+           "requests": {"submit": SERVE_REQUESTS, "sequential": SERVE_SEQUENTIAL,
+                        "wire": SERVE_WIRE, "burst": len(burst), "chaos": SERVE_CHAOS_REQUESTS},
+           "rows": served_rows, "serve_wall_s": serve_wall, "rows_per_s": served_rows / serve_wall,
+           "latency_ms": {str(b): {"count": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                          for b, v in sorted(lat.items())},
+           "loaded_latency_ms": {str(b): {"count": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                                 for b, v in sorted(loaded.items())},
+           "wire_latency_ms": {"p50": pct(wire_lat, 50), "p99": pct(wire_lat, 99)},
+           "batches": batches, "traverse_per_replay": per_replay,
+           "warm_traverse": warm_traverse, "builds_in_window": window,
+           "close_reasons": stats["close_reasons"], "burst_rejects": burst_codes,
+           "chaos": {"faulted": len(faulted), "reloads": server.lifecycle.reload_count,
+                     "seconds": chaos_s},
+           "wire_stats_compile_events": wire_stats["compile_events_in_window"],
+           "launches": counts}
+    emit(out)
+    if fails:
+        raise AssertionError("path_serve: " + "; ".join(fails[:8]))
+    return counts
+
+
 def path_agrees(f1, b1, f2, b2) -> np.ndarray:
     """(T, 2^D) mask of the leaves whose every split on the path agrees."""
     n_trees, depth, _ = f1.shape
@@ -2434,6 +2680,7 @@ def main() -> int:
     by_path = {"dr_rf": phase_path(frame, frame_mod)}
     phase_parity(frame_mod)
     by_path["causal_forest"], cf_out = phase_path_cf(frame_mod)
+    by_path["path_serve"] = phase_path_serve(frame_mod, smi)
     card_32 = phase_parity_cf(frame_mod)
     by_path["leaf_index"] = phase_path_leaf_index(card_32)
     by_path["causal_forest_packed"] = phase_path_cf_packed(frame_mod, cf_out, card_32)

@@ -24,7 +24,8 @@ builds its package's kernels before the timed call, so no wall holds an
 limit first, then each run (wall, rows, files, the sampler's samples),
 then a summary a mode; exits 1 if any run's rows differ from the first
 run's bit for bit (each run's line names the rows that differ and
-carries every row's τ and SE). It needs a card and imports no JAX.
+carries every row's τ and SE, a failed row's error and attempts, and
+the process's peak device memory). It needs a card and imports no JAX.
 """
 
 from __future__ import annotations
@@ -69,6 +70,8 @@ def one(repo: str, mode: str, outdir: str) -> dict:
             samples = json.load(f).get("otherData", {}).get("sampler_ticks")
     return {"wall_s": wall, "computed": rep.computed,
             "rows": {r.method: [r.ate, r.se] for r in [rep.oracle, *rep.results]},
+            "failures": rep.failures,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "files": [f for f in FILES if os.path.exists(os.path.join(outdir, f))],
             "sampler_samples": samples}
 

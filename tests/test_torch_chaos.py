@@ -95,6 +95,8 @@ def _decisions(mod, spec: str) -> dict:
         "tamper": [inj.tamper_line(line, "j"), inj.tamper_line(line, "j")],
         "torn": [inj.torn_line(line, "j"), inj.torn_line(line, "j"), inj.torn_line(line, "j")],
         "devices": [inj.drop_devices([0, 1, 2, 3]) for _ in range(3)],
+        "serve": [inj.take_serve_fault(f"r{i}") for i in range(12) for _ in range(3)],
+        "npz": [inj.truncate_npz(1000, "m.npz") for _ in range(3)],
     }
 
 

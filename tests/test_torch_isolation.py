@@ -34,7 +34,10 @@ def test_port_lists_its_modules():
               "observability.export", "observability.promtext", "observability.device",
               "observability.trace", "observability.critical_path", "resilience.errors",
               "resilience.backoff", "resilience.chaos", "parallel",
-              "parallel.retry", "utils.profiling"):
+              "parallel.retry", "utils.profiling", "utils.checkpoint", "resilience.deadline",
+              "observability.slo", "serving", "serving.protocol", "serving.admission",
+              "serving.coalescer", "serving.fleet", "serving.daemon", "serving.client",
+              "serving.__main__"):
         assert f"{_PKG}.{m}" in mods
 
 

@@ -792,3 +792,95 @@ def test_run_sweep_on_card_then_resume(cuda, tmp_path):
     same = lambda a, b: pipeline._jsonsafe(a.to_dict()) == pipeline._jsonsafe(b.to_dict())
     assert same(again.oracle, first.oracle)
     assert all(same(a, b) for a, b in zip(again.results, first.results))
+
+
+def _serve_forest(seed, dev, t=8, depth=3, p=4, n_bins=8, n=50):
+    """A small causal forest whose leaf statistics are sums of drawn rows."""
+    rng = np.random.default_rng(seed)
+    stats = np.zeros((t, 1 << depth, 5))
+    for tree in range(t):
+        for leaf in range(1 << depth):
+            c = int(rng.integers(2, 12))
+            wt, yt = rng.normal(size=c), rng.normal(size=c)
+            stats[tree, leaf] = (c, wt.sum(), yt.sum(), (wt * wt).sum(), (wt * yt).sum())
+    arrays = {
+        "split_feat": rng.integers(0, p, size=(t, depth, 1 << depth)).astype(np.int32),
+        "split_bin": rng.integers(0, n_bins - 1, size=(t, depth, 1 << depth)).astype(np.int32),
+        "leaf_stats": stats.astype(np.float32),
+        "in_sample": rng.uniform(size=(t, n)) < 0.5,
+        "bin_edges": np.sort(rng.normal(size=(p, n_bins - 1)), axis=1).astype(np.float32),
+    }
+    return cf.CausalForest(**{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
+                           ci_group_size=2)
+
+
+@pytest.mark.parametrize("batch", [1, 16, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_warm_predict_graph_replay_equals_eager(cuda, batch, masked):
+    """A warmed predict is one CUDA graph: each replay equals the eager
+    predict_cate bit for bit (masked rows exactly 0), a same-shape forest
+    rebinds without a capture, and every replay adds the traverse
+    launches it runs (one a 32-tree chunk)."""
+    from ate_replication_causalml_torch import observability as obs
+
+    f1, f2 = _serve_forest(6, cuda), _serve_forest(7, cuda)
+    lower = cf.lower_predict_cate_masked if masked else cf.lower_predict_cate
+    warm = lower(f1, batch)
+    assert warm.traverse_per_replay == 1
+    captures = sum((obs.REGISTRY.peek("graph_captures_total") or {}).values())
+    rng = np.random.default_rng(8)
+    mask = (np.arange(batch) < max(1, batch - 3)).astype(np.float32)
+    for f in (f1, f2, f1):
+        x = rng.normal(size=(batch, 4)).astype(np.float32)
+        before = tt.traverse.launches
+        got = warm(f, x, mask) if masked else warm(f, x)
+        assert tt.traverse.launches - before == 1
+        want = cf.predict_cate(f, torch.as_tensor(x, device=cuda), oob=False)
+        for g, w in ((got.cate, want.cate), (got.variance, want.variance)):
+            w = w.cpu().numpy()
+            if masked:
+                real = mask > 0
+                assert np.array_equal(g[real], w[real]) and np.all(g[~real] == 0.0)
+            else:
+                assert np.array_equal(g, w)
+    assert sum((obs.REGISTRY.peek("graph_captures_total") or {}).values()) == captures
+
+
+def test_card_daemon_serves_bit_identical(cuda, tmp_path):
+    """The daemon on the card: a checkpoint loaded onto it, one graph a
+    bucket, 40 requests from two threads bit-identical to the offline
+    predict_cate on the card, no build and no capture after warm."""
+    import threading
+
+    from ate_replication_causalml_torch.serving.coalescer import BucketPlan
+    from ate_replication_causalml_torch.serving.daemon import CateServer, ServeConfig
+    from ate_replication_causalml_torch.utils.checkpoint import save_fitted
+
+    forest = _serve_forest(9, cuda)
+    ckpt = str(tmp_path / "forest.npz")
+    save_fitted(ckpt, forest)
+    rng = np.random.default_rng(10)
+    xs = [rng.normal(size=(s, 4)).astype(np.float32) for s in (1, 3, 4, 9, 16) * 8]
+    off = cf.predict_cate(forest, torch.as_tensor(np.concatenate(xs), device=cuda), oob=False)
+    server = CateServer(ServeConfig(checkpoint=ckpt, buckets=BucketPlan.parse("4,16"),
+                                    window_s=0.002, max_depth=64))
+    server.startup()
+    out = {}
+
+    def producer(k):
+        for i in range(k, len(xs), 2):
+            out[i] = server.serve_one(f"r{i}", xs[i])
+
+    threads = [threading.Thread(target=producer, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    start = 0
+    for i, x in enumerate(xs):
+        n = x.shape[0]
+        assert np.array_equal(out[i][0], off.cate[start:start + n].cpu().numpy())
+        assert np.array_equal(out[i][1], off.variance[start:start + n].cpu().numpy())
+        start += n
+    assert server.builds_in_window() == {"kernel": 0.0, "graph": 0.0}
+    server.stop()
