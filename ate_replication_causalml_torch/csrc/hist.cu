@@ -42,6 +42,7 @@
 // axis, so the blocks of one row range and feature group, which read the
 // same codes, run together and share them through L2.
 #include "hist_common.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -194,8 +195,7 @@ cudaError_t launch_dense(const DenseLaunch& a) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(a.features) * K * a.group_nodes * a.n_bins +
                        static_cast<size_t>(kStages) * (1 + K + a.features) * kStageRows);
-  cudaError_t err = cudaFuncSetAttribute(hist_dense<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = raise_smem_cap(hist_dense<K>, smem);
   if (err != cudaSuccess) return err;
   const int feature_groups = (a.p + a.features - 1) / a.features;
   const dim3 grid(a.n_trees, feature_groups * a.node_groups, a.n_parts);

@@ -81,6 +81,7 @@
 #include <cooperative_groups.h>
 
 #include "hist_common.cuh"
+#include "smem_cap.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -425,8 +426,7 @@ cudaError_t launch_partition_rows(const int32_t* ids, int64_t n, int n_trees, in
                                   float* w_sorted, cudaStream_t s) {
   const size_t sort_smem =
       static_cast<size_t>(kWarps * max_nodes + max_nodes + 1) * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      partition_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sort_smem));
+  cudaError_t err = raise_smem_cap(partition_rows, sort_smem);
   if (err != cudaSuccess) return err;
   const int64_t rows_per_block = (n + n_parts - 1) / n_parts;
   partition_rows<<<dim3(n_parts, n_trees), kThreads, sort_smem, s>>>(
@@ -477,8 +477,7 @@ cudaError_t accumulate_config(const PartitionLaunch& a, cudaLaunchConfig_t* cfg,
   cluster->val.clusterDim.z = 1;
   cfg->attrs = cluster;
   cfg->numAttrs = 1;
-  return cudaFuncSetAttribute(partition_accumulate<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(cfg->dynamicSmemBytes));
+  return raise_smem_cap(partition_accumulate<K>, cfg->dynamicSmemBytes);
 }
 
 template <int K>
@@ -506,9 +505,7 @@ template <int K>
 cudaError_t launch_accumulate_packed(const PartitionLaunch& a) {
   const int group_nodes = (a.max_nodes + a.node_groups - 1) / a.node_groups;
   const size_t smem = static_cast<size_t>(a.slots) * K * group_nodes * a.n_bins * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(partition_accumulate_packed<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = raise_smem_cap(partition_accumulate_packed<K>, smem);
   if (err != cudaSuccess) return err;
   const int p3 = (a.p + kPackSlots - 1) / kPackSlots;
   const int slot_groups = (kPackSlots + a.slots - 1) / a.slots;

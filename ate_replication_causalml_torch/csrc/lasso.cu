@@ -74,6 +74,8 @@
 
 #include <type_traits>
 
+#include "smem_cap.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -620,8 +622,7 @@ int launch(const void* gram, const void* xty, const void* pf, const void* lams,
   const size_t smem = smem_bytes<T>(p);
   auto kernel = pick<T>(p);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err = raise_smem_cap(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<n_fits, kWarp, smem, stream>>>(

@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "row_common.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -332,9 +333,7 @@ int launch_traverse(dim3 grid, size_t smem, cudaStream_t s, const int32_t* codes
                     const float* table, int n_slots, int n_chan, int trees_per_block,
                     int stage_tables, int stage_payload, int stage_codes, void* out) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        traverse_kernel<kPayload>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e = raise_smem_cap(traverse_kernel<kPayload>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   traverse_kernel<kPayload><<<grid, kThreads, smem, s>>>(

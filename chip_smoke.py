@@ -2269,7 +2269,8 @@ def sweep_checks(rep) -> list:
         fails.append(f"residual_balancing {b.ate!r}/{b.se!r}, the JAX package's {BALANCE_JAX}")
     for r in [rep.oracle, *rep.results]:
         if r.status != "ok" or not math.isfinite(r.ate):
-            fails.append(f"{r.method}: status {r.status}, τ {r.ate}")
+            why = rep.failures.get(r.method, {}).get("error", "")
+            fails.append(f"{r.method}: status {r.status}, τ {r.ate}" + (f" ({why})" if why else ""))
     return fails
 
 

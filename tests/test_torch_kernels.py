@@ -105,6 +105,87 @@ def test_hist_kernel_equals_plain_at_a_million_rows(cuda):
         assert torch.equal(got, want), mode
 
 
+def _entry_call(mode, m, dev):
+    """One histogram entry point's C call at (n=2,048, T=4, M=m, K=2,
+    p=21), its arguments fixed on the current stream: a function that
+    launches it once and returns the C code, the output it writes, and
+    its dynamic shared-memory bytes."""
+    from ate_replication_causalml_torch.kernels import build
+
+    n, t, k_w, p = 2048, 4, 2, 21
+    codes, ids, w = _hist_case(m, n, p, t, m, dev)
+    n_parts = th._n_parts(n, t, p)
+    out = torch.zeros((t, k_w, m, p, N_BINS), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (ids.data_ptr(), w.data_ptr(), k_w * n, t, k_w, m, N_BINS, n_parts)
+    if mode == "dense":
+        shape = (k_w, m, p, N_BINS, t, n_parts)
+        partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32, device=dev)
+                   if n_parts > 1 else out)
+        args = (codes.data_ptr(), n, p, *tail, th.dense_features_per_block(*shape),
+                th.dense_node_groups(k_w, m, N_BINS), th.dense_warps_per_feature(*shape),
+                partial.data_ptr(), out.data_ptr(), stream)
+        keep = (codes, ids, w, partial)
+        k, smem = build.kernel("hist"), th.dense_block_bytes(*shape)
+    else:
+        words = tp.pack_codes(codes)
+        perm, seg, _, _ = th.partition_sort(ids, m, n_parts)
+        args = (words.data_ptr(), n, p, *tail, th.packed_slots(k_w, m, N_BINS),
+                th.packed_node_groups(k_w, m, N_BINS), perm.data_ptr(), seg.data_ptr(),
+                out.data_ptr(), stream)
+        keep = (codes, ids, w, words, perm, seg)
+        k, smem = build.kernel("hist_partition_packed"), th.packed_block_bytes(k_w, m, N_BINS)
+
+    def launch(_keep=keep):
+        return k.fn(*args)
+
+    want = th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS)
+    return launch, out, want, smem
+
+
+def test_hist_entries_launch_from_threads_at_other_sizes(cuda):
+    """The concurrent sweep's workers launch one kernel at other shared-
+    memory sizes from several threads, each on its own stream. A kernel's
+    shared-memory cap is the function's, so a thread that lowered it
+    between another's set and launch failed that launch ``invalid
+    argument`` (``csrc/smem_cap.cuh`` only ever raises it). Two threads a
+    size, each calling its C entry point 5,000 times with the GIL
+    released: every call returns 0, and each output equals the plain
+    version."""
+    import threading
+
+    cases = [("dense", 1), ("dense", 64), ("partition+pack", 8), ("partition+pack", 128)] * 2
+    errors, results = [], {}
+    start = threading.Barrier(len(cases))
+
+    def run(i):
+        mode, m = cases[i]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                launch, out, want, smem = _entry_call(mode, m, cuda)
+                torch.cuda.current_stream().synchronize()
+                start.wait()
+                codes = [launch() for _ in range(5000)]
+                torch.cuda.current_stream().synchronize()
+            results[i] = (smem, [c for c in codes if c != 0], torch.equal(out, want))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{mode} M={m}: {type(e).__name__}: {e}")
+            start.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    sizes = {cases[i]: r[0] for i, r in results.items()}
+    assert sizes[("dense", 1)] < sizes[("dense", 64)] and \
+        sizes[("partition+pack", 8)] < sizes[("partition+pack", 128)], sizes
+    failed = {cases[i]: sorted(set(r[1])) for i, r in results.items() if r[1]}
+    assert not failed, f"nonzero codes from the C entry points: {failed}"
+    assert all(r[2] for r in results.values())
+
+
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_shared_float_kernel_within_bound_and_stable(cuda, m):
     """K=5 float channels shared by 16 trees at the causal path's shape:
