@@ -4,7 +4,9 @@ for the sweep and the serving daemon:
 * the metrics registry (``counter``, ``gauge``, ``histogram``,
   ``bucket_histogram``; ``REGISTRY``) and the event log (``span``,
   ``emit``; ``EVENTS``);
-* the serving daemon's SLO engine (:mod:`.slo`);
+* the serving daemon's SLO engine (:mod:`.slo`), its statistical-health
+  plane (:mod:`.sketch`, :mod:`.stathealth`) and its session report
+  (:mod:`.serving_report`);
 * the exporters: ``metrics.json``, ``events.jsonl`` and the Prometheus
   textfile (:mod:`.export`, :mod:`.promtext`), all written atomically;
 * device and build capture (:mod:`.device`);

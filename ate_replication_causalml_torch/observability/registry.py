@@ -9,7 +9,8 @@ lane, the shard runner and the kernel build write here; the serving
 daemon adds the bucketed histograms (:class:`BucketHistogram`, the
 ``bucket_histograms`` section: fixed log-spaced bounds, p50/p95/p99 in
 the snapshot) that its latency, phase, fill and pad families ride. The
-JAX package's snapshot-time collectors are not ported. Telemetry is
+JAX package's snapshot-time collectors are not ported: nothing of the
+port registers one. Telemetry is
 host-side only: it never touches an estimator's tensors.
 """
 
@@ -42,6 +43,17 @@ def _label_key(labels: dict) -> str:
         return ""
     clean = lambda v: str(v).replace(",", "_").replace("=", "_")
     return ",".join(f"{k}={clean(labels[k])}" for k in sorted(labels))
+
+
+def parse_label_key(key: str) -> dict[str, str]:
+    """Inverse of :func:`_label_key` for keys the registry built:
+    ``"backend=b0,outcome=ok"`` → ``{"backend": "b0", "outcome": "ok"}``
+    (the empty key → ``{}``). Values were sanitized at write time, so a
+    ``split("=", 1)`` a pair is exact: the one parser every reader of
+    canonical label keys shares."""
+    if not key:
+        return {}
+    return dict(pair.split("=", 1) for pair in key.split(",") if "=" in pair)
 
 
 class Counter:
@@ -255,6 +267,20 @@ class MetricsRegistry:
             if m.kind in ("histogram", "bucket_histogram"):
                 return {k: float(v["sum"]) for k, v in m.samples.items()}
             return dict(m.samples)
+
+    def peek_labeled(self, name: str) -> list[tuple[dict[str, str], float]] | None:
+        """:meth:`peek` with every label key parsed back into its label
+        dict, sorted: ``[(labels, value), ...]``, or None when the family
+        was never created (the admin endpoint's ``/varz``)."""
+        samples = self.peek(name)
+        if samples is None:
+            return None
+        return [(parse_label_key(k), v) for k, v in sorted(samples.items())]
+
+    def metrics(self) -> list:
+        """Every registered family, in registration order."""
+        with self._lock:
+            return list(self._metrics.values())
 
     def snapshot(self) -> dict:
         """Versioned plain-dict snapshot (the metrics.json payload);

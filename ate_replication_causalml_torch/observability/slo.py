@@ -1,8 +1,8 @@
 """SLO engine: declared objectives over rolling windows.
 
 Port of ``ate_replication_causalml_tpu/observability/slo.py`` (the
-engine, the serving daemon's stock objectives and the per-model fleet
-objectives). An :class:`SLO` declares an objective ("99.9% of requests
+engine, the serving daemon's stock objectives, the per-model fleet
+objectives and the statistical-health objectives). An :class:`SLO` declares an objective ("99.9% of requests
 succeed", "99% finish under 250 ms") and the :class:`SLOEngine`
 evaluates it over several rolling windows as a **burn rate**: the rate
 the error budget is spent, 1.0 being exactly on budget (the multi-window
@@ -17,9 +17,8 @@ Sources are registry families:
 
 Every window figure is a difference between two :meth:`SLOEngine.tick`
 snapshots taken from an injectable clock, so two evaluations over the
-same snapshots give the same report. The statistical-health objectives
-(``stat_health_slos``) come with the statistical-health plane, which is
-not ported yet; the router's with the router.
+same snapshots give the same report. The router's objectives
+(``router_slos``) come with the router.
 """
 
 from __future__ import annotations
@@ -112,6 +111,35 @@ def fleet_slos(models: tuple[str, ...], objective: float = 0.999,
                          "|status=rejected_retired_model")
         for m in models
     )
+
+
+def stat_health_slos(models: tuple[str, ...] = ("default",), objective: float = 0.9,
+                     windows_s: tuple[float, ...] = DEFAULT_WINDOWS,
+                     metric: str = "serving_stat_windows_total") -> tuple[SLO, ...]:
+    """Statistical-health objectives over the sealed-window counter the
+    :class:`~.stathealth.StatHealthMonitor` emits, two a model:
+
+    * ``stat_drift:<model>``: the fraction of sealed distribution
+      windows (cate / covariate / propensity) whose window-pair PSI and
+      KS stayed under the drift thresholds. ``sparse`` windows and the
+      calibration channel (its own objective) count toward neither side.
+    * ``stat_calibration:<model>``: the fraction of sealed calibration
+      windows under the reliability threshold; empty, so zero burn,
+      while the calibration feed is unarmed.
+
+    The default objective tolerates 1 drifted window in 10
+    (``ATE_TPU_STAT_DRIFT_BURN`` overrides)."""
+    out = []
+    for m in models:
+        out.append(SLO(name=f"stat_drift:{m}", kind="availability", objective=objective,
+                       metric=metric, windows_s=windows_s, scope_match=f"model={m}",
+                       good_match="status=ok",
+                       ignore_match="channel=calibration|status=sparse"))
+        out.append(SLO(name=f"stat_calibration:{m}", kind="availability",
+                       objective=objective, metric=metric, windows_s=windows_s,
+                       scope_match=f"channel=calibration,model={m}", good_match="status=ok",
+                       ignore_match="status=sparse"))
+    return tuple(out)
 
 
 def _pairs(spec: str) -> tuple[str, ...]:

@@ -294,6 +294,17 @@ def build_trace(records: list[dict] | None = None,
     }
 
 
+def write_trace_json(path: str, trace: dict) -> str | None:
+    """Atomically write ``trace`` to ``path`` (compact separators and a
+    trailing newline: machines read it); None when tracing is off."""
+    if not trace_enabled():
+        return None
+    from ate_replication_causalml_torch.observability.export import atomic_write_text
+
+    atomic_write_text(path, json.dumps(trace, separators=(",", ":")) + "\n")
+    return path
+
+
 def write_trace_artifacts(outdir: str, trace: dict) -> list[str]:
     """Write ``trace`` as ``trace.json`` (compact: machines read it) and
     its ``overlap_report.json`` into ``outdir``, atomically; a fully
@@ -302,13 +313,9 @@ def write_trace_artifacts(outdir: str, trace: dict) -> list[str]:
     if not trace_enabled():
         return []
     from ate_replication_causalml_torch.observability import critical_path as _cpath
-    from ate_replication_causalml_torch.observability.export import (
-        atomic_write_json,
-        atomic_write_text,
-    )
+    from ate_replication_causalml_torch.observability.export import atomic_write_json
 
-    tpath = os.path.join(outdir, TRACE_BASENAME)
-    atomic_write_text(tpath, json.dumps(trace, separators=(",", ":")) + "\n")
+    tpath = write_trace_json(os.path.join(outdir, TRACE_BASENAME), trace)
     opath = os.path.join(outdir, OVERLAP_BASENAME)
     atomic_write_json(opath, _cpath.overlap_report(trace))
     return [tpath, opath]
@@ -340,6 +347,16 @@ class MetricSampler:
         "shard_backoff_seconds_total",
         "device_memory_bytes",
         "scheduler_prefetch_total",
+    )
+
+    #: The families the serving daemon samples instead: the live queue
+    #: depth and the request, reject and batch counters become counter
+    #: tracks over the serving window.
+    SERVING_METRICS = (
+        "serving_requests_total",
+        "serving_rejected_total",
+        "serving_queue_depth",
+        "serving_batches_total",
     )
 
     def __init__(self, metrics: tuple[str, ...] | None = None, interval_s: float = 0.5):
@@ -395,7 +412,9 @@ def run_meta(workers: int | None = None, wall_s: float | None = None,
              **extra) -> dict:
     """The ``otherData`` payload the sweep driver attaches: worker-pool
     width and the run's wall seconds (the analyzer's denominator), plus
-    free-form identity fields."""
+    free-form identity fields (the serving daemon's ``tool``,
+    ``checkpoint``, ``buckets`` and ``serving_phase_mark``, the
+    reconciliation baseline :mod:`.serving_report` reads)."""
     out: dict = {"exported_unix": time.time()}
     if workers is not None:
         out["workers"] = int(workers)

@@ -16,6 +16,7 @@ from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.errors import (
     FATAL_ERRORS,
     ChaosFault,
+    ChaosRotateFault,
     ChaosShardFault,
     ChaosSpecError,
     ChaosStageFault,
@@ -33,7 +34,7 @@ from ate_replication_causalml_torch.resilience.watchdog import (
     lane_bound_s,
 )
 
-__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosShardFault", "ChaosSpecError",
+__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosRotateFault", "ChaosShardFault", "ChaosSpecError",
            "ChaosStageFault", "CheckpointCorrupt", "CudaKernelError", "DeadlineExceeded",
            "HeartbeatRegistry", "NonFiniteResult", "chaos", "classify", "lane_bound_s",
            "transient_errors", "Watchdog"]

@@ -28,7 +28,9 @@ honours, where the JAX package's sweep honours them:
 * ``hang``: ``scope=worker,ms=..,p=..,seed=..,times=..``: a selected
   engine node (hashed by name) sleeps ``ms`` before it runs, the stall
   the engine's watchdog must report (``scope=dispatch``: the serving
-  dispatcher sleeps inside a batch); nothing raises;
+  dispatcher sleeps inside a batch; ``scope=retrain``: the retrain
+  supervisor's fit, hashed by model id, inside its heartbeat-stamped
+  attempt); nothing raises;
 * ``tamper``: ``journal,delta=..,times=..``: the next journaled row's
   ``ate`` is perturbed by ``delta`` after the in-memory copy was taken,
   silent corruption only a bit-identity check against a fault-free run
@@ -36,11 +38,19 @@ honours, where the JAX package's sweep honours them:
 * ``serve``: ``p``, ``seed``, ``times``: a request id selected by the
   pure ``(seed, "serve", id)`` hash is refused typed on its first
   ``times`` attempts while the daemon degrades and reloads its
-  checkpoint (``serving/daemon.py``).
+  checkpoint (``serving/daemon.py``);
+* ``rotate``: the train-to-serve failure modes, each a bare flag
+  budgeted by ``times``: ``retrain`` (the retrain supervisor's fit
+  raises :class:`~.errors.ChaosRotateFault`, transient, so it is
+  refit), ``corrupt`` (the next published candidate is truncated after
+  its digest went in: the rotation's re-verify must refuse it),
+  ``mid_swap`` (the rotation's installer raises between verify and
+  swap: a typed refusal, never a half-installed model), and
+  ``verify_ms=<float>`` (the rotation's verify sleeps that long while
+  serving goes on).
 
-The ``daemon`` and ``rotate`` scopes and ``hang:scope=retrain`` belong
-to the parts of the serving plane not ported yet (kills behind a router,
-rotation, retraining): they parse and have no effect, as in a JAX sweep.
+The ``daemon`` scope belongs to the router, not ported yet: it parses
+and has no effect, as in a JAX sweep.
 
 Injection decisions are pure functions of ``(seed, scope, site)``, never
 of call order or a global RNG, so a chaos run is reproducible and,
@@ -227,6 +237,10 @@ class ChaosInjector:
         stage = config.scope("stage")
         self._stage_left = int(stage["times"]) if stage else 0
         self._hang_attempts: dict[str, int] = {}
+        rot = config.scope("rotate") or _SCOPE_DEFAULTS["rotate"]
+        self._rotate_left = {kind: (int(rot["times"]) if rot.get(kind) else 0)
+                             for kind in ("corrupt", "mid_swap", "retrain")}
+        self._rotate_verify_left = int(rot["times"]) if float(rot["verify_ms"]) > 0 else 0
         tam = config.scope("tamper") or _SCOPE_DEFAULTS["tamper"]
         self._tamper_left = int(tam["times"]) if tam.get("journal") else 0
 
@@ -420,6 +434,35 @@ class ChaosInjector:
             return False
         self._record("serve", f"req/{rid}", request_id=rid, attempt=attempt)
         return True
+
+    # ── rotate scope ──────────────────────────────────────────────────
+
+    def take_rotate_fault(self, kind: str, site: str) -> bool:
+        """Fleet-rotation injection point: whether this ``kind``
+        (``corrupt`` / ``mid_swap`` / ``retrain``) draws a fault,
+        consuming one unit of its ``times`` budget. The kinds are
+        budgeted independently, so one spec stacks failure modes
+        (``rotate:retrain,corrupt,times=2``)."""
+        with self._lock:
+            if self._rotate_left.get(kind, 0) <= 0:
+                return False
+            self._rotate_left[kind] -= 1
+        self._record("rotate", site, kind=kind)
+        return True
+
+    def rotate_verify_delay_s(self, site: str) -> float:
+        """Slow-verify injection point: seconds the rotation's verify
+        must sleep (0.0 when the scope is off or its budget spent)."""
+        cfg = self.config.scope("rotate")
+        if cfg is None or float(cfg["verify_ms"]) <= 0:
+            return 0.0
+        with self._lock:
+            if self._rotate_verify_left <= 0:
+                return 0.0
+            self._rotate_verify_left -= 1
+        delay = float(cfg["verify_ms"]) / 1e3
+        self._record("rotate", site, kind="slow_verify", delay_s=delay)
+        return delay
 
     # ── hang scope ────────────────────────────────────────────────────
 

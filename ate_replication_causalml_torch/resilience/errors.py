@@ -45,6 +45,13 @@ class ChaosStageFault(ChaosFault):
     """Injected at a sweep stage boundary."""
 
 
+class ChaosRotateFault(ChaosFault):
+    """Injected along the train-to-serve rotation path (``rotate:``
+    scope): a retrain fit that dies, or a fault between a candidate's
+    verify and its swap. Transient: the retrain supervisor re-runs a
+    dead fit, and a mid-swap fault becomes a typed rotation refusal."""
+
+
 class ChaosSpecError(ValueError):
     """The ``ATE_TPU_CHAOS`` spec does not parse: a configuration error,
     fatal at once, never retried."""

@@ -79,7 +79,8 @@ class HeartbeatRegistry:
             self._beats.pop(lane, None)
 
     def ages(self, now: float | None = None) -> dict[str, float]:
-        """Per-lane heartbeat ages, the stall diagnostic's raw material."""
+        """Per-lane heartbeat ages: the ``/healthz`` body and the stall
+        diagnostic's raw material."""
         now = self._clock() if now is None else now
         with self._lock:
             beats = dict(self._beats)

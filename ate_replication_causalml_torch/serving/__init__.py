@@ -1,18 +1,23 @@
 """CATE serving daemon of the port: a checkpointed causal forest
 answering ``predict`` requests over the wire, on the card.
 
-Port of the core of ``ate_replication_causalml_tpu/serving``:
+Port of ``ate_replication_causalml_tpu/serving`` but its router:
 
 * :mod:`.protocol` (length-prefixed framing, byte-identical to the JAX
   package's), :mod:`.coalescer` (deadline-window micro-batching onto
-  declared buckets), :mod:`.admission` (bounded-depth admission and the
-  lifecycle/reload state machine), :mod:`.fleet` (model routing and
-  SLO-burn shedding) and :mod:`.client`: no tensor math;
+  declared buckets), :mod:`.admission` (bounded-depth admission, the
+  lifecycle/reload state machine and verified rotation), :mod:`.fleet`
+  (model routing, rotation's swap, retirement, SLO-burn shedding),
+  :mod:`.client`, :mod:`.admin` (the read-only HTTP endpoint),
+  :mod:`.retrain` (fit → publish → rotate) and :mod:`.loadgen` (seeded
+  open-loop load): no tensor math;
 * the daemon (:mod:`.daemon`): verified checkpoint load, one warmed
-  predict per declared bucket (on the card one CUDA graph each), a
-  dispatcher whose steady state provably builds and captures nothing,
-  degraded-mode serving under the ``serve:`` chaos scope, deadlines, the
-  dispatcher watchdog and graceful drain.
+  predict per declared bucket (on the card one CUDA graph each), the
+  leaf-index build of a fitted checkpoint, a dispatcher whose steady
+  state provably builds and captures nothing, degraded-mode serving
+  under the ``serve:`` chaos scope, deadlines, the dispatcher watchdog,
+  graceful drain, statistical health, zero-downtime rotation,
+  retirement, retraining and live artifact dumps.
 
 Entry point: ``python -m ate_replication_causalml_torch.serving``.
 """

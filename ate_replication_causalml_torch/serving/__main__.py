@@ -8,13 +8,16 @@ flags::
 
 Loads the SHA-256-verified forest checkpoint (written by either
 package's ``save_fitted``) onto the card, builds the kernels and
-captures one CUDA graph per declared batch bucket, then serves
-``predict`` / ``ping`` / ``stats`` / ``drain`` / ``shutdown`` over the
-length-prefixed protocol: TCP (``--port``, 0 = ephemeral, the bound port
-printed to stderr) or stdin/stdout (``--stdio``; logs go to stderr).
-Knobs default from the ``ATE_TPU_SERVE_*`` variables; flags override.
-``--device cpu`` serves with the plain versions. The admin endpoint
-(``--admin-port``) is not ported yet.
+captures one CUDA graph per declared batch bucket (and, for a fitted
+checkpoint, builds its training panel's leaf index), then serves
+``predict`` / ``ping`` / ``stats`` / ``rotate`` / ``retire`` / ``dump``
+/ ``drain`` / ``shutdown`` over the length-prefixed protocol: TCP
+(``--port``, 0 = ephemeral, the bound port printed to stderr) or
+stdin/stdout (``--stdio``; logs go to stderr). ``--admin-port`` starts
+the read-only HTTP endpoint (``/metrics`` ``/healthz`` ``/readyz``
+``/varz``). Knobs default from the ``ATE_TPU_SERVE_*`` and
+``ATE_TPU_STAT_*`` variables; flags override. ``--device cpu`` serves
+with the plain versions.
 """
 
 from __future__ import annotations
@@ -42,6 +45,18 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--depth", type=int, default=None, help="admission queue depth")
     ap.add_argument("--row-backend", default=None, choices=("pallas",),
                     help="predict row kernels (default and 'pallas': the CUDA kernels)")
+    ap.add_argument("--admin-port", type=int, default=None,
+                    help="read-only admin HTTP port (/metrics /healthz /readyz /varz; "
+                         "0 = ephemeral; default $ATE_TPU_SERVE_ADMIN_PORT or off)")
+    ap.add_argument("--stat-window", type=float, default=None,
+                    help="statistical-health drift window in seconds (default "
+                         "$ATE_TPU_STAT_WINDOW or 5)")
+    ap.add_argument("--stat-drift-burn", type=float, default=None,
+                    help="objective of the stat_drift / stat_calibration SLOs (default "
+                         "$ATE_TPU_STAT_DRIFT_BURN or 0.9)")
+    ap.add_argument("--stat-calibration", default=None,
+                    help="calibration feed as pcol:tcol feature columns (default "
+                         "$ATE_TPU_STAT_CALIBRATION or off)")
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="latency-SLO threshold in ms (default $ATE_TPU_SERVE_SLO_MS or 250)")
     ap.add_argument("--fleet", default=None,
@@ -64,6 +79,7 @@ def main(argv: list[str] | None = None) -> int:
     from ate_replication_causalml_torch.serving.daemon import (
         CateServer,
         ServeConfig,
+        _parse_calibration_cols,
         serve_socket,
         serve_stdio,
     )
@@ -78,6 +94,14 @@ def main(argv: list[str] | None = None) -> int:
         overrides["max_depth"] = args.depth
     if args.row_backend is not None:
         overrides["row_backend"] = args.row_backend
+    if args.admin_port is not None:
+        overrides["admin_port"] = args.admin_port
+    if args.stat_window is not None:
+        overrides["stat_window_s"] = args.stat_window
+    if args.stat_drift_burn is not None:
+        overrides["stat_drift_objective"] = args.stat_drift_burn
+    if args.stat_calibration is not None:
+        overrides["stat_calibration_cols"] = _parse_calibration_cols(args.stat_calibration)
     if args.slo_ms is not None:
         overrides["slo_latency_s"] = args.slo_ms / 1e3
     if args.fleet is not None:
@@ -108,6 +132,10 @@ def main(argv: list[str] | None = None) -> int:
     print("# startup: " + " ".join(f"{k}={v:.2f}s" for k, v in phases.items())
           + f" buckets={list(config.buckets.sizes)} models={list(config.model_ids)}",
           file=sys.stderr, flush=True)
+    admin_port = server.stats().get("admin_port")
+    if admin_port is not None:
+        print(f"# admin endpoint on 127.0.0.1:{admin_port} (/metrics /healthz /readyz /varz)",
+              file=sys.stderr, flush=True)
     if args.stdio:
         serve_stdio(server)
     else:

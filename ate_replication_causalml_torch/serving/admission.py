@@ -11,13 +11,19 @@ Python, so its decisions are the JAX package's):
   draining → stopped`` state machine. Transitions are explicit and
   invalid ones raise. ``draining`` is the graceful-shutdown window:
   admission rejects new work typed, in-flight batches complete.
-* :class:`ReloadSupervisor`: degraded-mode recovery. Concurrent fault
-  reports coalesce into ONE reload (first reporter wins), the reload
-  re-verifies the checkpoint before any swap, and a failed reload
-  leaves the lifecycle DEGRADED: a corrupt checkpoint never goes back
-  into service. The reload callable is injected, so the state machine is
-  testable with stubs. The JAX package's zero-downtime ``rotate`` comes
-  with rotation, which is not ported yet.
+* :class:`ReloadSupervisor`: degraded-mode recovery and zero-downtime
+  rotation. Concurrent fault reports coalesce into ONE reload (first
+  reporter wins), the reload re-verifies the checkpoint before any
+  swap, and a failed reload leaves the lifecycle DEGRADED: a corrupt
+  checkpoint never goes back into service. :meth:`ReloadSupervisor.rotate`
+  shares the reload's single-flight claim (``busy`` when it is held) and
+  answers ``rotated`` or ``refused``; a refused candidate leaves the
+  last good model serving. The callables are injected, so the state
+  machine is testable with stubs.
+
+One difference from the JAX package: a CUDA error raised while a
+rotation loads or installs its candidate is not a refusal. It poisons
+the context (``resilience/errors.py``), so it propagates to the caller.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable
 
 from ate_replication_causalml_torch.observability import events as _events
 from ate_replication_causalml_torch.observability import registry as _registry
+from ate_replication_causalml_torch.resilience.errors import is_cuda_error
 
 #: Lifecycle states.
 STARTING = "starting"
@@ -164,8 +171,10 @@ class ServingLifecycle:
 
 
 class ReloadSupervisor:
-    """Owns degraded-mode recovery: one reload at a time, verified
-    before the swap, a failure stays degraded.
+    """Owns degraded-mode recovery AND zero-downtime rotation: one
+    reload or rotation at a time, verified before the swap; a failed
+    reload stays degraded, a refused rotation keeps the last good model
+    serving.
 
     ``reload_fn`` re-loads AND re-verifies the model source (the daemon
     wires the SHA-256-verified ``load_fitted``); ``on_reloaded``
@@ -196,6 +205,8 @@ class ReloadSupervisor:
         self._counter = _registry.counter(
             "serving_reloads_total", "degraded-mode reload attempts by status"
         )
+        self._rotations = _registry.counter(
+            "serving_rotations_total", "checkpoint hot-swap rotations by model and status")
 
     def _try_begin(self) -> bool:
         with self._lock:
@@ -289,3 +300,52 @@ class ReloadSupervisor:
             return False
         self._launch("retry")
         return True
+
+    def rotate(self, loader: Callable[[], object],
+               installer: Callable[[object], None] | None = None,
+               reason: str = "rotate", model: str = "") -> str:
+        """Zero-downtime verified hot-swap, on the CALLING thread (the
+        retrain supervisor's or an operator op's, never the request
+        path): ``loader`` loads and re-verifies the candidate,
+        ``installer`` (default ``on_reloaded``) swaps it in. Returns:
+
+        * ``"rotated"``: verified and installed; the lifecycle never
+          leaves SERVING (a rotation landing while DEGRADED doubles as
+          recovery);
+        * ``"refused"``: the candidate failed (corrupt digest, changed
+          geometry, a fault mid-swap); nothing was installed and the
+          last good model keeps serving;
+        * ``"busy"``: another reload or rotation holds the claim.
+
+        A CUDA error from ``loader`` or ``installer`` propagates (module
+        docstring)."""
+        install = installer if installer is not None else self._on_reloaded
+        if not self._try_begin():
+            self._rotations.inc(1, model=model, status="busy")
+            _events.emit("serving_rotation_busy", status="error", model=model, reason=reason)
+            return "busy"
+        try:
+            with _events.span("serving_rotation", reason=reason, model=model) as sp:
+                try:
+                    obj = loader()
+                    install(obj)
+                except Exception as e:
+                    sp.set_status("error")
+                    if is_cuda_error(e):
+                        raise
+                    self._rotations.inc(1, model=model, status="refused")
+                    _events.emit("serving_rotation_refused", status="error", model=model,
+                                 reason=reason, error=f"{type(e).__name__}: {e}")
+                    return "refused"
+                self._rotations.inc(1, model=model, status="rotated")
+                _events.emit("serving_rotated", status="ok", model=model, reason=reason)
+                if self._lifecycle.state == DEGRADED:
+                    self._lifecycle.mark_recovered()
+                return "rotated"
+        finally:
+            with self._lock:
+                self._running = False
+            # A fault reported while this rotation held the claim owned
+            # recovery but could not launch it: launch it now.
+            if self._lifecycle.state == DEGRADED:
+                self.retry()

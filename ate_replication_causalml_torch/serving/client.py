@@ -21,8 +21,7 @@ exponential in the attempt, a deterministic crc32 jitter keyed on
 hint, at :attr:`CateClient.max_backoff_s` and, with a ``deadline_ms``,
 at the :class:`~..resilience.deadline.Budget` left. Absorbed rejects and
 backoff seconds are metered (``retry_counts`` / ``backoff_s_total``).
-The JAX client's ``dump``, ``rotate`` and ``retire`` ops come with the
-daemon's, which are not ported yet.
+The lifecycle ops: ``rotate``, ``retire`` and ``dump``.
 """
 
 from __future__ import annotations
@@ -315,6 +314,40 @@ class CateClient:
             raise ServingError(header.get("error", "error"),
                                header.get("message", ""))
         return header["stats"]
+
+    def dump(self, outdir: str | None = None) -> list[str]:
+        """Ask the daemon to export its observability artifacts
+        (trace.json, serving_report.json, slo_report.json,
+        stat_health.json and the metrics triple) without stopping. ``outdir`` defaults to the
+        daemon's ``$ATE_TPU_METRICS_DIR``. Returns the paths written."""
+        header_out: dict = {"op": "dump"}
+        if outdir is not None:
+            header_out["dir"] = outdir
+        header, _ = self._roundtrip(header_out)
+        if not header.get("ok"):
+            raise ServingError(header.get("error", "error"),
+                               header.get("message", ""))
+        return list(header.get("paths", ()))
+
+    def rotate(self, checkpoint: str, model: str | None = None) -> str:
+        """Ask the daemon for a zero-downtime hot-swap of ``model``
+        (None = default) onto ``checkpoint``. Returns the rotation
+        status (``rotated`` / ``refused`` / ``busy`` / ``unknown_model``
+        / ``retired_model``): a refusal keeps the last good model
+        serving."""
+        request: dict = {"op": "rotate", "checkpoint": checkpoint}
+        if model is not None:
+            request["model"] = model
+        header, _ = self._roundtrip(request)
+        if "status" not in header:
+            raise ServingError(header.get("error", "error"),
+                               header.get("message", ""))
+        return str(header["status"])
+
+    def retire(self, model: str) -> bool:
+        """Retire a fleet model; returns whether the id existed."""
+        header, _ = self._roundtrip({"op": "retire", "model": model})
+        return bool(header.get("ok"))
 
     def drain(self, timeout_s: float | None = None) -> str:
         """Ask the daemon for a graceful drain: in-flight

@@ -19,11 +19,17 @@ Startup phases (each a span and a ``serving_startup_seconds`` gauge):
    copied into the captured buffers, so a same-shape reload reuses the
    graphs.
 3. **warm**: one zero batch through every bucket's predict.
+4. **index** (fitted checkpoints only, those that carry their training
+   panel): the panel's (T, n) leaf indices, ``compute_leaf_index`` (one
+   ``traverse`` launch in its ids mode a 32-tree chunk), kept on the
+   fleet entry; the ``serving_leaf_index_build_seconds`` gauge.
 
-After warm the daemon marks ``kernel_builds_total`` and
-``graph_captures_total``; :meth:`CateServer.stop` asserts the serving
-window left both unchanged (the port's counterpart of the JAX package's
-``jax_compiles_total`` window). On the card a batch is one copy into the
+Then the observability plane starts (the trace sampler and, with
+``admin_port``, the admin endpoint of :mod:`.admin`), and the daemon
+marks ``kernel_builds_total`` and ``graph_captures_total``;
+:meth:`CateServer.stop` asserts the serving window left both unchanged
+(the port's counterpart of the JAX package's ``jax_compiles_total``
+window). On the card a batch is one copy into the
 bucket's static query buffer, one graph replay (the ``traverse`` kernel
 once per tree chunk, ``binarize`` and the moment sums as PyTorch ops
 inside the graph) and one host read.
@@ -41,20 +47,47 @@ lifecycles, SLO-burn shedding), end-to-end deadlines (the header's
 admission, batch close and dispatch pickup), the dispatcher's heartbeat
 watchdog, and graceful drain.
 
+The model lifecycle rides on top:
+
+* **statistical health**: the dispatcher feeds every batch's served
+  CATE values and request rows, host numpy after the batch's one host
+  read, to a :class:`~..observability.stathealth.StatHealthMonitor`
+  (no launch, no sync); its sealed windows drive the
+  ``stat_health_slos`` beside the latency and fleet objectives;
+* **rotation** (:meth:`CateServer.rotate`, the ``rotate`` op): the
+  candidate is SHA-256 re-verified, geometry-checked against the warmed
+  predicts and, for a fitted checkpoint, its leaf index is built, all
+  on the caller's thread and its own CUDA stream, synchronized before
+  the swap instant; the swap replaces the fleet entry's reference and
+  bumps the version, and the dispatcher copies the new forest into its
+  captured buffers when it next binds it. A same-shape rotation builds
+  and captures nothing (the window holds), ``readyz`` never flips, and
+  a corrupt candidate is a typed ``refused`` that keeps the last good
+  model. The JAX package skips its sharded prebuild when a new panel
+  row count would trace inside the armed window; on the card a new row
+  count builds and captures nothing, so the port always prebuilds;
+* **retirement** (:meth:`CateServer.retire`, the ``retire`` op): the
+  id answers typed ``retired_model`` rejects from then on;
+* **retraining** (:meth:`CateServer.retrain_supervisor`,
+  :mod:`.retrain`): fit on its own CUDA stream, publish, rotate;
+* **artifacts** (:meth:`CateServer.dump_artifacts`, the ``dump`` op,
+  and :meth:`CateServer.stop` under ``$ATE_TPU_METRICS_DIR``):
+  ``metrics.json``, ``events.jsonl``, ``metrics.prom``, the serving
+  ``trace.json`` and its ``serving_report.json``, ``slo_report.json``
+  and ``stat_health.json``, written while serving.
+
 Thread model: any number of producer threads call :meth:`submit` /
 :meth:`serve_one`; they only enqueue numpy. ONE dispatcher thread owns
-the device (host threads collapse the card's dispatch rate, so nothing
-else launches).
-
-Not ported yet (each answers the JAX package's typed ``unknown op`` over
-the wire): the statistical-health plane, the serving trace with
-``dump_artifacts`` and the ``dump`` op, the admin endpoint, rotation,
-retirement and the retrain supervisor.
+the serving replays. A rotation and a retrain fit launch from their
+caller's thread on a stream of their own (two launching threads slow
+each other's launches: ROADMAP, standing facts).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import os
 import socket
 import threading
@@ -62,13 +95,18 @@ import time
 from typing import Callable
 
 import numpy as np
+import torch
 
 from ate_replication_causalml_torch import observability as obs
+from ate_replication_causalml_torch import resolve_device
+from ate_replication_causalml_torch.observability import stathealth
+from ate_replication_causalml_torch.observability.registry import parse_label_key
 from ate_replication_causalml_torch.observability.slo import (
     DEFAULT_WINDOWS,
     SLOEngine,
     default_serving_slos,
     fleet_slos,
+    stat_health_slos,
 )
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.deadline import Budget
@@ -102,11 +140,15 @@ ENV_BUCKETS = "ATE_TPU_SERVE_BUCKETS"
 ENV_WINDOW_MS = "ATE_TPU_SERVE_WINDOW_MS"
 ENV_DEPTH = "ATE_TPU_SERVE_DEPTH"
 ENV_RETRY_AFTER_MS = "ATE_TPU_SERVE_RETRY_AFTER_MS"
+ENV_ADMIN_PORT = "ATE_TPU_SERVE_ADMIN_PORT"
 ENV_SLO_MS = "ATE_TPU_SERVE_SLO_MS"
 ENV_FLEET = "ATE_TPU_SERVE_FLEET"
 ENV_SHED_BURN = "ATE_TPU_SERVE_FLEET_SHED_BURN"
 ENV_FUSE = "ATE_TPU_SERVE_FUSE"
 ENV_DRAIN_S = "ATE_TPU_SERVE_DRAIN_S"
+ENV_STAT_WINDOW = "ATE_TPU_STAT_WINDOW"
+ENV_STAT_DRIFT_BURN = "ATE_TPU_STAT_DRIFT_BURN"
+ENV_STAT_CALIBRATION = "ATE_TPU_STAT_CALIBRATION"
 
 DEFAULT_BUCKETS = "1,8,64,256"
 DEFAULT_WINDOW_MS = 2.0
@@ -130,6 +172,21 @@ SHED_REFRESH_S = 0.25
 
 #: the registry families the no-build window reads.
 BUILD_FAMILIES = {"kernel": "kernel_builds_total", "graph": "graph_captures_total"}
+
+
+def _parse_calibration_cols(spec: str) -> tuple[int, int] | None:
+    """``"pcol:tcol"`` → (propensity column, treatment column); empty =
+    unarmed. A malformed value raises at config time."""
+    spec = spec.strip()
+    if not spec:
+        return None
+    pcol_s, sep, tcol_s = spec.partition(":")
+    try:
+        if not sep:
+            raise ValueError(spec)
+        return int(pcol_s), int(tcol_s)
+    except ValueError as e:
+        raise ValueError(f"{ENV_STAT_CALIBRATION} wants 'pcol:tcol' ints, got {spec!r}") from e
 
 
 class RejectedRequest(RuntimeError):
@@ -181,6 +238,17 @@ class ServeConfig:
     #: where the forests live and the predicts run: ``cuda`` unless told
     #: otherwise (``"cpu"`` runs the plain versions, as the tests do).
     device: str | None = None
+    #: admin endpoint: None = off (the default); a port binds it at
+    #: startup (0 = ephemeral).
+    admin_port: int | None = None
+    #: statistical health: the drift-evaluation window width (seconds).
+    stat_window_s: float = stathealth.DEFAULT_WINDOW_S
+    #: objective of the per-model ``stat_drift`` / ``stat_calibration``
+    #: SLOs: the tolerated good fraction of sealed windows.
+    stat_drift_objective: float = 0.9
+    #: the calibration feed, ``(propensity_col, treatment_col)``; None
+    #: leaves the channel unarmed (zero burn).
+    stat_calibration_cols: tuple[int, int] | None = None
 
     @classmethod
     def from_env(cls, checkpoint: str, **overrides) -> "ServeConfig":
@@ -197,7 +265,12 @@ class ServeConfig:
             drain_timeout_s=float(env.get(ENV_DRAIN_S, DEFAULT_DRAIN_S)),
             watchdog_dispatch_s=lane_bound_s(DISPATCH_LANE, DEFAULT_WATCHDOG_DISPATCH_S),
             watchdog_poll_s=poll_s_from_env(),
+            stat_window_s=float(env.get(ENV_STAT_WINDOW, stathealth.DEFAULT_WINDOW_S)),
+            stat_drift_objective=float(env.get(ENV_STAT_DRIFT_BURN, 0.9)),
+            stat_calibration_cols=_parse_calibration_cols(env.get(ENV_STAT_CALIBRATION, "")),
         )
+        if env.get(ENV_ADMIN_PORT):
+            base["admin_port"] = int(env[ENV_ADMIN_PORT])
         base.update(overrides)
         return cls(checkpoint=checkpoint, **base)
 
@@ -250,17 +323,31 @@ class CateServer:
         self._build_mark: dict[str, float] | None = None
         self._startup_s: dict[str, float] = {}
         self._dispatcher: threading.Thread | None = None
+        # The exported trace keeps only records from this mark on (the
+        # event log is a process-global ring); the phase-count mark set
+        # at startup is the metrics-side twin, the reconciliation's
+        # baseline.
+        self._born_mono = time.monotonic()
+        self._phase_mark = 0
+        self._device = resolve_device(config.device)
         # The daemon-wide reloader: serve-scope faults degrade the whole
         # daemon and re-verify the default model's checkpoint. Per-model
         # faults go through each entry's own supervisor.
         self._reloader = ReloadSupervisor(self.lifecycle, self._load_checkpoint,
                                           self._install_model)
-        # The statistical-health objectives (stat_health_slos) come with
-        # the statistical-health plane, which is not ported yet.
         self.slo = SLOEngine(
             default_serving_slos(latency_threshold_s=config.slo_latency_s,
                                  windows_s=config.slo_windows_s)
-            + fleet_slos(config.model_ids, windows_s=config.slo_windows_s))
+            + fleet_slos(config.model_ids, windows_s=config.slo_windows_s)
+            + stat_health_slos(config.model_ids, objective=config.stat_drift_objective,
+                               windows_s=config.slo_windows_s))
+        #: per-model sketches over the served CATE, covariate and
+        #: propensity channels, fed by the dispatcher from host numpy.
+        self.stat = stathealth.StatHealthMonitor(
+            config.model_ids, window_s=config.stat_window_s, registry=obs.REGISTRY,
+            calibration_cols=config.stat_calibration_cols)
+        self._admin = None
+        self._sampler: obs.MetricSampler | None = None
         self._shedder = BurnShedder(self.slo, threshold=config.shed_burn_threshold)
         self._shed_next_update = float("-inf")
         self._requests = obs.counter("serving_requests_total",
@@ -301,10 +388,13 @@ class CateServer:
     # ── startup ──────────────────────────────────────────────────────
 
     def _load_model(self, path: str):
-        """SHA-256-verified model load onto the configured device; takes
-        a ``FittedCausalForest`` or a bare ``CausalForest`` checkpoint.
-        Raises ``CheckpointCorrupt`` (startup: refuse to serve; degraded
-        reload: stay degraded) on any integrity failure."""
+        """SHA-256-verified model load onto the configured device, keeping
+        the training panel: → ``(forest, train_x | None)``. Takes a
+        ``FittedCausalForest`` (its ``x`` is the panel whose leaf indices
+        the index phase and a rotation build) or a bare ``CausalForest``
+        checkpoint. Raises ``CheckpointCorrupt`` (startup: refuse to
+        serve; degraded reload: stay degraded; rotation: refuse the
+        candidate) on any integrity failure."""
         from ate_replication_causalml_torch.models.causal_forest import (
             CausalForest,
             FittedCausalForest,
@@ -312,17 +402,51 @@ class CateServer:
         from ate_replication_causalml_torch.utils.checkpoint import load_fitted
 
         obj = load_fitted(path, device=self.config.device, verify=True)
-        forest = obj.forest if isinstance(obj, FittedCausalForest) else obj
-        if not isinstance(forest, CausalForest):
+        if isinstance(obj, FittedCausalForest):
+            return obj.forest, obj.x
+        if not isinstance(obj, CausalForest):
             raise TypeError(f"checkpoint {path!r} holds {type(obj).__name__}, "
                             "not a causal forest")
-        return forest
+        return obj, None
+
+    def _build_leaf_index(self, model_id: str, forest, train_x):
+        """The training panel's (T, n) leaf indices on one device
+        (``compute_leaf_index``: one ``traverse`` a 32-tree chunk), timed
+        into the ``serving_leaf_index_build_seconds`` gauge. Called at
+        startup and from the rotation, before the swap instant."""
+        from ate_replication_causalml_torch.models.causal_forest import compute_leaf_index
+
+        t0 = time.perf_counter()
+        li = compute_leaf_index(forest, train_x)
+        if li.device.type == "cuda":
+            torch.cuda.current_stream(li.device).synchronize()
+        obs.gauge("serving_leaf_index_build_seconds",
+                  "leaf-index build duration").set(time.perf_counter() - t0, model=model_id)
+        return li
+
+    @contextlib.contextmanager
+    def _own_stream(self):
+        """Run the body on a CUDA stream of its own (nothing on the CPU)
+        and synchronize it on exit: what the body left on the card is
+        complete when the caller goes on, so a rotation's candidate is
+        whole at the swap instant and a fit's output is whole before it
+        is published. The dispatcher's replays never queue behind it."""
+        if self._device.type != "cuda":
+            yield
+            return
+        stream = torch.cuda.Stream(self._device)
+        stream.wait_stream(torch.cuda.current_stream(self._device))
+        with torch.cuda.device(self._device), torch.cuda.stream(stream):
+            yield
+        stream.synchronize()
 
     def _load_checkpoint(self):
         """The daemon-wide reloader's reload_fn: re-verify the DEFAULT
-        model's last good checkpoint."""
+        model's last good checkpoint (the fleet entry's, which a
+        rotation advances)."""
         entry = self.fleet.get(DEFAULT_MODEL)
-        return self._load_model(entry.checkpoint if entry is not None else self.config.checkpoint)
+        return self._load_model(entry.checkpoint if entry is not None
+                                else self.config.checkpoint)[0]
 
     @staticmethod
     def _forest_signature(forest) -> tuple:
@@ -355,7 +479,7 @@ class CateServer:
             return
 
         def reload_last_good():
-            forest = self._load_model(entry.checkpoint)
+            forest = self._load_model(entry.checkpoint)[0]
             if self._forest_signature(forest) != entry.sig:
                 raise ValueError(f"model {entry.model_id!r} last-good checkpoint "
                                  "changed geometry on reload")
@@ -372,27 +496,34 @@ class CateServer:
         return tuple(((b,), b, False) for b in self.config.buckets.sizes)
 
     def startup(self) -> dict[str, float]:
-        """Run the three startup phases; returns their seconds (also the
+        """Run the startup phases; returns their seconds (also the
         ``serving_startup_seconds{phase=}`` gauges). *load* verifies and
         installs every model; *aot* and *warm* run once per distinct
-        geometry."""
+        geometry; *index* once per fitted checkpoint."""
         from ate_replication_causalml_torch.models.causal_forest import (
             lower_predict_cate,
             lower_predict_cate_masked,
         )
 
         obs.install_monitoring()
+        # The reconciliation baseline: requests an earlier daemon of
+        # this process decomposed are not this session's.
+        with self._lock:
+            self._phase_mark = self._phase_device_count()
         phases: dict[str, float] = {}
         specs = [(DEFAULT_MODEL, self.config.checkpoint)] + list(self.config.fleet)
         with obs.span("serving_startup", checkpoint=self.config.checkpoint,
                       models=",".join(m for m, _ in specs)):
             t0 = time.perf_counter()
+            panels: dict[str, object] = {}
             with obs.span("serving_load"):
                 for model_id, path in specs:
-                    forest = self._load_model(path)
+                    forest, train_x = self._load_model(path)
                     entry = self.fleet.install(model_id, forest, self._forest_signature(forest),
                                                int(forest.bin_edges.shape[0]), path)
                     self._wire_model_supervisor(entry)
+                    if train_x is not None:
+                        panels[model_id] = train_x
             phases["load"] = time.perf_counter() - t0
 
             reps: dict[tuple, object] = {}
@@ -422,9 +553,19 @@ class CateServer:
                         self._predicts[(sig,) + suffix](model, zeros, *args)
             phases["warm"] = time.perf_counter() - t0
 
+            if panels:
+                t0 = time.perf_counter()
+                with obs.span("serving_leaf_index", models=",".join(sorted(panels))):
+                    for model_id, train_x in panels.items():
+                        entry = self.fleet.get(model_id)
+                        self.fleet.set_leaf_index(
+                            model_id, self._build_leaf_index(model_id, entry.forest, train_x))
+                phases["index"] = time.perf_counter() - t0
+
         g = obs.gauge("serving_startup_seconds", "daemon startup phase durations")
         for phase, secs in phases.items():
             g.set(secs, phase=phase)
+        self._start_observability_plane()
         with self._lock:
             self._startup_s = dict(phases)
             self._build_mark = _build_count()
@@ -456,10 +597,45 @@ class CateServer:
         if lane == DISPATCH_LANE:
             self._reloader.retry()
 
+    def heartbeat_ages(self) -> dict[str, float]:
+        """Per-lane heartbeat ages: the ``/healthz`` body's liveness
+        detail."""
+        return self.heartbeats.ages()
+
     def stalled_lanes(self) -> tuple[str, ...]:
+        """Lanes inside a watchdog stall episode (() with the watchdog
+        off); ``/healthz`` answers 503 while the dispatcher is one."""
         with self._lock:
             wd = self._watchdog
         return wd.stalled() if wd is not None else ()
+
+    def _start_observability_plane(self) -> None:
+        """The trace sampler (counter tracks over the serving window) and
+        the optional admin endpoint, started before the build mark: the
+        window proves they build and capture nothing."""
+        if obs.trace_enabled():
+            sampler = obs.MetricSampler(metrics=obs.MetricSampler.SERVING_METRICS)
+            sampler.start()
+            with self._lock:
+                self._sampler = sampler
+        if self.config.admin_port is not None:
+            from ate_replication_causalml_torch.serving.admin import AdminServer
+
+            admin = AdminServer(self)
+            try:
+                bound = admin.start(self.config.admin_port)
+            except BaseException:
+                # A failed bind aborts startup without leaking the
+                # sampler thread.
+                with self._lock:
+                    sampler, self._sampler = self._sampler, None
+                if sampler is not None:
+                    sampler.stop()
+                raise
+            with self._lock:
+                self._admin = admin
+            obs.gauge("serving_admin_port", "bound admin HTTP port").set(bound)
+            obs.emit("serving_admin_started", status="ok", port=bound)
 
     def _start_dispatcher(self) -> None:
         with self._lock:
@@ -505,6 +681,9 @@ class CateServer:
                                f"unknown model {model_id!r} "
                                f"(serving: {', '.join(sorted(self.fleet.ids()))})",
                                request_id=request_id, model="_unknown_")
+        if entry.lifecycle.state == "retired":
+            raise self._reject("retired_model", f"model {model_id!r} is retired",
+                               request_id=request_id, model=model_id)
         p = entry.n_features
         if x.shape[1] != p:
             raise self._reject("bad_request", f"x has {x.shape[1]} features, model wants {p}",
@@ -745,6 +924,9 @@ class CateServer:
                 off += req.rows
                 self._fleet_requests.inc(1, model=batch.model, status="ok")
                 self.admission.release()
+        # The statistical-health feed: this batch's served values and
+        # real rows, host numpy already; no launch, no sync.
+        self.stat.observe(batch.model, cate[:rows], padded[:rows])
         self._batches.inc(1, bucket=width)
         fill = rows / width
         self._fill.observe(fill, bucket=width)
@@ -774,6 +956,105 @@ class CateServer:
             if due:
                 self._shedder.update()
 
+    # ── fleet rotation ───────────────────────────────────────────────
+
+    def rotate(self, model_id: str, checkpoint: str, reason: str = "rotate") -> str:
+        """Zero-downtime hot-swap of ``model_id`` onto ``checkpoint``.
+
+        Runs on the CALLING thread (the retrain supervisor's or an
+        operator op's, never the request path), on a CUDA stream of its
+        own: the candidate is SHA-256 re-verified, geometry-checked
+        against the model's warmed predicts and, for a fitted
+        checkpoint, its training panel's leaf index is built (the
+        ``serving_leaf_index_prebuild`` span; always, unlike the JAX
+        package, which skips it when a new panel row count would trace
+        inside the armed window: on the card a new row count builds and
+        captures nothing). The stream is synchronized before the swap
+        instant, so the candidate is whole on the card when it is
+        published; the swap replaces only the fleet entry's reference,
+        and the dispatcher copies the new forest into its captured
+        buffers on its own stream when it next binds it. In-flight
+        batches complete against the old forest, ``readyz`` never flips,
+        and a same-shape rotation builds and captures nothing. Returns
+        ``"rotated"`` / ``"refused"`` (corrupt or wrong-geometry
+        candidate: the last good model keeps serving) / ``"busy"`` /
+        ``"unknown_model"`` / ``"retired_model"``."""
+        entry = self.fleet.get(model_id)
+        if entry is None:
+            return "unknown_model"
+        if entry.lifecycle.state == "retired":
+            return "retired_model"
+
+        def loader():
+            inj = chaos.active()
+            if inj is not None:
+                delay = inj.rotate_verify_delay_s(f"rotate/{model_id}")
+                if delay > 0:
+                    time.sleep(delay)
+            with self._own_stream():
+                forest, train_x = self._load_model(checkpoint)
+                if self._forest_signature(forest) != entry.sig:
+                    raise ValueError(f"candidate {checkpoint!r} changed forest geometry for "
+                                     f"model {model_id!r}; a rotation cannot warm new predicts")
+                li = None
+                if train_x is not None:
+                    with obs.span("serving_leaf_index_prebuild", model=model_id,
+                                  rows=int(train_x.shape[0])):
+                        li = self._build_leaf_index(model_id, forest, train_x)
+            if self._device.type == "cuda":
+                # The dispatcher (on the default stream) reads the
+                # candidate: its blocks are not reused before that
+                # stream's work.
+                reader = torch.cuda.default_stream(self._device)
+                for f in dataclasses.fields(forest):
+                    t = getattr(forest, f.name)
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(reader)
+            return forest, li
+
+        def installer(pair):
+            forest, li = pair
+            inj = chaos.active()
+            if inj is not None and inj.take_rotate_fault("mid_swap", site=f"rotate/{model_id}"):
+                from ate_replication_causalml_torch.resilience.errors import ChaosRotateFault
+
+                raise ChaosRotateFault(f"chaos: injected mid-swap fault ({model_id})")
+            version = self.fleet.swap(model_id, forest, checkpoint, leaf_index=li)
+            obs.emit("serving_model_rotated", status="ok", model=model_id, version=version,
+                     checkpoint=checkpoint)
+
+        return entry.supervisor.rotate(loader, installer, reason=reason, model=model_id)
+
+    def retire(self, model_id: str) -> bool:
+        """Retire a model: its id answers typed ``retired_model`` rejects
+        from now on (never ``unknown_model``). Returns whether the id
+        existed."""
+        entry = self.fleet.get(model_id)
+        if entry is None:
+            return False
+        entry.lifecycle.retire()
+        return True
+
+    def retrain_supervisor(self, model_id: str, fit_fn, publish_dir: str, **kwargs):
+        """A :class:`~.retrain.RetrainSupervisor` wired to this daemon's
+        verified rotation for ``model_id``; ``fit_fn`` runs on a CUDA
+        stream of its own, synchronized before its result is
+        published."""
+        from ate_replication_causalml_torch.serving.retrain import RetrainSupervisor
+
+        entry = self.fleet.get(model_id)
+        if entry is None:
+            raise KeyError(f"unknown model {model_id!r}")
+
+        def fit_on_own_stream():
+            with self._own_stream():
+                return fit_fn()
+
+        return RetrainSupervisor(
+            model_id, fit_on_own_stream, publish_dir,
+            rotate_fn=lambda path: self.rotate(model_id, path, reason="retrain"),
+            start_version=entry.version + 1, heartbeats=self.heartbeats, **kwargs)
+
     # ── proof + shutdown ─────────────────────────────────────────────
 
     def builds_in_window(self) -> dict[str, float]:
@@ -797,8 +1078,15 @@ class CateServer:
             return dict(self._startup_s)
 
     @staticmethod
-    def _label_value(key: str, label: str) -> str | None:
-        return dict(pair.split("=", 1) for pair in key.split(",") if "=" in pair).get(label)
+    def _phase_device_count() -> int:
+        """The registry's decomposed-request count (the ``phase=device``
+        samples of ``serving_phase_seconds``). Process-global; startup
+        marks it so the reconciliation counts only this session."""
+        m = obs.REGISTRY.family("serving_phase_seconds")
+        if m is None:
+            return 0
+        return sum(int(s.get("count", 0)) for key, s in m.peek_counts().items()
+                   if parse_label_key(key).get("phase") == "device")
 
     def phase_stats(self) -> dict:
         """p50/p99/count per lifecycle phase from the registry's bucket
@@ -808,7 +1096,7 @@ class CateServer:
             return {}
         out: dict = {}
         for key, s in sorted(m.peek_counts().items()):
-            phase = self._label_value(key, "phase")
+            phase = parse_label_key(key).get("phase")
             if phase is None:
                 continue
             snap = m.snapshot_sample(s)
@@ -821,7 +1109,7 @@ class CateServer:
         samples = obs.REGISTRY.peek(family) or {}
         out: dict[str, int] = {}
         for key, v in sorted(samples.items()):
-            value = self._label_value(key, label)
+            value = parse_label_key(key).get(label)
             if value is not None and v:
                 out[value] = int(v)
         return out
@@ -850,12 +1138,17 @@ class CateServer:
         return self._fraction_mean("serving_masked_fraction")
 
     def model_bindings(self) -> dict:
-        """Every served model id with its version and checkpoint."""
+        """Every non-retired model id with its version and checkpoint:
+        ``/readyz`` and the ``stats`` op publish it, so a router builds
+        its routing table from health probes alone."""
         return {mid: {"version": info.get("version"), "checkpoint": info.get("checkpoint")}
-                for mid, info in self.fleet.describe().items()}
+                for mid, info in self.fleet.describe().items()
+                if info.get("state") != "retired"}
 
     def stats(self) -> dict:
         """The ``stats`` op payload."""
+        with self._lock:
+            admin = self._admin
         return {
             "state": self.lifecycle.state,
             "queue_depth": self.admission.depth,
@@ -872,15 +1165,55 @@ class CateServer:
             "masked_fraction_mean": self.masked_fraction_mean(),
             "fused_buckets": (None if self._fusion is None
                               else [list(g) for g in self._fusion.groups]),
+            "admin_port": admin.port if admin is not None else None,
             "deadline_exceeded": self.deadline_exceeded_counts(),
-            "heartbeats": {lane: round(age, 6) for lane, age in self.heartbeats.ages().items()},
+            "heartbeats": {lane: round(age, 6) for lane, age in self.heartbeat_ages().items()},
             "stalled_lanes": list(self.stalled_lanes()),
             "slo": self.slo.health(),
             "fleet": self.fleet.describe(),
             "models": self.model_bindings(),
             "shed_burn_threshold": self._shedder.threshold,
             "shed_burns": self._shedder.burns(),
+            "stat_health": self.stat.health(),
         }
+
+    def dump_artifacts(self, outdir: str) -> list[str]:
+        """Export the serving window's artifacts into ``outdir``:
+        metrics.json / events.jsonl / metrics.prom, the serving
+        ``trace.json`` + ``serving_report.json`` pair, ``slo_report.json``
+        and ``stat_health.json``. Safe while serving (the ``dump`` op),
+        and called by :meth:`stop` under ``$ATE_TPU_METRICS_DIR``.
+        Returns the paths written."""
+        from ate_replication_causalml_torch.observability import serving_report as _sreport
+        from ate_replication_causalml_torch.observability import trace as _trace
+
+        os.makedirs(outdir, exist_ok=True)
+        if obs.trace_enabled():
+            # This daemon's window of the process-global ring. The trace
+            # is built BEFORE the metrics snapshot, so the
+            # reconciliation's metrics side never undercounts it.
+            records = [r for r in obs.EVENTS.records()
+                       if r.get("start_mono_s", 0.0) >= self._born_mono - 1e-6]
+            with self._lock:
+                phase_mark = self._phase_mark
+            tr = _trace.build_trace(records, meta=_trace.run_meta(
+                tool="serving", checkpoint=self.config.checkpoint,
+                buckets=",".join(str(b) for b in self.config.buckets.sizes),
+                serving_phase_mark=phase_mark))
+            paths = obs.write_run_artifacts(outdir)
+            # The reconciliation reads the metrics.json just written, the
+            # file a reader recomputing the report reads.
+            with open(os.path.join(outdir, "metrics.json")) as f:
+                metrics_snapshot = json.load(f)
+            paths += _sreport.write_serving_artifacts(outdir, tr, metrics=metrics_snapshot)
+        else:
+            paths = obs.write_run_artifacts(outdir)
+        spath = os.path.join(outdir, _sreport.SLO_REPORT_BASENAME)
+        obs.atomic_write_json(spath, self.slo.evaluate())
+        paths.append(spath)
+        stathealth.write_stat_health(outdir, self.stat.state_dict())
+        paths.append(os.path.join(outdir, stathealth.STAT_HEALTH_BASENAME))
+        return paths
 
     def drain(self, timeout_s: float | None = None, clock=time.monotonic,
               sleep=time.sleep) -> str:
@@ -922,9 +1255,10 @@ class CateServer:
         return outcome
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Stop the dispatcher and the watchdog and ENFORCE the no-build
-        window: a kernel build or a graph capture after warm raises.
-        Idempotent."""
+        """Stop the dispatcher, the watchdog and the observability plane,
+        export the artifacts when ``$ATE_TPU_METRICS_DIR`` is set, and
+        ENFORCE the no-build window: a kernel build or a graph capture
+        after the startup mark raises. Idempotent."""
         with self._lock:
             if self._stopped:
                 return
@@ -937,13 +1271,27 @@ class CateServer:
         self.lifecycle.mark_stopped()
         with self._lock:
             t = self._dispatcher
+            sampler, self._sampler = self._sampler, None
+            admin, self._admin = self._admin, None
         if t is not None:
             t.join(timeout)
+        if sampler is not None:
+            sampler.stop()
+        if admin is not None:
+            admin.stop()
         window = self.builds_in_window()
         leaked = float(sum(window.values()))
         obs.gauge("serving_compile_events_in_window",
                   "kernel builds and graph captures during the serving window (must be 0)"
                   ).set(leaked)
+        outdir = os.environ.get("ATE_TPU_METRICS_DIR")
+        if outdir:
+            try:
+                self.dump_artifacts(outdir)
+            except Exception as e:
+                # The export never masks the serving outcome.
+                obs.emit("serving_export_failed", status="error",
+                         error=f"{type(e).__name__}: {e}")
         if leaked:
             obs.emit("serving_compile_in_window", status="error", events=leaked, **window)
             raise RuntimeError(f"serving window recorded {window} kernel builds / graph "
@@ -980,10 +1328,40 @@ def _handle_op(server: CateServer, header: dict, arrays: dict):
         cate, var = req.result
         return ({"ok": True, "id": rid, "model": req.model, "model_version": req.model_version},
                 {"cate": cate, "variance": var}, False)
+    if op == "rotate":
+        # Operator-triggered hot-swap; serving goes on through the
+        # verify, and a refused candidate keeps the last good model.
+        model = str(header.get("model") or DEFAULT_MODEL)
+        checkpoint = header.get("checkpoint")
+        if not checkpoint:
+            return {"ok": False, "id": rid, "error": "bad_request",
+                    "message": "rotate needs a 'checkpoint' header field"}, {}, False
+        status = server.rotate(model, str(checkpoint), reason="op")
+        return {"ok": status == "rotated", "op": "rotate", "model": model,
+                "status": status}, {}, False
+    if op == "retire":
+        model = str(header.get("model") or "")
+        known = server.retire(model)
+        return {"ok": known, "op": "retire", "model": model,
+                "status": "retired" if known else "unknown_model"}, {}, False
     if op == "ping":
         return {"ok": True, "op": "ping", "state": server.lifecycle.state}, {}, False
     if op == "stats":
         return {"ok": True, "op": "stats", "stats": server.stats()}, {}, False
+    if op == "dump":
+        # Live artifact export, without stopping the daemon.
+        outdir = header.get("dir") or os.environ.get("ATE_TPU_METRICS_DIR")
+        if not outdir:
+            return {"ok": False, "id": rid, "error": "bad_request",
+                    "message": "dump needs a 'dir' header field or "
+                               "$ATE_TPU_METRICS_DIR"}, {}, False
+        try:
+            paths = server.dump_artifacts(outdir)
+        except Exception as e:
+            obs.emit("serving_dump_failed", status="error", error=f"{type(e).__name__}: {e}")
+            return {"ok": False, "id": rid, "error": "error",
+                    "message": f"{type(e).__name__}: {e}"}, {}, False
+        return {"ok": True, "op": "dump", "paths": paths}, {}, False
     if op == "drain":
         timeout = header.get("timeout_s")
         try:
@@ -995,7 +1373,6 @@ def _handle_op(server: CateServer, header: dict, arrays: dict):
         return {"ok": outcome == "drained", "op": "drain", "outcome": outcome}, {}, True
     if op == "shutdown":
         return {"ok": True, "op": "shutdown"}, {}, True
-    # rotate, retire and dump (not ported yet) land here, as any other op.
     return {"ok": False, "error": "bad_request", "message": f"unknown op {op!r}"}, {}, False
 
 

@@ -4,13 +4,16 @@ Port of ``ate_replication_causalml_tpu/serving/fleet.py`` (pure Python):
 
 * :class:`ModelFleet`: the lock-guarded registry of served models. Each
   :class:`ModelEntry` carries the forest reference, a version, the
-  geometry signature its warmed predicts were built for, and its own
+  geometry signature its warmed predicts were built for, a fitted
+  checkpoint's pre-built training-panel leaf index, and its own
   lifecycle. A dispatcher reads one consistent ``(forest, version)``
-  binding a batch.
-* :class:`ModelLifecycle`: per-model ``serving ⇄ degraded`` state, the
-  small sibling of the daemon-wide
+  binding a batch; :meth:`ModelFleet.swap` is a rotation's swap
+  instant.
+* :class:`ModelLifecycle`: per-model ``serving ⇄ degraded → retired``
+  state, the small sibling of the daemon-wide
   :class:`~.admission.ServingLifecycle`: one tenant's degradation gates
-  only that tenant's requests.
+  only that tenant's requests, and a retired tenant answers typed
+  ``retired_model`` rejects.
 * :class:`BurnShedder`: SLO-burn-driven admission: a model sheds (typed
   ``shed`` reject with retry-after) while its two fastest SLO windows
   both burn above the threshold. Shed rejects are excluded from the
@@ -19,9 +22,9 @@ Port of ``ate_replication_causalml_tpu/serving/fleet.py`` (pure Python):
   (``"tenantA=/path/a.npz,tenantB=/path/b.npz"``).
 
 Same-shape models share warmed predicts: the daemon keys them by
-(geometry signature, bucket) and takes the forest as a runtime argument.
-Rotation (``swap``), retirement and the leaf-index prebuild of the JAX
-package's fleet come with rotation, which is not ported yet.
+(geometry signature, bucket) and takes the forest as a runtime argument,
+so rotating a model to a same-shape candidate builds and captures
+nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ate_replication_causalml_torch.observability import events as _events
 #: Per-model lifecycle states.
 MODEL_SERVING = "serving"
 MODEL_DEGRADED = "degraded"
+MODEL_RETIRED = "retired"
 
 
 def parse_fleet_spec(spec: str) -> tuple[tuple[str, str], ...]:
@@ -60,12 +64,13 @@ def parse_fleet_spec(spec: str) -> tuple[tuple[str, str], ...]:
 
 
 class ModelLifecycle:
-    """Per-model ``serving ⇄ degraded`` state machine. Starts SERVING (a
-    model enters the fleet only after its checkpoint verified).
-    Implements the protocol :class:`~.admission.ReloadSupervisor`
+    """Per-model ``serving ⇄ degraded → retired`` state machine. Starts
+    SERVING (a model enters the fleet only after its checkpoint
+    verified). Implements the protocol :class:`~.admission.ReloadSupervisor`
     drives: ``mark_fault`` returns True to exactly one caller (the owner
-    of recovery), ``mark_recovered`` flips back. Every transition is a
-    ``serving_model_state`` event labeled by model."""
+    of recovery), ``mark_recovered`` flips back; plus a terminal
+    ``retire``. Every transition is a ``serving_model_state`` event
+    labeled by model."""
 
     def __init__(self, model_id: str):
         self.model_id = model_id
@@ -84,7 +89,8 @@ class ModelLifecycle:
     def mark_fault(self, reason: str) -> bool:
         """Report a model-scoped fault. True to the one caller that
         moved SERVING → DEGRADED (it owns recovery); concurrent
-        reporters, and reports on a degraded model, get False."""
+        reporters, and reports on a degraded or retired model, get
+        False."""
         with self._lock:
             self._fault_count += 1
             if self._state != MODEL_SERVING:
@@ -97,11 +103,26 @@ class ModelLifecycle:
 
     def mark_recovered(self) -> None:
         with self._lock:
+            if self._state == MODEL_RETIRED:
+                # Retirement is terminal and wins races: a reload that
+                # completes after the retire must not resurrect it.
+                return
             if self._state != MODEL_DEGRADED:
                 raise RuntimeError(f"model {self.model_id!r} cannot recover from {self._state!r}")
             self._state = MODEL_SERVING
         _events.emit("serving_model_state", status="ok", model=self.model_id,
                      frm=MODEL_DEGRADED, to=MODEL_SERVING)
+
+    def retire(self) -> None:
+        """Terminal: the model id keeps answering, with a typed
+        ``retired_model`` reject, instead of vanishing into
+        ``unknown_model``."""
+        with self._lock:
+            if self._state == MODEL_RETIRED:
+                return
+            frm, self._state = self._state, MODEL_RETIRED
+        _events.emit("serving_model_state", status="ok", model=self.model_id, frm=frm,
+                     to=MODEL_RETIRED)
 
     @property
     def fault_count(self) -> int:
@@ -111,19 +132,28 @@ class ModelLifecycle:
 
 class ModelEntry:
     """One served model: the forest reference and its metadata. The
-    forest is replaced only through :class:`ModelFleet` under the fleet
-    lock; ``lifecycle`` and ``supervisor`` lock themselves."""
+    forest, version, checkpoint and leaf index are replaced only through
+    :class:`ModelFleet` under the fleet lock; ``lifecycle`` and
+    ``supervisor`` lock themselves.
+
+    ``leaf_index``: a fitted checkpoint's (T, n) training-panel leaf
+    indices (``compute_leaf_index``), built before the swap instant, so
+    an in-sample rescore after a rotation pays no build. None for a bare
+    forest; a swap always overwrites it (a stale index against a new
+    forest would be silently wrong)."""
 
     __slots__ = ("model_id", "forest", "version", "sig", "n_features", "checkpoint",
-                 "lifecycle", "supervisor")
+                 "lifecycle", "supervisor", "leaf_index")
 
-    def __init__(self, model_id: str, forest, sig, n_features: int, checkpoint: str):
+    def __init__(self, model_id: str, forest, sig, n_features: int, checkpoint: str,
+                 leaf_index=None):
         self.model_id = model_id
         self.forest = forest
         self.version = 1
         self.sig = sig
         self.n_features = int(n_features)
         self.checkpoint = checkpoint
+        self.leaf_index = leaf_index
         self.lifecycle = ModelLifecycle(model_id)
         self.supervisor = None  # wired by the daemon after install
 
@@ -136,9 +166,9 @@ class ModelFleet:
         self._entries: dict[str, ModelEntry] = {}
 
     def install(self, model_id: str, forest, sig, n_features: int,
-                checkpoint: str) -> ModelEntry:
+                checkpoint: str, leaf_index=None) -> ModelEntry:
         """Register a verified model at version 1 (startup only)."""
-        entry = ModelEntry(model_id, forest, sig, n_features, checkpoint)
+        entry = ModelEntry(model_id, forest, sig, n_features, checkpoint, leaf_index)
         with self._lock:
             if model_id in self._entries:
                 raise ValueError(f"model {model_id!r} already installed")
@@ -155,7 +185,7 @@ class ModelFleet:
 
     def binding(self, model_id: str):
         """Consistent ``(forest, version)`` read — the pair a dispatch
-        binds. One lock acquisition, so a concurrent reinstall yields either
+        binds. One lock acquisition, so a concurrent swap yields either
         the old pair or the new one, never a mix."""
         with self._lock:
             entry = self._entries[model_id]
@@ -169,16 +199,39 @@ class ModelFleet:
         with self._lock:
             self._entries[model_id].forest = forest
 
+    def swap(self, model_id: str, forest, checkpoint: str, leaf_index=None) -> int:
+        """The hot-swap instant: replace the forest reference, bump the
+        version, record the new last-good checkpoint and the candidate's
+        pre-built leaf index (None clears a stale one). Returns the new
+        version. In-flight batches keep the reference they bound; the
+        next dispatch binds the new pair. Only the reference moves: the
+        dispatcher copies a new forest into its captured buffers itself,
+        on its own stream, when it next binds it."""
+        with self._lock:
+            entry = self._entries[model_id]
+            entry.forest = forest
+            entry.version += 1
+            entry.checkpoint = checkpoint
+            entry.leaf_index = leaf_index
+            return entry.version
+
+    def set_leaf_index(self, model_id: str, leaf_index) -> None:
+        """Attach the startup phase's leaf index to an installed model."""
+        with self._lock:
+            self._entries[model_id].leaf_index = leaf_index
+
     def describe(self) -> dict:
         """The ``stats`` op's fleet section. Entry fields are read
-        UNDER the fleet lock — a snapshot racing a reinstall must never
-        show the new version paired with the old checkpoint path."""
+        UNDER the fleet lock: a snapshot racing a swap must never show
+        the new version paired with the old checkpoint path."""
         with self._lock:
             out = {
                 e.model_id: {
                     "version": e.version,
                     "checkpoint": e.checkpoint,
                     "n_features": e.n_features,
+                    "leaf_index_rows": (None if e.leaf_index is None
+                                        else int(e.leaf_index.shape[1])),
                 }
                 for e in self._entries.values()
             }

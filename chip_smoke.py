@@ -77,6 +77,27 @@ imports nothing of JAX. Phases, each printing one JSON line:
    (``stop()`` asserts it); prints the startup phases, p50/p99 latency
    per bucket, rows/s, the close reasons and the card's name and power
    limit;
+6c. path_serve_lifecycle — path_serve's fitted checkpoint behind the
+   daemon at path_serve's defaults with the admin endpoint and the trace
+   on, ``tenant_b`` a second fleet model on the same file: startup's
+   ``index`` phase (``leaf_index_rows`` 11,016); ``LIFECYCLE_SECONDS`` of
+   seeded open-loop load (``loadgen``, ``LIFECYCLE_RATE_HZ``, path_serve's
+   sizes) while ``retrain_supervisor(...).run_once()`` refits the causal
+   row's forest with another key on its own stream, publishes, verifies,
+   prebuilds the leaf index and swaps; ``LIFECYCLE_POST_SECONDS`` more
+   load on the new version; a wire ``rotate`` to a corrupt copy
+   (``refused``); ``/readyz`` and ``/healthz`` polled over HTTP; the
+   ``dump`` op; ``tenant_b`` retired (``retired_model``); ``stop()``.
+   Every reply bit for bit its named version's offline ``predict_cate``
+   on the card, 0 builds and captures, the fit's launches path_cf's fit's,
+   ``traverse`` held to its plain version (ids mode) and to 63 × (warm-up,
+   warm, batches, 3 leaf-index builds), the dumped ``serving_report.json``
+   and ``stat_health.json`` recomputed byte for byte; prints the startup
+   phases, the fit, verify, prebuild and swap seconds, p50/p99 per bucket
+   before the fit, inside the retrain window and after the swap, offered
+   and achieved rates, rejects, launches, the phase's wall, the slowest
+   replies and the host's garbage collections over 5 ms, each timed
+   from the swap;
 7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
    card and on the CPU, held to stated bounds (split agreement, leaf
    statistics, τ̂ and its variance, the ATE and its SE);
@@ -171,6 +192,7 @@ non-zero and prints no result. Details go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -219,7 +241,10 @@ from ate_replication_causalml_torch.ops import hist, lasso, pack, qp, tree  # no
 from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
 from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
+from ate_replication_causalml_torch.observability import serving_report as sreport  # noqa: E402
+from ate_replication_causalml_torch.observability import stathealth  # noqa: E402
 from ate_replication_causalml_torch.resilience import chaos  # noqa: E402
+from ate_replication_causalml_torch.serving import loadgen  # noqa: E402
 from ate_replication_causalml_torch.serving.client import CateClient  # noqa: E402
 from ate_replication_causalml_torch.serving.coalescer import BucketPlan  # noqa: E402
 from ate_replication_causalml_torch.serving.daemon import (  # noqa: E402
@@ -228,7 +253,7 @@ from ate_replication_causalml_torch.serving.daemon import (  # noqa: E402
     ServeConfig,
     serve_socket,
 )
-from ate_replication_causalml_torch.utils.checkpoint import save_fitted  # noqa: E402
+from ate_replication_causalml_torch.utils.checkpoint import load_fitted, save_fitted  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -394,6 +419,21 @@ SERVE_REQUESTS, SERVE_PRODUCERS, SERVE_SEQUENTIAL = 504, 4, 56
 SERVE_WIRE, SERVE_CHAOS_REQUESTS = 24, 40
 SERVE_CHAOS = "serve:p=0.25,seed=11"
 SERVE_CKPT = os.path.join(REPO, "build", "chip_smoke_serve", "forest.npz")
+# path_serve_lifecycle: path_serve's daemon and checkpoint (with a second
+# fleet model on the same checkpoint), seeded open-loop load at
+# LIFECYCLE_RATE_HZ for LIFECYCLE_SECONDS over path_serve's request sizes,
+# a retrain started LIFECYCLE_RETRAIN_AFTER_S into it, then
+# LIFECYCLE_POST_SECONDS more of the same load once the swap is done. The
+# load outlasts a retrain slowed by it (24-30 s on the H100, the fit 20-27
+# of them), and the seconds before the fit and after the swap are equal,
+# so the latency outside the retrain has a sample of the same order as
+# inside it.
+LIFECYCLE_SEED = 2024
+LIFECYCLE_RATE_HZ = 100.0
+LIFECYCLE_SECONDS = 42.0
+LIFECYCLE_POST_SECONDS = 8.0
+LIFECYCLE_RETRAIN_AFTER_S = 8.0
+LIFECYCLE_OUT = os.path.join(REPO, "build", "chip_smoke_lifecycle")
 
 RECORD: dict = {}
 # Rows of the path phases that the sweep's rows are held to.
@@ -1648,9 +1688,11 @@ def phase_path_serve(frame_mod, smi: str) -> dict:
     counts = read_counts()
     batches = sum((obs.REGISTRY.peek("serving_batches_total") or {}).values()) - batches0
     n_warm = len(server.config.buckets.sizes)
-    if counts["traverse"] != per_replay * (2 * n_warm + batches):
+    # The checkpoint is fitted: startup's index phase builds its
+    # training panel's leaf indices (one traverse a 32-tree chunk).
+    if counts["traverse"] != per_replay * (2 * n_warm + batches + 1):
         fails.append(f"traverse launches {counts['traverse']}, want {per_replay} x "
-                     f"({2 * n_warm} warm-up and warm + {batches} batches)")
+                     f"({2 * n_warm} warm-up and warm + {batches} batches + 1 leaf index)")
     if any(window.values()):
         fails.append(f"builds in the serving window: {window}")
     require_launched(counts, ("traverse",), "serve")
@@ -1684,6 +1726,287 @@ def phase_path_serve(frame_mod, smi: str) -> dict:
     emit(out)
     if fails:
         raise AssertionError("path_serve: " + "; ".join(fails[:8]))
+    return counts
+
+
+def http_status(port: int, path: str) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def span_bounds(records: list, name: str) -> tuple[float, float] | None:
+    """(start, end) monotonic seconds of the last ``name`` record."""
+    recs = [r for r in records if r["name"] == name]
+    return (recs[-1]["start_mono_s"], recs[-1]["end_mono_s"]) if recs else None
+
+
+def phase_path_serve_lifecycle(frame_mod, smi: str, cf_counts: dict) -> dict:
+    """The serving plane's model lifecycle on the card: path_serve's
+    fitted checkpoint behind the daemon at path_serve's defaults with the
+    admin endpoint and the trace on, a second fleet model (``tenant_b``)
+    on the same checkpoint; startup's index phase; seeded open-loop load
+    (``loadgen.run_inprocess``) while the retrain supervisor fits the
+    causal row's forest again with another key on its own stream,
+    publishes, verifies, prebuilds the leaf index and swaps; an operator
+    rotation over the wire to a corrupt copy (refused); ``/readyz`` and
+    ``/healthz`` polled over HTTP throughout; the ``dump`` op; tenant_b
+    retired; ``stop()``. Gates: every reply bit for bit the offline
+    ``predict_cate`` of the version it names, 0 builds and captures, the
+    fit's launches those of path_cf's fit, the dump's reports recomputed
+    byte for byte, probes 200 throughout."""
+    from ate_replication_causalml_torch.serving.retrain import RetrainConfig
+
+    shutil.rmtree(LIFECYCLE_OUT, ignore_errors=True)
+    publish = os.path.join(LIFECYCLE_OUT, "publish")
+    os.makedirs(publish)
+    v1 = load_fitted(SERVE_CKPT, device="cuda")
+    n_panel = int(v1.x.shape[0])
+    # The kernel at this path's shapes: the leaf-index build's ids mode on
+    # the panel (a 32-tree chunk) against its plain version, uncounted.
+    codes = fo.binarize(v1.x, v1.forest.bin_edges)
+    args = (codes, v1.forest.split_feat[:32].contiguous(), v1.forest.split_bin[:32].contiguous())
+    if not torch.equal(tree.traverse(*args), tree.traverse_plain(*args)):
+        raise AssertionError("path_serve_lifecycle: traverse (ids) differs from its plain version")
+    schedule = loadgen.build_schedule(LIFECYCLE_SEED, int(LIFECYCLE_RATE_HZ * LIFECYCLE_SECONDS),
+                                      rate_hz=LIFECYCLE_RATE_HZ,
+                                      mix=",".join(str(m) for m in SERVE_SIZES))
+    queries = loadgen.build_queries(LIFECYCLE_SEED, schedule, int(v1.x.shape[1]))
+    post_schedule = loadgen.build_schedule(
+        LIFECYCLE_SEED + 1, int(LIFECYCLE_RATE_HZ * LIFECYCLE_POST_SECONDS),
+        rate_hz=LIFECYCLE_RATE_HZ, mix=",".join(str(m) for m in SERVE_SIZES), id_prefix="p")
+    post_queries = loadgen.build_queries(LIFECYCLE_SEED + 1, post_schedule, int(v1.x.shape[1]))
+    fails: list[str] = []
+    # The host's garbage collections over the phase (monotonic start, ms,
+    # generation), beside the slowest replies: what stalls the dispatcher.
+    gc_runs: list[tuple[float, float, int]] = []
+    gc_t: list[float] = [0.0]
+
+    def on_gc(stage: str, info: dict) -> None:
+        if stage == "start":
+            gc_t[0] = time.monotonic()
+        else:
+            gc_runs.append((gc_t[0], (time.monotonic() - gc_t[0]) * 1e3, info["generation"]))
+
+    gc.callbacks.append(on_gc)
+    reset_counts()
+    batches0 = sum((obs.REGISTRY.peek("serving_batches_total") or {}).values())
+    t0 = time.perf_counter()
+    server = CateServer(ServeConfig(checkpoint=SERVE_CKPT, buckets=BucketPlan.parse(SERVE_BUCKETS),
+                                    window_s=0.002, max_depth=64, admin_port=0,
+                                    fleet=(("tenant_b", SERVE_CKPT),), device="cuda"))
+    phases = server.startup()
+    startup_wall = time.perf_counter() - t0
+    per_replay = server._predicts[next(iter(server._predicts))].traverse_per_replay
+    rows_before = {m: server.stats()["fleet"][m]["leaf_index_rows"] for m in ("default", "tenant_b")}
+    if set(phases) != {"load", "aot", "warm", "index"} or any(
+            r != n_panel for r in rows_before.values()):
+        fails.append(f"startup phases {sorted(phases)}, leaf_index_rows {rows_before}")
+    admin = server.stats()["admin_port"]
+    probes: list[tuple[int, int]] = []
+    stop_probes = threading.Event()
+
+    def poll() -> None:
+        while not stop_probes.is_set():
+            probes.append((http_status(admin, "/readyz"), http_status(admin, "/healthz")))
+            stop_probes.wait(0.05)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    replies: list = []
+    record: dict = {}
+    load_errors: list[str] = []
+
+    def run_load() -> None:
+        try:
+            record.update(loadgen.run_inprocess(server, schedule, queries, replies=replies,
+                                                timeout_s=120.0))
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            load_errors.append(f"{type(e).__name__}: {e}")
+
+    load = threading.Thread(target=run_load, name="loadgen")
+    load_t0 = time.monotonic()
+    load.start()
+    time.sleep(LIFECYCLE_RETRAIN_AFTER_S)
+    fit_times: list[float] = []
+    fitted: list = []
+
+    def fit_fn():
+        t = time.monotonic()
+        out = cf.fit_causal_forest(frame_mod, key=sweep_key("causal_forest_retrain", "cuda"),
+                                   n_trees=CF_TREES, depth=CF_DEPTH,
+                                   nuisance_trees=CF_NUISANCE_TREES, nuisance_depth=DEPTH)
+        fit_times.extend((t, time.monotonic()))
+        fitted.append(out)
+        return out
+
+    retrain_t0 = time.monotonic()
+    outcome = server.retrain_supervisor("default", fit_fn, publish,
+                                        config=RetrainConfig(max_attempts=1)).run_once()
+    retrain_t1 = time.monotonic()
+    window_after_swap = server.builds_in_window()
+    load.join(LIFECYCLE_SECONDS + 180)
+    if load_errors or load.is_alive():
+        raise AssertionError(f"path_serve_lifecycle: load failed: {load_errors}")
+    if outcome.status != "rotated":
+        raise AssertionError(f"path_serve_lifecycle: retrain {outcome}")
+    records = [r for r in obs.EVENTS.records() if r.get("start_mono_s", 0.0) >= load_t0 - 1.0]
+    rotation = span_bounds(records, "serving_rotation")
+    prebuild = span_bounds(records, "serving_leaf_index_prebuild")
+    swap_mono = max(r["start_mono_s"] for r in records if r["name"] == "serving_model_rotated")
+    v2 = load_fitted(outcome.checkpoint, device="cuda")
+    post_replies: list = []
+    post_record = loadgen.run_inprocess(server, post_schedule, post_queries,
+                                        replies=post_replies, timeout_s=120.0)
+    # An operator rotation over the wire to a corrupt copy: refused.
+    corrupt = os.path.join(LIFECYCLE_OUT, "corrupt.npz")
+    with open(outcome.checkpoint, "rb") as f:
+        raw = f.read()
+    with open(corrupt, "wb") as f:
+        f.write(raw[: len(raw) * 3 // 5])
+    bound: list[int] = []
+    sock_thread = threading.Thread(target=serve_socket, args=(server, "127.0.0.1", 0),
+                                   kwargs={"on_bound": bound.append}, daemon=True)
+    sock_thread.start()
+    t_wait = time.monotonic()
+    while not bound and time.monotonic() - t_wait < 30:
+        time.sleep(0.01)
+    dump_dir = os.path.join(LIFECYCLE_OUT, "dump")
+    wire: list = []
+    with CateClient.connect("127.0.0.1", bound[0]) as client:
+        refused = client.rotate(corrupt)
+        for i in range(4):
+            c, v, header = client.predict_full(queries[i], request_id=f"post{i}")
+            wire.append((i, c, v, header))
+        b_before = server.serve_request("tenant_b_0", queries[5], model="tenant_b")
+        retired = client.retire("tenant_b")
+        try:
+            server.serve_one("tenant_b_1", queries[5], model="tenant_b")
+            retired_code = None
+        except RejectedRequest as rej:
+            retired_code = rej.code
+        paths = client.dump(dump_dir)
+        stats = client.stats()
+    stop_probes.set()
+    poller.join(10)
+    window = server.builds_in_window()
+    server.stop()
+    gc.callbacks.remove(on_gc)
+    sock_thread.join(10)
+    counts = read_counts()
+    batches = sum((obs.REGISTRY.peek("serving_batches_total") or {}).values()) - batches0
+    if refused != "refused":
+        fails.append(f"corrupt candidate: {refused}")
+    if retired is not True or retired_code != "retired_model":
+        fails.append(f"retire: {retired}, tenant_b after it {retired_code}")
+    # Every reply bit for bit its version's offline predict on the card.
+    forests = {1: v1.forest, 2: v2.forest}
+    items = [(r.request_id, r.result, r.model_version, r) for r in replies + post_replies]
+    by_id = {s.request_id: q for s, q in zip(schedule + post_schedule, queries + post_queries)}
+    xs = [by_id[rid] for rid, *_ in items] + [queries[i] for i, *_ in wire] + [queries[5]]
+    cat = torch.as_tensor(np.concatenate(xs), device="cuda")
+    refs = {v: cf.predict_cate(f, cat, oob=False) for v, f in forests.items()}
+    refs = {v: (o.cate.cpu().numpy(), o.variance.cpu().numpy()) for v, o in refs.items()}
+    starts = np.cumsum([0] + [x.shape[0] for x in xs])
+    got = [(res, ver) for _, res, ver, _ in items]
+    got += [((c, v), h["model_version"]) for _, c, v, h in wire]
+    got += [(b_before.result, b_before.model_version)]
+    for k, ((c, v), ver) in enumerate(got):
+        a, b = starts[k], starts[k + 1]
+        if ver not in refs or not (np.array_equal(c, refs[ver][0][a:b])
+                                   and np.array_equal(v, refs[ver][1][a:b])):
+            fails.append(f"reply {k} (version {ver}) differs from its version's offline predict")
+    if any(h["model_version"] != 2 for *_, h in wire):
+        fails.append("wire replies after the refused rotation not on version 2")
+    late = [r for *_, r in items if r.enqueued_mono > swap_mono and r.model_version != 2]
+    early = [r for *_, r in items if r.resolved_mono < swap_mono and r.model_version != 1]
+    if late or early or not post_replies:
+        fails.append(f"{len(late)} replies enqueued after the swap not on v2, {len(early)} "
+                     f"resolved before it not on v1, {len(post_replies)} after it")
+    if any(window_after_swap.values()) or any(window.values()):
+        fails.append(f"builds in the window: after the swap {window_after_swap}, end {window}")
+    if not probes or any(p != (200, 200) for p in probes):
+        fails.append(f"admin probes not all 200: {sorted(set(probes))} of {len(probes)}")
+    rows_after = stats["fleet"]["default"]["leaf_index_rows"]
+    if rows_after != n_panel:
+        fails.append(f"leaf_index_rows after the swap {rows_after}")
+    names = {os.path.basename(p) for p in paths}
+    want_names = {"metrics.json", "events.jsonl", "metrics.prom", "trace.json",
+                  "serving_report.json", "slo_report.json", "stat_health.json"}
+    if names != want_names:
+        fails.append(f"dump wrote {sorted(names)}")
+    else:
+        with open(os.path.join(dump_dir, "trace.json")) as f:
+            trace = json.load(f)
+        with open(os.path.join(dump_dir, "metrics.json")) as f:
+            metrics = json.load(f)
+        with open(os.path.join(dump_dir, "serving_report.json"), "rb") as f:
+            dumped = f.read()
+        if (json.dumps(sreport.serving_report(trace, metrics), indent=1) + "\n").encode() != dumped:
+            fails.append("serving_report.json does not recompute from trace.json")
+        with open(os.path.join(dump_dir, "stat_health.json"), "rb") as f:
+            sh = f.read()
+        again = stathealth.stat_health_report(json.loads(sh)["state"])
+        if (json.dumps(again, indent=1) + "\n").encode() != sh:
+            fails.append("stat_health.json does not recompute from its state")
+    # Launches: the fit's kernels those of path_cf's fit (its predict's
+    # traverse taken out); traverse: warm-up and warm, the batches, three
+    # leaf-index builds (two at startup, the prebuild).
+    fit_want = dict(cf_counts, traverse=cf_counts["traverse"]
+                    - ROW_LAUNCHES["causal_forest"]["traverse"])
+    n_warm = len(server.config.buckets.sizes)
+    trav_want = per_replay * (2 * n_warm + batches + 3) + fit_want["traverse"]
+    fit_got = {k: v for k, v in counts.items() if k != "traverse"}
+    if fit_got != {k: v for k, v in fit_want.items() if k != "traverse"}:
+        fails.append(f"retrain fit launches {fit_got}, path_cf's fit {fit_want}")
+    if counts["traverse"] != trav_want:
+        fails.append(f"traverse launches {counts['traverse']}, want {trav_want} ({per_replay} x "
+                     f"({2 * n_warm} + {batches} batches + 3 leaf-index builds))")
+    # Latency by bucket before the fit, inside the retrain (fit start to
+    # the swap) and after it; "outside" pools before and after.
+    retrain_lo, retrain_hi = fit_times[0], rotation[1]
+    lat: dict = {"before": {}, "inside": {}, "after": {}, "outside": {}}
+    for *_, r in items:
+        t = r.enqueued_mono
+        side = "before" if t < retrain_lo else "inside" if t <= retrain_hi else "after"
+        for key in (side, "outside") if side != "inside" else (side,):
+            lat[key].setdefault(r.batch_bucket, []).append(r.resolved_mono - r.enqueued_mono)
+    pct = lambda v, q: float(np.percentile(np.asarray(v) * 1e3, q))
+    slowest = sorted((r for *_, r in items), key=lambda r: r.enqueued_mono - r.resolved_mono)[:8]
+    out = {"phase": "path_serve_lifecycle", "nvidia_smi": smi, "trees": CF_TREES,
+           "depth": CF_DEPTH, "panel_rows": n_panel, "startup_s": phases,
+           "startup_wall_s": startup_wall, "leaf_index_rows": [rows_before, rows_after],
+           "retrain": {"status": outcome.status, "attempts": outcome.attempts,
+                       "checkpoint": os.path.basename(outcome.checkpoint),
+                       "fit_s": fit_times[1] - fit_times[0],
+                       "run_s": retrain_t1 - retrain_t0,
+                       "verify_s": prebuild[0] - rotation[0],
+                       "prebuild_s": prebuild[1] - prebuild[0],
+                       "swap_s": rotation[1] - prebuild[1]},
+           "load": record, "post_swap_load": post_record, "rate_hz": LIFECYCLE_RATE_HZ,
+           "batches": batches,
+           "latency_ms": {side: {str(b): {"count": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                                 for b, v in sorted(d.items())} for side, d in lat.items()},
+           "rejects": {"retried": record.get("reject_retries"), "corrupt_rotation": refused,
+                       "retired": retired_code},
+           "close_reasons": stats["close_reasons"], "probes": len(probes),
+           "builds_in_window": window, "stat_health_rows": stats["stat_health"]["models"][
+               "default"]["rows"], "launches": counts, "phase_s": time.perf_counter() - t0,
+           # Seconds from the swap (negative: before it).
+           "slowest": [{"at_s": r.enqueued_mono - swap_mono, "ms": (r.resolved_mono - r.enqueued_mono)
+                        * 1e3, "bucket": r.batch_bucket, "version": r.model_version}
+                       for r in slowest],
+           "gc": {"runs": len(gc_runs), "ms": sum(ms for _, ms, _ in gc_runs),
+                  "over_5ms": [{"at_s": t - swap_mono, "ms": ms, "generation": g}
+                               for t, ms, g in gc_runs if ms > 5.0]}}
+    emit(out)
+    if fails:
+        raise AssertionError("path_serve_lifecycle: " + "; ".join(fails[:8]))
     return counts
 
 
@@ -2682,6 +3005,7 @@ def main() -> int:
     phase_parity(frame_mod)
     by_path["causal_forest"], cf_out = phase_path_cf(frame_mod)
     by_path["path_serve"] = phase_path_serve(frame_mod, smi)
+    by_path["serve_lifecycle"] = phase_path_serve_lifecycle(frame_mod, smi, by_path["causal_forest"])
     card_32 = phase_parity_cf(frame_mod)
     by_path["leaf_index"] = phase_path_leaf_index(card_32)
     by_path["causal_forest_packed"] = phase_path_cf_packed(frame_mod, cf_out, card_32)

@@ -37,7 +37,9 @@ def test_port_lists_its_modules():
               "parallel.retry", "utils.profiling", "utils.checkpoint", "resilience.deadline",
               "observability.slo", "serving", "serving.protocol", "serving.admission",
               "serving.coalescer", "serving.fleet", "serving.daemon", "serving.client",
-              "serving.__main__"):
+              "serving.__main__", "observability.sketch", "observability.stathealth",
+              "observability.serving_report", "serving.admin", "serving.retrain",
+              "serving.loadgen"):
         assert f"{_PKG}.{m}" in mods
 
 

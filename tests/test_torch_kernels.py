@@ -965,3 +965,61 @@ def test_card_daemon_serves_bit_identical(cuda, tmp_path):
         start += n
     assert server.builds_in_window() == {"kernel": 0.0, "graph": 0.0}
     server.stop()
+
+
+def test_card_rotation_while_serving_captures_nothing(cuda, tmp_path):
+    """A same-geometry rotation on the card while a second thread's
+    requests replay the graphs: every reply bit for bit the offline
+    predict_cate of the version it names, the fitted checkpoints' leaf
+    index built at startup and before each swap, and no kernel build and
+    no graph capture in the window."""
+    import threading
+    import time
+
+    from ate_replication_causalml_torch.serving.coalescer import BucketPlan
+    from ate_replication_causalml_torch.serving.daemon import CateServer, ServeConfig
+    from ate_replication_causalml_torch.utils.checkpoint import save_fitted
+
+    rng = np.random.default_rng(12)
+    forests, paths = {}, {}
+    for k, seed in (("a", 9), ("b", 11)):
+        f = _serve_forest(seed, cuda)
+        col = torch.as_tensor(rng.uniform(size=50).astype(np.float32), device=cuda)
+        x = torch.as_tensor(rng.normal(size=(50, 4)).astype(np.float32), device=cuda)
+        paths[k] = str(tmp_path / f"{k}.npz")
+        save_fitted(paths[k], cf.FittedCausalForest(forest=f, y_hat=col, w_hat=col, x=x, y=col,
+                                                    w=col))
+        forests[k] = f
+    server = CateServer(ServeConfig(checkpoint=paths["a"], buckets=BucketPlan.parse("4,16"),
+                                    window_s=0.002, max_depth=64))
+    server.startup()
+    assert server.stats()["fleet"]["default"]["leaf_index_rows"] == 50
+    xs = [rng.normal(size=(s, 4)).astype(np.float32) for s in (1, 3, 4, 9, 16) * 40]
+    replies, stop = [], threading.Event()
+
+    def producer():
+        for i, x in enumerate(xs):
+            if stop.is_set():
+                return
+            replies.append((x, server.serve_request(f"r{i}", x)))
+
+    t = threading.Thread(target=producer)
+    t.start()
+    by_version = {1: "a"}
+    for v, k in ((2, "b"), (3, "a"), (4, "b")):
+        time.sleep(0.02)
+        assert server.rotate("default", paths[k]) == "rotated"
+        by_version[v] = k
+    t.join(120)
+    stop.set()
+    assert server.stats()["fleet"]["default"]["leaf_index_rows"] == 50
+    seen = set()
+    for x, req in replies:
+        want = cf.predict_cate(forests[by_version[req.model_version]],
+                               torch.as_tensor(x, device=cuda), oob=False)
+        assert np.array_equal(req.result[0], want.cate.cpu().numpy())
+        assert np.array_equal(req.result[1], want.variance.cpu().numpy())
+        seen.add(req.model_version)
+    assert len(seen) >= 2
+    assert server.builds_in_window() == {"kernel": 0.0, "graph": 0.0}
+    server.stop()

@@ -473,11 +473,13 @@ def test_serve_chaos_degrades_reloads_and_stays_bit_identical(rig):
 
 
 @pytest.mark.parametrize("client_pkg", ["jax", "torch"])
-def test_client_drives_the_port_daemon_over_a_socketpair(rig, client_pkg):
+def test_client_drives_the_port_daemon_over_a_socketpair(rig, client_pkg, monkeypatch):
     """The JAX package's client (and the port's) against the port's
-    daemon: ping, predict, stats, and the ops not ported yet answered
-    with the typed unknown-op error; a torn frame kills only its
-    connection."""
+    daemon: ping, predict, stats, the lifecycle ops' typed refusals of a
+    malformed request (the JAX package's reply headers; their served
+    paths: ``tests/test_torch_lifecycle.py``) and an unknown op's typed
+    error; a torn frame kills only its connection."""
+    monkeypatch.delenv("ATE_TPU_METRICS_DIR", raising=False)
     server, xs = rig["server"], rig["xs"]
     client_cls = JClient if client_pkg == "jax" else TClient
     a, b = socket.socketpair()
@@ -494,10 +496,19 @@ def test_client_drives_the_port_daemon_over_a_socketpair(rig, client_pkg):
             assert header["model"] == "default" and header["model_version"] == 1
         stats = client.stats()
         assert stats["compile_events_in_window"] == 0 and stats["state"] == "serving"
-        for op in ("dump", "rotate", "retire"):
-            header, _ = client._roundtrip({"op": op, "model": "default", "checkpoint": "x"})
-            assert header == {"ok": False, "error": "bad_request",
-                              "message": f"unknown op {op!r}"}
+        for request, want in (
+                ({"op": "dump"}, {"ok": False, "id": "", "error": "bad_request",
+                                  "message": "dump needs a 'dir' header field or "
+                                             "$ATE_TPU_METRICS_DIR"}),
+                ({"op": "rotate", "model": "default"},
+                 {"ok": False, "id": "", "error": "bad_request",
+                  "message": "rotate needs a 'checkpoint' header field"}),
+                ({"op": "retire", "model": "nope"},
+                 {"ok": False, "op": "retire", "model": "nope", "status": "unknown_model"}),
+                ({"op": "nope"}, {"ok": False, "error": "bad_request",
+                                  "message": "unknown op 'nope'"})):
+            header, _ = client._roundtrip(request)
+            assert header == want
     t.join(5)
     assert not t.is_alive()
     a2, b2 = socket.socketpair()
