@@ -27,9 +27,7 @@ ported.
 
 from __future__ import annotations
 
-import torch
-
-from ate_replication_causalml_torch.observability.registry import counter, gauge
+from ate_replication_causalml_torch.observability.registry import bucket_histogram, counter, gauge
 
 #: ``scripts/check_metrics_schema.py::REQUIRED_COUNTERS``: the families
 #: every instrumented run exports, zero or not.
@@ -62,15 +60,21 @@ _MEMORY_SUFFIXES = ("_bytes.all.current", "_bytes.all.peak")
 
 
 def install_monitoring() -> None:
-    """Pre-create the counter families at 0 (idempotent)."""
+    """Pre-create the counter families at 0, and the router's request
+    path split and e2e ladder, as the JAX package does (idempotent)."""
     for name in REQUIRED_COUNTERS + SWEEP_COUNTERS:
         counter(name).inc(0)
+    counter("router_request_path_total",
+            "router forwards by direct/failover/exhausted path").inc(0)
+    bucket_histogram("router_request_seconds", "router-observed forward latency (e2e)")
 
 
 def record_device_memory(context: str = "") -> dict:
     """``torch.cuda.memory_stats`` byte counts as ``device_memory_bytes``
     gauges labeled by device, stat and ``context``; returns
     ``{device: stats}``. Nothing on a machine whose CUDA is not in use."""
+    import torch
+
     out: dict = {}
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return out

@@ -2,8 +2,9 @@
 
 Port of ``ate_replication_causalml_tpu/observability/slo.py`` (the
 engine, the serving daemon's stock objectives, the per-model fleet
-objectives and the statistical-health objectives). An :class:`SLO` declares an objective ("99.9% of requests
-succeed", "99% finish under 250 ms") and the :class:`SLOEngine`
+objectives, the statistical-health objectives and the router's). An
+:class:`SLO` declares an objective ("99.9% of requests succeed", "99%
+finish under 250 ms") and the :class:`SLOEngine`
 evaluates it over several rolling windows as a **burn rate**: the rate
 the error budget is spent, 1.0 being exactly on budget (the multi-window
 burn-rate shape of the SRE workbook).
@@ -17,8 +18,7 @@ Sources are registry families:
 
 Every window figure is a difference between two :meth:`SLOEngine.tick`
 snapshots taken from an injectable clock, so two evaluations over the
-same snapshots give the same report. The router's objectives
-(``router_slos``) come with the router.
+same snapshots give the same report.
 """
 
 from __future__ import annotations
@@ -140,6 +140,32 @@ def stat_health_slos(models: tuple[str, ...] = ("default",), objective: float = 
                        scope_match=f"channel=calibration,model={m}", good_match="status=ok",
                        ignore_match="status=sparse"))
     return tuple(out)
+
+
+def router_slos(latency_threshold_s: float = 0.25,
+                windows_s: tuple[float, ...] = DEFAULT_WINDOWS) -> tuple[SLO, ...]:
+    """The fleet router's objectives, spent on what clients see:
+
+    * ``router:availability``: 99.9% of forwards reach ``ok``. The
+      daemons' typed rejects (``outcome=reject``) are the caller's or the
+      daemon's budget and count toward neither side; connection errors,
+      protocol errors and ``unavailable`` spend it.
+    * ``router:latency``: 99% of forwards finish under the threshold,
+      over the router-observed e2e histogram (``router_request_seconds``).
+    * ``router:failover``: 99% of forwards land on the first ring owner
+      (``path=direct``); a burn here means a backend flaps while
+      availability still holds."""
+    return (
+        SLO(name="router:availability", kind="availability", objective=0.999,
+            metric="router_requests_total", windows_s=windows_s,
+            good_match="outcome=ok", ignore_match="outcome=reject"),
+        SLO(name="router:latency", kind="latency", objective=0.99,
+            metric="router_request_seconds", windows_s=windows_s,
+            threshold_s=latency_threshold_s),
+        SLO(name="router:failover", kind="availability", objective=0.99,
+            metric="router_request_path_total", windows_s=windows_s,
+            good_match="path=direct"),
+    )
 
 
 def _pairs(spec: str) -> tuple[str, ...]:

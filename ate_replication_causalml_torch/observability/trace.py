@@ -44,8 +44,6 @@ import os
 import threading
 import time
 
-import torch
-
 from ate_replication_causalml_torch.observability import events as _events
 from ate_replication_causalml_torch.observability import registry as _registry
 
@@ -294,10 +292,12 @@ def build_trace(records: list[dict] | None = None,
     }
 
 
-def write_trace_json(path: str, trace: dict) -> str | None:
+def write_trace_json(path: str, trace: dict, force: bool = False) -> str | None:
     """Atomically write ``trace`` to ``path`` (compact separators and a
-    trailing newline: machines read it); None when tracing is off."""
-    if not trace_enabled():
+    trailing newline: machines read it); None when tracing is off, unless
+    ``force``: the fleet router's dump always writes its trace, whose wall
+    anchor places every daemon's trace on the fleet timeline."""
+    if not (force or trace_enabled()):
         return None
     from ate_replication_causalml_torch.observability.export import atomic_write_text
 
@@ -371,6 +371,8 @@ class MetricSampler:
     @staticmethod
     def _peek(name: str) -> float | None:
         if name == "device_memory_bytes":
+            import torch
+
             if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
                 return None
             return float(sum(torch.cuda.memory_allocated(i)

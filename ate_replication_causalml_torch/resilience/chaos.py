@@ -47,10 +47,12 @@ honours, where the JAX package's sweep honours them:
   ``mid_swap`` (the rotation's installer raises between verify and
   swap: a typed refusal, never a half-installed model), and
   ``verify_ms=<float>`` (the rotation's verify sleeps that long while
-  serving goes on).
-
-The ``daemon`` scope belongs to the router, not ported yet: it parses
-and has no effect, as in a JAX sweep.
+  serving goes on);
+* ``daemon``: ``kill=k,seed=..``: the fleet's ``k`` daemons ranked
+  lowest by the pure ``(seed, "daemon", name)`` hash are SIGKILLed by
+  whoever drives the fleet (:meth:`ChaosInjector.daemon_kill_plan`
+  selects, :meth:`ChaosInjector.record_daemon_kill` records the signal
+  once); one daemon always survives. The sweep ignores it.
 
 Injection decisions are pure functions of ``(seed, scope, site)``, never
 of call order or a global RNG, so a chaos run is reproducible and,
@@ -243,6 +245,7 @@ class ChaosInjector:
         self._rotate_verify_left = int(rot["times"]) if float(rot["verify_ms"]) > 0 else 0
         tam = config.scope("tamper") or _SCOPE_DEFAULTS["tamper"]
         self._tamper_left = int(tam["times"]) if tam.get("journal") else 0
+        self._daemon_killed: set[str] = set()
 
     # ── bookkeeping ───────────────────────────────────────────────────
 
@@ -495,6 +498,35 @@ class ChaosInjector:
         self._record("hang", key, lane=scope, delay_s=delay,
                      attempt=attempt)
         return delay
+
+    # ── daemon scope ──────────────────────────────────────────────────
+
+    def daemon_kill_plan(self, names: Sequence[str]) -> tuple[str, ...]:
+        """The fleet daemons a ``daemon:kill=k,seed=..`` spec SIGKILLs:
+        ``names`` ranked by the pure ``(seed, "daemon", name)`` hash, the
+        ``k`` lowest, so the same fleet draws the same victims in every
+        run and the plan is recomputable from the spec alone. ``k`` is
+        capped at ``len(names) - 1``: with every backend dead the episode
+        proves nothing. Selection only; :meth:`record_daemon_kill` records
+        the signal when it is sent."""
+        cfg = self.config.scope("daemon")
+        if cfg is None or int(cfg["kill"]) < 1 or not names:
+            return ()
+        k = min(int(cfg["kill"]), len(names) - 1)
+        ranked = sorted(names, key=lambda n: _unit(int(cfg["seed"]), "daemon", str(n)))
+        return tuple(ranked[:k])
+
+    def record_daemon_kill(self, name: str) -> bool:
+        """Record a planned daemon kill (event and counter) when SIGKILL
+        is sent. False, and nothing recorded, on a repeat for the same
+        daemon: one SIGKILL per victim."""
+        with self._lock:
+            if name in self._daemon_killed:
+                return False
+            self._daemon_killed.add(name)
+        self._record("daemon", f"daemon/{name}", kind="kill")
+        return True
+
 
 def plan_faults(
     shard_fn: Callable[[int], object], fail_plan: dict[int, int]

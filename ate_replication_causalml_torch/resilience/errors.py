@@ -29,7 +29,7 @@ faults walk the recovery paths real ones would).
 
 from __future__ import annotations
 
-import torch
+import functools
 
 
 class ChaosFault(RuntimeError):
@@ -95,11 +95,16 @@ FATAL_ERRORS: tuple[type[BaseException], ...] = (
     RecursionError,
 )
 
-#: CUDA error types: fatal, though they are RuntimeErrors.
-CUDA_ERRORS: tuple[type[BaseException], ...] = tuple(
-    t for t in (CudaKernelError, getattr(torch, "AcceleratorError", None),
-                getattr(torch.cuda, "CudaError", None))
-    if isinstance(t, type))
+@functools.cache
+def cuda_errors() -> tuple[type[BaseException], ...]:
+    """CUDA error types: fatal, though they are RuntimeErrors. torch is
+    imported here, on first use, so a process that never classifies an
+    error (the fleet router) never loads it."""
+    import torch
+
+    return tuple(t for t in (CudaKernelError, getattr(torch, "AcceleratorError", None),
+                             getattr(torch.cuda, "CudaError", None))
+                 if isinstance(t, type))
 
 
 def transient_errors() -> tuple[type[BaseException], ...]:
@@ -110,9 +115,11 @@ def transient_errors() -> tuple[type[BaseException], ...]:
 def is_cuda_error(exc: BaseException) -> bool:
     """A CUDA error from a kernel of the port or from torch; not an
     out-of-memory error."""
+    import torch
+
     if isinstance(exc, torch.OutOfMemoryError):
         return False
-    return isinstance(exc, CUDA_ERRORS) or (
+    return isinstance(exc, cuda_errors()) or (
         type(exc) is RuntimeError and str(exc).startswith("CUDA error"))
 
 

@@ -78,6 +78,19 @@ class HeartbeatRegistry:
         with self._lock:
             self._beats.pop(lane, None)
 
+    def lanes(self) -> tuple[str, ...]:
+        with self._lock:
+            return tuple(sorted(self._beats))
+
+    def age(self, lane: str, now: float | None = None) -> float | None:
+        """The lane's heartbeat age, None for a lane that never beat (or
+        was cleared)."""
+        with self._lock:
+            beat = self._beats.get(lane)
+        if beat is None:
+            return None
+        return (self._clock() if now is None else now) - beat
+
     def ages(self, now: float | None = None) -> dict[str, float]:
         """Per-lane heartbeat ages: the ``/healthz`` body and the stall
         diagnostic's raw material."""
@@ -162,6 +175,10 @@ class Watchdog:
         """Lanes currently inside a stall episode."""
         with self._lock:
             return tuple(sorted(self._stalled))
+
+    def is_stalled(self, lane: str) -> bool:
+        with self._lock:
+            return lane in self._stalled
 
     def start(self) -> None:
         with self._lock:

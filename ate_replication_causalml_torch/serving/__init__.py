@@ -1,7 +1,7 @@
 """CATE serving daemon of the port: a checkpointed causal forest
 answering ``predict`` requests over the wire, on the card.
 
-Port of ``ate_replication_causalml_tpu/serving`` but its router:
+Port of ``ate_replication_causalml_tpu/serving``:
 
 * :mod:`.protocol` (length-prefixed framing, byte-identical to the JAX
   package's), :mod:`.coalescer` (deadline-window micro-batching onto
@@ -17,9 +17,13 @@ Port of ``ate_replication_causalml_tpu/serving`` but its router:
   state provably builds and captures nothing, degraded-mode serving
   under the ``serve:`` chaos scope, deadlines, the dispatcher watchdog,
   graceful drain, statistical health, zero-downtime rotation,
-  retirement, retraining and live artifact dumps.
+  retirement, retraining and live artifact dumps;
+* the router (:mod:`.router`): one service over N daemons (the hash
+  ring, probe-driven membership, failover and the circuit breaker, the
+  rolling ``rotate_all``, the merged fleet dump); it loads no torch.
 
-Entry point: ``python -m ate_replication_causalml_torch.serving``.
+Entry points: ``python -m ate_replication_causalml_torch.serving`` (a
+daemon) and ``python -m ate_replication_causalml_torch.serving.router``.
 """
 
 from ate_replication_causalml_torch.serving.admission import (
@@ -54,19 +58,28 @@ from ate_replication_causalml_torch.serving.protocol import (
 )
 
 __all__ = [
-    "AdmissionController", "Batch", "BucketPlan", "BurnShedder",
-    "CateClient", "CateServer", "Coalescer", "InvalidTransition",
-    "ModelFleet", "ModelLifecycle", "PendingRequest", "ProtocolError",
-    "RejectedRequest", "ReloadSupervisor", "ServeConfig", "ServingError",
-    "ServingLifecycle", "ServingUnavailable", "decode_frame", "encode_frame",
+    "AdmissionController", "BackendSpec", "Batch", "BucketPlan", "BurnShedder",
+    "CateClient", "CateServer", "CircuitBreaker", "Coalescer", "ConsistentHashRing",
+    "FleetSupervisor", "InvalidTransition", "ModelFleet", "ModelLifecycle",
+    "PendingRequest", "ProtocolError", "RejectedRequest", "ReloadSupervisor",
+    "RouterConfig", "RouterServer", "ServeConfig", "ServingError", "ServingLifecycle",
+    "ServingUnavailable", "decode_frame", "encode_frame", "parse_backend_specs",
     "parse_fleet_spec", "read_frame", "write_frame",
 ]
 
+_ROUTER_NAMES = ("BackendSpec", "CircuitBreaker", "ConsistentHashRing", "FleetSupervisor",
+                 "RouterConfig", "RouterServer", "parse_backend_specs")
+
 
 def __getattr__(name):
-    # The daemon and the forest it loads resolve on first use.
+    # The daemon and the forest it loads resolve on first use; so does
+    # the router, which ``python -m ...serving.router`` runs as __main__.
     if name in ("CateServer", "ServeConfig", "RejectedRequest"):
         from ate_replication_causalml_torch.serving import daemon
 
         return getattr(daemon, name)
+    if name in _ROUTER_NAMES:
+        from ate_replication_causalml_torch.serving import router
+
+        return getattr(router, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

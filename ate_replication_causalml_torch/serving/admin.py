@@ -112,8 +112,9 @@ def _json_bytes(payload: dict) -> bytes:
 
 
 class AdminRequestHandler(BaseHTTPRequestHandler):
-    """GET-only shim over :func:`handle_admin_path`. The owning
-    ``ThreadingHTTPServer`` carries the daemon as ``cate_server``."""
+    """GET-only shim over the server's path resolver (by default
+    :func:`handle_admin_path`). The owning ``ThreadingHTTPServer`` carries
+    the daemon (or the router) as ``cate_server``."""
 
     server_version = "ate-serve-admin/1"
     protocol_version = "HTTP/1.1"
@@ -125,7 +126,8 @@ class AdminRequestHandler(BaseHTTPRequestHandler):
                 # The admin lane's own liveness stamp: a probe that
                 # answers is a heartbeat.
                 hb.beat("admin")
-            code, ctype, body = handle_admin_path(
+            handler = getattr(self.server, "path_handler", handle_admin_path)
+            code, ctype, body = handler(
                 self.server.cate_server, self.path.split("?", 1)[0]
             )
         except Exception as e:  # noqa: BLE001 — a probe must answer
@@ -144,11 +146,20 @@ class AdminRequestHandler(BaseHTTPRequestHandler):
 
 
 class AdminServer:
-    """Owns the admin HTTP listener's lifetime beside a daemon."""
+    """Owns the admin HTTP listener's lifetime beside a daemon.
 
-    def __init__(self, cate_server, host: str = "127.0.0.1"):
+    ``handler`` swaps the transport-free path resolver: the daemon keeps
+    :func:`handle_admin_path`, the fleet router passes its own
+    (``serving/router.py::handle_router_admin_path``), so both admin
+    planes share this one HTTP shell (GET-only, a 500 and never a dead
+    connection, silent logs)."""
+
+    def __init__(self, cate_server, host: str = "127.0.0.1",
+                 handler=handle_admin_path, thread_name: str = "serving-admin"):
         self._cate_server = cate_server
         self._host = host
+        self._handler = handler
+        self._thread_name = thread_name
         self._lock = threading.Lock()
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -165,9 +176,10 @@ class AdminServer:
             )
             httpd.daemon_threads = True
             httpd.cate_server = self._cate_server
+            httpd.path_handler = self._handler
             self._httpd = httpd
             t = threading.Thread(
-                target=httpd.serve_forever, name="serving-admin",
+                target=httpd.serve_forever, name=self._thread_name,
                 daemon=True,
             )
             self._thread = t

@@ -173,6 +173,12 @@ SHED_REFRESH_S = 0.25
 #: the registry families the no-build window reads.
 BUILD_FAMILIES = {"kernel": "kernel_builds_total", "graph": "graph_captures_total"}
 
+#: the row kernels' wrappers whose launch counts the ``stats`` op reports
+#: (a graph replay adds the launches it runs): a daemon in another
+#: process shows its callers which kernels its serving went through.
+ROW_KERNELS = {"route": "route_bits", "lookup": "table_lookup", "route_advance": "route_advance",
+               "traverse": "traverse", "leaf_record": "leaf_record"}
+
 
 def _parse_calibration_cols(spec: str) -> tuple[int, int] | None:
     """``"pcol:tcol"`` → (propensity column, treatment column); empty =
@@ -1145,6 +1151,13 @@ class CateServer:
                 for mid, info in self.fleet.describe().items()
                 if info.get("state") != "retired"}
 
+    @staticmethod
+    def kernel_launches() -> dict[str, int]:
+        """This process's launches of each row kernel (``ROW_KERNELS``)."""
+        from ate_replication_causalml_torch.ops import tree
+
+        return {name: int(getattr(tree, fn).launches) for name, fn in ROW_KERNELS.items()}
+
     def stats(self) -> dict:
         """The ``stats`` op payload."""
         with self._lock:
@@ -1175,6 +1188,7 @@ class CateServer:
             "shed_burn_threshold": self._shedder.threshold,
             "shed_burns": self._shedder.burns(),
             "stat_health": self.stat.health(),
+            "kernel_launches": self.kernel_launches(),
         }
 
     def dump_artifacts(self, outdir: str) -> list[str]:

@@ -98,6 +98,34 @@ imports nothing of JAX. Phases, each printing one JSON line:
    and achieved rates, rejects, launches, the phase's wall, the slowest
    replies and the host's garbage collections over 5 ms, each timed
    from the swap;
+6d. path_serve_fleet — the serving router (``serving/router.py``) in
+   this process over three daemon subprocesses (``python -m
+   ate_replication_causalml_torch.serving``: b0, b1, b2, path_serve's
+   checkpoint as ``default``, ``m2`` and ``m3``, path_serve's defaults,
+   the kernels phase_build built, ``ATE_TPU_CHAOS`` popped), with a
+   ``FLEET_PROBE_S`` probe and ``FLEET_FAILOVER`` failover hops;
+   ``FLEET_REQUESTS`` seeded requests (``loadgen``, ``FLEET_RATE_HZ``,
+   path_serve's sizes, three models) through the router's socket on
+   ``FLEET_CLIENTS`` client connections paced by the schedule;
+   ``FleetSupervisor.rotate_all`` of ``default`` to path_serve_lifecycle's
+   retrained checkpoint at request ``FLEET_ROTATE_AT``; the victim that
+   ``FLEET_CHAOS``'s ``daemon_kill_plan`` names SIGKILLed at
+   ``FLEET_KILL_AT`` and recorded; ``dump_fleet``; the survivors shut down
+   over the wire. Every reply ok and bit for bit the offline
+   ``predict_cate`` on the card of the version its header names,
+   ``default`` v2 served and ``m2`` / ``m3`` v2 never, every rotation
+   ``rotated`` at version 2 with 0 builds and captures after its swap and
+   at least two backends in rotation, the victim evicted within two probe
+   intervals and the probe timeout and out of rotation in the manifest,
+   ``fleet_report.json`` with no router orphan and a consistent
+   reconciliation, the merged artifacts recomputed byte for byte, the
+   router's ``/readyz`` 200 over HTTP, ``traverse`` held to its plain
+   version at the serving shapes and launched on every daemon (from each
+   daemon's ``stats``); prints each daemon's startup, the rotation's
+   steps, kill to eviction, the failover and path counters, the clients'
+   ``connection_lost`` resubmits, the router's e2e p50/p99 per bucket and
+   the fleet report's residual gap a backend. Its files go under
+   ``build/chip_smoke_fleet/``;
 7. parity_cf — the same row at 32 causal and 32 nuisance trees on the
    card and on the CPU, held to stated bounds (split agreement, leaf
    statistics, τ̂ and its variance, the ATE and its SE);
@@ -434,6 +462,22 @@ LIFECYCLE_SECONDS = 42.0
 LIFECYCLE_POST_SECONDS = 8.0
 LIFECYCLE_RETRAIN_AFTER_S = 8.0
 LIFECYCLE_OUT = os.path.join(REPO, "build", "chip_smoke_lifecycle")
+# path_serve_fleet: three daemon subprocesses on path_serve's checkpoint
+# (m2 and m3 fleet models on the same file) behind the router in this
+# process; FLEET_REQUESTS seeded requests at FLEET_RATE_HZ over path_serve's
+# sizes and three models, sent through the router's socket on
+# FLEET_CLIENTS connections; rotate_all to path_serve_lifecycle's retrained
+# checkpoint at FLEET_ROTATE_AT, FLEET_CHAOS's victim SIGKILLed at
+# FLEET_KILL_AT. Seed 0 draws b2, the ring owner of "default" and "m3", so
+# the kill lands on traffic.
+FLEET_NAMES = ("b0", "b1", "b2")
+FLEET_SEED = 1414
+FLEET_REQUESTS, FLEET_RATE_HZ, FLEET_CLIENTS = 2400, 100.0, 4
+FLEET_ROTATE_AT, FLEET_KILL_AT = 1200, 1800
+FLEET_CHAOS = "daemon:kill=1,seed=0"
+FLEET_PROBE_S, FLEET_FAILOVER = 0.05, 2
+FLEET_MODELS = ("default", "m2", "m3")
+FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 
 RECORD: dict = {}
 # Rows of the path phases that the sweep's rows are held to.
@@ -1860,6 +1904,8 @@ def phase_path_serve_lifecycle(frame_mod, smi: str, cf_counts: dict) -> dict:
     prebuild = span_bounds(records, "serving_leaf_index_prebuild")
     swap_mono = max(r["start_mono_s"] for r in records if r["name"] == "serving_model_rotated")
     v2 = load_fitted(outcome.checkpoint, device="cuda")
+    # The retrained checkpoint is path_serve_fleet's rotation candidate.
+    ROWS["serve_v2"] = outcome.checkpoint
     post_replies: list = []
     post_record = loadgen.run_inprocess(server, post_schedule, post_queries,
                                         replies=post_replies, timeout_s=120.0)
@@ -2007,6 +2053,380 @@ def phase_path_serve_lifecycle(frame_mod, smi: str, cf_counts: dict) -> dict:
     emit(out)
     if fails:
         raise AssertionError("path_serve_lifecycle: " + "; ".join(fails[:8]))
+    return counts
+
+
+class FleetDaemon:
+    """One daemon subprocess of path_serve_fleet: ``python -m
+    ate_replication_causalml_torch.serving`` on ephemeral wire and admin
+    ports, fault-free (``ATE_TPU_CHAOS`` popped), its stderr copied to
+    ``<name>.log`` and read for the bound ports."""
+
+    def __init__(self, name: str, checkpoint: str, log_dir: str):
+        import re
+
+        self.name = name
+        self.port = self.admin_port = None
+        self._ready = threading.Event()
+        env = dict(os.environ)
+        env.pop("ATE_TPU_CHAOS", None)
+        fleet = ",".join(f"{m}={checkpoint}" for m in FLEET_MODELS[1:])
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ate_replication_causalml_torch.serving",
+             "--checkpoint", checkpoint, "--port", "0", "--admin-port", "0",
+             "--buckets", SERVE_BUCKETS, "--window-ms", "2", "--fleet", fleet],
+            cwd=REPO, env=env, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        self.ready_s = None
+        self.log_path = os.path.join(log_dir, f"{name}.log")
+        pat = {"port": re.compile(r"^# serving on \S+:(\d+)"),
+               "admin_port": re.compile(r"^# admin endpoint on \S+:(\d+)")}
+
+        def read() -> None:
+            with open(self.log_path, "w") as log:
+                for line in self.proc.stderr:
+                    log.write(line)
+                    log.flush()
+                    for key, rx in pat.items():
+                        m = rx.match(line)
+                        if m:
+                            setattr(self, key, int(m.group(1)))
+                    if self.port and self.admin_port and not self._ready.is_set():
+                        self.ready_s = time.perf_counter() - self.t0
+                        self._ready.set()
+            self._ready.set()
+
+        self._reader = threading.Thread(target=read, name=f"fleet-log-{name}", daemon=True)
+        self._reader.start()
+
+    def wait_ready(self, timeout: float) -> None:
+        if not self._ready.wait(timeout) or self.port is None or self.admin_port is None:
+            with open(self.log_path) as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"path_serve_fleet: daemon {self.name} did not come up "
+                                 f"(exit {self.proc.poll()}): {tail}")
+
+    def varz(self) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.admin_port}/varz",
+                                    timeout=10) as r:
+            return json.load(r)
+
+    def stop(self, timeout: float = 30.0) -> int | None:
+        """Wait for the process to exit (a shutdown op was sent); kill it
+        past ``timeout``. Returns its exit code."""
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+        self._reader.join(10)
+        return self.proc.returncode
+
+
+def varz_total(varz: dict, family: str) -> float:
+    return float(sum(s["value"] for s in varz.get(family) or []))
+
+
+def phase_path_serve_fleet(smi: str) -> dict:
+    """The serving router over three daemon subprocesses on the card:
+    path_serve's fitted checkpoint served as ``default``, ``m2`` and ``m3``
+    by ``b0``, ``b1`` and ``b2`` (buckets 1,8,64,256, a 2 ms window; the
+    kernels phase_build built), the router in this process
+    (``FLEET_PROBE_S`` probes, ``FLEET_FAILOVER`` hops) behind its own
+    socket and admin endpoint; FLEET_REQUESTS seeded requests on
+    FLEET_CLIENTS client connections paced by the schedule;
+    ``rotate_all`` of ``default`` to path_serve_lifecycle's retrained
+    checkpoint at request FLEET_ROTATE_AT; the victim ``FLEET_CHAOS`` draws
+    SIGKILLed at FLEET_KILL_AT; ``dump_fleet``; the survivors shut down
+    over the wire. Gates: every reply ok and bit for bit the offline
+    ``predict_cate`` on the card of the version its header names,
+    ``default`` v2 served and ``m2`` / ``m3`` v2 never, every rotation
+    ``rotated`` at version 2 with no build or capture after its swap and
+    two backends in rotation throughout, the victim evicted within two
+    probe intervals and the probe timeout and marked out of rotation in
+    the manifest, no router orphan and a consistent reconciliation, the
+    merged artifacts recomputing byte for byte, the router's ``/readyz``
+    200, ``traverse`` launched on every daemon."""
+    from ate_replication_causalml_torch.observability import fleet_report as freport
+    from ate_replication_causalml_torch.serving import router as rt
+    from ate_replication_causalml_torch.serving.admin import AdminServer
+
+    shutil.rmtree(FLEET_OUT, ignore_errors=True)
+    os.makedirs(FLEET_OUT)
+    v2_path = os.path.join(FLEET_OUT, "forest-v2.npz")
+    shutil.copyfile(ROWS["serve_v2"], v2_path)
+    fits = {1: load_fitted(SERVE_CKPT, device="cuda"), 2: load_fitted(v2_path, device="cuda")}
+    features = int(fits[1].x.shape[1])
+    schedule = loadgen.build_schedule(FLEET_SEED, FLEET_REQUESTS, rate_hz=FLEET_RATE_HZ,
+                                      mix=",".join(str(m) for m in SERVE_SIZES),
+                                      models=FLEET_MODELS)
+    queries = loadgen.build_queries(FLEET_SEED, schedule, features)
+    starts = np.cumsum([0] + [q.shape[0] for q in queries])
+    # Offline references on the card, before any daemon starts.
+    cat = torch.as_tensor(np.concatenate(queries), device="cuda")
+    refs = {}
+    for ver, fit in fits.items():
+        out = cf.predict_cate(fit.forest, cat, oob=False)
+        refs[ver] = (out.cate.cpu().numpy(), out.variance.cpu().numpy())
+    # The daemons' kernel at this path's shapes (a 32-tree chunk of each
+    # version, the largest and the smallest bucket) against its plain
+    # version, uncounted.
+    for ver, fit in fits.items():
+        f = fit.forest
+        for rows in (256, 1):
+            codes = fo.binarize(cat[:rows], f.bin_edges)
+            args = (codes, f.split_feat[:32].contiguous(), f.split_bin[:32].contiguous(),
+                    f.leaf_stats[:32].contiguous())
+            if not torch.equal(tree.traverse(*args), tree.traverse_plain(*args)):
+                raise AssertionError(f"path_serve_fleet: traverse differs from its plain "
+                                     f"version at {rows} rows (v{ver})")
+    del cat, fits, f, codes, args
+    torch.cuda.empty_cache()
+    buckets = BucketPlan.parse(SERVE_BUCKETS).sizes
+    fails: list[str] = []
+    reset_counts()
+    t_phase = time.perf_counter()
+    daemons = {name: FleetDaemon(name, SERVE_CKPT, FLEET_OUT) for name in FLEET_NAMES}
+    router = admin = serve_thread = None
+    clients: list = []
+    try:
+        for d in daemons.values():
+            d.wait_ready(300)
+        specs = tuple(rt.BackendSpec(n, "127.0.0.1", d.port, d.admin_port)
+                      for n, d in daemons.items())
+        path_before = dict(obs.REGISTRY.peek("router_request_path_total") or {})
+        router = rt.RouterServer(rt.RouterConfig(backends=specs, probe_interval_s=FLEET_PROBE_S,
+                                                 failover_hops=FLEET_FAILOVER))
+        router.start()
+        if router.in_rotation() != FLEET_NAMES:
+            raise AssertionError(f"path_serve_fleet: in rotation {router.in_rotation()}")
+        admin = AdminServer(router, handler=rt.handle_router_admin_path,
+                            thread_name="router-admin")
+        admin_port = admin.start(0)
+        stats0 = {n: router.call_backend(n, {"op": "stats"})[0]["stats"] for n in FLEET_NAMES}
+        # Each daemon's kernel libraries: nvcc runs and libraries found built.
+        varz0 = {n: daemons[n].varz() for n in FLEET_NAMES}
+        bound: list[int] = []
+        serve_thread = threading.Thread(target=rt.serve_socket, args=(router,),
+                                        kwargs={"port": 0, "on_bound": bound.append},
+                                        daemon=True, name="fleet-router")
+        serve_thread.start()
+        t_wait = time.monotonic()
+        while not bound and time.monotonic() - t_wait < 30:
+            time.sleep(0.01)
+        clients = [CateClient.connect("127.0.0.1", bound[0], timeout=120.0)
+                   for _ in range(FLEET_CLIENTS)]
+        replies: list = [None] * FLEET_REQUESTS
+        errors: list[str] = []
+        lock = threading.Lock()
+        cursor = [0]
+        reached = {FLEET_ROTATE_AT: threading.Event(), FLEET_KILL_AT: threading.Event()}
+        t_load = time.monotonic()
+
+        def worker(client) -> None:
+            while True:
+                with lock:
+                    i = cursor[0]
+                    if i >= FLEET_REQUESTS:
+                        return
+                    cursor[0] = i + 1
+                for at, evt in reached.items():
+                    if i >= at:
+                        evt.set()
+                sched = schedule[i]
+                delay = t_load + sched.t_s - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                try:
+                    replies[i] = client.predict_full(queries[i], request_id=sched.request_id,
+                                                     model=sched.model, max_retries=32)
+                except Exception as e:  # noqa: BLE001 — every reply must be ok
+                    with lock:
+                        errors.append(f"{sched.request_id}: {type(e).__name__}: {e}")
+
+        steps: dict = {}
+        control: dict = {}
+
+        def controller() -> None:
+            try:
+                reached[FLEET_ROTATE_AT].wait()
+                control["rotate_at"] = cursor[0]
+                t = time.perf_counter()
+                control["rotation"] = rt.FleetSupervisor(router).rotate_all(
+                    v2_path, model="default", timeout_s=120.0,
+                    on_step=lambda b, k, sec: steps.setdefault(b, {}).__setitem__(k, sec))
+                control["rotate_all_s"] = time.perf_counter() - t
+                reached[FLEET_KILL_AT].wait()
+                control["kill_at"] = cursor[0]
+                control["pre_kill"] = {n: router.call_backend(n, {"op": "stats"})[0]["stats"]
+                                       for n in FLEET_NAMES}
+                inj = chaos.ChaosInjector(chaos.parse_chaos(FLEET_CHAOS))
+                (victim,) = inj.daemon_kill_plan(FLEET_NAMES)
+                t_kill = time.monotonic()
+                daemons[victim].proc.kill()
+                inj.record_daemon_kill(victim)
+                while victim in router.in_rotation() and time.monotonic() - t_kill < 30:
+                    time.sleep(0.001)
+                control["evict_s"] = time.monotonic() - t_kill
+                control["victim"] = victim
+                control["victim_breaker"] = router.stats()["backends"][victim]["breaker"]
+                daemons[victim].proc.wait(30)
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                control["error"] = f"{type(e).__name__}: {e}"
+
+        threads = [threading.Thread(target=worker, args=(c,), name=f"fleet-client-{k}")
+                   for k, c in enumerate(clients)]
+        ctl = threading.Thread(target=controller, name="fleet-control")
+        ctl.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        load_s = time.monotonic() - t_load
+        for evt in reached.values():
+            evt.set()
+        ctl.join(300)
+        if "error" in control or ctl.is_alive():
+            raise AssertionError(f"path_serve_fleet: control {control.get('error', 'hung')}")
+        victim = control["victim"]
+        survivors = tuple(n for n in FLEET_NAMES if n != victim)
+        if errors or any(r is None for r in replies):
+            fails.append(f"{len(errors)} failed replies, {replies.count(None)} missing: "
+                         f"{errors[:3]}")
+        # Every reply bit for bit its version's offline predict.
+        served = set()
+        for i, rep in enumerate(replies):
+            if rep is None:
+                continue
+            c, v, header = rep
+            ver, model = header.get("model_version"), header.get("model")
+            served.add((model, ver))
+            a, b = starts[i], starts[i + 1]
+            if not header.get("ok") or model != schedule[i].model or ver not in refs or not (
+                    np.array_equal(c, refs[ver][0][a:b]) and np.array_equal(v, refs[ver][1][a:b])):
+                fails.append(f"reply {schedule[i].request_id} ({model} v{ver}) differs from its "
+                             "version's offline predict")
+        if ("default", 2) not in served or ("m2", 2) in served or ("m3", 2) in served:
+            fails.append(f"(model, version) served: {sorted(served)}")
+        rot = control["rotation"]
+        if (set(rot["statuses"].values()) != {"rotated"} or rot["versions"] != {
+                n: 2 for n in FLEET_NAMES} or rot["post_swap_compiles"] != {
+                n: 0 for n in FLEET_NAMES} or rot["zero_downtime"] is not True
+                or rot["min_in_rotation"] < 2):
+            fails.append(f"rotate_all {rot}")
+        evict_bound = 2 * FLEET_PROBE_S + router.config.probe_timeout_s
+        if control["evict_s"] > evict_bound:
+            fails.append(f"victim {victim} evicted after {control['evict_s']:.3f} s "
+                         f"> {evict_bound} s")
+        dump_dir = os.path.join(FLEET_OUT, "dump")
+        t = time.perf_counter()
+        manifest = router.dump_fleet(dump_dir)
+        dump_s = time.perf_counter() - t
+        if manifest["backends"][victim]["in_rotation"] is not False or not all(
+                manifest["backends"][n]["dumped"] for n in survivors):
+            fails.append(f"manifest backends {manifest['backends']}")
+        names = (freport.FLEET_TRACE_BASENAME, freport.FLEET_REPORT_BASENAME,
+                 freport.FLEET_STAT_HEALTH_BASENAME)
+        written = {}
+        for n in names:
+            with open(os.path.join(dump_dir, n), "rb") as f:
+                written[n] = f.read()
+        report = json.loads(written[freport.FLEET_REPORT_BASENAME])
+        freport.write_fleet_artifacts(dump_dir)
+        for n in names:
+            with open(os.path.join(dump_dir, n), "rb") as f:
+                if f.read() != written[n]:
+                    fails.append(f"{n} does not recompute byte for byte")
+        if report["requests"]["orphan_router"] != 0 or not report["reconciliation"]["consistent"]:
+            fails.append(f"fleet report requests {report['requests']}, reconciliation "
+                         f"{report['reconciliation']}")
+        readyz = http_status(admin_port, "/readyz")
+        if readyz != 200:
+            fails.append(f"router /readyz {readyz}")
+        final = {n: router.call_backend(n, {"op": "stats"})[0]["stats"] for n in survivors}
+        varz = {n: daemons[n].varz() for n in survivors}
+        launches = {n: final[n]["kernel_launches"] if n in final
+                    else control["pre_kill"][n]["kernel_launches"] for n in FLEET_NAMES}
+        per_replay = -(-CF_TREES // 32)
+        # A survivor's traverse: warm-up and warm a bucket, its batches, a
+        # leaf-index build a model at startup and the rotation's prebuild.
+        derived = {n: per_replay * (2 * len(buckets) + int(varz_total(
+            varz[n], "serving_batches_total")) + len(FLEET_MODELS) + 1) for n in survivors}
+        if any(launches[n]["traverse"] <= 0 for n in FLEET_NAMES) or any(
+                launches[n]["traverse"] != derived[n] for n in survivors):
+            fails.append(f"traverse launches {launches}, the survivors' derived {derived}")
+        # The router's e2e by bucket, from its spans of this run.
+        rows_of = {s.request_id: s.rows for s in schedule}
+        e2e: dict = {}
+        for r in obs.EVENTS.records():
+            if r["name"] == "router_request" and r["attrs"].get("request_id") in rows_of:
+                rows = rows_of[r["attrs"]["request_id"]]
+                e2e.setdefault(min(b for b in buckets if b >= rows), []).append(
+                    r["attrs"]["e2e_s"])
+        pct = lambda v, q: float(np.percentile(np.asarray(v) * 1e3, q))
+        paths = {k: v - path_before.get(k, 0)
+                 for k, v in (obs.REGISTRY.peek("router_request_path_total") or {}).items()
+                 if v - path_before.get(k, 0)}
+        resubmitted = sum(c.retry_counts.get("connection_lost", 0) for c in clients)
+        shutdown = {}
+        for n in survivors:
+            shutdown[n] = router.call_backend(n, {"op": "shutdown"})[0].get("ok")
+        exits = {n: daemons[n].stop() for n in survivors}
+        if not all(shutdown.values()) or any(exits.values()):
+            fails.append(f"survivors' shutdown {shutdown}, exit codes {exits}")
+        counts = read_counts()
+        for n in FLEET_NAMES:
+            for k, v in launches[n].items():
+                counts[k] += v
+        out = {"phase": "path_serve_fleet", "nvidia_smi": smi, "trees": CF_TREES,
+               "depth": CF_DEPTH, "buckets": SERVE_BUCKETS, "models": list(FLEET_MODELS),
+               "requests": FLEET_REQUESTS, "rate_hz": FLEET_RATE_HZ, "clients": FLEET_CLIENTS,
+               "startup_s": {n: {"ready_wall_s": daemons[n].ready_s,
+                                 **stats0[n]["startup_seconds"]} for n in FLEET_NAMES},
+               "nvcc_builds": {n: varz_total(varz0[n], "compile_cache_misses_total")
+                               for n in FLEET_NAMES},
+               "libraries_loaded": {n: varz_total(varz0[n], "compile_cache_hits_total")
+                                    for n in FLEET_NAMES},
+               "load_s": load_s, "rotate_at": control["rotate_at"],
+               "kill_at": control["kill_at"], "rotation": rot, "rotation_steps_s": steps,
+               "rotate_all_s": control["rotate_all_s"], "victim": victim,
+               "kill_to_evict_s": control["evict_s"], "evict_bound_s": evict_bound,
+               "victim_breaker": control["victim_breaker"],
+               "router_failover_total": router.failover_total(),
+               "router_request_path_total": paths,
+               "router_requests": router.request_counts(),
+               "connection_lost_resubmits": resubmitted,
+               "client_retries": [c.retry_counts for c in clients],
+               "e2e_ms": {str(b): {"count": len(v), "p50": pct(v, 50), "p99": pct(v, 99)}
+                          for b, v in sorted(e2e.items())},
+               "residual_gap_s": report["residual_gap"],
+               "fleet_requests": report["requests"],
+               "reconciliation": report["reconciliation"],
+               "served_versions": sorted([m, v] for m, v in served),
+               "traverse_launches": {n: launches[n]["traverse"] for n in FLEET_NAMES},
+               "traverse_per_replay": per_replay, "traverse_derived": derived,
+               "batches": {n: varz_total(varz[n], "serving_batches_total") for n in survivors},
+               "router_readyz": readyz, "dump_s": dump_s, "launches": counts,
+               "phase_s": time.perf_counter() - t_phase}
+        emit(out)
+    finally:
+        for c in clients:
+            c.close()
+        if router is not None:
+            router.stop()
+        if serve_thread is not None:
+            serve_thread.join(10)
+        if admin is not None:
+            admin.stop()
+        for d in daemons.values():
+            if d.proc.poll() is None:
+                d.proc.kill()
+            d.stop(10)
+    if fails:
+        raise AssertionError("path_serve_fleet: " + "; ".join(fails[:8]))
     return counts
 
 
@@ -3006,6 +3426,7 @@ def main() -> int:
     by_path["causal_forest"], cf_out = phase_path_cf(frame_mod)
     by_path["path_serve"] = phase_path_serve(frame_mod, smi)
     by_path["serve_lifecycle"] = phase_path_serve_lifecycle(frame_mod, smi, by_path["causal_forest"])
+    by_path["serve_fleet"] = phase_path_serve_fleet(smi)
     card_32 = phase_parity_cf(frame_mod)
     by_path["leaf_index"] = phase_path_leaf_index(card_32)
     by_path["causal_forest_packed"] = phase_path_cf_packed(frame_mod, cf_out, card_32)

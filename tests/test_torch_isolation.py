@@ -39,7 +39,7 @@ def test_port_lists_its_modules():
               "serving.coalescer", "serving.fleet", "serving.daemon", "serving.client",
               "serving.__main__", "observability.sketch", "observability.stathealth",
               "observability.serving_report", "serving.admin", "serving.retrain",
-              "serving.loadgen"):
+              "serving.loadgen", "serving.router", "observability.fleet_report"):
         assert f"{_PKG}.{m}" in mods
 
 

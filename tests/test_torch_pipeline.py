@@ -415,7 +415,6 @@ JAX_ONLY = {
     "compile_cache_requests_total": "XLA's persistent compile cache",
     "compile_cache_tasks_total": "XLA's persistent compile cache",
     "compile_cache_disabled_tasks_total": "XLA's persistent compile cache",
-    "router_request_path_total": "the serving plane, not ported",
     "serving_batches_total": "the serving plane, not ported",
     "serving_reloads_total": "the serving plane, not ported",
 }
