@@ -49,15 +49,16 @@ def aipw_tau(w, y, p, mu0, mu1, compat: str = "r") -> torch.Tensor:
 
 
 def aipw_sandwich_se(w, y, p, mu0, mu1, tau) -> torch.Tensor:
-    """Influence-function SE (``ate_functions.R:198-199``)."""
+    """Influence-function SE (``ate_functions.R:198-199``); each lane of
+    (B, n) with tau (B,)."""
     ii = (
         (w * y) / p
         - mu1 * (w - p) / p
         - (((1.0 - w) * y / (1.0 - p)) + (mu0 * (w - p) / (1.0 - p)))
-        - tau
+        - tau[..., None]
     )
-    n = ii.shape[0]
-    return torch.sqrt(torch.sum(ii * ii) / (n * n))
+    n = ii.shape[-1]
+    return torch.sqrt(torch.sum(ii * ii, dim=-1) / (n * n))
 
 
 def clip_propensity(p: torch.Tensor) -> torch.Tensor:
@@ -72,9 +73,10 @@ def clip_propensity(p: torch.Tensor) -> torch.Tensor:
 
 def _outcome_model_mu(x, w, y):
     """Logit outcome model on [1, X, W]; mu1/mu0 via W := 1/0
-    (``ate_functions.R:156-166``)."""
+    (``ate_functions.R:156-166``); a batch x (B, n, p), w and y (B, n)
+    fits each lane."""
     base = add_intercept(x)
-    with_w = lambda col: torch.cat([base, col[:, None]], dim=1)
+    with_w = lambda col: torch.cat([base, col[..., None]], dim=-1)
     fit = logistic_glm(with_w(w), y)
     return (
         predict_proba(fit.coef, with_w(torch.zeros_like(w))),

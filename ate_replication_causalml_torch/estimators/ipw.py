@@ -25,16 +25,18 @@ from ate_replication_causalml_torch.ops.linalg import add_intercept, ols, wls
 
 
 def logistic_propensity(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """In-sample logistic propensity p(W=1|X) (``ate_replication.Rmd:164-168``)."""
+    """In-sample logistic propensity p(W=1|X) (``ate_replication.Rmd:164-168``);
+    a batch x (B, n, p), w (B, n) fits each lane."""
     return logistic_glm(add_intercept(x), w).fitted
 
 
 def _psw_core(x, w, y, p):
+    """One frame, or each lane of a batch x (B, n, p), w, y and p (B, n)."""
     tau_i = ((w - p) * y) / (p * (1.0 - p))
-    d = x * (w - p)[:, None]
+    d = x * (w - p)[..., None]
     e = ols(add_intercept(d), tau_i).residuals
-    se = torch.sqrt(torch.mean(e * e)) / math.sqrt(x.shape[0])
-    return torch.mean(tau_i), se
+    se = torch.sqrt(torch.mean(e * e, dim=-1)) / math.sqrt(x.shape[-2])
+    return torch.mean(tau_i, dim=-1), se
 
 
 def prop_score_weight(frame: CausalFrame, p: torch.Tensor,

@@ -17,9 +17,10 @@ from ate_replication_causalml_torch.ops.linalg import ols
 
 
 def _direct_core(x, w, y):
-    design = torch.cat([torch.ones_like(x[:, :1]), x, w[:, None]], dim=1)
+    """One frame, or each lane of a batch x (B, n, p), w and y (B, n)."""
+    design = torch.cat([torch.ones_like(x[..., :1]), x, w[..., None]], dim=-1)
     fit = ols(design, y)
-    return fit.coef[-1], fit.se[-1]
+    return fit.coef[..., -1], fit.se[..., -1]
 
 
 def ate_condmean_ols(frame: CausalFrame, method: str = "Direct Method") -> EstimatorResult:

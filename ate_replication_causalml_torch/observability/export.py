@@ -54,8 +54,8 @@ def atomic_write_text(path: str, text: str) -> None:
         raise
 
 
-def atomic_write_json(path: str, obj) -> None:
-    atomic_write_text(path, json.dumps(obj, indent=1) + "\n")
+def atomic_write_json(path: str, obj, sort_keys: bool = False) -> None:
+    atomic_write_text(path, json.dumps(obj, indent=1, sort_keys=sort_keys) + "\n")
 
 
 def write_metrics_json(path: str, registry: _registry.MetricsRegistry | None = None) -> dict:

@@ -10,11 +10,17 @@ normal-equation build and a Cholesky solve on the device.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from ate_replication_causalml_torch.ops.linalg import _chol_solve, _spd_inverse
+from ate_replication_causalml_torch.ops.linalg import (
+    _chol_solve,
+    _chol_solve_nan,
+    _spd_inverse,
+    _spd_inverse_nan,
+    over_lanes,
+)
 
 
 class GlmResult(NamedTuple):
@@ -40,6 +46,8 @@ def logistic_glm(
     y: torch.Tensor,
     epsilon: float = 1e-8,
     max_iter: int = 25,
+    solve: Callable = _chol_solve,
+    inverse: Callable = _spd_inverse,
 ) -> GlmResult:
     """Fit ``y ~ x`` by binomial-logit IRLS with R ``glm.fit`` semantics.
 
@@ -47,7 +55,17 @@ def logistic_glm(
     relative-deviance test ``|dev - dev_old| / (|dev| + 0.1) < epsilon``.
     Standard errors are ``sqrt(diag((X' W X)^-1))`` at the converged
     weights — identical to ``summary.glm``.
+
+    A batch of designs x (B, n, p), y (B, n) fits each lane on its own
+    (:func:`~.linalg.over_lanes`), the semantics of the JAX package's
+    ``vmap(lax.while_loop)``: each lane stops on its own test and takes
+    exactly its scalar fit's iterations (``n_iter`` and ``converged``
+    become (B,) tensors). A lane whose normal equations are not positive
+    definite turns NaN and runs to ``max_iter``, as under ``vmap``.
     """
+    if x.ndim == 3:
+        return over_lanes(logistic_glm, x, y, epsilon=epsilon, max_iter=max_iter,
+                          solve=_chol_solve_nan, inverse=_spd_inverse_nan)
     p = x.shape[1]
 
     # R's binomial initialization: mustart = (y + 1/2) / 2, eta = logit(mu).
@@ -62,7 +80,7 @@ def logistic_glm(
         w = torch.clamp(mu * (1.0 - mu), min=1e-10)
         z = eta + (y - mu) / w
         xw = x * w[:, None]
-        coef = _chol_solve(xw.T @ x, xw.T @ z)
+        coef = solve(xw.T @ x, xw.T @ z)
         eta = x @ coef
         dev_new = _binomial_deviance(y, torch.sigmoid(eta))
         converged = bool(torch.abs(dev_new - dev) / (torch.abs(dev_new) + 0.1) < epsilon)
@@ -72,11 +90,12 @@ def logistic_glm(
     mu = torch.sigmoid(eta)
     w = torch.clamp(mu * (1.0 - mu), min=1e-10)
     xtwx = (x * w[:, None]).T @ x
-    se = torch.sqrt(torch.clamp(torch.diagonal(_spd_inverse(xtwx)), min=0.0))
+    se = torch.sqrt(torch.clamp(torch.diagonal(inverse(xtwx)), min=0.0))
     return GlmResult(coef=coef, se=se, fitted=mu, deviance=dev, n_iter=n_iter,
                      converged=converged)
 
 
 def predict_proba(coef: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Response-scale prediction ``sigmoid(x @ coef)`` (R ``predict(type="response")``)."""
-    return torch.sigmoid(x @ coef)
+    """Response-scale prediction ``sigmoid(x @ coef)`` (R ``predict(type="response")``);
+    a batch of fits, coef (B, p) with x (B, n, p), gives (B, n)."""
+    return torch.sigmoid(x @ coef if coef.ndim == 1 else (x @ coef[..., None])[..., 0])

@@ -77,9 +77,14 @@ def _normalize_pf(penalty_factor: torch.Tensor, p: int) -> torch.Tensor:
 def _weighted_standardize(x: torch.Tensor, weights: torch.Tensor):
     """glmnet-internal standardization: weighted mean 0, weighted 1/n
     variance 1. ``weights`` (n,) or a batch (B, n) → (x_std (…, n, p),
-    means (…, p), scales (…, p))."""
-    xm = weights @ x
-    xv = weights @ (x * x) - xm * xm
+    means (…, p), scales (…, p)). ``x`` (n, p), or one design a fit
+    (B, n, p) beside weights (B, n)."""
+    if x.ndim == 3:
+        xm = (weights[:, None, :] @ x)[:, 0]
+        xv = (weights[:, None, :] @ (x * x))[:, 0] - xm * xm
+    else:
+        xm = weights @ x
+        xv = weights @ (x * x) - xm * xm
     xs = torch.sqrt(torch.clamp(xv, min=1e-30))
     return (x - xm[..., None, :]) / xs[..., None, :], xm, xs
 
@@ -262,14 +267,14 @@ def _normalized(weights: torch.Tensor) -> torch.Tensor:
 
 def _gaussian_batch(x, y, w, pf, alpha, thresh, lambdas=None, nlambda=DEFAULT_NLAMBDA,
                     lead=None):
-    """Gaussian fits of a batch: y (n,) or one target a fit (B, n), w (B, n)
-    normalized weights, pf (p,). Without ``lambdas`` each fit ``b`` with
+    """Gaussian fits of a batch: x (n, p) or one design a fit (B, n, p),
+    y (n,) or one target a fit (B, n), w (B, n) normalized weights, pf (p,). Without ``lambdas`` each fit ``b`` with
     ``lead[b] == b`` (default: the first fit leads all) takes its own λ
     path, and every other fit its lead's path on its own scale (``lambdas
     / ys``: the folds of :func:`cv_glmnet` on the full fit's
     ``path.lambdas``); with ``lambdas`` (L,) every fit takes them.
     Returns a batched :class:`ElnetPath`: (B, L), (B, L), (B, L, p)."""
-    n, p = x.shape
+    n, p = x.shape[-2:]
     n_fits = w.shape[0]
     xs_std, xm, xs = _weighted_standardize(x, w)
     ym = torch.linalg.vecdot(w, y)
@@ -405,7 +410,8 @@ def lognet_binomial(
 def default_foldid(key: torch.Tensor, n: int, nfolds: int = 10) -> torch.Tensor:
     """The fold assignment :func:`cv_glmnet` derives from ``key`` when no
     ``foldid`` is given: ``jax.random.permutation`` of 1..K repeated to n
-    (int64; the JAX package's int32 without x64, the same values)."""
+    (int64; the JAX package's int32 without x64, the same values). A batch
+    of keys (B, 2) gives each lane its own assignment, (B, n)."""
     base = torch.arange(1, nfolds + 1, device=key.device).repeat(-(-n // nfolds))[:n]
     return rnd.permutation(key, base)
 
@@ -519,9 +525,9 @@ def cv_glmnet_many(x, ys, family: str = "gaussian", alpha: float = 1.0, penalty_
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first true entry (0 if none), as ``jnp.argmax`` of a
-    bool vector."""
-    return torch.argmax(mask.to(torch.int32))
+    """Index of the first true entry along the last axis (0 if none), as
+    ``jnp.argmax`` of a bool vector."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
 
 
 def cv_select(losses: torch.Tensor, fold_n: torch.Tensor, nfolds: int):
@@ -531,14 +537,51 @@ def cv_select(losses: torch.Tensor, fold_n: torch.Tensor, nfolds: int):
     λ with cvm ≤ min(cvm), lambda.1se the largest with cvm ≤ cvm[min] +
     cvsd[min]: the first indices along the decreasing path.
 
-    losses (K, L), fold_n (K,) → (cvm (L,), cvsd (L,), idx_min, idx_1se)."""
-    wts = (fold_n / torch.sum(fold_n))[:, None]
-    cvm = torch.sum(wts * losses, dim=0)
-    cvsd = torch.sqrt(torch.sum(wts * (losses - cvm[None, :]) ** 2, dim=0)
+    losses (K, L), fold_n (K,) → (cvm (L,), cvsd (L,), idx_min, idx_1se);
+    with a leading batch axis, (B, K, L) and (B, K) → (B, L), (B, L),
+    (B,), (B,), each lane its own selection."""
+    wts = (fold_n / torch.sum(fold_n, dim=-1, keepdim=True))[..., None]
+    cvm = torch.sum(wts * losses, dim=-2)
+    cvsd = torch.sqrt(torch.sum(wts * (losses - cvm[..., None, :]) ** 2, dim=-2)
                       / torch.tensor(nfolds - 1, dtype=losses.dtype, device=losses.device))
-    idx_min = _first_true(cvm == torch.min(cvm))
-    idx_1se = _first_true(cvm <= cvm[idx_min] + cvsd[idx_min])
+    idx_min = _first_true(cvm == torch.amin(cvm, dim=-1, keepdim=True))
+    at_min = lambda t: torch.gather(t, -1, idx_min[..., None])
+    idx_1se = _first_true(cvm <= at_min(cvm) + at_min(cvsd))
     return cvm, cvsd, idx_min, idx_1se
+
+
+def cv_glmnet_lanes(x: torch.Tensor, y: torch.Tensor, penalty_factor=None, foldids=None,
+                    nfolds: int = 10, nlambda: int = DEFAULT_NLAMBDA,
+                    alpha: float = 1.0) -> CvGlmnetResult:
+    """Gaussian :func:`cv_glmnet` of B lanes, each with its own design and
+    folds: x (B, n, p), y (B, n), foldids (B, n) 1-based. Every lane's
+    full fit and K fold fits go to one batch of B·(K + 1) (on the card one
+    :func:`cd_path` launch). Returns the result with a leading lane axis
+    on every field (``path`` (B, L, …), ``cvm`` (B, L), the indices
+    (B,)): ``vmap(cv_glmnet)``, which :func:`cv_glmnet_many` (one shared
+    design) is not."""
+    n_lanes, n, p = x.shape
+    foldids = torch.as_tensor(foldids).to(x.device)
+    fold_ids = torch.arange(1, nfolds + 1, device=x.device)
+    train_w = (foldids[:, None, :] != fold_ids[None, :, None]).to(x.dtype)     # (B, K, n)
+    ones = torch.ones((n_lanes, 1, n), dtype=x.dtype, device=x.device)
+    w = _normalized(torch.cat([ones, train_w], dim=1).reshape(n_lanes * (nfolds + 1), n))
+    lead = torch.arange(n_lanes, device=x.device).repeat_interleave(nfolds + 1) * (nfolds + 1)
+    paths = _gaussian_batch(x.repeat_interleave(nfolds + 1, dim=0),
+                            y.repeat_interleave(nfolds + 1, dim=0), w,
+                            _penalty(penalty_factor, p, x[0]), alpha, DEFAULT_THRESH, None,
+                            nlambda, lead)
+    paths = ElnetPath(*(t.reshape(n_lanes, nfolds + 1, *t.shape[1:]) for t in paths))
+    eta = paths.intercepts[:, 1:, :, None] + paths.coefs[:, 1:] @ x.transpose(1, 2)[:, None]
+    test_w = 1.0 - train_w
+    fold_n = torch.sum(test_w, dim=2)
+    losses = (torch.sum(test_w[:, :, None, :] * (y[:, None, None, :] - eta) ** 2, dim=3)
+              / fold_n[:, :, None])
+    cvm, cvsd, idx_min, idx_1se = cv_select(losses, fold_n, nfolds)
+    full = ElnetPath(*(t[:, 0] for t in paths))
+    at = lambda idx: torch.gather(full.lambdas, -1, idx[:, None])[:, 0]
+    return CvGlmnetResult(path=full, cvm=cvm, cvsd=cvsd, lambda_min=at(idx_min),
+                          lambda_1se=at(idx_1se), index_min=idx_min, index_1se=idx_1se)
 
 
 def predict_path(path: ElnetPath, x: torch.Tensor, index) -> torch.Tensor:

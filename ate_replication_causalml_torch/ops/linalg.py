@@ -10,7 +10,7 @@ float64 numpy selection logic, copied as it is.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -42,18 +42,76 @@ def _spd_inverse(a: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(eye, chol)
 
 
-def ols(x: torch.Tensor, y: torch.Tensor, ridge: float = 0.0) -> LstsqResult:
+def fixed_sum(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in one fixed pairwise order: the axis padded with
+    zeros to a power of two, then halved, every step one elementwise add.
+    A lane's sum is the same bits whatever the other lanes, their count
+    and the device: PyTorch's reductions pick their order by shape and
+    device (the CPU's vectorized sums, the card's launch configuration)."""
+    t = torch.movedim(t, dim, -1)
+    n = t.shape[-1]
+    if n == 0:
+        return torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+    size = 1 << (n - 1).bit_length()
+    if size != n:
+        t = torch.nn.functional.pad(t, (0, size - n))
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
+
+
+def _cholesky_nan(a: torch.Tensor) -> torch.Tensor:
+    """``a``'s Cholesky factor, NaN where ``a`` is not positive definite
+    (what ``jnp.linalg``'s Cholesky gives) instead of an exception."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where(info == 0, chol, torch.nan)
+
+
+def _chol_solve_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_chol_solve`'s bits (1-D ``b``), NaN where ``a`` is not
+    positive definite."""
+    return torch.cholesky_solve(b[:, None], _cholesky_nan(a))[:, 0]
+
+
+def _spd_inverse_nan(a: torch.Tensor) -> torch.Tensor:
+    """:func:`_spd_inverse`'s bits, NaN where not positive definite."""
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    return torch.cholesky_solve(eye, _cholesky_nan(a))
+
+
+def over_lanes(fit: Callable, x: torch.Tensor, y: torch.Tensor, **kw):
+    """``fit`` of each lane of a batch of designs x (B, n, p), y (B, n):
+    every field of the results stacked on a leading lane axis. Each lane
+    is a fresh (n, p) tensor, as a lone fit's own, so a lane is that fit
+    bit for bit and takes its iterations (PyTorch's batched products
+    reassociate against the scalar ones, and the CPU's vectorized kernels
+    follow the data's alignment)."""
+    fits = [fit(x[i].clone(), y[i].clone(), **kw) for i in range(x.shape[0])]
+    return type(fits[0])(*(torch.stack([torch.as_tensor(v, device=x.device) for v in field])
+                           for field in zip(*fits)))
+
+
+def ols(x: torch.Tensor, y: torch.Tensor, ridge: float = 0.0,
+        inverse: Callable = _spd_inverse) -> LstsqResult:
     """OLS with classical (homoskedastic) standard errors, as R ``lm`` +
     ``summary.lm``: ``se_j = sqrt(sigma2 * (X'X)^-1_jj)`` with
     ``sigma2 = RSS / (n - p)``. ``ridge`` adds a tiny diagonal for
     rank-deficient designs (R drops aliased columns instead; callers
-    that need R's aliasing pre-filter columns with :func:`alias_filter`)."""
+    that need R's aliasing pre-filter columns with :func:`alias_filter`).
+
+    A batch of designs x (B, n, p), y (B, n) fits each lane
+    (:func:`over_lanes`), and a lane whose design is not of full rank
+    gives NaN instead of an exception, as ``vmap`` of the JAX package's
+    fit does."""
+    if x.ndim == 3:
+        return over_lanes(ols, x, y, ridge=ridge, inverse=_spd_inverse_nan)
     n, p = x.shape
     xtx = x.T @ x
     if ridge:
         xtx = xtx + ridge * torch.eye(p, dtype=x.dtype, device=x.device)
     xty = x.T @ y
-    xtx_inv = _spd_inverse(xtx)
+    xtx_inv = inverse(xtx)
     coef = xtx_inv @ xty
     resid = y - x @ coef
     sigma2 = torch.sum(resid * resid) / (n - p)
@@ -91,7 +149,8 @@ def ols_no_intercept_1d(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor,
 
 
 def add_intercept(x: torch.Tensor) -> torch.Tensor:
-    return torch.cat([torch.ones_like(x[:, :1]), x], dim=1)
+    """[1, x] for a design (n, p) or a batch of designs (B, n, p)."""
+    return torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
 
 
 def alias_filter(cols, *, with_intercept: bool = True, tol: float = 1e-7) -> np.ndarray:

@@ -132,6 +132,9 @@ class SweepEngine:
         self._next_commit = 0
         self._commit_busy = False
         self._abort: list[tuple[int, BaseException]] = []
+        # Graceful drain (request_drain): no new nodes; in-flight ones
+        # finish and their declared-order prefix commits.
+        self._draining = False
         self._busy_lanes: set[str] = set()
         self._frames_ready: torch.cuda.Event | None = None
         self._workers_done: list[torch.cuda.Event] = []
@@ -272,7 +275,7 @@ class SweepEngine:
         later nodes are skipped. Operator aborts stop scheduling."""
         with self._mu:
             while True:
-                if self._remaining == 0:
+                if self._remaining == 0 or self._draining:
                     return None
                 stop_at: int | None = None
                 if self._abort:
@@ -403,6 +406,24 @@ class SweepEngine:
                 self._exec(node)
 
     # ── liveness ──────────────────────────────────────────────────────
+
+    def request_drain(self) -> None:
+        """Graceful drain: stop scheduling new nodes; in-flight nodes
+        complete, the declared-order commit prefix flushes, and ``run()``
+        returns the partial results without raising. The journal then
+        holds the prefix a sequential run stopped at the same point would
+        (the scenario matrix's SIGTERM contract)."""
+        with self._mu:
+            if self._draining:
+                return
+            self._draining = True
+            self._mu.notify_all()
+        obs.emit("scheduler_drain", status="ok")
+
+    @property
+    def draining(self) -> bool:
+        with self._mu:
+            return self._draining
 
     def _remaining_critical_path(self) -> list[str]:
         """The longest dependency chain (by node count) through the

@@ -200,6 +200,35 @@ imports nothing of JAX. Phases, each printing one JSON line:
    failed row, the injections the spec predicts, every other record
    resumed; then a clean sweep: the torn line counted, both rows
    recomputed bit for bit path_sweep's, with their share of the launches;
+11g. path_scenario_matrix — the Monte-Carlo scenario matrix
+   (``scenarios/``) at the stock grid: 4 ``STOCK_DGPS`` × 6 estimators,
+   the 4 ``needs_tall`` columns of ``sparse_highdim`` skipped (20
+   columns), ``SCENARIO_REPS`` replicates in width-``SCENARIO_WIDTH``
+   blocks, seed 0, into ``build/chip_smoke_scenarios/``: aggregate mode on
+   the default (concurrent) engine; a rerun (0 computed, 0 launches, 0
+   builds); an extension to ``SCENARIO_EXT_REPS`` (one new block a
+   vmapped column, 32 new cells an aipw_rf column, 0 builds); rows mode
+   and aggregate mode on the sequential engine at the extended count; the
+   scalar replay of the first ``SCENARIO_REPLAY_REPS``. Every streaming state equals
+   ``fold_rows`` of the rows run and the sequential run's bit for bit
+   (all 18 sums); batched against scalar replay exact for naive and
+   within ``MAX_VMAP_COLLAPSE_ULP`` elsewhere; calibration coverage
+   within 3 MC standard errors of 95%; every run's launches equal
+   ``scenario_launches`` (the aipw_rf cells' hist_dense K=2, node_sums,
+   route_advance and leaf_record; one cd_path a lasso block); one block
+   of each ``SCENARIO_CPU_COLUMNS`` recomputed on the CPU port: draws
+   ``torch.equal``, estimates within ``SCENARIO_CPU_BOUND`` (the lasso
+   column's within ``CD_PATH_BOUND`` on W's scale); each lasso column's
+   one ``cd_path`` launch of a block (352 fits, p = 5 or 385) held within
+   ``CD_PATH_BOUND`` of ``cd_path_plain`` on the card at its own inputs.
+   Prints the walls, per-column seconds and the launches;
+11h. path_frontier — ``run_frontier(FRONTIER_SPEC)`` (the micro search;
+   ``default_frontier_spec(0)`` put the script over its time) into
+   ``build/chip_smoke_frontier/``, then again: the atlas byte for byte, no
+   journaled probe computed again (only the failures' fresh
+   confirmations), 0 launches; the known corner among the failures,
+   shrunk to both knobs; the first failure's ``--repro`` line through the
+   port's CLI in a subprocess prints ``failing``;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -272,6 +301,9 @@ from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
 from ate_replication_causalml_torch.observability import serving_report as sreport  # noqa: E402
 from ate_replication_causalml_torch.observability import stathealth  # noqa: E402
 from ate_replication_causalml_torch.resilience import chaos  # noqa: E402
+from ate_replication_causalml_torch import scenarios as sc  # noqa: E402
+from ate_replication_causalml_torch.scenarios import frontier as fr  # noqa: E402
+from ate_replication_causalml_torch.scenarios.batched import compile_event_count  # noqa: E402
 from ate_replication_causalml_torch.serving import loadgen  # noqa: E402
 from ate_replication_causalml_torch.serving.client import CateClient  # noqa: E402
 from ate_replication_causalml_torch.serving.coalescer import BucketPlan  # noqa: E402
@@ -479,6 +511,36 @@ FLEET_PROBE_S, FLEET_FAILOVER = 0.05, 2
 FLEET_MODELS = ("default", "m2", "m3")
 FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 
+# path_scenario_matrix: the stock grid (4 DGPs x 6 estimators, the 4
+# needs_tall columns of sparse_highdim skipped: 20 columns), 64
+# replicates in width-32 blocks, extended to 96; the scalar replay over
+# the first SCENARIO_REPLAY_REPS replicates of the vmapped columns; one
+# block of each SCENARIO_CPU_COLUMNS recomputed on the CPU port, its
+# estimates within SCENARIO_CPU_BOUND·(1 + |card|) of the card's (float32
+# GLM sums in the devices' orders; the draws are torch.equal). A lasso
+# column's estimate is W's coefficient, its standardized value ·ys/xs_W:
+# the CPU's plain coordinate descent against the card's kernel is held
+# within CD_PATH_BOUND·ys/xs_W, the kernel's own bound on that scale.
+# Every lasso column's one block (its one cd_path launch of 352 fits, each
+# lane's own Grams, p = 5 or 385) is also held to cd_path_plain on the
+# card at those inputs, as cd_rows holds the rows' launches (p = 385 on
+# CD_PLAIN_WINDOWS, p = 5 on the whole path).
+SCENARIO_ESTIMATORS = ("naive", "ols", "ipw_logit", "aipw_logit", "lasso", "aipw_rf")
+SCENARIO_REPS = 64
+SCENARIO_EXT_REPS = 96
+SCENARIO_WIDTH = 32
+SCENARIO_REPLAY_REPS = 32
+SCENARIO_CPU_COLUMNS = ("hetero_confounded:aipw_logit", "calibration:aipw_rf",
+                        "calibration:lasso")
+SCENARIO_CPU_BOUND = 1e-5
+SCENARIO_OUT = os.path.join(REPO, "build", "chip_smoke_scenarios")
+# path_frontier: the micro search (the overlap × confounding corners for
+# ipw_logit, n = 96, 16 → 48 replicates). default_frontier_spec(0), the
+# committed atlas's search, takes 78-88 s and its resume 21-25 s on an H100
+# (PERF.md), which puts this script over its time budget.
+FRONTIER_SPEC = fr.micro_frontier_spec(0)
+FRONTIER_OUT = os.path.join(REPO, "build", "chip_smoke_frontier")
+
 RECORD: dict = {}
 # Rows of the path phases that the sweep's rows are held to.
 ROWS: dict = {}
@@ -637,6 +699,19 @@ ROW_LAUNCHES["sweep"] = {k: sum(ROW_LAUNCHES[p][k] for p in ("dr_rf", "causal_fo
 # each for Single-equation, Usual and Belloni) and of residual_balancing
 # (one an arm).
 CD_LAUNCHES = {"lasso": 163, "balance": 2}
+
+
+def scenario_launches(rf_cells: int, lasso_blocks: int) -> dict:
+    """Every kernel's launches in a scenario-matrix run, from its
+    configuration: an aipw_rf cell grows one 16-tree chunk of depth 4 (4
+    dense K=2 histograms at widths 1, 1, 2 and 4, 4 route_advance, one
+    node_sums, one leaf_record; OOB votes from the recorded leaves, no
+    traverse); a lasso block is one cd_path launch of its 32 lanes' 352
+    fits. Nothing else launches a kernel."""
+    want = {k: 0 for k in COUNTERS}
+    want.update(hist=4 * rf_cells, route_advance=4 * rf_cells, node_sums=rf_cells,
+                leaf_record=rf_cells, cd_path=lasso_blocks)
+    return want
 
 
 PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack_codes")
@@ -1385,6 +1460,33 @@ def cd_inputs(frame_mod) -> list:
     return out
 
 
+def cd_plain_windows(name: str, args, betas, sweeps, windows, timed: bool) -> list:
+    """``cd_path``'s coefficients ``betas`` (and ``sweeps``) from the
+    inputs ``args`` held within CD_PATH_BOUND of ``cd_path_plain`` on each
+    window (lo, hi) of λs, a window after the first warm-started from the
+    kernel's coefficients at the λ before it. ``timed``: one CUDA-event
+    time of the plain version a window (else a median of one call after a
+    warm-up)."""
+    gram, xty, pf, lams, beta0, alpha, thresh = args
+    out = []
+    for lo, hi in windows:
+        start = beta0 if lo == 0 else betas[:, lo - 1].contiguous()
+        plams = lams[:, lo:hi].contiguous()
+        plain = lambda: lasso.cd_path_plain(gram, xty, pf, plams, start, alpha, thresh)
+        if timed:
+            (want, want_sweeps), plain_ms = event_ms(plain)
+        else:
+            (want, want_sweeps), plain_ms = plain(), time_ms(plain, 1)
+        err = float((betas[:, lo:hi] - want).abs().max())
+        if not err <= CD_PATH_BOUND:
+            raise AssertionError(f"cd_path {name} λs {lo}–{hi - 1}: kernel {err} from its "
+                                 f"plain version (bound {CD_PATH_BOUND})")
+        out.append({"lambdas": [lo, hi], "max_abs_err": err, "plain_ms": plain_ms,
+                    "sweeps_equal_to_plain": float((sweeps[:, lo:hi] == want_sweeps)
+                                                   .double().mean())})
+    return out
+
+
 def cd_rows(frame_mod) -> list:
     """The CD kernel at the shapes of ``cd_inputs``. Each: two
     launches equal; within CD_PATH_BOUND of the plain version (Belloni's
@@ -1410,22 +1512,8 @@ def cd_rows(frame_mod) -> list:
         big = name == "belloni"
         n_fits, p, _ = gram.shape
         n_lam = lams.shape[1]
-        windows = []
-        for lo, hi in CD_PLAIN_WINDOWS if big else ((0, n_lam),):
-            start = beta0 if lo == 0 else betas[:, lo - 1].contiguous()
-            plams = lams[:, lo:hi].contiguous()
-            plain = lambda: lasso.cd_path_plain(gram, xty, pf, plams, start, alpha, thresh)
-            if big:
-                (want, want_sweeps), plain_ms = event_ms(plain)
-            else:
-                (want, want_sweeps), plain_ms = plain(), time_ms(plain, 1)
-            err = float((betas[:, lo:hi] - want).abs().max())
-            if not err <= CD_PATH_BOUND:
-                raise AssertionError(f"cd_path {name} λs {lo}–{hi - 1}: kernel {err} from its "
-                                     f"plain version (bound {CD_PATH_BOUND})")
-            windows.append({"lambdas": [lo, hi], "max_abs_err": err, "plain_ms": plain_ms,
-                            "sweeps_equal_to_plain": float((sweeps[:, lo:hi] == want_sweeps)
-                                                           .double().mean())})
+        windows = cd_plain_windows(name, (gram, xty, pf, lams, beta0, alpha, thresh), betas,
+                                   sweeps, CD_PLAIN_WINDOWS if big else ((0, n_lam),), big)
         nbytes = 4 * (n_fits * p * p + 2 * n_fits * p + n_fits * n_lam
                       + n_fits * n_lam * p + n_fits * n_lam)
         rate_ms, rate_by = bound(nbytes, int(sweeps.sum()) * p * (2 * p + 10))
@@ -3252,6 +3340,290 @@ def phase_path_sweep_concurrent() -> dict:
     return counts
 
 
+def scenario_spec(n_reps: int, rows: bool = False) -> "sc.MatrixSpec":
+    return sc.MatrixSpec(dgps=tuple(sc.STOCK_DGPS.values()), estimators=SCENARIO_ESTIMATORS,
+                         n_reps=n_reps, batch_width=SCENARIO_WIDTH, seed=0, rows=rows)
+
+
+def scenario_run(spec, out: str | None, **kw) -> dict:
+    """One ``run_matrix`` on the card with the launch counts read around
+    it and its compile events (kernel builds and graph captures)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = sc.run_matrix(spec, outdir=out, log=lambda s: None, **kw)
+    wall = time.perf_counter() - t0
+    errors = []
+    with open(os.path.join(out, "cells.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("status") == "failed":
+                errors.append(f"{rec['method']}: {rec['error'][:500]}")
+    return {"report": rep, "wall_s": wall, "launches": read_counts(),
+            "computed": rep.n_computed, "resumed": rep.n_resumed, "failed": rep.n_failed,
+            "blocks": rep.n_blocks, "compile_events": rep.compile_events_delta,
+            "errors": errors}
+
+
+def scenario_block_args(column: str, dev: str):
+    """The spec, estimator, root key and cell ids of ``column``'s first
+    width-32 block (reps 0-31) on ``dev``."""
+    dgp_name, est_name = column.split(":")
+    ids = sc.pad_ids(dgp_name, tuple(range(SCENARIO_WIDTH)), SCENARIO_WIDTH)
+    return (sc.STOCK_DGPS[dgp_name], sc.SCENARIO_ESTIMATORS[est_name],
+            rnd.key(0, device=dev), ids)
+
+
+def scenario_cd_block(column: str) -> dict:
+    """``column``'s (a lasso column's) first block on the card with its one
+    ``cd_path`` launch's inputs recorded, then the kernel at those inputs
+    held to ``cd_path_plain`` on the card (``cd_plain_windows``):
+    CD_PLAIN_WINDOWS where p is Belloni's order, the whole path at p = 5."""
+    spec, est, root, ids = scenario_block_args(column, "cuda")
+    with cd_capture() as seen:
+        sc.column_executable(spec, est, SCENARIO_WIDTH)(root, ids)
+    if len(seen) != 1:
+        raise AssertionError(f"{column}: {len(seen)} cd_path calls in a block, want 1")
+    args = seen[0][0]
+    gram, lams = args[0], args[3]
+    betas, sweeps = lasso.cd_path(*args)
+    n_fits, p, _ = gram.shape
+    big = p > 32
+    windows = cd_plain_windows(column, args, betas, sweeps,
+                               CD_PLAIN_WINDOWS if big else ((0, lams.shape[1]),), big)
+    return {"column": column, "fits": n_fits, "p": p, "L": lams.shape[1],
+            "sweeps_max": int(sweeps.max()),
+            "max_abs_err": max(w["max_abs_err"] for w in windows), "plain_windows": windows}
+
+
+def scenario_cpu_block(column: str) -> dict:
+    """One width-32 block of ``column`` (reps 0-31) on the card and on the
+    CPU port in this process: the draws ``torch.equal``, the estimates'
+    largest |Δ| over (1 + |card|) within SCENARIO_CPU_BOUND; a lasso
+    column's estimates within CD_PATH_BOUND·ys/xs_W a lane (its SE is NaN
+    on both)."""
+    out: dict = {}
+    for dev in ("cuda", "cpu"):
+        spec, est, root, ids = scenario_block_args(column, dev)
+        keys = rnd.fold_in(root, torch.as_tensor(ids.astype(np.int64), device=dev))
+        draws = sc.generate(spec, keys)
+        t0 = time.perf_counter()
+        if est.vmapped:
+            ate, se, _ = sc.column_executable(spec, est, SCENARIO_WIDTH)(root, ids)
+        else:
+            run = sc.cell_fn(spec, est)
+            ate, se = (torch.stack(t) for t in zip(*(run(root, int(c))[:2] for c in ids)))
+        out[dev] = (draws, ate.cpu(), se.cpu(), time.perf_counter() - t0)
+    (card, ate_g, se_g, sec_g), (cpu, ate_c, se_c, sec_c) = out["cuda"], out["cpu"]
+    if est.name == "lasso":
+        _, w, y, _ = cpu
+        scale = y.std(dim=-1, unbiased=False) / w.std(dim=-1, unbiased=False)
+        err = float(((ate_c - ate_g).abs() / scale).max())
+        bound, within = CD_PATH_BOUND, bool(torch.isnan(se_c).all() and torch.isnan(se_g).all())
+    else:
+        err = max(float(((a - b).abs() / (1 + b.abs())).max())
+                  for a, b in ((ate_c, ate_g), (se_c, se_g)))
+        bound, within = SCENARIO_CPU_BOUND, True
+    return {"column": column, "draws_equal": [bool(torch.equal(a.cpu(), b)) for a, b in zip(card, cpu)],
+            "max_err": err, "bound": bound, "within": within and err <= bound,
+            "card_s": sec_g, "cpu_s": sec_c}
+
+
+def phase_path_scenario_matrix(smi: str) -> dict:
+    """The Monte-Carlo scenario matrix (``scenarios/``) on the card at the
+    stock grid: aggregate mode on the default engine; a rerun (0
+    computed, 0 launches, 0 builds); an extension to
+    ``SCENARIO_EXT_REPS`` (one new block a vmapped column, 32 new cells an
+    aipw_rf column, 0 builds); rows mode and aggregate mode on the
+    sequential engine at the extended count; the scalar replay. Gates: every streaming state equals
+    ``fold_rows`` of the rows run bit for bit and the sequential run's;
+    batched against scalar replay exact for naive and within
+    ``MAX_VMAP_COLLAPSE_ULP`` elsewhere; calibration coverage within 3 MC
+    standard errors of 95%; every run's launches equal
+    ``scenario_launches``; one block of each ``SCENARIO_CPU_COLUMNS`` on
+    the CPU port: draws ``torch.equal``, estimates within
+    ``SCENARIO_CPU_BOUND`` (a lasso column's within CD_PATH_BOUND·ys/xs_W);
+    every lasso column's first block's ``cd_path`` launch held within
+    CD_PATH_BOUND of its plain version on the card at that launch's
+    inputs (``scenario_cd_block``). Prints the walls, per-column seconds
+    and the launches."""
+    shutil.rmtree(SCENARIO_OUT, ignore_errors=True)
+    agg_out = os.path.join(SCENARIO_OUT, "aggregate")
+    spec = scenario_spec(SCENARIO_REPS)
+    ext = scenario_spec(SCENARIO_EXT_REPS)
+    plans, skipped = sc.plan_columns(spec)
+    rf_cols = sum(p.estimator == "aipw_rf" for p in plans)
+    lasso_cols = sum(p.estimator == "lasso" for p in plans)
+    blocks = -(-SCENARIO_REPS // SCENARIO_WIDTH)
+    ext_blocks = -(-SCENARIO_EXT_REPS // SCENARIO_WIDTH)
+    runs = {"aggregate": scenario_run(spec, agg_out)}
+    runs["rerun"] = scenario_run(spec, agg_out)
+    runs["extend"] = scenario_run(ext, agg_out)
+    runs["rows"] = scenario_run(scenario_spec(SCENARIO_EXT_REPS, rows=True),
+                                os.path.join(SCENARIO_OUT, "rows"), scheduler="sequential")
+    runs["sequential"] = scenario_run(ext, os.path.join(SCENARIO_OUT, "sequential"),
+                                      scheduler="sequential")
+    want = {
+        "aggregate": scenario_launches(rf_cols * SCENARIO_REPS, lasso_cols * blocks),
+        "rerun": scenario_launches(0, 0),
+        "extend": scenario_launches(rf_cols * (SCENARIO_EXT_REPS - SCENARIO_REPS),
+                                    lasso_cols * (ext_blocks - blocks)),
+        "rows": scenario_launches(rf_cols * SCENARIO_EXT_REPS, lasso_cols * ext_blocks),
+    }
+    want["sequential"] = want["rows"]
+    t0 = time.perf_counter()
+    replay = sc.run_scalar_replay(scenario_spec(SCENARIO_REPLAY_REPS, rows=True),
+                                  log=lambda s: None)
+    replay_s = time.perf_counter() - t0
+    cpu_blocks = [scenario_cpu_block(c) for c in SCENARIO_CPU_COLUMNS]
+    cd_blocks = [scenario_cd_block(p.name) for p in plans if p.estimator == "lasso"]
+
+    fails = []
+    n_cols = len(plans)
+    if (n_cols, len(skipped)) != (20, 4):
+        fails.append(f"{n_cols} columns, {len(skipped)} skipped")
+    for name, r in runs.items():
+        if r["launches"] != want[name]:
+            fails.append(f"{name}: launches {r['launches']}, derived {want[name]}")
+        if r["failed"]:
+            fails.append(f"{name}: {r['failed']} failed cells: {r['errors'][:3]}")
+        if name != "aggregate" and r["compile_events"]:
+            fails.append(f"{name}: {r['compile_events']} kernel builds or graph captures")
+    if (runs["rerun"]["computed"], runs["rerun"]["blocks"]) != (0, 0):
+        fails.append(f"rerun computed {runs['rerun']['computed']}")
+    ext_rep = runs["extend"]["report"]
+    new_cells = n_cols * (SCENARIO_EXT_REPS - SCENARIO_REPS)
+    if (ext_rep.n_computed, ext_rep.n_blocks) != (new_cells, n_cols):
+        fails.append(f"extend computed {ext_rep.n_computed} cells in {ext_rep.n_blocks} blocks, "
+                     f"want {new_cells} in {n_cols}")
+    rows_rep = runs["rows"]["report"]
+    by_col: dict = {}
+    for r in rows_rep.cells:
+        by_col.setdefault(r["column"], []).append(r)
+    seq_states = runs["sequential"]["report"].states
+    for col, rows in by_col.items():
+        rows.sort(key=lambda r: r["rep"])
+        ref = sc.fold_rows([(r["ate"], r["se"], r["tau_true"]) for r in rows], SCENARIO_WIDTH)
+        if ext_rep.states[col].stats != ref.stats:
+            fails.append(f"{col}: streaming state differs from fold_rows of the rows run")
+        if seq_states[col].stats != ext_rep.states[col].stats:
+            fails.append(f"{col}: the sequential engine's state differs")
+    if set(by_col) != set(ext_rep.states):
+        fails.append("rows and streaming columns differ")
+    head = [r for r in rows_rep.cells if r["rep"] < SCENARIO_REPLAY_REPS
+            and sc.SCENARIO_ESTIMATORS[r["estimator"]].vmapped]
+    cmp = sc.compare_cells(head, replay.cells)
+    if cmp["missing"] or len(replay.cells) != len(head):
+        fails.append(f"replay cells missing: {cmp['missing'][:4]}")
+    for col, ulp in cmp["columns"].items():
+        est = sc.SCENARIO_ESTIMATORS[col.split(":")[1]]
+        if ulp > (0.0 if est.vmap_collapse_exact else sc.MAX_VMAP_COLLAPSE_ULP):
+            fails.append(f"{col}: batched vs scalar {ulp} ulps")
+    coverage = {}
+    for col, agg in ext_rep.columns.items():
+        if col.startswith("calibration:") and agg["coverage"] is not None:
+            coverage[col] = agg["coverage"]
+            if abs(agg["coverage"] - 0.95) > 3.0 * agg["coverage_mc_se"]:
+                fails.append(f"{col}: coverage {agg['coverage']} outside 3 MC-SE of 0.95")
+    if len(coverage) != 5:
+        fails.append(f"calibration coverage checked on {sorted(coverage)}")
+    for b in cpu_blocks:
+        if not all(b["draws_equal"]) or not b["within"]:
+            fails.append(f"{b['column']} on the CPU port: draws equal {b['draws_equal']}, "
+                         f"error {b['max_err']} (bound {b['bound']})")
+    col_s: dict = {}
+    for r in rows_rep.cells:
+        col_s[r["column"]] = col_s.get(r["column"], 0.0) + r["seconds"]
+    emit({"phase": "path_scenario_matrix", "nvidia_smi": smi, "columns": n_cols,
+          "skipped": skipped, "reps": SCENARIO_REPS, "extended_reps": SCENARIO_EXT_REPS,
+          "width": SCENARIO_WIDTH,
+          "runs": {k: {f: v[f] for f in ("wall_s", "computed", "resumed", "failed", "blocks",
+                                         "compile_events", "launches", "errors")}
+                   for k, v in runs.items()},
+          "workers": pipeline._resolve_scheduler(None, None, lambda s: None),
+          "replay": {"reps": SCENARIO_REPLAY_REPS, "wall_s": replay_s, "cells": len(replay.cells),
+                     "max_ulp": cmp["max_ulp"], "exact_columns": cmp["exact_columns"],
+                     "ulp_by_column": cmp["columns"]},
+          "rows_column_s": col_s, "calibration_coverage": coverage, "cpu_blocks": cpu_blocks,
+          "cd_blocks": cd_blocks,
+          "columns_summary": {c: {k: a[k] for k in ("n_cells", "coverage", "bias", "rmse")}
+                              for c, a in ext_rep.columns.items()}})
+    if fails:
+        raise AssertionError("path_scenario_matrix: " + "; ".join(fails))
+    return runs["aggregate"]["launches"]
+
+
+def frontier_computed() -> float:
+    snap = obs.REGISTRY.peek("scenario_frontier_probes_total") or {}
+    return sum(v for k, v in snap.items() if "status=computed" in k)
+
+
+def phase_path_frontier(smi: str) -> dict:
+    """``run_frontier(FRONTIER_SPEC)`` on the card into ``FRONTIER_OUT``,
+    then again on the same directory: the atlas byte for byte, no
+    journaled probe block computed again (only each failure's fresh
+    confirmation, as in the JAX package), 0 launches and builds; the first
+    failure's ``--repro`` line through the port's CLI in a subprocess must
+    print ``failing``, and the failures must be the micro search's known
+    corner, shrunk to both knobs."""
+    shutil.rmtree(FRONTIER_OUT, ignore_errors=True)
+    spec = FRONTIER_SPEC
+    atlas_path = os.path.join(FRONTIER_OUT, "FAILURE_ATLAS.json")
+    reset_counts()
+    c0, b0 = frontier_computed(), compile_event_count()
+    t0 = time.perf_counter()
+    atlas = fr.run_frontier(spec, outdir=FRONTIER_OUT, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    first_computed = frontier_computed() - c0
+    with open(atlas_path, "rb") as f:
+        first = f.read()
+    c1 = frontier_computed()
+    t0 = time.perf_counter()
+    again = fr.run_frontier(spec, outdir=FRONTIER_OUT, log=lambda s: None)
+    resume_wall = time.perf_counter() - t0
+    resume_counts = read_counts()
+    resume_computed = frontier_computed() - c1
+    builds = compile_event_count() - b0
+    with open(atlas_path, "rb") as f:
+        second = f.read()
+    confirm_blocks = sum(-(-f["reps"] // spec.width()) for f in atlas["failures"])
+    fails = []
+    if first != second or again != atlas:
+        fails.append("the resumed atlas differs")
+    if resume_computed != confirm_blocks:
+        fails.append(f"resume computed {resume_computed} probe blocks, "
+                     f"the confirmations are {confirm_blocks}")
+    if any(counts.values()) or any(resume_counts.values()) or builds:
+        fails.append(f"launches {counts} / {resume_counts}, builds {builds}")
+    if not atlas["failures"]:
+        fails.append("no failure found")
+    repro = {}
+    if atlas["failures"]:
+        line = atlas["failures"][0]["repro"].split()
+        cmd = [sys.executable, "-m", line[2]] + [a.strip("'") for a in line[3:]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=REPO,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        repro = {"cmd": " ".join(line), "rc": proc.returncode, "s": time.perf_counter() - t0}
+        if proc.returncode == 0:
+            repro["verdict"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        if repro.get("verdict", {}).get("verdict") != "failing":
+            fails.append(f"repro: {repro} {proc.stderr[-2000:]}")
+    corner = {"confounding": 6.0, "overlap": 0.02}
+    if not any(x["knobs"] == x["minimal_knobs"] == corner for x in atlas["failures"]):
+        fails.append(f"the known corner {corner} is not among the failures")
+    key = lambda a: [(x["estimator"], x["knobs"], x["minimal_knobs"]) for x in a["failures"]]
+    emit({"phase": "path_frontier", "nvidia_smi": smi, "wall_s": wall,
+          "resume_wall_s": resume_wall, "probes": atlas["probes"],
+          "computed_blocks": first_computed, "resume_computed_blocks": resume_computed,
+          "confirm_blocks": confirm_blocks, "launches": counts, "builds": builds,
+          "failures": key(atlas), "coverage": [x["coverage"] for x in atlas["failures"]],
+          "repro": repro})
+    if fails:
+        raise AssertionError("path_frontier: " + "; ".join(fails))
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -3310,8 +3682,13 @@ def phase_path_sweep_chaos() -> None:
             2, n_rows - 2):
         fails.append(f"chaos run: failures {list(frep.failures)}, computed {faulty['computed']}, "
                      f"resumed {faulty['resumed']}")
-    if injected != [["stage", "Usual LASSO"],
-                    ["fs", os.path.join(SWEEP_CHAOS_OUT, "results.jsonl")]]:
+    # The two injections come from two workers: the stage fault when Usual
+    # LASSO starts, the torn append when Single-equation LASSO commits. The
+    # engine orders commits, not these events, and the two land within about
+    # a millisecond of each other (folds:usual_lasso's fit ~11 ms against
+    # folds:seq_lasso's and Single-equation's ~8 + 3 ms), so either order.
+    if sorted(injected) != sorted([["stage", "Usual LASSO"],
+                                   ["fs", os.path.join(SWEEP_CHAOS_OUT, "results.jsonl")]]):
         fails.append(f"injections {injected}")
     if torn.get("") != 1.0 or (clean["computed"], clean["resumed"]) != (2, n_rows - 2):
         fails.append(f"resume: torn lines {torn}, computed {clean['computed']}, "
@@ -3438,6 +3815,8 @@ def main() -> int:
     by_path["sweep"] = phase_path_sweep()
     by_path["sweep_concurrent"] = phase_path_sweep_concurrent()
     phase_path_sweep_chaos()
+    by_path["scenario_matrix"] = phase_path_scenario_matrix(smi)
+    by_path["frontier"] = phase_path_frontier(smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

@@ -39,7 +39,10 @@ def test_port_lists_its_modules():
               "serving.coalescer", "serving.fleet", "serving.daemon", "serving.client",
               "serving.__main__", "observability.sketch", "observability.stathealth",
               "observability.serving_report", "serving.admin", "serving.retrain",
-              "serving.loadgen", "serving.router", "observability.fleet_report"):
+              "serving.loadgen", "serving.router", "observability.fleet_report",
+              "scenarios", "scenarios.dgp", "scenarios.batched", "scenarios.aggregate",
+              "scenarios.matrix", "scenarios.frontier", "scenarios.__main__",
+              "resilience.campaign"):
         assert f"{_PKG}.{m}" in mods
 
 
