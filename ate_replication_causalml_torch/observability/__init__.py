@@ -41,9 +41,11 @@ from ate_replication_causalml_torch.observability.registry import (
     MetricsRegistry,
     bucket_histogram,
     counter,
+    enabled,
     gauge,
     histogram,
     sanitize_label,
+    set_enabled,
 )
 from ate_replication_causalml_torch.observability.trace import (
     MetricSampler,
@@ -55,8 +57,8 @@ from ate_replication_causalml_torch.observability.trace import (
 __all__ = ["EVENTS", "EventLog", "MetricSampler", "MetricsRegistry", "PAD_FRACTION_BOUNDS",
            "REGISTRY", "SCHEMA_VERSION", "atomic_write_json", "atomic_write_text",
            "bucket_histogram", "build_trace", "counter",
-           "emit", "gauge", "histogram", "install_monitoring", "instrument_dispatch",
-           "record_device_memory", "sanitize_label", "span", "trace_enabled",
+           "emit", "enabled", "gauge", "histogram", "install_monitoring", "instrument_dispatch",
+           "record_device_memory", "sanitize_label", "set_enabled", "span", "trace_enabled",
            "write_events_jsonl", "write_metrics_json", "write_run_artifacts",
            "write_trace_artifacts"]
 

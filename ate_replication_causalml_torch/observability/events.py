@@ -24,7 +24,7 @@ import threading
 import time
 from typing import Iterator
 
-from ate_replication_causalml_torch.observability.registry import SCHEMA_VERSION
+from ate_replication_causalml_torch.observability.registry import SCHEMA_VERSION, enabled
 
 
 class Span:
@@ -83,6 +83,8 @@ class EventLog:
         return st
 
     def _append(self, rec: dict) -> None:
+        if not enabled():
+            return
         with self._lock:
             if len(self._records) == self.max_events:
                 self._dropped += 1  # the deque evicts the oldest record

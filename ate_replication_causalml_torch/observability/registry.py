@@ -17,6 +17,7 @@ host-side only: it never touches an estimator's tensors.
 from __future__ import annotations
 
 import bisect
+import os
 import re
 import threading
 import time
@@ -27,6 +28,24 @@ from typing import Sequence
 SCHEMA_VERSION = 1
 
 _LABEL_SAFE = re.compile(r"[^A-Za-z0-9_-]")
+
+_ENV = "ATE_TPU_TELEMETRY"
+_enabled_cache: bool | None = None
+
+
+def enabled() -> bool:
+    """Telemetry master switch: on unless ``ATE_TPU_TELEMETRY=0``. The
+    variable is read once and cached; :func:`set_enabled` flips it."""
+    global _enabled_cache
+    if _enabled_cache is None:
+        _enabled_cache = os.environ.get(_ENV, "1") != "0"
+    return _enabled_cache
+
+
+def set_enabled(value: bool | None) -> None:
+    """Override the master switch (``None`` re-reads the variable)."""
+    global _enabled_cache
+    _enabled_cache = value if value is None else bool(value)
 
 
 def sanitize_label(label: str) -> str:
@@ -70,6 +89,8 @@ class Counter:
     def inc(self, value: float = 1.0, **labels) -> None:
         """Add ``value`` (>= 0); ``inc(0, **labels)`` makes a sample that
         is present but zero."""
+        if not enabled():
+            return
         if value < 0:
             raise ValueError(f"counter {self.name}: negative increment {value}")
         key = _label_key(labels)
@@ -89,6 +110,8 @@ class Gauge:
         self.samples: dict[str, float] = {}
 
     def set(self, value: float, **labels) -> None:
+        if not enabled():
+            return
         with self._lock:
             self.samples[_label_key(labels)] = float(value)
 
@@ -105,6 +128,8 @@ class Histogram:
         self.samples: dict[str, dict] = {}
 
     def observe(self, value: float, **labels) -> None:
+        if not enabled():
+            return
         value = float(value)
         key = _label_key(labels)
         with self._lock:
@@ -155,6 +180,8 @@ class BucketHistogram:
         self.samples: dict[str, dict] = {}
 
     def observe(self, value: float, **labels) -> None:
+        if not enabled():
+            return
         value = float(value)
         idx = bisect.bisect_left(self.bounds, value)  # le semantics
         key = _label_key(labels)

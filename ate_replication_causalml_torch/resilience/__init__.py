@@ -9,7 +9,11 @@
 * :mod:`.watchdog`: the heartbeat registry and lane bounds the sweep
   engine stamps, and the watchdog over the serving dispatcher;
 * :mod:`.deadline`: the wall-clock :class:`~.deadline.Budget` a serving
-  request carries.
+  request carries;
+* :mod:`.invariants` and :mod:`.campaign`: the chaos campaign, seeded
+  multi-scope episodes over the real workloads judged by the invariant
+  registry against fault-free references, and its delta-debugging
+  shrinker.
 """
 
 from ate_replication_causalml_torch.resilience import chaos
@@ -17,6 +21,7 @@ from ate_replication_causalml_torch.resilience.errors import (
     FATAL_ERRORS,
     ChaosFault,
     ChaosRotateFault,
+    ChaosServeFault,
     ChaosShardFault,
     ChaosSpecError,
     ChaosStageFault,
@@ -34,7 +39,8 @@ from ate_replication_causalml_torch.resilience.watchdog import (
     lane_bound_s,
 )
 
-__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosRotateFault", "ChaosShardFault", "ChaosSpecError",
+__all__ = ["Budget", "FATAL_ERRORS", "ChaosFault", "ChaosRotateFault", "ChaosServeFault",
+           "ChaosShardFault", "ChaosSpecError",
            "ChaosStageFault", "CheckpointCorrupt", "CudaKernelError", "DeadlineExceeded",
            "HeartbeatRegistry", "NonFiniteResult", "chaos", "classify", "lane_bound_s",
            "transient_errors", "Watchdog"]

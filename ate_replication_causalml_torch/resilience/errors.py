@@ -45,6 +45,13 @@ class ChaosStageFault(ChaosFault):
     """Injected at a sweep stage boundary."""
 
 
+class ChaosServeFault(ChaosFault):
+    """Injected at the serving daemon's request boundary (``serve:``
+    scope). The daemon answers it with a typed reject-with-retry-after
+    and walks its degraded-mode recovery (checkpoint re-verify and
+    reload): never a crash, never a wrong value, a bounded retry."""
+
+
 class ChaosRotateFault(ChaosFault):
     """Injected along the train-to-serve rotation path (``rotate:``
     scope): a retrain fit that dies, or a fault between a candidate's

@@ -184,9 +184,16 @@ class PendingRequest:
         self.error: BaseException | None = None
         self._done = threading.Event()
 
-    def resolve(self, result, now: float) -> None:
+    def resolve(self, result, now: float, notify: bool = True) -> None:
+        """Settle the request; ``notify=False`` leaves the waiter asleep
+        until :meth:`notify` (the dispatcher books a batch's phases
+        between the two)."""
         self.result = result
         self.resolved_mono = now
+        if notify:
+            self._done.set()
+
+    def notify(self) -> None:
         self._done.set()
 
     def fail(self, error: BaseException, now: float) -> None:

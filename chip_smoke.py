@@ -229,6 +229,25 @@ imports nothing of JAX. Phases, each printing one JSON line:
    confirmations), 0 launches; the known corner among the failures,
    shrunk to both knobs; the first failure's ``--repro`` line through the
    port's CLI in a subprocess prints ``failing``;
+11i. path_chaos_campaign — the chaos campaign (``resilience/campaign.py``,
+   ``resilience/invariants.py``) on the card, into
+   ``build/chip_smoke_campaign/``: the default plan ``run_campaign(root_seed=7,
+   n_episodes=4, scale="micro")`` (sweep, matrix, serving, rotation, each
+   against its fault-free reference) held to the committed
+   ``CHAOS_CAMPAIGN.json`` (its 4 specs and workloads, all green,
+   invariant checks pass 20 / skip 16 / fail 0), the sweep episodes'
+   kernels launched, each held to its plain version on the inputs the
+   plan gave it (``kernel_taps``: the first call at each distinct shape,
+   checked after the counts are read) and ``traverse`` on the serving
+   forest at 4 rows and 1, 0 builds in every serving window; one ``fleet``
+   episode (three daemon processes on the card, a ``daemon:`` SIGKILL, a
+   rolling rotation) with ``fleet_failover`` passing; the planted
+   ``tamper:journal`` matrix episode (``TAMPER_SEED`` / ``TAMPER_ATOMS``)
+   detected, shrunk to the tamper atom alone, and its repro line, run as a
+   subprocess, exiting 1 with ``bit_identity`` failing again and no
+   traceback. Prints each episode's wall, the references', the fleet's,
+   the shrink's probes and wall (from each run's ``campaign_walls.json``),
+   the kernel checks and the launches;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -540,6 +559,19 @@ SCENARIO_OUT = os.path.join(REPO, "build", "chip_smoke_scenarios")
 # (PERF.md), which puts this script over its time budget.
 FRONTIER_SPEC = fr.micro_frontier_spec(0)
 FRONTIER_OUT = os.path.join(REPO, "build", "chip_smoke_frontier")
+
+# path_chaos_campaign: the committed record of the JAX package's default
+# campaign, and the JAX tests' planted tamper episode.
+CAMPAIGN_RECORD = os.path.join(REPO, "CHAOS_CAMPAIGN.json")
+CAMPAIGN_OUT = os.path.join(REPO, "build", "chip_smoke_campaign")
+TAMPER_SEED = 17
+TAMPER_ATOMS = (("fs", "fs:torn_write,times=1"), ("stage", "stage:fail=naive#b0,times=1"),
+                ("tamper", "tamper:journal,times=1"))
+# The default plan's kernels: the sweep episodes' (MICRO: depth 4; the
+# partition pass from the crossover width on) and the predicts' traverse.
+CAMPAIGN_KERNELS = ("hist", "hist_shared", "hist_partition", "hist_partition_shared",
+                    "node_sums", "node_sums_shared", "route_advance", "traverse", "leaf_record",
+                    "cd_path")
 
 RECORD: dict = {}
 # Rows of the path phases that the sweep's rows are held to.
@@ -3624,6 +3656,325 @@ def phase_path_frontier(smi: str) -> dict:
     return counts
 
 
+# The names the growers, the predict paths and the LASSO path look the
+# kernels' wrappers up by, where path_chaos_campaign's taps stand in.
+TAP_SITES = ((fo, ("bin_histogram_batched", "node_sums", "route_advance", "leaf_record",
+                   "traverse")),
+             (cf, ("bin_histogram_shared", "node_sums_shared", "traverse")),
+             (lasso, ("cd_path",)))
+
+
+def _shape_key(v):
+    if isinstance(v, torch.Tensor):
+        return (tuple(v.shape), str(v.dtype), v.device.type)
+    return v
+
+
+class _Tap:
+    """Stands in for a kernel's wrapper ``fn`` where the path looks it up:
+    calls it, after keeping a copy of the inputs (before the call:
+    ``route_advance`` advances its ids in place) of the first call at each
+    distinct shape and scalar arguments, none taken during a graph
+    capture. Attributes read and write through to ``fn``: a wrapper that
+    counts through the name it is looked up by (``lasso.cd_path``) counts
+    on itself."""
+
+    def __init__(self, name, fn, seen: dict, lock):
+        import inspect
+
+        object.__setattr__(self, "_tap", (name, fn, inspect.signature(fn), seen, lock))
+
+    def __getattr__(self, attr):
+        return getattr(self._tap[1], attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self._tap[1], attr, value)
+
+    def __call__(self, *a, **k):
+        name, fn, sig, seen, lock = self._tap
+        if not torch.cuda.is_current_stream_capturing():
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            key = (name,) + tuple((n, _shape_key(v)) for n, v in bound.arguments.items())
+            with lock:
+                new = key not in seen
+                if new:
+                    seen[key] = None
+            if new:
+                seen[key] = (name, {n: v.clone() if isinstance(v, torch.Tensor) else v
+                                    for n, v in bound.arguments.items()})
+        return fn(*a, **k)
+
+
+@contextlib.contextmanager
+def kernel_taps():
+    """Within the block, each wrapper of TAP_SITES is called through a
+    ``_Tap``. Yields ``{key: (wrapper name, bound arguments)}``. The taps
+    launch nothing of their own, so the counts stay the path's."""
+    seen: dict = {}
+    lock = threading.Lock()
+    saved = []
+    try:
+        for mod, names in TAP_SITES:
+            for name in names:
+                fn = getattr(mod, name)
+                saved.append((mod, name, fn))
+                setattr(mod, name, _Tap(name, fn, seen, lock))
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def hist_kernel_name(wrapper: str, mode: str) -> str:
+    name = "hist_partition" if mode.startswith("partition") else "hist"
+    return name + ("_shared" if wrapper.endswith("shared") else "") + (
+        "_packed" if mode.endswith("pack") else "")
+
+
+def check_tapped(name: str, b: dict) -> tuple[str, float]:
+    """One tapped call's inputs: the kernel launched twice (bitwise equal)
+    and held to its plain version with the tolerance its phase row uses:
+    histograms and leaf sums exact for integer weights, within
+    FLOAT_ULPS·eps·Σ|w| for float ones; the row kernels ``torch.equal``;
+    ``cd_path`` within CD_PATH_BOUND on CD_PLAIN_WINDOWS (the whole path
+    at p ≤ 32), warm-started as in ``cd_plain_windows``. Returns (kernel,
+    max |Δ|)."""
+    if name.startswith("bin_histogram"):
+        kernel = hist_kernel_name(name, b["mode"])
+        run = lambda: getattr(hist, name)(b["codes"], b["ids"], b["weights"],
+                                          max_nodes=b["max_nodes"], n_bins=b["n_bins"],
+                                          mode=b["mode"], packed=b["packed"])
+        got = run()
+        check_equal(f"{kernel} (two launches)", run(), got)
+        args = (b["codes"], b["ids"], b["weights"], b["max_nodes"], b["n_bins"])
+        want = (hist.bin_histogram_packed_plain(*args, b["packed"]) if b["mode"].endswith("pack")
+                else hist.bin_histogram_batched_plain(*args))
+        w = b["weights"]
+        if torch.equal(w, w.round()):
+            return kernel, check_equal(kernel, got, want)
+        scale = w.abs().sum(dim=-1)
+        scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
+        return kernel, check_float(kernel, got, want, scale)[0]
+    if name.startswith("node_sums"):
+        run = lambda: getattr(hist, name)(b["ids"], b["weights"], b["num_nodes"])
+        got = run()
+        check_equal(f"{name} (two launches)", run(), got)
+        want = hist.node_sums_plain(b["ids"], b["weights"], b["num_nodes"])
+        w = b["weights"]
+        if torch.equal(w, w.round()):
+            return name, check_equal(name, got, want)
+        scale = w.abs().sum(dim=-1)
+        scale = (scale if scale.ndim == 2 else scale[None])[:, None, :]
+        return name, check_float(name, got, want, scale)[0]
+    if name == "route_advance":
+        outs = []
+        for fn in (tree.route_advance, tree.route_advance, tree.route_advance_plain):
+            ni, nr = b["node_int"].clone(), b["node_rev"].clone()
+            outs.append((fn(b["codes"], ni, nr, b["best_feat"], b["best_bin"], b["mask"],
+                            b["last"]), ni, nr))
+        check_same(f"{name} (two launches)", zip(outs[0], outs[1]))
+        check_same(name, zip(outs[0], outs[2]))
+        return name, 0.0
+    if name == "leaf_record":
+        args = (b["leaf_sums"], b["base"], b["mu"], b["node"])
+        got = tree.leaf_record(*args)
+        check_same(f"{name} (two launches)", zip(got, tree.leaf_record(*args)))
+        check_same(name, zip(got, tree.leaf_record_plain(*args)))
+        return name, 0.0
+    if name == "traverse":
+        args = (b["codes"], b["split_feat"], b["split_bin"], b["table"])
+        got = tree.traverse(*args)
+        check_equal(f"{name} (two launches)", tree.traverse(*args), got)
+        return name, check_equal(name, got, tree.traverse_plain(*args))
+    if name == "cd_path":
+        betas, sweeps = lasso.cd_path(**b)
+        again, sweeps2 = lasso.cd_path(**b)
+        check_equal(f"{name} (two launches)", again, betas)
+        check_equal(f"{name} sweeps (two launches)", sweeps2, sweeps)
+        n_lam = b["lambdas"].shape[1]
+        windows = (((0, n_lam),) if b["gram"].shape[1] <= 32 else
+                   tuple((lo, min(hi, n_lam)) for lo, hi in CD_PLAIN_WINDOWS if lo < n_lam))
+        err = 0.0
+        for lo, hi in windows:
+            start = b["beta0"] if lo == 0 else betas[:, lo - 1].contiguous()
+            want, _ = lasso.cd_path_plain(**dict(b, lambdas=b["lambdas"][:, lo:hi].contiguous(),
+                                                 beta0=start))
+            e = float((betas[:, lo:hi] - want).abs().max())
+            if not e <= CD_PATH_BOUND:
+                raise AssertionError(f"cd_path B={b['gram'].shape[0]} p={b['gram'].shape[1]} "
+                                     f"λs {lo}–{hi - 1}: kernel {e} from its plain version "
+                                     f"(bound {CD_PATH_BOUND})")
+            err = max(err, e)
+        return name, err
+    raise AssertionError(f"no check for tapped wrapper {name}")
+
+
+def check_taps(seen: dict) -> dict:
+    """Every tapped call held to its plain version: per kernel, the cases
+    held and the largest |Δ|."""
+    sync()
+    out: dict = {}
+    for name, b in seen.values():
+        kernel, err = check_tapped(name, b)
+        row = out.setdefault(kernel, {"cases": 0, "max_abs_err": 0.0})
+        row["cases"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    sync()
+    return out
+
+
+def check_serving_traverse(seed: int) -> dict:
+    """``traverse`` held to ``traverse_plain`` on the campaign's serving
+    forest (8 trees of depth 3, 4 features, drawn as the serving workload
+    draws it for ``seed``) at the bucket's 4 rows and at 1 row."""
+    from ate_replication_causalml_torch.resilience import campaign as cp
+
+    forest = cp._synthetic_serving_forest(np.random.default_rng(seed))
+    x = torch.as_tensor(np.random.default_rng(seed).normal(size=(4, 4)).astype(np.float32),
+                        device="cuda")
+    args = [t.cuda() for t in (forest.split_feat, forest.split_bin, forest.leaf_stats)]
+    for rows in (4, 1):
+        codes = fo.binarize(x[:rows].contiguous(), forest.bin_edges.cuda())
+        got = tree.traverse(codes, *args)
+        check_equal(f"traverse serving forest {rows} rows (two launches)",
+                    tree.traverse(codes, *args), got)
+        check_equal(f"traverse serving forest {rows} rows", got,
+                    tree.traverse_plain(codes, *args))
+    return {"cases": 2, "max_abs_err": 0.0}
+
+
+def verdict_counts(report: dict) -> dict:
+    counts = {"pass": 0, "skip": 0, "fail": 0}
+    for ep in report["episodes"]:
+        for v in ep["invariants"]:
+            counts[v["verdict"]] += 1
+    return counts
+
+
+def phase_path_chaos_campaign(smi: str) -> dict:
+    """The chaos campaign on the card (docstring, 11i). Returns the kernel
+    launches of the default plan's run."""
+    from ate_replication_causalml_torch.resilience import campaign as cp
+
+    shutil.rmtree(CAMPAIGN_OUT, ignore_errors=True)
+    with open(CAMPAIGN_RECORD) as f:
+        record = json.load(f)
+    fails = []
+    quiet = lambda msg: None
+    t_phase = time.perf_counter()
+    # The default plan: sweep, matrix, serving, rotation, the kernels'
+    # inputs tapped; the counts read before any kernel is held to its
+    # plain version on them.
+    default_out = os.path.join(CAMPAIGN_OUT, "default")
+    with kernel_taps() as seen:
+        reset_counts()
+        t0 = time.perf_counter()
+        report = cp.run_campaign(default_out, root_seed=record["root_seed"],
+                                 n_episodes=record["n_episodes"], scale=record["scale"],
+                                 log=quiet, device="cuda")
+        default_wall = time.perf_counter() - t0
+        counts = read_counts()
+    t0 = time.perf_counter()
+    checks = check_taps(seen)
+    serving_seed = next(e["seed"] for e in report["episodes"] if e["workload"] == "serving")
+    checks["traverse (serving forest)"] = check_serving_traverse(serving_seed)
+    check_s = time.perf_counter() - t0
+    with open(os.path.join(default_out, "campaign_walls.json")) as f:
+        walls = json.load(f)
+    got = [(e["workload"], e["spec"], e["status"]) for e in report["episodes"]]
+    want = [(e["workload"], e["spec"], "green") for e in record["episodes"]]
+    if got != want:
+        fails.append(f"default plan {got} != the record's {want}")
+    verdicts = verdict_counts(report)
+    if verdicts != record["invariant_checks"] or not record["all_green"] or report["violations"]:
+        fails.append(f"invariant checks {verdicts} (record {record['invariant_checks']}), "
+                     f"violations {report['violations']}")
+    try:
+        require_launched(counts, CAMPAIGN_KERNELS, "chaos_campaign")
+    except AssertionError as e:
+        fails.append(str(e))
+    unchecked = [k for k in CAMPAIGN_KERNELS if k not in checks]
+    if unchecked:
+        fails.append(f"kernels never held to their plain version at this path's inputs: "
+                     f"{unchecked}")
+    windows = {}
+    for d in sorted(os.listdir(default_out)):
+        path = os.path.join(default_out, d, "campaign_summary.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                summary = json.load(f)
+            if "serving" in summary:
+                windows[d] = summary["serving"]["compile_events_in_window"]
+    if len(windows) != 4 or any(windows.values()):
+        fails.append(f"serving windows' builds {windows}")
+    # One fleet episode: three daemon processes, a SIGKILL, a rotation.
+    fleet_out = os.path.join(CAMPAIGN_OUT, "fleet")
+    t0 = time.perf_counter()
+    fleet = cp.run_campaign(fleet_out, root_seed=record["root_seed"], n_episodes=1,
+                            workloads=("fleet",), scale=record["scale"], log=quiet,
+                            device="cuda")
+    fleet_wall = time.perf_counter() - t0
+    with open(os.path.join(fleet_out, "campaign_walls.json")) as f:
+        fleet_walls = json.load(f)
+    fv = {v["invariant"]: v for v in fleet["episodes"][0]["invariants"]}
+    if fleet["violations"] or fv["fleet_failover"]["verdict"] != "pass":
+        fails.append(f"fleet episode: {fleet['episodes'][0]['invariants']}")
+    # The planted tamper: detected, shrunk, its repro failing again.
+    tamper_out = os.path.join(CAMPAIGN_OUT, "tamper")
+    t0 = time.perf_counter()
+    tamper = cp.run_campaign(tamper_out, root_seed=5,
+                             episodes=[cp.Episode(0, "matrix", TAMPER_SEED, TAMPER_ATOMS)],
+                             scale="micro", log=quiet, device="cuda")
+    tamper_wall = time.perf_counter() - t0
+    with open(os.path.join(tamper_out, "campaign_walls.json")) as f:
+        tamper_walls = json.load(f)
+    tv = {v["invariant"]: v["verdict"] for v in tamper["episodes"][0]["invariants"]}
+    shrink = tamper["shrink"][0] if tamper["shrink"] else {}
+    if (tamper["violations"] != [0] or tv["bit_identity"] != "fail"
+            or tv["journal_integrity"] != "pass" or tv["degraded_where_faulted"] != "pass"):
+        fails.append(f"tamper not detected as planted: {tv}")
+    if shrink.get("minimal_atoms") != [{"scope": "tamper", "spec": "tamper:journal,times=1"}] \
+            or shrink.get("confirmed") is not True:
+        fails.append(f"tamper shrink: {shrink}")
+    repro = {}
+    if shrink:
+        import shlex
+
+        words = shlex.split(shrink["repro"])
+        name, _, value = words[0].partition("=")
+        cmd = [sys.executable] + words[2:]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=REPO,
+                              env=dict(os.environ, PYTHONPATH=REPO, **{name: value}))
+        repro = {"cmd": shrink["repro"], "rc": proc.returncode, "s": time.perf_counter() - t0,
+                 "stdout": proc.stdout.strip().splitlines()[-1:]}
+        # Exit 1 with the verdict line: a crash also exits 1.
+        if (proc.returncode != 1 or "REPRO RE-FAILS: ['bit_identity']" not in proc.stdout
+                or "Traceback" in proc.stderr):
+            fails.append(f"repro exit {proc.returncode}, not 1 with bit_identity failing "
+                         f"again: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    emit({"phase": "path_chaos_campaign", "nvidia_smi": smi,
+          "wall_s": time.perf_counter() - t_phase, "default_wall_s": default_wall,
+          "episodes": [[e["workload"], e["status"], w]
+                       for e, w in zip(report["episodes"], walls["episode_wall_s"])],
+          "reference_wall_s": walls["reference_wall_s"],
+          "invariant_checks": verdicts, "serving_window_builds": windows,
+          "kernel_checks": checks, "kernel_checks_s": check_s,
+          "fleet": {"wall_s": fleet_wall, "spec": fleet["episodes"][0]["spec"],
+                    "reference_wall_s": fleet_walls["reference_wall_s"],
+                    "episode_wall_s": fleet_walls["episode_wall_s"],
+                    "killed": fv["fleet_failover"]["data"].get("killed"),
+                    "status": fleet["episodes"][0]["status"]},
+          "tamper": {"wall_s": tamper_wall, "probes": shrink.get("n_probe_runs"),
+                     "shrink_s": tamper_walls["shrink_wall_s"],
+                     "minimal": shrink.get("minimal_atoms"), "repro": repro},
+          "launches": counts})
+    if fails:
+        raise AssertionError("path_chaos_campaign: " + "; ".join(fails))
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -3817,6 +4168,7 @@ def main() -> int:
     phase_path_sweep_chaos()
     by_path["scenario_matrix"] = phase_path_scenario_matrix(smi)
     by_path["frontier"] = phase_path_frontier(smi)
+    by_path["chaos_campaign"] = phase_path_chaos_campaign(smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

@@ -42,7 +42,7 @@ def test_port_lists_its_modules():
               "serving.loadgen", "serving.router", "observability.fleet_report",
               "scenarios", "scenarios.dgp", "scenarios.batched", "scenarios.aggregate",
               "scenarios.matrix", "scenarios.frontier", "scenarios.__main__",
-              "resilience.campaign"):
+              "resilience.campaign", "resilience.invariants"):
         assert f"{_PKG}.{m}" in mods
 
 
