@@ -69,15 +69,20 @@ def belloni(
         raise ValueError(f"compat must be 'r' or 'fixed', got {compat!r}")
     if key is None:
         key = rnd.key(0, device=frame.device)
+    mesh = None
     if fold_axis is not None:
-        raise ValueError("fold_axis is not supported: the port's sharded (multi-GPU) CV is not "
-                         "ported; pass fold_axis=None")
+        from ate_replication_causalml_torch.parallel.mesh import get_mesh
+
+        mesh = get_mesh()
     kxw, kxy = rnd.split(key).unbind(dim=-2)
     x_big = interaction_expand(frame.x)
 
-    # The two CV-LASSOs (X→W, X→Y) share the design: one batch of 22 fits.
+    # The two CV-LASSOs (X→W, X→Y) share the design: one batch of 22 fits,
+    # its coordinate descent sharded over ``fold_axis`` of the active mesh
+    # when one is named.
     cv_xw, cv_xy = cv_glmnet_many(x_big, [frame.w, frame.y], "gaussian",
-                                  foldids=[foldid_xw, foldid_xy], keys=[kxw, kxy])
+                                  foldids=[foldid_xw, foldid_xy], keys=[kxw, kxy],
+                                  fold_axis=fold_axis, mesh=mesh)
 
     lam = cv_xw.lambda_min
     c_xw = _interp_coef_at(cv_xw.path.lambdas, cv_xw.path.coefs, lam).cpu().numpy()

@@ -26,7 +26,12 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` (``hist_partition_clusters`` launches nothing: it
 writes the occupancy query's answer); :func:`check` turns a non-zero code
 into a :class:`~..resilience.errors.CudaKernelError`, as is a failed
-build: the shard runner retries neither. Nothing here runs at import: the CPU tests import
+build: the shard runner retries neither.
+
+Ranks that share one build directory (several processes on one host)
+must not race on it: the parent builds once (:func:`build_all`) and
+starts the ranks with ``ATE_TPU_KERNELS_PREBUILT=1``, under which a rank
+only loads the built libraries and raises if one is missing. Nothing here runs at import: the CPU tests import
 every module on a machine without ``nvcc``.
 """
 
@@ -44,6 +49,8 @@ import time
 from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch.resilience.errors import CudaKernelError
 
+#: Set to 1 in a process that must only load libraries built before it.
+PREBUILT_ENV = "ATE_TPU_KERNELS_PREBUILT"
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
@@ -173,6 +180,9 @@ def build_all() -> dict[str, Built]:
             if os.path.isfile(so) and os.path.isfile(log):
                 hits.inc(1)
                 continue
+            if os.environ.get(PREBUILT_ENV, "").strip() == "1":
+                raise CudaKernelError(f"kernel library {lib} is not built at {so}, and "
+                                      f"{PREBUILT_ENV}=1 forbids building it here")
             misses.inc(1)
             tmp = f"{so}.{os.getpid()}.tmp"
             logf = open(log + ".tmp", "w")

@@ -45,14 +45,18 @@ The serving daemon's counterparts of the JAX package's AOT lowers,
 :func:`lower_predict_cate` and :func:`lower_predict_cate_masked`, return
 a :class:`WarmPredict` for one query shape: on the card one CUDA graph
 of ``predict_cate`` captured around static input and forest buffers.
-Not ported: the non-streaming ``xla``/``onehot`` formulations, the
-sharded grower (a ``mesh`` raises) and the matmul row backends.
+With a mesh, :func:`grow_causal_forest_sharded` and
+:func:`compute_leaf_index_sharded` are the JAX package's tree- and
+row-sharded programs, one rank per card (``parallel/``).
+Not ported: the non-streaming ``xla``/``onehot`` formulations and the
+matmul row backends.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import NamedTuple
 
@@ -66,14 +70,18 @@ from ate_replication_causalml_torch.models.forest import (
     HIST_BACKEND,
     binarize,
     check_hist_backend,
+    dispatch_major_gather,
     exact_subsample_mask,
     fit_forest_regressor,
+    fit_forest_regressor_sharded,
     forest_oob_mean,
     packed_codes_for,
     quantile_bins,
     select_split,
+    sharded_tree_keys,
     streaming_level_loop,
 )
+from ate_replication_causalml_torch.models.plan import sharded_causal_plan
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.hist import (
     bin_histogram_shared,
@@ -82,6 +90,7 @@ from ate_replication_causalml_torch.ops.hist import (
     resolve_hist_mode_packed,
 )
 from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
+from ate_replication_causalml_torch.parallel.mesh import TREE_AXIS, check_mesh
 from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
 from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.ops.tree import table_lookup, traverse
@@ -276,18 +285,33 @@ def grow_causal_forest(
     :func:`~.forest.fit_forest_classifier` (K = 5 channels: partition
     from width 16 under "auto"; packed there under the packed policy)."""
     n, p = x.shape
-    if mtry is None:
-        mtry = int(np.ceil(np.sqrt(p))) + 20  # grf's default, capped at p below
-    mtry = min(mtry, p)
     k = ci_group_size
     n_groups = -(-n_trees // k)
     hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
+    fields = _grow_from_group_keys(rnd.split(key.to(x.device), n_groups), codes, wt, yt,
+                                   mtry=mtry, depth=depth, n_bins=n_bins, min_node=min_node,
+                                   sample_fraction=sample_fraction, k=k, honesty=honesty,
+                                   group_chunk=group_chunk, hist_mode=hist_mode,
+                                   pool="causal_forest")
+    return CausalForest(*fields, bin_edges=edges, ci_group_size=k)
+
+
+def _grow_from_group_keys(group_keys, codes, wt, yt, *, mtry, depth, n_bins, min_node,
+                          sample_fraction, k, honesty, group_chunk, hist_mode, pool):
+    """Grow one little-bag group of ``k`` trees a key (``group_keys``
+    (G, 2)) in chunks of ``group_chunk`` groups; returns the four
+    per-tree fields (split features, split bins, leaf statistics,
+    in-sample masks), T = G·k."""
+    n, p = codes.shape
+    if mtry is None:
+        mtry = int(np.ceil(np.sqrt(p))) + 20  # grf's default, capped at p below
+    mtry = min(mtry, p)
+    group_chunk = DEFAULT_GROUP_CHUNK if group_chunk is None else group_chunk
     words = packed_codes_for(codes, hist_mode)
     mom5 = _moments_stack(wt, yt).T.contiguous()            # (5, n), shared by every tree
     s = max(2, int(n * sample_fraction))
-    group_keys = rnd.split(key.to(x.device), n_groups)
 
     def chunk_shard(i: int):
         g = i * group_chunk
@@ -296,11 +320,60 @@ def grow_causal_forest(
                             honesty=honesty, hist_mode=hist_mode, words=words)
 
     # Classified retry, as the classifier's chunks (parallel/retry.py).
-    chunks = require_all(run_shards(obs.instrument_dispatch("causal_forest", chunk_shard),
-                                    -(-n_groups // group_chunk), pool="causal_forest"))
-    cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
-    return CausalForest(split_feat=cat(0), split_bin=cat(1), leaf_stats=cat(2),
-                        in_sample=cat(3), bin_edges=edges, ci_group_size=k)
+    chunks = require_all(run_shards(obs.instrument_dispatch(pool, chunk_shard),
+                                    -(-group_keys.shape[0] // group_chunk), pool=pool))
+    return tuple(torch.cat([c[j] for c in chunks], dim=0) for j in range(4))
+
+
+def grow_causal_forest_sharded(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    yt: torch.Tensor,
+    key: torch.Tensor,
+    mesh,
+    n_trees: int = 2000,
+    depth: int = 8,
+    mtry: int | None = None,
+    n_bins: int = 64,
+    min_node: int = 5,
+    sample_fraction: float = 0.5,
+    ci_group_size: int = 2,
+    honesty: bool = True,
+    axis_name: str = TREE_AXIS,
+    group_chunk: int | None = None,
+    hist_backend: str = HIST_BACKEND,
+    hist_mode: str | None = None,
+) -> CausalForest:
+    """Mesh-parallel causal-forest grow: little-bag groups shard over the
+    mesh's tree axis, every rank grows its groups against the whole data
+    and the trees are all-gathered.
+
+    The forest is the JAX package's sharded forest: its plan
+    (:func:`~.plan.sharded_causal_plan`: k trees a unit, five channels,
+    histogram floor 1) gives (group_chunk, chunks_per_disp, n_disp), the
+    group keys are ``split(key, n_disp · A · per_disp_dev)``, rank r
+    grows slice ``[i, r·per : (r+1)·per]`` of dispatch i, and the
+    gathered trees, dispatch-major, are cut to ``n_groups · k``. Each
+    rank grows its groups in chunks of :data:`DEFAULT_GROUP_CHUNK`."""
+    check_hist_backend(hist_backend)
+    check_mesh(mesh, axis_name)
+    n, p = x.shape
+    k = ci_group_size
+    n_groups = -(-n_trees // k)
+    hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
+    a = mesh.shape[axis_name]
+    chunk, chunks_per_disp, n_disp = sharded_causal_plan(
+        n, depth, -(-n_groups // a), k, p, n_bins, hist_mode, group_chunk=group_chunk)
+    per = chunk * chunks_per_disp
+    edges = quantile_bins(x, n_bins)
+    codes = binarize(x, edges)
+    mine = sharded_tree_keys(key.to(x.device), n_disp, a, per, mesh.coord(axis_name))
+    fields = _grow_from_group_keys(mine, codes, wt, yt, mtry=mtry, depth=depth, n_bins=n_bins,
+                                   min_node=min_node, sample_fraction=sample_fraction, k=k,
+                                   honesty=honesty, group_chunk=DEFAULT_GROUP_CHUNK,
+                                   hist_mode=hist_mode, pool="causal_forest_sharded")
+    fields = [dispatch_major_gather(f, mesh, axis_name, n_disp)[: n_groups * k] for f in fields]
+    return CausalForest(*fields, bin_edges=edges, ci_group_size=k)
 
 
 @contextlib.contextmanager
@@ -337,39 +410,42 @@ def fit_causal_forest(
     stage_times: dict | None = None,
     **grow_kwargs,
 ) -> FittedCausalForest:
-    """grf-equivalent fit on one device: OOB regression forests for Ŷ and
-    Ŵ, then the honest causal forest on the residuals
-    (``ate_replication.Rmd:250-255``). The JAX package's parameters in
-    its order: ``hist_backend`` takes only "auto", and ``mesh`` (with
-    ``axis_name``) only None — the sharded fit is not ported.
+    """grf-equivalent fit: OOB regression forests for Ŷ and Ŵ, then the
+    honest causal forest on the residuals (``ate_replication.Rmd:250-255``).
+    The JAX package's parameters in its order: ``hist_backend`` takes
+    only "auto". With ``mesh`` given, both nuisance fits and the causal
+    grow shard trees / little-bag groups over the mesh's ``axis_name``
+    axis (:func:`~.forest.fit_forest_regressor_sharded`,
+    :func:`grow_causal_forest_sharded`); every rank returns the whole fit.
     ``stage_times``, when given, receives the wall seconds of "nuisance"
     and "causal_grow"."""
     check_hist_backend(hist_backend)
-    check_no_mesh(mesh)
+    if mesh is not None:
+        check_mesh(mesh, axis_name)
     if key is None:
         key = rnd.key(12345, device=frame.device)  # the seed grf is given (Rmd:255)
     ky, kw, kc = rnd.split(key.to(frame.device), 3).unbind(dim=0)
     x, w, y = frame.x, frame.w, frame.y
+    if mesh is not None:
+        fit_reg = functools.partial(fit_forest_regressor_sharded, mesh=mesh, axis_name=axis_name)
+    else:
+        fit_reg = fit_forest_regressor
     with stage(stage_times, "nuisance", frame.device):
-        fy = fit_forest_regressor(x, y, ky, n_trees=nuisance_trees, depth=nuisance_depth,
-                                  hist_mode=hist_mode)
+        fy = fit_reg(x, y, ky, n_trees=nuisance_trees, depth=nuisance_depth, hist_mode=hist_mode)
         y_hat = forest_oob_mean(fy, x)
         del fy
-        fw = fit_forest_regressor(x, w, kw, n_trees=nuisance_trees, depth=nuisance_depth,
-                                  hist_mode=hist_mode)
+        fw = fit_reg(x, w, kw, n_trees=nuisance_trees, depth=nuisance_depth, hist_mode=hist_mode)
         w_hat = forest_oob_mean(fw, x)
         del fw
     with stage(stage_times, "causal_grow", frame.device):
-        forest = grow_causal_forest(x, w - w_hat, y - y_hat, kc, n_trees=n_trees, depth=depth,
-                                    hist_mode=hist_mode, **grow_kwargs)
+        if mesh is not None:
+            forest = grow_causal_forest_sharded(x, w - w_hat, y - y_hat, kc, mesh,
+                                                n_trees=n_trees, depth=depth, axis_name=axis_name,
+                                                hist_mode=hist_mode, **grow_kwargs)
+        else:
+            forest = grow_causal_forest(x, w - w_hat, y - y_hat, kc, n_trees=n_trees,
+                                        depth=depth, hist_mode=hist_mode, **grow_kwargs)
     return FittedCausalForest(forest=forest, y_hat=y_hat, w_hat=w_hat, x=x, y=y, w=w)
-
-
-def check_no_mesh(mesh) -> None:
-    """The JAX package's ``mesh`` argument: the port runs on one device."""
-    if mesh is not None:
-        raise ValueError("mesh is not supported: the port's sharded (multi-GPU) fit is not "
-                         "ported; pass mesh=None")
 
 
 def _tree_route_stream(feats, bins, codes, depth):
@@ -414,6 +490,42 @@ def compute_leaf_index(forest: CausalForest, x: torch.Tensor, tree_chunk: int = 
                            forest.split_bin[t : t + tree_chunk], codes, depth).to(dtype)
         for t in range(0, forest.n_trees, tree_chunk)
     ], dim=0)
+
+
+def compute_leaf_index_sharded(forest: CausalForest, x, mesh=None, axis_name: str | None = None,
+                               tree_chunk: int = 32, row_chunk: int = DEFAULT_ROW_CHUNK,
+                               pack: bool | str | None = None) -> np.ndarray:
+    """:func:`compute_leaf_index` as a row-sharded mesh program: the
+    query rows, padded to a multiple of the axis size, are committed onto
+    a row layout over ``axis_name`` (default the mesh's first axis),
+    each rank routes its rows through every tree, and the (T, n) index is
+    gathered to the host. Routing is integer compares, so the sharded
+    index equals the one-rank index bit for bit, dtype included. Every
+    byte that crosses a layout boundary moves through the artifact plane
+    (``parallel/shardio.py``): the query rows in (``leaf_index_x``), the
+    index out (``leaf_index``). Returns the host (numpy, read-only) index."""
+    from ate_replication_causalml_torch.parallel import shardio
+    from ate_replication_causalml_torch.parallel.mesh import get_mesh, row_sharded
+
+    mesh = get_mesh() if mesh is None else mesh
+    axis_name = axis_name or mesh.axis_names[0]
+    d = int(mesh.shape[axis_name])
+    n = int(x.shape[0])
+    n_pad = -(-n // d) * d
+    with obs.span("leaf_index_sharded_build", rows=n, devices=d, trees=forest.n_trees):
+        if isinstance(x, torch.Tensor):
+            xp = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, n_pad - n))
+        else:
+            xp = np.pad(np.asarray(x, np.float32), ((0, n_pad - n), (0, 0)))
+        xs = shardio.commit(xp, row_sharded(mesh, axis_name), artifact="leaf_index_x")
+        li = compute_leaf_index(forest, xs.local, tree_chunk=tree_chunk, row_chunk=row_chunk,
+                                pack=pack)
+        rows = shardio.DArray(li.T.contiguous(), row_sharded(mesh, axis_name),
+                              (n_pad, li.shape[0]))
+        host = shardio.gather_host(rows, artifact="leaf_index")
+    out = np.ascontiguousarray(host.T[:, :n])
+    out.flags.writeable = False
+    return out
 
 
 def _grf_df_flag(variance_compat: str) -> float:

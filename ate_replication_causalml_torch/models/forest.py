@@ -19,6 +19,11 @@ with integer weights every histogram sum is exact, so a classifier
 forest grown here equals the JAX package's (split tables, leaf values,
 counts, training leaves, OOB votes) element for element.
 
+With a mesh (:func:`fit_forest_sharded`, the JAX package's tree-sharded
+fit) each rank of the mesh's tree axis grows its share of the trees and
+the trees are all-gathered in the JAX sharded plan's order, so the
+sharded forest equals the JAX package's sharded forest.
+
 Per-tree layout, as in the JAX package: ``split_feat``/``split_bin``
 index internal nodes per level as [0, 2^level) offsets (children of
 node k are 2k/2k+1); a row goes RIGHT when ``code > split_bin``; a
@@ -49,6 +54,8 @@ from ate_replication_causalml_torch.ops.hist import (
 )
 from ate_replication_causalml_torch.ops.pack import pack_codes
 from ate_replication_causalml_torch.ops.tree import leaf_record, route_advance, traverse
+from ate_replication_causalml_torch.models.plan import sharded_fit_plan
+from ate_replication_causalml_torch.parallel.mesh import TREE_AXIS, all_gather_cat, check_mesh
 from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
 
 # Trees grown together: one kernel launch per level covers the chunk.
@@ -405,14 +412,29 @@ def fit_forest_classifier(
     n, p = x.shape
     if mtry is None:
         mtry = max(1, int(np.sqrt(p)))
-    tree_chunk = DEFAULT_TREE_CHUNK if tree_chunk is None else tree_chunk
     hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
-    center = 0.0 if _is_binary01(y) else 1.0
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
+    fields = _grow_from_keys(rnd.split(key.to(x.device), n_trees), codes, y, depth=depth,
+                             mtry=mtry, n_bins=n_bins, hist_mode=hist_mode,
+                             tree_chunk=tree_chunk, pool="forest_classifier")
+    return _forest(fields, edges, codes)
+
+
+def _forest(fields, edges, codes) -> Forest:
+    feats, bins, leaf_value, counts, train_leaf = fields
+    return Forest(split_feat=feats, split_bin=bins, leaf_value=leaf_value, counts=counts,
+                  bin_edges=edges, train_leaf=train_leaf, train_fp=codes_fingerprint(codes))
+
+
+def _grow_from_keys(tree_keys, codes, y, *, depth, mtry, n_bins, hist_mode, tree_chunk, pool):
+    """Grow one tree a key (``tree_keys`` (T, 2)) in chunks of
+    ``tree_chunk`` trees; returns the five per-tree fields (split
+    features, split bins, leaf values, counts, training leaf values)."""
+    tree_chunk = DEFAULT_TREE_CHUNK if tree_chunk is None else tree_chunk
+    center = 0.0 if _is_binary01(y) else 1.0
     words = packed_codes_for(codes, hist_mode)
     yf = y.to(torch.float32)
-    tree_keys = rnd.split(key.to(x.device), n_trees)
 
     def chunk_shard(i: int):
         s = i * tree_chunk
@@ -422,18 +444,89 @@ def fit_forest_classifier(
     # Classified retry (parallel/retry.py): a transient failure re-runs
     # only its chunk, bit for bit (its keys are explicit); a programming
     # or CUDA error raises on the first attempt.
-    chunks = require_all(run_shards(obs.instrument_dispatch("forest_classifier", chunk_shard),
-                                    -(-n_trees // tree_chunk), pool="forest_classifier"))
-    cat = lambda j: torch.cat([c[j] for c in chunks], dim=0)
-    return Forest(
-        split_feat=cat(0),
-        split_bin=cat(1),
-        leaf_value=cat(2),
-        counts=cat(3),
-        bin_edges=edges,
-        train_leaf=cat(4),
-        train_fp=codes_fingerprint(codes),
-    )
+    chunks = require_all(run_shards(obs.instrument_dispatch(pool, chunk_shard),
+                                    -(-tree_keys.shape[0] // tree_chunk), pool=pool))
+    return tuple(torch.cat([c[j] for c in chunks], dim=0) for j in range(5))
+
+
+def dispatch_major_gather(t: torch.Tensor, mesh, axis: str, n_disp: int) -> torch.Tensor:
+    """All ranks' (n_disp · per, ...) blocks of ``t`` (each rank's trees
+    in dispatch-major, local order) as one (n_disp · A · per, ...) tensor
+    in the JAX sharded fit's dispatch-major, device, local order."""
+    cat = all_gather_cat(t, mesh, axis)
+    a = mesh.shape[axis]
+    per = t.shape[0] // n_disp
+    return cat.reshape(a, n_disp, per, *t.shape[1:]).transpose(0, 1).reshape(-1, *t.shape[1:])
+
+
+def sharded_tree_keys(key: torch.Tensor, n_disp: int, a: int, per: int, rank: int):
+    """This rank's keys of a sharded fit: slice ``[i, r·per : (r+1)·per]``
+    of each dispatch i of ``split(key, n_disp · a · per)``, dispatch-major."""
+    keys = rnd.split(key, n_disp * a * per).reshape(n_disp, a * per, 2)
+    return keys[:, rank * per : (rank + 1) * per].reshape(-1, 2)
+
+
+def fit_forest_sharded(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    key: torch.Tensor,
+    mesh,
+    n_trees: int = 500,
+    depth: int = 9,
+    mtry: int | None = None,
+    n_bins: int = 64,
+    axis_name: str = TREE_AXIS,
+    hist_backend: str = HIST_BACKEND,
+    hist_mode: str | None = None,
+    tree_chunk: int | None = DEFAULT_TREE_CHUNK,
+) -> Forest:
+    """Tree-parallel forest fit over a mesh axis: every rank of the axis
+    grows its share of the trees against the whole (replicated) data,
+    and the trees are all-gathered.
+
+    The forest is the JAX package's sharded forest: the plan
+    (:func:`~.plan.sharded_fit_plan`, its "pallas" plan) gives
+    (chunk, chunks_per_disp, n_disp), the keys are
+    ``split(key, n_disp · A · per_disp_dev)``, rank r grows slice
+    ``[i, r·per : (r+1)·per]`` of dispatch i, and the gathered trees,
+    in dispatch-major, device, local order, are cut to ``n_trees``.
+    Each rank grows its trees with the port's kernels in chunks of
+    ``tree_chunk`` (the chunking changes no number). Every rank returns
+    the whole forest. A mesh of one rank grows every key itself."""
+    check_hist_backend(hist_backend)
+    check_mesh(mesh, axis_name)
+    n, p = x.shape
+    if mtry is None:
+        mtry = max(1, int(np.sqrt(p)))
+    hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
+    a = mesh.shape[axis_name]
+    chunk, chunks_per_disp, n_disp = sharded_fit_plan(n, depth, -(-n_trees // a), n_bins=n_bins,
+                                                      p=p, hist_mode=hist_mode)
+    per = chunk * chunks_per_disp
+    edges = quantile_bins(x, n_bins)
+    codes = binarize(x, edges)
+    mine = sharded_tree_keys(key.to(x.device), n_disp, a, per, mesh.coord(axis_name))
+    fields = _grow_from_keys(mine, codes, y, depth=depth, mtry=mtry, n_bins=n_bins,
+                             hist_mode=hist_mode, tree_chunk=tree_chunk, pool="forest_sharded")
+    fields = [dispatch_major_gather(f, mesh, axis_name, n_disp)[:n_trees] for f in fields]
+    return _forest(fields, edges, codes)
+
+
+def fit_forest_regressor_sharded(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    key: torch.Tensor,
+    mesh,
+    n_trees: int = 500,
+    depth: int = 9,
+    mtry: int | None = None,
+    **kwargs,
+) -> Forest:
+    """Tree-sharded regression forest: the sharded engine with
+    randomForest's regression mtry default (max(1, floor(p/3)))."""
+    if mtry is None:
+        mtry = max(1, x.shape[1] // 3)
+    return fit_forest_sharded(x, y, key, mesh, n_trees=n_trees, depth=depth, mtry=mtry, **kwargs)
 
 
 def fit_forest_regressor(
@@ -523,11 +616,18 @@ def rf_oob_propensity(
     key: torch.Tensor | None = None,
     n_trees: int = 500,
     depth: int = 9,
+    mesh=None,
     **kwargs,
 ) -> torch.Tensor:
     """The reference's AIPW propensity: classification forest of W on X,
-    OOB vote fractions (``ate_functions.R:169-174``)."""
+    OOB vote fractions (``ate_functions.R:169-174``). With a ``mesh``,
+    trees shard over its tree axis (:func:`fit_forest_sharded`)."""
     if key is None:
         key = rnd.key(12325, device=frame.device)  # the seed the reference meant to set
-    forest = fit_forest_classifier(frame.x, frame.w, key, n_trees=n_trees, depth=depth, **kwargs)
+    if mesh is not None:
+        forest = fit_forest_sharded(frame.x, frame.w, key, mesh, n_trees=n_trees, depth=depth,
+                                    **kwargs)
+    else:
+        forest = fit_forest_classifier(frame.x, frame.w, key, n_trees=n_trees, depth=depth,
+                                       **kwargs)
     return predict_forest(forest, frame.x, oob=True).vote

@@ -1,7 +1,8 @@
 """Bootstrap resampling engine for the AIPW standard error.
 
-Port of the single-device paths of
-``ate_replication_causalml_tpu/ops/bootstrap.py``. The reference's SE is
+Port of ``ate_replication_causalml_tpu/ops/bootstrap.py``
+(:func:`aipw_bootstrap_se_sharded`: the replicates sharded over a mesh's
+``boot`` axis, one rank a card). The reference's SE is
 a serial R loop of B=1000 replicates (``ate_functions.R:188-195``), each
 a with-replacement resample of five precomputed vectors followed by two
 means (``ate_functions.R:267-283`` — nuisances are not refit). Here the
@@ -165,3 +166,50 @@ def aipw_bootstrap_taus_chunked(
         idx = rnd.randint(k, (chunk, n), 0, n).long()
         taus.append(torch.nanmean(est1[idx], dim=1) + torch.mean(est2[idx], dim=1))
     return torch.cat(taus)
+
+
+def aipw_bootstrap_se_sharded(
+    w, y, p, mu0, mu1,
+    *,
+    key: torch.Tensor,
+    n_boot: int = 10_000,
+    axis_name: str = "boot",
+    chunk: int | None = None,
+    style: str = "auto",
+    control_sign: float = 1.0,
+    return_taus: bool = False,
+):
+    """Mesh-parallel bootstrap SE: replicates shard over ``axis_name`` of
+    the active mesh (``parallel.mesh.get_mesh``).
+
+    Rank r of the axis draws ``n_boot / A`` replicates from
+    ``fold_in(key, r)`` against the whole (replicated) data vectors, the
+    taus are all-gathered in rank order and the SD is taken over them:
+    the JAX package's sharded bootstrap, whose only collective is that
+    gather of B scalars. ``n_boot`` must divide evenly over the axis.
+    ``return_taus`` also returns the gathered taus."""
+    from ate_replication_causalml_torch.parallel.mesh import all_gather_cat, get_mesh
+
+    mesh = get_mesh()
+    n_dev = mesh.shape[axis_name]
+    if n_boot % n_dev:
+        raise ValueError(f"n_boot={n_boot} must divide evenly over {n_dev} devices")
+    per_dev = n_boot // n_dev
+    n = w.shape[0]
+    if style == "auto":
+        style = "poisson" if n > POISSON_AUTO_THRESHOLD else "multinomial"
+    if chunk is None:
+        chunk = per_dev if n * per_dev <= 2**27 else max(1, 2**27 // n)
+        while per_dev % chunk:
+            chunk -= 1
+    if style == "poisson":
+        fn = aipw_bootstrap_taus_poisson
+    elif style == "multinomial":
+        fn = aipw_bootstrap_taus_chunked
+    else:
+        raise ValueError(f"unknown bootstrap style {style!r}")
+    my_key = rnd.fold_in(key.to(w.device), mesh.coord(axis_name))
+    taus = fn(w, y, p, mu0, mu1, key=my_key, n_boot=per_dev, chunk=chunk,
+              control_sign=control_sign)
+    taus = all_gather_cat(taus, mesh, axis_name)
+    return (sd(taus), taus) if return_taus else sd(taus)

@@ -6,6 +6,8 @@ stopping rule (``epsilon = 1e-8``, ``maxit = 25``); the rule is
 reproduced exactly. The loop runs on the host (one scalar read per
 iteration decides whether to stop); each iteration is one weighted
 normal-equation build and a Cholesky solve on the device.
+:func:`logistic_glm_sharded` runs the same loop over rows sharded on a
+mesh's ``data`` axis, with the partial sums ``all_reduce``d.
 """
 
 from __future__ import annotations
@@ -66,12 +68,20 @@ def logistic_glm(
     if x.ndim == 3:
         return over_lanes(logistic_glm, x, y, epsilon=epsilon, max_iter=max_iter,
                           solve=_chol_solve_nan, inverse=_spd_inverse_nan)
+    return _irls(x, y, epsilon, max_iter, solve, inverse)
+
+
+def _irls(x, y, epsilon, max_iter, solve, inverse, total=None) -> GlmResult:
+    """The IRLS loop of :func:`logistic_glm`. ``total`` sums a rank's
+    partial (deviance, X'WX, X'Wz) over the rows of every rank (None: the
+    rows are all here)."""
+    total = (lambda t: t) if total is None else total
     p = x.shape[1]
 
     # R's binomial initialization: mustart = (y + 1/2) / 2, eta = logit(mu).
     mu0 = (y + 0.5) / 2.0
     eta = torch.log(mu0 / (1.0 - mu0))
-    dev = _binomial_deviance(y, mu0)
+    dev = total(_binomial_deviance(y, mu0))
     coef = torch.zeros(p, dtype=x.dtype, device=x.device)
 
     n_iter, converged = 0, False
@@ -80,19 +90,35 @@ def logistic_glm(
         w = torch.clamp(mu * (1.0 - mu), min=1e-10)
         z = eta + (y - mu) / w
         xw = x * w[:, None]
-        coef = solve(xw.T @ x, xw.T @ z)
+        coef = solve(total(xw.T @ x), total(xw.T @ z))
         eta = x @ coef
-        dev_new = _binomial_deviance(y, torch.sigmoid(eta))
+        dev_new = total(_binomial_deviance(y, torch.sigmoid(eta)))
         converged = bool(torch.abs(dev_new - dev) / (torch.abs(dev_new) + 0.1) < epsilon)
         dev = dev_new
         n_iter += 1
 
     mu = torch.sigmoid(eta)
     w = torch.clamp(mu * (1.0 - mu), min=1e-10)
-    xtwx = (x * w[:, None]).T @ x
+    xtwx = total((x * w[:, None]).T @ x)
     se = torch.sqrt(torch.clamp(torch.diagonal(inverse(xtwx)), min=0.0))
     return GlmResult(coef=coef, se=se, fitted=mu, deviance=dev, n_iter=n_iter,
                      converged=converged)
+
+
+def logistic_glm_sharded(x: torch.Tensor, y: torch.Tensor, mesh, axis_name: str = "data",
+                         epsilon: float = 1e-8, max_iter: int = 25) -> GlmResult:
+    """:func:`logistic_glm` over rows sharded on ``axis_name`` of ``mesh``:
+    ``x`` and ``y`` are this rank's rows. Each iteration's deviance,
+    X'WX and X'Wz are this rank's partial sums, ``all_reduce``d over the
+    axis before the solve (the JAX package's row-sharded IRLS, where XLA
+    inserts the same psums); ``fitted`` holds this rank's rows and every
+    rank holds the same coefficients. The summation order differs from
+    the one-rank fit, so the fits agree to rounding, and in float32 the
+    bit-equal-deviance stop can move by whole iterations."""
+    from ate_replication_causalml_torch.parallel.mesh import all_reduce_sum
+
+    return _irls(x, y, epsilon, max_iter, _chol_solve, _spd_inverse,
+                 total=lambda t: all_reduce_sum(t, mesh, axis_name))
 
 
 def predict_proba(coef: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

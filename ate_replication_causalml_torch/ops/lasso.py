@@ -26,6 +26,12 @@ version :func:`cd_path_plain` (``_cd_sweeps`` looped over the λs). The
 binomial family's IRLS loop stays on the host, batched over fits: one
 launch per iteration for a path of one λ, then one host read to decide
 whether any fit goes on.
+
+Fold sharding. ``cv_glmnet(fold_axis=...)`` (the JAX package's
+fold-sharded CV over a mesh axis) splits each ``cd_path`` batch over the
+axis's ranks (:func:`cd_path_sharded`); the Gram systems are built on
+every rank, so only the coordinate descent is divided, and the result
+equals the unsharded CV bit for bit.
 """
 
 from __future__ import annotations
@@ -233,6 +239,31 @@ def cd_path(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
 cd_path.launches = 0
 
 
+def cd_path_sharded(gram, xty, pf, lambdas, beta0=None, alpha: float = 1.0,
+                    thresh: float = DEFAULT_THRESH, max_sweeps: int = MAX_SWEEPS, *, mesh,
+                    axis: str):
+    """:func:`cd_path` with the batch's fits split over the ranks of
+    ``axis``: every rank holds the whole batch, launches ``cd_path`` on
+    its block of ``ceil(B / A)`` fits (the last block padded with copies
+    of the last fit), and the results are all-gathered in fit order. A
+    fit's result does not depend on the batch it runs in (one block a
+    fit on the card, one row a fit in the plain version), so this
+    equals :func:`cd_path` on the whole batch bit for bit."""
+    from ate_replication_causalml_torch.parallel.mesh import all_gather_cat
+
+    a = mesh.shape[axis]
+    if a == 1:
+        return cd_path(gram, xty, pf, lambdas, beta0, alpha, thresh, max_sweeps)
+    n_fits = gram.shape[0]
+    per = -(-n_fits // a)
+    r = mesh.coord(axis)
+    mine = torch.clamp(torch.arange(r * per, (r + 1) * per, device=gram.device), max=n_fits - 1)
+    pick = lambda t: None if t is None else t[mine].contiguous()
+    betas, sweeps = cd_path(pick(gram), pick(xty), pick(pf), pick(lambdas), pick(beta0), alpha,
+                            thresh, max_sweeps)
+    return all_gather_cat(betas, mesh, axis)[:n_fits], all_gather_cat(sweeps, mesh, axis)[:n_fits]
+
+
 @functools.cache
 def cd_delay() -> int:
     """The card kernel's delay d: coordinate j's sum takes the terms of
@@ -266,7 +297,7 @@ def _normalized(weights: torch.Tensor) -> torch.Tensor:
 
 
 def _gaussian_batch(x, y, w, pf, alpha, thresh, lambdas=None, nlambda=DEFAULT_NLAMBDA,
-                    lead=None):
+                    lead=None, cd=None):
     """Gaussian fits of a batch: x (n, p) or one design a fit (B, n, p),
     y (n,) or one target a fit (B, n), w (B, n) normalized weights, pf (p,). Without ``lambdas`` each fit ``b`` with
     ``lead[b] == b`` (default: the first fit leads all) takes its own λ
@@ -294,8 +325,8 @@ def _gaussian_batch(x, y, w, pf, alpha, thresh, lambdas=None, nlambda=DEFAULT_NL
                                (lams_own * ys[:, None])[lead] / ys[:, None])
     else:
         lams_std = torch.as_tensor(lambdas).to(x)[None, :] / ys[:, None]
-    betas, _ = cd_path(gram, xty, pf.expand(n_fits, p).contiguous(), lams_std, None,
-                       alpha, thresh)
+    cd = cd_path if cd is None else cd     # looked up at the call: a caller may wrap it
+    betas, _ = cd(gram, xty, pf.expand(n_fits, p).contiguous(), lams_std, None, alpha, thresh)
     coefs = betas * ys[:, None, None] / xs[:, None, :]
     intercepts = ym[:, None] - (coefs @ xm[:, :, None])[:, :, 0]
     return ElnetPath(lambdas=lams_std * ys[:, None], intercepts=intercepts, coefs=coefs)
@@ -323,7 +354,7 @@ def elnet_gaussian(
 
 
 def _binomial_batch(x, y, w_obs, pf, alpha, thresh, lambdas=None, nlambda=DEFAULT_NLAMBDA,
-                    lead=None):
+                    lead=None, cd=None):
     """Binomial-logit fits of a batch: y (n,) or (B, n), w_obs (B, n)
     normalized weights; every fit on its lead's λ path without
     ``lambdas`` (as :func:`_gaussian_batch`; the binomial path is not
@@ -346,6 +377,7 @@ def _binomial_batch(x, y, w_obs, pf, alpha, thresh, lambdas=None, nlambda=DEFAUL
     else:
         lams = torch.as_tensor(lambdas).to(x).expand(n_fits, -1)
     pf_b = pf.expand(n_fits, p).contiguous()
+    cd = cd_path if cd is None else cd     # looked up at the call: a caller may wrap it
     beta = torch.zeros((n_fits, p), dtype=x.dtype, device=x.device)
     b0 = torch.log(ybar / (1.0 - ybar))
     thresh10 = torch.tensor(thresh * 10.0, dtype=x.dtype, device=x.device)
@@ -370,7 +402,7 @@ def _binomial_batch(x, y, w_obs, pf, alpha, thresh, lambdas=None, nlambda=DEFAUL
                     - sw[:, None] * xbar_w * (weta / sw)[:, None]
                     + (xs_std.transpose(1, 2) @ z_resid[:, :, None])[:, :, 0]
                     - xbar_w * zsum[:, None])
-            beta_new = cd_path(gram, cvec, pf_b, lam_b, beta.contiguous(), alpha, thresh)[0][:, 0]
+            beta_new = cd(gram, cvec, pf_b, lam_b, beta.contiguous(), alpha, thresh)[0][:, 0]
             # Profiled intercept update.
             b0_new = (weta + zsum - torch.sum(xwq1 * beta_new, dim=1)) / sw
             delta = torch.maximum(torch.amax((beta_new - beta) ** 2, dim=1), (b0_new - b0) ** 2)
@@ -446,12 +478,17 @@ def cv_glmnet(
     fold_axis: str | None = None,
 ) -> CvGlmnetResult:
     """K-fold cross-validated elastic net (R ``cv.glmnet``), on the device
-    of ``x``. ``fold_axis`` (the JAX package's mesh axis for the fold
-    batch) is not supported: the port runs on one device."""
+    of ``x``. ``fold_axis`` names the axis of the active mesh
+    (``parallel.mesh.get_mesh``, resolved here) that the fold fits shard
+    over (:func:`cd_path_sharded`); the result equals the unsharded CV
+    bit for bit."""
+    mesh = None
     if fold_axis is not None:
-        raise ValueError("fold_axis is not supported: the port's sharded (multi-GPU) CV is not "
-                         "ported; pass fold_axis=None")
-    return _cv_glmnet_impl(x, y, family, alpha, penalty_factor, nfolds, foldid, key, nlambda)
+        from ate_replication_causalml_torch.parallel.mesh import get_mesh
+
+        mesh = get_mesh()
+    return _cv_glmnet_impl(x, y, family, alpha, penalty_factor, nfolds, foldid, key, nlambda,
+                           fold_axis, mesh)
 
 
 def _cv_glmnet_impl(
@@ -469,20 +506,24 @@ def _cv_glmnet_impl(
 ) -> CvGlmnetResult:
     """The body of :func:`cv_glmnet`. ``foldid`` (1-based, as in R) may
     come from :func:`r_compat_foldid`; otherwise folds are drawn from
-    ``key`` (``key(0)`` if None)."""
-    if fold_axis is not None or mesh is not None:
-        raise ValueError("fold_axis and mesh are not supported: the port runs on one device")
+    ``key`` (``key(0)`` if None). With ``fold_axis`` and ``mesh`` the fits
+    shard over that axis of the mesh."""
+    if (fold_axis is None) != (mesh is None):
+        raise ValueError("fold_axis and mesh are given together")
     return cv_glmnet_many(x, [y], family, alpha, penalty_factor, nfolds, [foldid], [key],
-                          nlambda)[0]
+                          nlambda, fold_axis=fold_axis, mesh=mesh)[0]
 
 
 def cv_glmnet_many(x, ys, family: str = "gaussian", alpha: float = 1.0, penalty_factor=None,
                    nfolds: int = 10, foldids=None, keys=None,
-                   nlambda: int = DEFAULT_NLAMBDA) -> list[CvGlmnetResult]:
+                   nlambda: int = DEFAULT_NLAMBDA, *, fold_axis: str | None = None,
+                   mesh=None) -> list[CvGlmnetResult]:
     """:func:`cv_glmnet` of several targets ``ys`` on one design, each with
     its own ``foldids[i]`` or ``keys[i]``: the same fits as one call per
     target, every target's full fit and K fold fits in one batch of
-    m·(K + 1) (on the card one launch for the gaussian family)."""
+    m·(K + 1) (on the card one launch for the gaussian family). With a
+    ``mesh`` the batch's coordinate descent shards over ``fold_axis``
+    (:func:`cd_path_sharded`)."""
     if family not in ("gaussian", "binomial"):
         raise ValueError(f"family must be 'gaussian' or 'binomial', got {family!r}")
     n, p = x.shape
@@ -502,9 +543,14 @@ def cv_glmnet_many(x, ys, family: str = "gaussian", alpha: float = 1.0, penalty_
     w = _normalized(torch.cat([ones, train_w], dim=1).reshape(m * (nfolds + 1), n))
     y_fit = torch.stack([torch.as_tensor(t).to(x) for t in ys]).repeat_interleave(nfolds + 1, dim=0)
     lead = torch.arange(m, device=x.device).repeat_interleave(nfolds + 1) * (nfolds + 1)
+    if mesh is not None and fold_axis not in mesh.shape:
+        raise ValueError(f"fold_axis {fold_axis!r} is not an axis of the active mesh "
+                         f"{tuple(mesh.shape)}")
     fit = _gaussian_batch if family == "gaussian" else _binomial_batch
+    cd = cd_path if mesh is None else functools.partial(cd_path_sharded, mesh=mesh,
+                                                        axis=fold_axis)
     paths = fit(x, y_fit, w, _penalty(penalty_factor, p, x), alpha, DEFAULT_THRESH, None, nlambda,
-                lead)
+                lead, cd)
     paths = ElnetPath(*(t.reshape(m, nfolds + 1, *t.shape[1:]) for t in paths))
     eta = paths.intercepts[:, 1:, :, None] + paths.coefs[:, 1:] @ x.T        # (m, K, L, n)
     test_w = 1.0 - train_w

@@ -1,6 +1,6 @@
 """Failure detection and classified retry of independent shards.
 
-Port of the single-device part of ``ate_replication_causalml_tpu/parallel/retry.py``.
+Port of ``ate_replication_causalml_tpu/parallel/retry.py``.
 Every parallel axis of the port's forests (tree chunks, little-bag
 group chunks) is stateless and carries its own keys, so recovery is
 re-execution:
@@ -11,9 +11,13 @@ re-execution:
   **classified** retry (``resilience/errors.py::classify``): transient
   failures retry after a capped exponential backoff with deterministic
   per-``(pool, shard, attempt)`` jitter; programming errors and CUDA
-  errors raise at once. Repeated device-origin failures trigger a
-  :func:`probe_devices` re-probe. A retried shard gives the bits the
-  failed attempt would have;
+  errors raise at once. A per-pool ``deadline_s`` bounds the whole pool;
+  repeated device-origin failures trigger a :func:`probe_devices`
+  re-probe and, with ``redispatch``, move the remaining shards onto the
+  healthy devices this process sees. Redispatch is per process: in a
+  multi-GPU world each rank runs its own pool over its own shards on
+  its one card, and no rank moves shards onto another rank. A retried
+  shard gives the bits the failed attempt would have;
 * :func:`require_all`: every shard's result, or the pool's failure;
 * :func:`inject_failures`: plan-based fault injection
   (``resilience/chaos.py::plan_faults``); probabilistic injection comes
@@ -31,7 +35,12 @@ import torch
 from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.backoff import jittered_backoff_delay
-from ate_replication_causalml_torch.resilience.errors import ChaosFault, classify
+from ate_replication_causalml_torch.resilience.deadline import Budget
+from ate_replication_causalml_torch.resilience.errors import (
+    ChaosFault,
+    DeadlineExceeded,
+    classify,
+)
 
 #: Device-origin failures of one pool between two re-probes.
 _REPROBE_AFTER = 2
@@ -68,6 +77,8 @@ class ShardOutcome:
     attempts: int = 0
     ok: bool = False
     error: str | None = None
+    #: the pool deadline cut this shard (vs exhausted retries).
+    deadline: bool = False
 
 
 def backoff_delay(pool: str, shard: int, attempt: int, base_s: float) -> float:
@@ -83,21 +94,35 @@ def run_shards(
     backoff_s: float = 0.25,
     pool: str = "shards",
     probe: Callable[[], list] | None = None,
+    *,
+    retriable: tuple[type[BaseException], ...] | None = None,
+    deadline_s: float | None = None,
+    redispatch: Callable[[list], Callable[[int], object]] | None = None,
 ) -> list[ShardOutcome]:
     """Run ``shard_fn(i)`` for every shard ``i`` in order, with
     classified retry.
 
     A shard that exhausts ``max_attempts`` is reported failed in its
     :class:`ShardOutcome`; the others still run (:func:`require_all`
-    raises on any failure). Errors are classified
-    (:func:`~..resilience.errors.classify`): transient ones retry, fatal
-    ones (programming errors, CUDA errors) raise at once.
+    raises on any failure). With ``retriable=None`` errors are
+    classified (:func:`~..resilience.errors.classify`): transient ones
+    retry, fatal ones (programming errors, CUDA errors) raise at once.
+    An explicit ``retriable`` tuple is opt-in instead: the listed types
+    (and injected chaos faults) retry, everything else propagates.
     ``KeyboardInterrupt`` is never caught.
+
+    ``deadline_s`` bounds the pool's wall clock: once it passes, no new
+    attempt and no backoff sleep starts; unfinished shards are marked
+    failed with a ``DeadlineExceeded`` error (events ``shard_deadline``
+    and ``pool_deadline``). Finished shards keep their results.
 
     After every second device-origin failure of the pool (out of device
     memory, or an injected chaos fault standing for a preemption) the
-    runner re-probes the devices (``probe``, default
-    :func:`probe_devices`, event ``device_reprobe``).
+    runner re-probes (``probe``, default :func:`probe_devices`, event
+    ``device_reprobe``); with ``redispatch`` it swaps in
+    ``redispatch(healthy)`` as the shard function for the remaining
+    shards (``healthy``: the devices this process sees; see the module
+    docstring).
 
     ``pool`` labels the telemetry: attempts, retries, failures and
     backoff-seconds counters, created at zero up front, and
@@ -113,19 +138,27 @@ def run_shards(
     inj = chaos.active()
     if inj is not None:
         shard_fn = inj.wrap_shard(shard_fn, pool=pool)
+    catch = (Exception,) if retriable is None else tuple(retriable) + (
+        (ChaosFault,) if inj is not None else ())
+    budget = None if deadline_s is None else Budget.after(deadline_s)
     device_failures = 0
+    deadline_shards = 0
 
     outcomes = [ShardOutcome(index=i) for i in range(n_shards)]
     for out in outcomes:
+        cut = False
         while out.attempts < max_attempts and not out.ok:
+            if budget is not None and budget.expired():
+                cut = True
+                break
             out.attempts += 1
             attempts_c.inc(1, pool=pool)
             try:
                 out.result = shard_fn(out.index)
                 out.ok = True
                 out.error = None
-            except Exception as e:  # noqa: PERF203 — retry loop
-                if classify(e) == "fatal":
+            except catch as e:  # noqa: PERF203 — retry loop
+                if retriable is None and classify(e) == "fatal":
                     obs.emit("shard_fatal", status="error", pool=pool, shard=out.index,
                              attempt=out.attempts, error=f"{type(e).__name__}: {e}")
                     raise
@@ -137,8 +170,17 @@ def run_shards(
                         healthy = (probe or probe_devices)()
                         obs.emit("device_reprobe", status="ok", pool=pool,
                                  healthy=len(healthy), after_shard=out.index)
+                        if redispatch is not None:
+                            shard_fn = redispatch(healthy)
+                            if inj is not None:
+                                shard_fn = inj.wrap_shard(shard_fn, pool=pool)
                 if out.attempts < max_attempts:
                     delay = backoff_delay(pool, out.index, out.attempts, backoff_s)
+                    if budget is not None and not budget.affords(delay):
+                        # The backoff does not fit before the deadline:
+                        # cut the shard now; no retry is counted.
+                        cut = True
+                        break
                     retries_c.inc(1, pool=pool)
                     obs.emit("shard_retry", status="retrying", pool=pool, shard=out.index,
                              attempt=out.attempts, error=out.error)
@@ -146,18 +188,35 @@ def run_shards(
                     time.sleep(delay)
         if not out.ok:
             failures_c.inc(1, pool=pool)
-            obs.emit("shard_failed", status="error", pool=pool, shard=out.index,
-                     attempt=out.attempts, error=out.error)
+            if cut:
+                out.deadline = True
+                tail = f"; last error: {out.error}" if out.error else ""
+                out.error = (f"DeadlineExceeded: pool {pool!r} deadline of {deadline_s}s "
+                             f"reached after {out.attempts} attempt(s){tail}")
+                deadline_shards += 1
+                obs.emit("shard_deadline", status="error", pool=pool, shard=out.index,
+                         attempt=out.attempts, error=out.error)
+            else:
+                obs.emit("shard_failed", status="error", pool=pool, shard=out.index,
+                         attempt=out.attempts, error=out.error)
+    if deadline_shards:
+        obs.emit("pool_deadline", status="error", pool=pool, deadline_s=deadline_s,
+                 shards_cut=deadline_shards)
     return outcomes
 
 
 def require_all(outcomes: Iterable[ShardOutcome]) -> list:
-    """Every shard's result; ``RuntimeError`` if any shard failed."""
+    """Every shard's result. Raises if any shard failed:
+    :class:`~..resilience.errors.DeadlineExceeded` (a RuntimeError) when
+    the pool deadline cut one, plain ``RuntimeError`` otherwise."""
     outcomes = list(outcomes)
     failed = [o for o in outcomes if not o.ok]
     if failed:
         detail = "; ".join(f"shard {o.index}: {o.error}" for o in failed[:5])
-        raise RuntimeError(f"{len(failed)}/{len(outcomes)} shards failed: {detail}")
+        msg = f"{len(failed)}/{len(outcomes)} shards failed: {detail}"
+        if any(o.deadline for o in failed):
+            raise DeadlineExceeded(msg)
+        raise RuntimeError(msg)
     return [o.result for o in outcomes]
 
 

@@ -42,8 +42,13 @@ prep → bias injection → RCT oracle → every estimator row of
   with ``torch.profiler``, ``ATE_TPU_XPROF`` the whole run with a
   ``record_function`` range a row; either runs the sweep sequentially.
 
-Every row runs on one device (``cuda`` unless ``device="cpu"`` is
-passed).
+Every row runs on one device a process (``cuda`` unless
+``device="cpu"`` is passed). In a multi-GPU world (one rank a card,
+``parallel/multihost.py``; ``torchrun --nproc-per-node=N`` runs the CLI
+that way) every rank runs the sweep, ``use_mesh`` shards the forests'
+trees over a tree mesh and the CV folds over a fold mesh, the nodes
+that issue collectives run in one "mesh" lane in declaration order,
+every rank returns the same report and rank 0 alone writes.
 
 CLI::
 
@@ -102,6 +107,15 @@ from ate_replication_causalml_torch.models.forest import rf_oob_propensity
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.observability.trace import run_meta
 from ate_replication_causalml_torch.ops.lasso import default_foldid
+from ate_replication_causalml_torch.parallel.mesh import (
+    FOLD_AXIS,
+    TREE_AXIS,
+    barrier,
+    is_writer,
+    make_mesh,
+    use_mesh,
+    world_size,
+)
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.errors import (
     ChaosSpecError,
@@ -162,7 +176,8 @@ class SweepConfig:
     forest_depth: int = 9
     balance_iters: int = 12_000     # ADMM budget of the balancing QP
     seed: int = 0                   # root of the per-stage keys
-    # Taken for the JAX package's sake; the port runs on one device.
+    # Shard forests over a tree mesh and CV folds over a fold mesh when
+    # the run is a multi-GPU world of several ranks (one a card).
     use_mesh: bool = True
     # "degrade" records a failing row as status="failed" and goes on
     # (resume retries it); "raise" aborts on the first failure.
@@ -222,8 +237,11 @@ class _Checkpoint:
     file's state.
     """
 
-    def __init__(self, path: str | None, fingerprint: str, log=print):
+    def __init__(self, path: str | None, fingerprint: str, log=print, write: bool = True):
         self.path = path
+        #: False on the ranks of a multi-GPU world other than rank 0: they
+        #: read the journal to resume, and never set it aside or append.
+        self.write = write
         self.done: dict[str, dict] = {}
         if path and os.path.exists(path):
             recs = []
@@ -242,14 +260,14 @@ class _Checkpoint:
                             "unparsable results.jsonl lines skipped on resume").inc(torn)
                 obs.emit("checkpoint_torn_lines", status="warning", path=path, lines=torn)
             header = next((r for r in recs if r.get("method") == "__config__"), None)
-            if header is None or header.get("fingerprint") != fingerprint:
+            if header is not None and header.get("fingerprint") == fingerprint:
+                self.done = {r["method"]: r for r in recs if r["method"] != "__config__"}
+            elif write:
                 stale = _unused_stale_path(path)
                 os.replace(path, stale)
                 log(f"checkpoint {path} was written under a different config; "
                     f"moved to {stale} and starting fresh")
-            else:
-                self.done = {r["method"]: r for r in recs if r["method"] != "__config__"}
-        if path and not self.done and not os.path.exists(path):
+        if write and path and not self.done and not os.path.exists(path):
             obs.atomic_write_text(path, json.dumps({"method": "__config__",
                                                     "fingerprint": fingerprint}) + "\n")
 
@@ -264,7 +282,7 @@ class _Checkpoint:
         this run's rows right either way."""
         rec = _jsonsafe(rec)
         self.done[rec["method"]] = rec
-        if self.path:
+        if self.path and self.write:
             line = json.dumps(rec) + "\n"
             inj = chaos.active()
             if inj is not None:
@@ -322,12 +340,14 @@ def build_frames(
     return df, df_mod, len(dropped)
 
 
-def _fingerprint(config: SweepConfig, csv_path: str | None, dev: torch.device) -> str:
+def _fingerprint(config: SweepConfig, csv_path: str | None, dev: torch.device,
+                 devices: int = 1) -> str:
     """The journal's header. Resume is valid only for the same config,
-    data source, device type and package version: another device gives
-    other float bits, and the JAX package's journal is never resumed as
-    this package's rows."""
-    return (f"{config!r}|csv={csv_path or 'synthetic'}|device={dev.type}"
+    data source, device type, mesh size (``devices``: the ranks a mesh
+    run shards over; a sharded forest grows other trees than a one-rank
+    one) and package version: another device gives other float bits, and
+    the JAX package's journal is never resumed as this package's rows."""
+    return (f"{config!r}|csv={csv_path or 'synthetic'}|device={dev.type}|devices={devices}"
             f"|package={PACKAGE}|version={__version__}")
 
 
@@ -436,13 +456,19 @@ def run_sweep(
         sampler.start()
     try:
         with obs.span("run_sweep", out=outdir or "", csv=csv_path or "synthetic") as root_sp:
-            return _run_sweep_impl(config, csv_path, outdir, plots, log, dev, n_workers,
-                                   prefetch, root_sp.span_id)
+            report = _run_sweep_impl(config, csv_path, outdir, plots, log, dev, n_workers,
+                                     prefetch, root_sp.span_id)
     finally:
-        if outdir:
+        if outdir and is_writer():
             _export_telemetry(outdir, t_start, n_workers, csv_path, sampler, log)
         elif sampler is not None:
             sampler.stop()
+    # No rank returns before rank 0 has written the journal, the report and
+    # the exports: a rank that starts the next run early would resume from
+    # a journal that lacks rows the others resume, and issue collectives
+    # they do not.
+    barrier()
+    return report
 
 
 def _export_telemetry(outdir: str, t_start: float, workers: int, csv_path: str | None,
@@ -495,9 +521,16 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
     # ATE_TPU_CHAOS raises ChaosSpecError here, before any work.
     chaos.reset()
     chaos.active()
-    fingerprint = _fingerprint(config, csv_path, dev)
+    # Multi-GPU (one rank per card): with ``use_mesh`` over a world of
+    # several ranks, forests shard trees over a tree mesh and every
+    # cv.glmnet its folds over a fold mesh; every rank runs this sweep and
+    # returns the same report, and rank 0 alone writes.
+    mesh_devices = world_size() if config.use_mesh else 1
+    writer = is_writer()
+    fingerprint = _fingerprint(config, csv_path, dev, mesh_devices)
     ckpt = _Checkpoint(os.path.join(outdir, "results.jsonl") if outdir else None, fingerprint,
-                       log=log)
+                       log=log, write=writer)
+    barrier()  # every rank has read the journal before rank 0 appends
 
     df, df_mod, n_dropped = build_frames(config, csv_path, device=dev)
     log(f"prepared df n={df.n}, dropped {n_dropped} -> df_mod n={df_mod.n} on {dev.type}")
@@ -509,6 +542,24 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
 
     def key_for(name: str) -> torch.Tensor:
         return rnd.fold_in(root_key, zlib.crc32(name.encode()))
+
+    tree_mesh = fold_axis = fold_mesh = mesh_lane = None
+    if mesh_devices > 1:
+        # Every rank builds the same meshes in the same order (each build
+        # makes process groups). The "mesh" lane runs the nodes that issue
+        # collectives one at a time, in declaration order on every rank.
+        tree_mesh = make_mesh((TREE_AXIS,))
+        fold_mesh = make_mesh((FOLD_AXIS,))
+        fold_axis = FOLD_AXIS
+        mesh_lane = "mesh"
+        log(f"mesh: {mesh_devices} devices — tree + fold axes active")
+
+    def with_folds(fn):
+        """Run ``fn`` under the fold-axis mesh when one is active."""
+        if fold_mesh is None:
+            return fn()
+        with use_mesh(fold_mesh):
+            return fn()
 
     def sync():
         """Wait for this thread's current stream, the stage's own: a
@@ -524,7 +575,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
     # plain versions and builds nothing.
     warm = build.build_all if dev.type == "cuda" else None
 
-    def artifact(name, fit, needs=(), warm=None):
+    def artifact(name, fit, needs=(), warm=None, laned=False):
         def timed(c):
             t0 = time.perf_counter()
             value = fit(c)
@@ -532,8 +583,8 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
             timings[f"artifact:{name}"] = time.perf_counter() - t0
             return value
 
-        return ArtifactSpec(name, fit=timed, needs=needs, key=(fingerprint,),
-                            warm=warm)
+        return ArtifactSpec(name, fit=timed, needs=needs, key=(fingerprint,), warm=warm,
+                            exclusive=mesh_lane if laned else None)
 
     artifacts = [
         artifact("p_logistic", lambda c: logistic_propensity(df_mod.x, df_mod.w)),
@@ -541,20 +592,21 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
         artifact("folds:ps_lasso", lambda c: default_foldid(key_for("ps_lasso"), df_mod.n)),
         artifact("folds:seq_lasso", lambda c: default_foldid(key_for("seq_lasso"), df_mod.n)),
         artifact("folds:usual_lasso", lambda c: default_foldid(key_for("usual_lasso"), df_mod.n)),
-        artifact("lasso_ps", lambda c: prop_score_lasso(df_mod, foldid=c.get("folds:ps_lasso")),
-                 needs=("folds:ps_lasso",), warm=warm),
+        artifact("lasso_ps", lambda c: with_folds(lambda: prop_score_lasso(
+            df_mod, foldid=c.get("folds:ps_lasso"), fold_axis=fold_axis)),
+            needs=("folds:ps_lasso",), warm=warm, laned=True),
         artifact("rf_oob_propensity", lambda c: rf_oob_propensity(
             df_mod, key=key_for("dr_rf_prop"), n_trees=config.dr_trees,
-            depth=config.forest_depth)),
+            depth=config.forest_depth, mesh=tree_mesh), laned=True),
     ]
 
     def cf_row(c):
         cf = causal_forest_report(df_mod, key=key_for("causal_forest"), n_trees=config.cf_trees,
-                                  nuisance_trees=config.cf_nuisance_trees)
+                                  nuisance_trees=config.cf_nuisance_trees, mesh=tree_mesh)
         return cf.result, {"incorrect_ate": cf.incorrect_ate, "incorrect_se": cf.incorrect_se}
 
-    # (method, body, the artifacts it consumes)
-    stage_decls: list[tuple[str, Callable[[object], object], tuple[str, ...]]] = [
+    # (method, body, the artifacts it consumes[, its lane])
+    stage_decls: list[tuple] = [
         ("oracle", lambda c: naive_ate(df, method="oracle"), ()),
         ("naive", lambda c: naive_ate(df_mod), ()),
         ("Direct Method", lambda c: ate_condmean_ols(df_mod), ()),
@@ -567,10 +619,12 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
                                      method="Propensity_Weighting_LASSOPS"),
          ("lasso_ps",)),
         ("Single-equation LASSO",
-         lambda c: ate_condmean_lasso(df_mod, foldid=c.get("folds:seq_lasso")),
-         ("folds:seq_lasso",)),
-        ("Usual LASSO", lambda c: ate_lasso(df_mod, foldid=c.get("folds:usual_lasso")),
-         ("folds:usual_lasso",)),
+         lambda c: with_folds(lambda: ate_condmean_lasso(
+             df_mod, foldid=c.get("folds:seq_lasso"), fold_axis=fold_axis)),
+         ("folds:seq_lasso",), mesh_lane),
+        ("Usual LASSO", lambda c: with_folds(lambda: ate_lasso(
+            df_mod, foldid=c.get("folds:usual_lasso"), fold_axis=fold_axis)),
+         ("folds:usual_lasso",), mesh_lane),
         ("Doubly Robust with Random Forest PS",
          lambda c: doubly_robust(df_mod, lambda f: c.get("rf_oob_propensity"),
                                  key=key_for("dr_rf"), mu=c.get("outcome_mu")),
@@ -579,18 +633,19 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
          lambda c: doubly_robust_glm(df_mod, key=key_for("dr_glm"), p=c.get("p_logistic"),
                                      mu=c.get("outcome_mu")),
          ("p_logistic", "outcome_mu")),
-        ("Belloni et.al", lambda c: belloni(df_mod, key=key_for("belloni")), ()),
+        ("Belloni et.al", lambda c: with_folds(lambda: belloni(
+            df_mod, key=key_for("belloni"), fold_axis=fold_axis)), (), mesh_lane),
         ("Double Machine Learning",
          lambda c: double_ml(df_mod, n_trees=config.dml_trees, depth=config.forest_depth,
-                             key=key_for("dml"), device=dev), ()),
+                             key=key_for("dml"), mesh=tree_mesh, device=dev), (), mesh_lane),
         ("residual_balancing",
          lambda c: residual_balance_ate(df_mod, key=key_for("balance"),
                                         max_iters=config.balance_iters), ()),
         # The result row plus the notebook's deliberately "incorrect"
         # aggregate (Rmd:258-262), carried in the checkpoint record.
-        ("Causal Forest(GRF)", cf_row, ()),
+        ("Causal Forest(GRF)", cf_row, (), mesh_lane),
     ]
-    assert [m for m, _, _ in stage_decls[1:]] == list(SWEEP_METHODS)
+    assert [d[0] for d in stage_decls[1:]] == list(SWEEP_METHODS)
 
     stage_c = obs.counter("sweep_stage_total", "sweep stages by resume-vs-computed status")
     # Chaos stage faults are planned in declared order before any worker
@@ -599,7 +654,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
     # injection is recorded when the fault is raised.
     fault_plan: set[str] = set()
 
-    def make_stage(method, fn, needs) -> tuple[StageSpec, bool]:
+    def make_stage(method, fn, needs, lane=None) -> tuple[StageSpec, bool]:
         """One row as a scheduler stage, and whether it is resumed.
         Resume is decided here, at build time, from the loaded journal: a
         resumed stage declares no needs, so a fully journaled rerun fits
@@ -669,7 +724,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
                                      record=dict(res.to_dict(), seconds=round(dt, 3),
                                                  attempts=attempts, **extras))
 
-        return StageSpec(method, run, needs=needs), False
+        return StageSpec(method, run, needs=needs, exclusive=lane), False
 
     def commit(spec: StageSpec, outcome: _StageOutcome) -> None:
         """Declared-order side effects: the journal append, the report's
@@ -724,7 +779,7 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
     report.incorrect_cf_ate = cf_rec.get("incorrect_ate")
     report.incorrect_cf_se = cf_rec.get("incorrect_se")
 
-    if outdir:
+    if outdir and writer:
         obs.atomic_write_json(os.path.join(outdir, "report.json"), _jsonsafe({
             "oracle": report.oracle.to_dict(),
             "results": [r.to_dict() for r in report.results],
@@ -735,12 +790,12 @@ def _run_sweep_impl(config: SweepConfig, csv_path: str | None, outdir: str | Non
             "failures": report.failures,
             "device": dev.type,
         }))
-    if plots and outdir:
+    if plots and outdir and writer:
         # A degraded oracle cannot anchor the reference band.
         oracle_fig = report.oracle if math.isfinite(report.oracle.ate) else None
         report.figure_paths = viz.notebook_figures(report.results, oracle_fig, outdir)
         log(f"figures: {report.figure_paths}")
-    if outdir:
+    if outdir and writer:
         log(f"report: {write_report_md(report, outdir, csv_path=csv_path)}")
     return report
 
@@ -866,8 +921,16 @@ def main(argv: Iterable[str] | None = None) -> SweepReport:
                     help="worker-pool width of the concurrent sweep "
                          "(default: ATE_TPU_SWEEP_WORKERS or min(4, cpus))")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend under torchrun (nccl on cards, gloo on the "
+                         "CPU; gloo must be named when ranks share a card)")
     args = ap.parse_args(argv if argv is None else list(argv))
 
+    # Under torchrun (WORLD_SIZE set) every rank joins the world; a plain
+    # run stays one process.
+    from ate_replication_causalml_torch.parallel.multihost import init_multihost
+
+    init_multihost(backend=args.backend, device=args.device)
     config = SweepConfig()
     if args.quick:
         config = config.quick()

@@ -301,6 +301,8 @@ def cached_executable(key: tuple, build: Callable, column: str, kind: str):
 
 
 def _ids_tensor(ids, device) -> torch.Tensor:
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(ids, dtype=np.uint32).astype(np.int64), device=device)
 
 

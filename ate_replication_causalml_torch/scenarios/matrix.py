@@ -36,9 +36,16 @@ Contracts, the JAX package's:
 
 The fingerprints and schema tags are the JAX package's, so the journal
 header of a spec is the JAX package's byte for byte.
-``ATE_TPU_SCENARIO_SHARD`` (the replicate axis over a mesh) changes
-nothing on one device; over several it raises: multi-GPU is ROADMAP
-Queue A item 6.
+``ATE_TPU_SCENARIO_SHARD`` (or ``MatrixSpec(shard=True)``) shards the
+replicate axis over the ranks of a multi-GPU world, as the JAX package
+shards it over its devices: batch widths pad to the rank count
+(``plan_columns(devices=A)``), each batch's cell ids are committed
+row-sharded over a ``data`` mesh through the metered artifact plane
+(``host_upload``), every rank computes its block of lanes, the lanes
+are gathered in lane order, and the fixed-order aggregates are taken
+over the gathered lanes, so a sharded column equals the unsharded one.
+Rank 0 alone writes the journal and the exports; every rank returns the
+same report. On a world of one rank the knob changes nothing.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from ate_replication_causalml_torch.observability.sketch import (
     FixedBinSketch,
 )
 from ate_replication_causalml_torch.ops import random as rnd
+from ate_replication_causalml_torch.parallel.mesh import barrier, is_writer
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.errors import ChaosStageFault
 from ate_replication_causalml_torch.scenarios.aggregate import (
@@ -228,34 +236,27 @@ class ColumnPlan:
     batches: tuple[tuple[int, ...], ...]
 
 
-def _device_count() -> int:
-    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+def _resolve_shard(spec: MatrixSpec) -> int:
+    """The ranks the replicate axis shards over: the world's size when
+    ``ATE_TPU_SCENARIO_SHARD`` (or ``spec.shard``) asks for it and the
+    world has more than one rank, else 1 (the knob changes nothing)."""
+    from ate_replication_causalml_torch.parallel.mesh import world_size
 
-
-#: The JAX package's multi-device knob: the replicate axis sharded over
-#: a mesh. Multi-GPU is ROADMAP Queue A item 6.
-_SHARD_MESSAGE = ("sharded scenario dispatch (ATE_TPU_SCENARIO_SHARD over several devices) "
-                  "belongs to the multi-GPU port, ROADMAP.md Queue A item 6")
-
-
-def _resolve_shard(spec: MatrixSpec, dev: torch.device) -> None:
-    """``ATE_TPU_SCENARIO_SHARD`` on one device changes nothing; over
-    several CUDA devices it is the multi-GPU port (Queue A item 6)."""
     shard = _env_shard() if spec.shard is None else spec.shard
-    if shard and dev.type == "cuda" and _device_count() > 1:
-        raise ValueError(_SHARD_MESSAGE)
+    return world_size() if shard and world_size() > 1 else 1
 
 
-def plan_columns(spec: MatrixSpec, done: Callable[[str], bool] = lambda _cell: False
-                 ) -> tuple[list[ColumnPlan], list[str]]:
+def plan_columns(spec: MatrixSpec, done: Callable[[str], bool] = lambda _cell: False,
+                 devices: int = 1) -> tuple[list[ColumnPlan], list[str]]:
     """Pure cell-batching planner: pack each column's not-yet-done
     replicates into fixed-width batches; non-vmappable engines pack at
-    width 1 (the JAX package's plan on one device; several devices are
-    :func:`_resolve_shard`'s refusal). Returns
-    ``(plans, skipped)``, ``skipped`` the (DGP, estimator) columns the
-    estimator declared inapplicable."""
+    width 1. Sharded runs (the shard knob and ``devices`` > 1) pad the
+    width up to a multiple of ``devices``. Returns ``(plans, skipped)``,
+    ``skipped`` the (DGP, estimator) columns the estimator declared
+    inapplicable."""
     plans: list[ColumnPlan] = []
     skipped: list[str] = []
+    shard = _env_shard() if spec.shard is None else spec.shard
     for dgp in spec.dgps:
         for est_name in spec.estimators:
             est = SCENARIO_ESTIMATORS[est_name]
@@ -264,6 +265,10 @@ def plan_columns(spec: MatrixSpec, done: Callable[[str], bool] = lambda _cell: F
                 skipped.append(col)
                 continue
             width = min(spec.batch_width, spec.n_reps) if est.vmapped else 1
+            if shard and est.vmapped and devices > 1:
+                from ate_replication_causalml_torch.parallel.shardio import pad_to_multiple
+
+                width = pad_to_multiple(width, devices)
             remaining = tuple(r for r in range(spec.n_reps)
                               if not done(cell_row_id(dgp.name, est_name, r)))
             batches = tuple(remaining[i:i + width] for i in range(0, len(remaining), width))
@@ -614,11 +619,13 @@ class _Mode:
 
 
 def _drive(spec: MatrixSpec, plans: list[ColumnPlan], mode: _Mode, commit, report, n_workers,
-           prefetch, dev, log, drain_on_sigterm, outdir, span_attrs: dict) -> None:
+           prefetch, dev, log, drain_on_sigterm, outdir, span_attrs: dict, shard=None) -> None:
     """Declare one artifact a vmapped column and one stage a batch, wrap
     each stage in the chaos fault and the degrade policy, and run the
     engine; the report's wall and compile events are filled whatever
-    happens."""
+    happens. Sharded, the vmapped columns' nodes run in the "mesh" lane,
+    so every rank issues their collectives in one order."""
+    lane = "mesh" if shard is not None else None
     from ate_replication_causalml_torch.scheduler import ArtifactSpec, StageSpec, SweepEngine
 
     fingerprint = spec.fingerprint()
@@ -632,7 +639,7 @@ def _drive(spec: MatrixSpec, plans: list[ColumnPlan], mode: _Mode, commit, repor
             name, fit=fit,
             key=(fingerprint, column_cache_key(plan.dgp, plan.estimator, plan.width))
             + mode.art_key,
-            warm=fit))
+            warm=fit, exclusive=lane))
         return name
 
     def wrap_degrade(st: StageSpec, plan: ColumnPlan, batch: tuple[int, ...]) -> StageSpec:
@@ -679,7 +686,7 @@ def _drive(spec: MatrixSpec, plans: list[ColumnPlan], mode: _Mode, commit, repor
                 st = StageSpec(f"{plan.name}#b{bi}",
                                lambda cache, p=plan, b=batch, e=exe_name: mode.vmapped(
                                    p, b, cache.get(e)),
-                               needs=(exe_name,))
+                               needs=(exe_name,), exclusive=lane)
             else:
                 st = StageSpec(f"{plan.name}#b{bi}",
                                lambda cache, p=plan, b=batch: mode.sequential(p, b))
@@ -719,7 +726,7 @@ def _sync(dev: torch.device) -> None:
 
 
 def _export(spec: MatrixSpec, report: MatrixReport, outdir: str | None, log) -> None:
-    if not outdir:
+    if not outdir or not is_writer():
         return
     try:
         obs.atomic_write_json(os.path.join(outdir, "matrix_report.json"),
@@ -748,14 +755,56 @@ def run_matrix(
     stopped. Streaming aggregates are the default; ``MatrixSpec(rows=
     True)`` or ``ATE_TPU_SCENARIO_ROWS=1`` materializes the cell table."""
     dev = resolve_device(device)
-    _resolve_shard(spec, dev)
+    shard = _Shard.resolve(spec, log)
     runner = _run_matrix_rows if spec.resolved_rows() else _run_matrix_aggregate
-    return runner(spec, outdir=outdir, workers=workers, scheduler=scheduler, prefetch=prefetch,
-                  log=log, drain_on_sigterm=drain_on_sigterm, dev=dev)
+    report = runner(spec, outdir=outdir, workers=workers, scheduler=scheduler,
+                    prefetch=prefetch, log=log, drain_on_sigterm=drain_on_sigterm, dev=dev,
+                    shard=shard)
+    barrier()  # rank 0's journal and exports are written before any rank returns
+    return report
+
+
+class _Shard:
+    """The sharded dispatch of one matrix run over the world's ranks:
+    rank r computes lanes ``[r·W/A, (r+1)·W/A)`` of each width-W batch."""
+
+    def __init__(self, devices: int):
+        from ate_replication_causalml_torch.parallel.mesh import DATA_AXIS, make_mesh, row_sharded
+
+        self.devices = devices
+        self.mesh = make_mesh((DATA_AXIS,))
+        self.layout = row_sharded(self.mesh, DATA_AXIS)
+
+    @classmethod
+    def resolve(cls, spec: MatrixSpec, log) -> "_Shard | None":
+        devices = _resolve_shard(spec)
+        if devices == 1:
+            return None
+        log(f"scenario matrix: sharded dispatch over {devices} devices")
+        return cls(devices)
+
+    def lanes(self, plan, batch, root_key):
+        """This batch's (ate, se, tau_true), each (W,), on this rank's
+        device: the cell ids committed row-sharded (metered
+        ``host_upload``), this rank's lanes computed at width W/A, the
+        lanes all-gathered in lane order."""
+        from ate_replication_causalml_torch.parallel import shardio
+        from ate_replication_causalml_torch.parallel.mesh import replicated
+
+        ids = shardio.commit(pad_ids(plan.dgp.name, batch, plan.width), self.layout,
+                             artifact=plan.name)
+        exe = column_executable(plan.dgp, SCENARIO_ESTIMATORS[plan.estimator],
+                                plan.width // self.devices, column=plan.name)
+        # The uint32 ids as int64 (through an int32 view: the cast from
+        # uint32 is not on every device).
+        local = exe(root_key, ids.local.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        lanes = tuple(shardio.DArray(t, self.layout, (plan.width,)) for t in local)
+        return tuple(t.local for t in shardio.reshard(lanes, replicated(self.mesh),
+                                                      artifact=plan.name))
 
 
 def _run_matrix_rows(spec, outdir, workers, scheduler, prefetch, log, drain_on_sigterm,
-                     dev) -> MatrixReport:
+                     dev, shard=None) -> MatrixReport:
     """The per-cell path: one journal record and one host row a cell,
     cell-granular resume, per-cell degrade."""
     from ate_replication_causalml_torch.pipeline import (
@@ -771,13 +820,15 @@ def _run_matrix_rows(spec, outdir, workers, scheduler, prefetch, log, drain_on_s
     if outdir:
         os.makedirs(outdir, exist_ok=True)
     ckpt = _Checkpoint(os.path.join(outdir, "cells.jsonl") if outdir else None,
-                       spec.fingerprint(), log=log)
+                       spec.fingerprint(), log=log, write=is_writer())
+    barrier()  # every rank has read the journal before rank 0 appends
 
     def resumable(cell: str) -> bool:
         rec = ckpt.get(cell)
         return rec is not None and _row_resumable(rec)[0]
 
-    plans, skipped = plan_columns(spec, done=resumable)
+    plans, skipped = plan_columns(spec, done=resumable,
+                                  devices=shard.devices if shard else 1)
     report = MatrixReport(skipped_columns=skipped, n_columns=len(plans))
     cells_c, disp_c = _cells_counter(), _dispatch_counter()
     root_key = rnd.key(spec.seed, device=dev)
@@ -799,7 +850,10 @@ def _run_matrix_rows(spec, outdir, workers, scheduler, prefetch, log, drain_on_s
         t0 = time.perf_counter()
         # The final partial batch pads to the column's width with
         # duplicate ids; padded outputs are discarded here.
-        ate, se, tt = exe(root_key, pad_ids(plan.dgp.name, batch, plan.width))
+        if shard is not None:
+            ate, se, tt = shard.lanes(plan, batch, root_key)
+        else:
+            ate, se, tt = exe(root_key, pad_ids(plan.dgp.name, batch, plan.width))
         ate, se, tt = (t.detach().cpu().numpy() for t in (ate, se, tt))
         dt = time.perf_counter() - t0
         disp_c.inc(1, column=plan.name, mode="vmapped")
@@ -842,7 +896,7 @@ def _run_matrix_rows(spec, outdir, workers, scheduler, prefetch, log, drain_on_s
 
     try:
         _drive(spec, plans, mode, commit, report, n_workers, prefetch, dev, log,
-               drain_on_sigterm, outdir, {})
+               drain_on_sigterm, outdir, {}, shard)
     finally:
         _sync(dev)
         report.wall_s = time.monotonic() - t_start
@@ -860,7 +914,7 @@ def _run_matrix_rows(spec, outdir, workers, scheduler, prefetch, log, drain_on_s
 
 
 def _run_matrix_aggregate(spec, outdir, workers, scheduler, prefetch, log, drain_on_sigterm,
-                          dev) -> MatrixReport:
+                          dev, shard=None) -> MatrixReport:
     """The streaming path: each batch runs the column's aggregate callable
     and journals one block record; ``report.cells`` stays empty, resume
     is block-granular, and a failed block journals a failed-block record
@@ -877,14 +931,15 @@ def _run_matrix_aggregate(spec, outdir, workers, scheduler, prefetch, log, drain
         os.makedirs(outdir, exist_ok=True)
     fingerprint = spec.fingerprint()
     ckpt = _Checkpoint(os.path.join(outdir, "cells.jsonl") if outdir else None,
-                       fingerprint, log=log)
+                       fingerprint, log=log, write=is_writer())
+    barrier()  # every rank has read the journal before rank 0 appends
     trusted, covered = _trusted_blocks(_scan_blocks(ckpt, fingerprint, log), spec.n_reps)
 
     def resumed(cell: str) -> bool:
         col, _, rep = cell.rpartition(":")
         return int(rep) in covered.get(col, ())
 
-    plans, skipped = plan_columns(spec, done=resumed)
+    plans, skipped = plan_columns(spec, done=resumed, devices=shard.devices if shard else 1)
     # Sequential (forest) columns dispatch a cell at a time, but a width-1
     # BLOCK would journal one record a cell: re-pack their remaining reps
     # into batch_width chunks, each folded host-side through batch_stats.
@@ -914,8 +969,13 @@ def _run_matrix_aggregate(spec, outdir, workers, scheduler, prefetch, log, drain
 
     def vmapped(plan, batch, exe):
         t0 = time.perf_counter()
-        stats = exe(root_key, pad_ids(plan.dgp.name, batch, plan.width),
-                    batch_mask(batch, plan.width, plan.dgp.dtype))
+        mask = batch_mask(batch, plan.width, plan.dgp.dtype)
+        if shard is not None:
+            # The fixed-order aggregate over the gathered lanes.
+            ate, se, tt = shard.lanes(plan, batch, root_key)
+            stats = batch_stats(ate, se, tt, torch.as_tensor(mask).to(ate.device))
+        else:
+            stats = exe(root_key, pad_ids(plan.dgp.name, batch, plan.width), mask)
         state = AggState.from_array(stats)
         disp_c.inc(1, column=plan.name, mode="vmapped")
         return [_block_record(plan, batch, state, time.perf_counter() - t0)]
@@ -962,7 +1022,7 @@ def _run_matrix_aggregate(spec, outdir, workers, scheduler, prefetch, log, drain
 
     try:
         _drive(spec, plans, mode, commit, report, n_workers, prefetch, dev, log,
-               drain_on_sigterm, outdir, {"mode": "aggregate"})
+               drain_on_sigterm, outdir, {"mode": "aggregate"}, shard)
     finally:
         _sync(dev)
         report.wall_s = time.monotonic() - t_start

@@ -18,9 +18,15 @@ stream is handed to consumers on others with a CUDA event: the producer
 records it on its current stream right after the fit, and :meth:`get`
 makes the consumer's current stream wait on it before returning the
 value. Without one, a consumer's kernels could read the value before
-the producer's kernels have written it. The single-device layouts
-(``sharding`` None or "host") store and deliver the value as the fit
-returned it.
+the producer's kernels have written it.
+
+Layouts (``sharding``, ``consumes_sharding``) are the JAX package's
+placement tags, validated by :mod:`.dag`. In the port every rank of a
+multi-GPU world computes each artifact whole (every rank runs the same
+program), so the cache stores and hands out the value as the fit
+returned it, whatever layout the spec or its consumer declares: the
+logical value a JAX consumer sees under any sharding. No consumer in
+the port takes a row block yet (ROADMAP.md, Queue B).
 
 Hit and miss traffic lands in ``nuisance_cache_requests_total``
 (labels ``artifact``, ``status=hit|miss``); each fit is a

@@ -13,11 +13,15 @@ into the structure the engine schedules.
 Nothing here runs work: specs carry plain callables, so the scheduler's
 tests drive the engine with synthetic specs.
 
-Sharded layouts (``ArtifactSpec.sharding``, ``consumes_sharding``)
-belong to the multi-GPU port (ROADMAP.md, Queue A item 6). Until then a
-spec takes only ``None`` or ``"host"`` there, both meaning the value as
-its fit returned it, on the run's one device; any other value raises
-when the spec is made.
+Layouts (``ArtifactSpec.sharding``, ``consumes_sharding``): an
+artifact may declare the layout it is stored in (a
+``parallel.mesh.Layout``), and a consumer the layout it takes it in
+(``"device"``, ``"host"`` or another layout), as in the JAX package;
+the port's cache hands every consumer the fit's value (see
+:mod:`.cache`). As in the JAX package, a spec takes any layout object
+when it is made; :func:`validate` refuses a consume layout for an
+artifact the consumer does not need, or for an artifact that declares
+no layout.
 """
 
 from __future__ import annotations
@@ -25,25 +29,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Iterable
 
-#: The layouts a single-device run knows (see the module docstring).
-_LAYOUTS = (None, "host")
-
-
 class DagError(ValueError):
     """A malformed sweep declaration: duplicate node names, a stage or
     artifact consuming an artifact nobody declared, an artifact
-    dependency cycle, or a sharded layout. Raised at build time: a bad
-    DAG must fail before any estimator runs, not deadlock the pool."""
-
-
-def _check_layouts(kind: str, name: str, sharding, consumes: dict) -> None:
-    bad = {"sharding": sharding} if sharding not in _LAYOUTS else {}
-    bad.update({f"consumes_sharding[{k!r}]": v for k, v in consumes.items()
-                if v not in _LAYOUTS})
-    if bad:
-        raise DagError(
-            f"{kind} {name!r}: sharded layouts {bad!r} are not supported: they belong to the "
-            "multi-GPU port (ROADMAP.md, Queue A item 6); pass None or 'host'")
+    dependency cycle, or a consume layout that binds to nothing. Raised
+    at build time: a bad DAG must fail before any estimator runs, not
+    deadlock the pool."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,14 +57,12 @@ class ArtifactSpec:
     warm: Callable[[], object] | None = None
     #: nodes sharing a non-None lane name never execute concurrently.
     exclusive: str | None = None
-    #: the stored layout: None or "host" (see the module docstring).
+    #: the layout tag the value is declared in (the cache stores the
+    #: value as the fit returned it either way).
     sharding: object | None = None
     #: artifact name -> the layout this fit consumes it in. Keys must be
     #: a subset of ``needs`` and name artifacts that declare a layout.
     consumes_sharding: dict = dataclasses.field(default_factory=dict)
-
-    def __post_init__(self):
-        _check_layouts("artifact", self.name, self.sharding, self.consumes_sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +83,6 @@ class StageSpec:
     exclusive: str | None = None
     #: see ArtifactSpec.consumes_sharding.
     consumes_sharding: dict = dataclasses.field(default_factory=dict)
-
-    def __post_init__(self):
-        _check_layouts("stage", self.name, None, self.consumes_sharding)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,9 @@ Determinism contract (asserted in ``tests/test_torch_scheduler.py`` and
 * **commit order is declaration order**: journal appends, report rows
   and log lines run through an ordered committer, stage k's commit only
   after stages 0..k-1 committed, whatever order the bodies finished in;
+* **a lane starts its nodes in declaration order** (priority order:
+  an artifact just ahead of its first consumer), on every rank of a
+  multi-GPU world, so the ranks issue a lane's collectives in one order;
 * an abort-class exception (``fail_policy="raise"``) surfaces as the
   earliest *declared* failing stage. Nodes declared before it keep
   running so their rows commit, and commits flush exactly up to the
@@ -172,6 +175,16 @@ class SweepEngine:
             nodes[spec.name] = _Node(
                 "stage", spec.name, (i, 1, 0, 0), tuple(d for d in spec.needs if d in needed),
                 (lambda sp=spec: sp.run(self.cache)), i, exclusive=spec.exclusive)
+        # Each lane starts its nodes in priority order (declaration order,
+        # artifacts ahead of their first consumer), not first come, first
+        # served: in a multi-GPU world every rank runs this engine, and
+        # the collectives of the "mesh" lane's nodes must be issued in
+        # the same order on every rank.
+        self._lane_order: dict[str, list[str]] = {}
+        for node in sorted(nodes.values(), key=lambda n: n.priority):
+            if node.exclusive is not None:
+                self._lane_order.setdefault(node.exclusive, []).append(node.name)
+        self._lane_next = dict.fromkeys(self._lane_order, 0)
         return nodes
 
     # ── public API ────────────────────────────────────────────────────
@@ -269,7 +282,8 @@ class SweepEngine:
 
         Lanes are a scheduling constraint, not a blocking lock: a ready
         node whose lane is busy stays queued and the worker takes the
-        next ready node instead. After an abort, nodes declared before
+        next ready node instead, and so does a ready laned node that is
+        not its lane's next in priority order. After an abort, nodes declared before
         the earliest aborting stage keep being scheduled (sequentially
         every earlier stage finished before the failing one raised);
         later nodes are skipped. Operator aborts stop scheduling."""
@@ -290,7 +304,9 @@ class SweepEngine:
                     node = self._nodes[name]
                     if ((stop_at is not None and node.stage_idx >= stop_at)
                             or (node.exclusive is not None
-                                and node.exclusive in self._busy_lanes)):
+                                and (node.exclusive in self._busy_lanes
+                                     or self._lane_order[node.exclusive][
+                                         self._lane_next[node.exclusive]] != node.name))):
                         skipped.append((prio, name))
                         continue
                     picked = node
@@ -302,6 +318,7 @@ class SweepEngine:
                     self._inflight += 1
                     if picked.exclusive is not None:
                         self._busy_lanes.add(picked.exclusive)
+                        self._lane_next[picked.exclusive] += 1
                     return picked
                 if stop_at is not None and self._inflight == 0:
                     # Aborted, and nothing in flight can unlock an

@@ -248,6 +248,38 @@ imports nothing of JAX. Phases, each printing one JSON line:
    traceback. Prints each episode's wall, the references', the fleet's,
    the shrink's probes and wall (from each run's ``campaign_walls.json``),
    the kernel checks and the launches;
+11j. path_multi_gpu — the multi-GPU layer (``parallel/``: one rank a
+   card on ``torch.distributed``) on this one card, into
+   ``build/chip_smoke_multi_gpu/``. The kernels are built here first; the
+   ranks only load them (``ATE_TPU_KERNELS_PREBUILT``); the two worlds run at
+   once (their ranks are launch-bound). (a)
+   ``dryrun_multigpu(1, "nccl", "cuda", sweep=False)``: a one-rank NCCL
+   group runs the dry run's legs at its own shapes (data-sharded IRLS,
+   the boot-sharded bootstrap, the tree-sharded forest and causal
+   forest, the fold-sharded CV; its ``run_sweep(use_mesh=True)`` leg at
+   MICRO is (b)'s, which runs that sweep three times). (b) two ranks
+   sharing the card under gloo, at the notebook's widths: DR-RF's 2,500
+   trees of depth 9 tree-sharded; the causal forest (2,000 of depth 8,
+   500 nuisance trees) and its row-sharded leaf index; the LASSO-PS
+   ``cv_glmnet`` (10 folds, 100 λs) fold-sharded; the AIPW bootstrap
+   boot-sharded; the two IRLS fits in float64 data-sharded;
+   ``run_sweep(use_mesh=True)`` at MICRO sequential, on the concurrent
+   engine and again; the scenario matrix with ``shard=True``
+   (calibration at n = 64 × naive, 8 replicates). Gates: each forest
+   (and the leaf index) equal by sha256 to the one-process grow, on the
+   card, of the ranks' key slices; the CV's ``index_min``, ``index_1se``
+   and ``cvm`` equal to the unsharded CV; the taus equal to the
+   one-process draws from ``fold_in(key, r)``; each IRLS fit within the
+   derived |Δβ| ≤ 2κγ_n|β|/(1 − κγ_n) of the one-process fit, in as many
+   iterations; the sweep's rows in order, finite, concurrent equal to
+   sequential on both ranks, rank 0's journal lines alone, the rerun 0
+   computed; the sharded matrix at max_ulp 0; ``hist``, ``hist_shared``,
+   ``route_advance``, ``leaf_record``, ``traverse`` and ``cd_path``
+   launched in the ranks, and every call tapped in (a) and in (b)'s
+   rank 0 (rank 1 runs the same program on its own keys) held to its plain
+   version in its rank after the counts are read; the phase within
+   ``MULTI_GPU_BUDGET_S``. The launches of (a) and both ranks of (b)
+   are ``launches_by_path["multi_gpu"]``;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -268,6 +300,7 @@ non-zero and prints no result. Details go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import json
@@ -574,11 +607,15 @@ CAMPAIGN_KERNELS = ("hist", "hist_shared", "hist_partition", "hist_partition_sha
                     "cd_path")
 
 RECORD: dict = {}
+T_START = time.perf_counter()
 # Rows of the path phases that the sweep's rows are held to.
 ROWS: dict = {}
 
 
 def emit(obj: dict) -> None:
+    """Print a phase's line, stamped with the seconds since the script
+    started (``at_s``: a phase's wall is the step from the line before)."""
+    obj["at_s"] = time.perf_counter() - T_START
     print(json.dumps(obj), flush=True)
     RECORD.setdefault("lines", []).append(obj)
 
@@ -3975,6 +4012,357 @@ def phase_path_chaos_campaign(smi: str) -> dict:
     return counts
 
 
+# path_multi_gpu: the multi-GPU layer (parallel/) on this one card.
+MULTI_GPU_OUT = os.path.join(REPO, "build", "chip_smoke_multi_gpu")
+MULTI_GPU_KERNELS = ("hist", "hist_shared", "route_advance", "leaf_record", "traverse",
+                     "cd_path")
+MULTI_GPU_BUDGET_S = 150.0
+MULTI_GPU_RANKS = 2
+MG_DR_KEY, MG_CF_KEY, MG_FOLD_KEY, MG_BOOT_KEY = 12325, 12345, 31, 7
+FOREST_FIELDS = ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf")
+CAUSAL_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample")
+
+
+def digest(tensors) -> str:
+    """sha256 over the bytes of each tensor in turn (equal digests: equal bits)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        a = t.detach().cpu().contiguous()
+        h.update(str((tuple(a.shape), str(a.dtype))).encode())
+        h.update(a.numpy().tobytes())
+    return h.hexdigest()
+
+
+def interleave(parts: list, n_disp: int, keep: int) -> torch.Tensor:
+    """Ranks' (n_disp·per, ...) blocks in the sharded fits' dispatch-major order."""
+    a = torch.stack(parts)
+    per = a.shape[1] // n_disp
+    return a.reshape(len(parts), n_disp, per, *a.shape[2:]).transpose(0, 1).reshape(
+        -1, *a.shape[2:])[:keep]
+
+
+def _mg_tapped(legs) -> dict:
+    """(a) in its one rank: the dry run's legs with the kernels' inputs
+    tapped, the counts read, then every tapped call held to its plain
+    version."""
+    reset_counts()
+    with kernel_taps() as seen:
+        t0 = time.perf_counter()
+        summary = legs()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    t0 = time.perf_counter()
+    checks = check_taps(seen)
+    return {"summary": summary, "counts": counts, "checks": checks, "legs_s": wall,
+            "checks_s": time.perf_counter() - t0}
+
+
+def _mg_notebook_legs(out: dict, walls: dict) -> None:
+    """(b)'s legs at the notebook's widths in this rank (every rank runs
+    them); results into ``out``, walls into ``walls``."""
+    from ate_replication_causalml_torch.estimators.aipw import clip_propensity
+    from ate_replication_causalml_torch.ops.bootstrap import aipw_bootstrap_se_sharded
+    from ate_replication_causalml_torch.ops.glm import logistic_glm_sharded
+    from ate_replication_causalml_torch.ops.linalg import add_intercept
+    from ate_replication_causalml_torch.parallel import shardio
+    from ate_replication_causalml_torch.parallel.dryrun import micro_sweep_config
+    from ate_replication_causalml_torch.parallel.mesh import (BOOT_AXIS, DATA_AXIS, FOLD_AXIS,
+                                                              TREE_AXIS, make_mesh, use_mesh)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        value = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        return value
+
+    _, frame_mod = notebook_frames("cuda")
+    x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
+    tree_mesh, fold_mesh = make_mesh((TREE_AXIS,)), make_mesh((FOLD_AXIS,))
+    boot_mesh, data_mesh = make_mesh((BOOT_AXIS,)), make_mesh((DATA_AXIS,))
+    dev = x.device
+    forest = timed("dr_rf_forest", lambda: fo.fit_forest_sharded(
+        x, w, rnd.key(MG_DR_KEY, device=dev), tree_mesh, n_trees=DR_TREES, depth=DEPTH))
+    vote = fo.predict_forest(forest, x, oob=True).vote
+    out["dr_rf"] = {"digest": digest(getattr(forest, f) for f in FOREST_FIELDS),
+                    "n_trees": forest.n_trees, "vote": vote.cpu().numpy()}
+    fit = timed("causal_fit", lambda: cf.fit_causal_forest(
+        frame_mod, key=rnd.key(MG_CF_KEY, device=dev), n_trees=CF_TREES, depth=CF_DEPTH,
+        nuisance_trees=CF_NUISANCE_TREES, mesh=tree_mesh))
+    li = timed("leaf_index", lambda: cf.compute_leaf_index_sharded(fit.forest, x,
+                                                                    mesh=data_mesh))
+    out["causal"] = {"digest": digest(getattr(fit.forest, f) for f in CAUSAL_FIELDS),
+                     "y_hat": fit.y_hat.cpu().numpy(), "w_hat": fit.w_hat.cpu().numpy(),
+                     "leaf_index": hashlib.sha256(np.ascontiguousarray(li).tobytes()).hexdigest(),
+                     "leaf_dtype": str(li.dtype)}
+    foldid = lasso.default_foldid(rnd.key(MG_FOLD_KEY, device=dev), frame_mod.n)
+    with use_mesh(fold_mesh):
+        cv = timed("lasso_ps_cv", lambda: lasso.cv_glmnet(x, w, "binomial", foldid=foldid,
+                                                          fold_axis=FOLD_AXIS))
+    out["cv"] = {"index_min": int(cv.index_min), "index_1se": int(cv.index_1se),
+                 "cvm": cv.cvm.cpu().numpy()}
+    mu0, mu1 = outcome_model_mu(frame_mod)
+    p_rf = clip_propensity(vote)   # as doubly_robust takes the RF propensity
+    with use_mesh(boot_mesh):
+        se, taus = timed("bootstrap", lambda: aipw_bootstrap_se_sharded(
+            w, y, p_rf, mu0, mu1, key=rnd.key(MG_BOOT_KEY, device=dev), n_boot=N_BOOT,
+            return_taus=True))
+    out["boot"] = {"se": float(se), "taus": taus.cpu().numpy(), "p": p_rf.cpu().numpy(),
+                   "mu0": mu0.cpu().numpy(), "mu1": mu1.cpu().numpy()}
+    # data: the two IRLS fits in float64 over rows sharded on 'data'.
+    x64, w64, y64 = (t.to(torch.float64) for t in (x, w, y))
+    rows = shardio.commit((x64, w64, y64), shardio.row_sharding(data_mesh, frame_mod.n),
+                          artifact="multi_gpu_glm")
+    xl, wl, yl = (r.local for r in rows)
+    base = add_intercept(xl)
+    glms = timed("data_glm", lambda: (
+        logistic_glm_sharded(torch.cat([base, wl[:, None]], dim=1), yl, data_mesh),
+        logistic_glm_sharded(base, wl, data_mesh)))
+    out["glm"] = {name: {"coef": g.coef.cpu().numpy(), "n_iter": g.n_iter}
+                  for name, g in zip(("outcome", "propensity"), glms)}
+    # run_sweep(use_mesh=True) at MICRO: sequential, concurrent, the rerun.
+    cfg = micro_sweep_config()
+    sweeps = {}
+    for name, sub, sched in (("seq", "sweep_seq", "sequential"), ("conc", "sweep_conc", None),
+                             ("rerun", "sweep_seq", "sequential")):
+        logs: list = []
+        rep = timed(f"sweep_{name}", lambda: pipeline.run_sweep(
+            cfg, outdir=os.path.join(MULTI_GPU_OUT, sub), plots=False, log=logs.append,
+            scheduler=sched))
+        sweeps[name] = {"rows": [(r.method, r.ate, r.lower_ci, r.upper_ci, r.se, r.status)
+                                 for r in rep.results.rows],
+                        "computed": rep.computed, "mesh": [s for s in logs
+                                                           if s.startswith("mesh:")]}
+    out["sweep"] = sweeps
+    # the scenario matrix, sharded against unsharded
+    dgp = dataclasses.replace(sc.STOCK_DGPS["calibration"], n=64, name="shardcal")
+    specs = [sc.MatrixSpec(dgps=(dgp,), estimators=("naive",), n_reps=8, batch_width=8,
+                           shard=shard, rows=True) for shard in (False, True)]
+    reps = [timed(f"matrix_{i}", lambda s=s: sc.run_matrix(s, scheduler="sequential",
+                                                          log=lambda m: None))
+            for i, s in enumerate(specs)]
+    out["matrix"] = sc.compare_cells(reps[0].cells, reps[1].cells)
+
+
+def _mg_notebook_rank() -> dict:
+    """(b) in each of the two ranks sharing the card: the legs, the counts
+    read; in rank 0 the kernels' inputs tapped and the tapped calls
+    checked (rank 1 runs the same program on its own keys)."""
+    out: dict = {}
+    walls: dict = {}
+    reset_counts()
+    taps = kernel_taps() if torch.distributed.get_rank() == 0 else contextlib.nullcontext({})
+    with taps as seen:
+        t0 = time.perf_counter()
+        _mg_notebook_legs(out, walls)
+        walls["legs"] = time.perf_counter() - t0
+        out["counts"] = read_counts()
+    t0 = time.perf_counter()
+    out["checks"] = check_taps(seen)
+    walls["checks"] = time.perf_counter() - t0
+    out["walls"] = walls
+    out["staged_bytes"] = obs.REGISTRY.peek("collective_host_staging_bytes_total") or {}
+    return out
+
+
+def _mg_references(ranks: list, fails: list) -> dict:
+    """The one-process counterparts, on this card, of (b)'s sharded legs,
+    and the gates that compare them. Returns the comparison record."""
+    from ate_replication_causalml_torch.models.plan import sharded_causal_plan
+    from ate_replication_causalml_torch.ops.bootstrap import aipw_bootstrap_taus_chunked
+    from ate_replication_causalml_torch.ops.glm import logistic_glm
+    from ate_replication_causalml_torch.ops.hist import resolve_hist_mode_packed
+    from ate_replication_causalml_torch.ops.linalg import add_intercept
+
+    a = MULTI_GPU_RANKS
+    r0 = ranks[0]
+    rec: dict = {}
+    _, frame_mod = notebook_frames("cuda")
+    x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
+    n, p = x.shape
+    mode = resolve_hist_mode_packed(None, N_BINS)
+    codes = fo.binarize(x, fo.quantile_bins(x, N_BINS))
+    for r in ranks[1:]:
+        for leg in ("dr_rf", "causal"):
+            if r[leg]["digest"] != r0[leg]["digest"]:
+                fails.append(f"{leg}: the ranks' forests differ")
+    # DR-RF: the one-process grow of the ranks' key slices.
+    chunk, cpd, n_disp = fo.sharded_fit_plan(n, DEPTH, -(-DR_TREES // a), p=p)
+    key = rnd.key(MG_DR_KEY, device="cuda")
+    parts = [fo._grow_from_keys(fo.sharded_tree_keys(key, n_disp, a, chunk * cpd, r), codes, w,
+                                depth=DEPTH, mtry=int(np.sqrt(p)), n_bins=N_BINS, hist_mode=mode,
+                                tree_chunk=fo.DEFAULT_TREE_CHUNK, pool="reference")
+             for r in range(a)]
+    ref = [interleave([q[j] for q in parts], n_disp, DR_TREES) for j in range(5)]
+    rec["dr_rf"] = {"plan": [chunk, cpd, n_disp], "equal": digest(ref) == r0["dr_rf"]["digest"]}
+    if not rec["dr_rf"]["equal"]:
+        fails.append("DR-RF: the two-rank forest is not the one-process grow of its keys")
+    del parts, ref
+    # The causal grow on the ranks' residuals, and its leaf index.
+    wt = w - torch.as_tensor(r0["causal"]["w_hat"], device="cuda")
+    yt = y - torch.as_tensor(r0["causal"]["y_hat"], device="cuda")
+    kc = rnd.split(rnd.key(MG_CF_KEY, device="cuda"), 3)[2]
+    groups = CF_TREES // 2
+    chunk, cpd, n_disp = sharded_causal_plan(n, CF_DEPTH, -(-groups // a), 2, p, N_BINS, mode)
+    parts = [cf._grow_from_group_keys(
+        fo.sharded_tree_keys(kc, n_disp, a, chunk * cpd, r), codes, wt, yt, mtry=None,
+        depth=CF_DEPTH, n_bins=N_BINS, min_node=5, sample_fraction=0.5, k=2, honesty=True,
+        group_chunk=cf.DEFAULT_GROUP_CHUNK, hist_mode=mode, pool="reference")
+        for r in range(a)]
+    ref = [interleave([q[j] for q in parts], n_disp, CF_TREES) for j in range(4)]
+    forest = cf.CausalForest(*ref, bin_edges=fo.quantile_bins(x, N_BINS), ci_group_size=2)
+    li = cf.compute_leaf_index(forest, x).cpu().numpy()
+    rec["causal"] = {"plan": [chunk, cpd, n_disp], "equal": digest(ref) == r0["causal"]["digest"],
+                     "leaf_index_equal": (hashlib.sha256(li.tobytes()).hexdigest()
+                                          == r0["causal"]["leaf_index"]
+                                          and str(li.dtype) == r0["causal"]["leaf_dtype"])}
+    if not (rec["causal"]["equal"] and rec["causal"]["leaf_index_equal"]):
+        fails.append(f"causal forest: not the one-process grow of its group keys ({rec['causal']})")
+    del parts, ref, forest
+    # fold: the unsharded CV, bit for bit.
+    foldid = lasso.default_foldid(rnd.key(MG_FOLD_KEY, device="cuda"), n)
+    cv = lasso.cv_glmnet(x, w, "binomial", foldid=foldid)
+    rec["cv"] = {"index_min": int(cv.index_min), "index_1se": int(cv.index_1se),
+                 "cvm_equal": all(np.array_equal(r["cv"]["cvm"], cv.cvm.cpu().numpy())
+                                  for r in ranks)}
+    if not (rec["cv"]["cvm_equal"] and all(
+            (r["cv"]["index_min"], r["cv"]["index_1se"]) == (rec["cv"]["index_min"],
+                                                             rec["cv"]["index_1se"])
+            for r in ranks)):
+        fails.append(f"fold-sharded CV is not the unsharded CV: {rec['cv']}")
+    # boot: the one-process draws from fold_in(key, r), concatenated.
+    t = lambda v: torch.as_tensor(v, device="cuda")
+    per = N_BOOT // a
+    bkey = rnd.key(MG_BOOT_KEY, device="cuda")
+    taus = torch.cat([aipw_bootstrap_taus_chunked(
+        w, y, t(r0["boot"]["p"]), t(r0["boot"]["mu0"]), t(r0["boot"]["mu1"]),
+        key=rnd.fold_in(bkey, r), n_boot=per, chunk=per) for r in range(a)]).cpu().numpy()
+    rec["boot"] = {"taus_equal": all(np.array_equal(r["boot"]["taus"], taus) for r in ranks),
+                   "se": r0["boot"]["se"]}
+    if not (rec["boot"]["taus_equal"] and math.isfinite(rec["boot"]["se"])
+            and rec["boot"]["se"] > 0):
+        fails.append(f"bootstrap: taus not the one-process draws from fold_in(key, r), or "
+                     f"SE {rec['boot']['se']}")
+    # data: each float64 IRLS fit against the one-process fit, within
+    # |Δβ| ≤ 2κγ_n|β| / (1 − κγ_n): the two fits' normal equations differ
+    # only in the order of their n-term sums, each off by at most γ_n =
+    # n·eps / (1 − n·eps) relative, and a relative perturbation δ of A
+    # and b moves the solve by at most 2κδ / (1 − κδ) (κ = cond₂(X'WX)).
+    x64, w64, y64 = (v.to(torch.float64) for v in (x, w, y))
+    base = add_intercept(x64)
+    eps = float(np.finfo(np.float64).eps)
+    gamma = n * eps / (1 - n * eps)
+    rec["glm"] = {}
+    for name, design, target in (("outcome", torch.cat([base, w64[:, None]], dim=1), y64),
+                                 ("propensity", base, w64)):
+        one = logistic_glm(design, target)
+        mu = one.fitted
+        xtwx = (design * (mu * (1 - mu)).clamp(min=1e-10)[:, None]).T @ design
+        kappa = float(torch.linalg.cond(xtwx))
+        coef = one.coef.cpu().numpy()
+        bound = 2 * kappa * gamma * float(np.linalg.norm(coef)) / (1 - kappa * gamma)
+        errs = [float(np.linalg.norm(r["glm"][name]["coef"] - coef)) for r in ranks]
+        iters = [r["glm"][name]["n_iter"] for r in ranks]
+        rec["glm"][name] = {"max_abs_err": max(errs), "bound": bound, "kappa": kappa,
+                            "n_iter": one.n_iter, "rank_iters": iters}
+        if not (max(errs) <= bound and all(i == one.n_iter for i in iters)):
+            fails.append(f"data-axis {name} fit: |Δβ| {max(errs)} > {bound}, or iterations "
+                         f"{iters} != {one.n_iter}")
+    return rec
+
+
+def phase_path_multi_gpu(smi: str) -> dict:
+    """The multi-GPU layer on this card (docstring, 11j). Returns the
+    kernel launches of the ranks' runs, summed."""
+    from ate_replication_causalml_torch.parallel.dryrun import dryrun_multigpu
+    from ate_replication_causalml_torch.parallel.spawn import run_ranks
+    from ate_replication_causalml_torch.pipeline import SWEEP_METHODS
+
+    shutil.rmtree(MULTI_GPU_OUT, ignore_errors=True)
+    os.makedirs(MULTI_GPU_OUT)
+    fails: list = []
+    t_phase = time.perf_counter()
+    build.build_all()   # the ranks only load the libraries built here
+    # (a) one rank, NCCL: every leg of the dry run at its own shapes but
+    # the MICRO sweep, which (b) runs three times over its mesh; (b) two
+    # ranks on the card under gloo, at the notebook's widths. The two
+    # worlds run at once: their ranks are launch-bound and leave the card
+    # mostly idle.
+    worlds: dict = {}
+
+    def world(name, fn):
+        t0 = time.perf_counter()
+        try:
+            worlds[name] = (fn(), time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — re-raised below, on this thread
+            worlds[name] = (e, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=world, args=("a", lambda: dryrun_multigpu(
+                   1, "nccl", "cuda", timeout=300, around=_mg_tapped,
+                   scratch=MULTI_GPU_OUT, sweep=False)[0])),
+               threading.Thread(target=world, args=("b", lambda: run_ranks(
+                   _mg_notebook_rank, MULTI_GPU_RANKS, backend="gloo", device="cuda",
+                   timeout=300, scratch=MULTI_GPU_OUT)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for value, _ in worlds.values():
+        if isinstance(value, BaseException):
+            raise value
+    (one, a_wall), (ranks, b_wall) = worlds["a"], worlds["b"]
+    t0 = time.perf_counter()
+    rec = _mg_references(ranks, fails)
+    ref_wall = time.perf_counter() - t0
+    for i, r in enumerate(ranks):
+        seq, conc, rerun = (r["sweep"][k] for k in ("seq", "conc", "rerun"))
+        if [row[0] for row in seq["rows"]] != list(SWEEP_METHODS) or not all(
+                math.isfinite(row[1]) for row in seq["rows"]):
+            fails.append(f"rank {i}: sweep rows {seq['rows']}")
+        if repr(conc["rows"]) != repr(seq["rows"]) or repr(r["sweep"]) != repr(ranks[0]["sweep"]):
+            fails.append(f"rank {i}: concurrent rows differ from sequential, or from rank 0's")
+        if rerun["computed"] != 0 or seq["mesh"] != [
+                f"mesh: {MULTI_GPU_RANKS} devices — tree + fold axes active"]:
+            fails.append(f"rank {i}: rerun computed {rerun['computed']}, mesh {seq['mesh']}")
+        if r["matrix"]["missing"] or r["matrix"]["max_ulp"] != 0.0:
+            fails.append(f"rank {i}: sharded matrix {r['matrix']}")
+    for sub in ("sweep_seq", "sweep_conc"):
+        with open(os.path.join(MULTI_GPU_OUT, sub, "results.jsonl")) as f:
+            methods = [json.loads(line)["method"] for line in f if line.strip()]
+        if methods.count("__config__") != 1 or len(methods) != len(SWEEP_METHODS) + 2:
+            fails.append(f"{sub}: journal lines {methods}: not rank 0's alone")
+    counts = {k: one["counts"][k] + sum(r["counts"][k] for r in ranks) for k in COUNTERS}
+    try:
+        require_launched(counts, MULTI_GPU_KERNELS, "multi_gpu")
+    except AssertionError as e:
+        fails.append(str(e))
+    checks = [one["checks"]] + [r["checks"] for r in ranks]
+    unchecked = [k for k in MULTI_GPU_KERNELS if not any(k in c for c in checks)]
+    if unchecked:
+        fails.append(f"kernels never held to their plain version at this path's inputs: "
+                     f"{unchecked}")
+    wall = time.perf_counter() - t_phase
+    if wall > MULTI_GPU_BUDGET_S:
+        fails.append(f"the phase took {wall:.1f} s, over its {MULTI_GPU_BUDGET_S} s budget")
+    emit({"phase": "path_multi_gpu", "nvidia_smi": smi, "wall_s": wall,
+          "one_rank_nccl": {"wall_s": a_wall, "legs_s": one["legs_s"],
+                            "checks_s": one["checks_s"], "summary": {
+                                k: v for k, v in one["summary"].items() if k != "sweep"},
+                            "checks": one["checks"], "launches": one["counts"]},
+          "two_ranks_gloo": {"wall_s": b_wall, "walls": [r["walls"] for r in ranks],
+                             "checks": [r["checks"] for r in ranks],
+                             "launches": [r["counts"] for r in ranks],
+                             "staged_bytes": [r["staged_bytes"] for r in ranks],
+                             "lasso_ps": ranks[0]["cv"]["index_min"],
+                             "boot_se": ranks[0]["boot"]["se"],
+                             "sweep_rows": ranks[0]["sweep"]["seq"]["rows"]},
+          "references": rec, "references_s": ref_wall, "launches": counts})
+    if fails:
+        raise AssertionError("path_multi_gpu: " + "; ".join(fails))
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -4169,6 +4557,7 @@ def main() -> int:
     by_path["scenario_matrix"] = phase_path_scenario_matrix(smi)
     by_path["frontier"] = phase_path_frontier(smi)
     by_path["chaos_campaign"] = phase_path_chaos_campaign(smi)
+    by_path["multi_gpu"] = phase_path_multi_gpu(smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

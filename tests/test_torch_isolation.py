@@ -42,7 +42,9 @@ def test_port_lists_its_modules():
               "serving.loadgen", "serving.router", "observability.fleet_report",
               "scenarios", "scenarios.dgp", "scenarios.batched", "scenarios.aggregate",
               "scenarios.matrix", "scenarios.frontier", "scenarios.__main__",
-              "resilience.campaign", "resilience.invariants"):
+              "resilience.campaign", "resilience.invariants", "parallel.mesh",
+              "parallel.multihost", "parallel.shardio", "parallel.spawn", "parallel.dryrun",
+              "models.plan"):
         assert f"{_PKG}.{m}" in mods
 
 

@@ -319,11 +319,16 @@ def test_degrade_and_raise(sweeps, tmp_path, monkeypatch):
 
 
 def test_unsupported_arguments_raise_before_any_work(tmp_path, monkeypatch):
-    """An unknown scheduler, a malformed ``ATE_TPU_CHAOS`` spec, a sharded
-    artifact or stage layout (multi-GPU is not ported), the card without
-    one, and figures without matplotlib all raise before any frame is
-    built."""
-    from ate_replication_causalml_torch.scheduler import ArtifactSpec, DagError, StageSpec
+    """An unknown scheduler, a malformed ``ATE_TPU_CHAOS`` spec, a consume
+    layout that binds to nothing (the JAX package's two layout refusals),
+    the card without one, and figures without matplotlib all raise before
+    any frame is built."""
+    from ate_replication_causalml_torch.scheduler import (
+        ArtifactSpec,
+        DagError,
+        StageSpec,
+        validate,
+    )
 
     def no_frames(*a, **k):
         raise AssertionError("the sweep started")
@@ -338,11 +343,14 @@ def test_unsupported_arguments_raise_before_any_work(tmp_path, monkeypatch):
     with pytest.raises(ChaosSpecError, match="unknown key 'p' for chaos scope 'stage'"):
         tp.run_sweep(MICRO, plots=False, device="cpu", scheduler="sequential")
     monkeypatch.delenv("ATE_TPU_CHAOS")
-    with pytest.raises(DagError, match="multi-GPU"):
-        ArtifactSpec("p_logistic", fit=lambda c: None, sharding=object())
-    with pytest.raises(DagError, match="multi-GPU"):
-        StageSpec("naive", run=lambda c: None, needs=("p_logistic",),
-                  consumes_sharding={"p_logistic": "device"})
+    with pytest.raises(DagError, match="unsharded"):
+        validate([ArtifactSpec("p_logistic", fit=lambda c: None)],
+                 [StageSpec("naive", run=lambda c: None, needs=("p_logistic",),
+                            consumes_sharding={"p_logistic": "device"})])
+    with pytest.raises(DagError, match="it does not consume"):
+        validate([ArtifactSpec("p_logistic", fit=lambda c: None, sharding=object())],
+                 [StageSpec("naive", run=lambda c: None,
+                            consumes_sharding={"p_logistic": "device"})])
     if not torch.cuda.is_available():       # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.run_sweep(MICRO, plots=False)

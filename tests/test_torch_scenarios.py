@@ -319,13 +319,15 @@ def test_matrix_spec_validation_and_env_knobs(monkeypatch):
     assert (sc.micro_matrix_spec().batch_width, sc.micro_matrix_spec().n_reps) == (16, 24)
     monkeypatch.setenv("ATE_TPU_SCENARIO_ROWS", "1")
     assert sc.micro_matrix_spec().resolved_rows()
-    # one device: the shard knob changes nothing; several CUDA devices raise
+    # A world of one rank: the shard knob changes nothing; over several
+    # ranks it shards (tests/test_torch_multigpu_estimators.py runs it).
+    from ate_replication_causalml_torch.parallel import mesh as pm
+
     monkeypatch.setenv("ATE_TPU_SCENARIO_SHARD", "1")
-    mx._resolve_shard(sc.micro_matrix_spec(), torch.device(CPU))
-    monkeypatch.setattr(mx, "_device_count", lambda: 2)
-    mx._resolve_shard(sc.micro_matrix_spec(), torch.device(CPU))
-    with pytest.raises(ValueError, match="item 6"):
-        mx._resolve_shard(sc.micro_matrix_spec(), torch.device("cuda"))
+    assert mx._resolve_shard(sc.micro_matrix_spec()) == 1
+    monkeypatch.setattr(pm, "world_size", lambda: 2)
+    assert mx._resolve_shard(sc.micro_matrix_spec()) == 2
+    assert mx._resolve_shard(dataclasses.replace(sc.micro_matrix_spec(), shard=False)) == 1
 
 
 def test_column_aggregates_and_compare_cells_equal_jax():

@@ -69,24 +69,29 @@ def test_validate_metadata(pkg):
 
 
 def test_port_refuses_sharded_layouts():
-    """Sharded layouts belong to the multi-GPU port: any value but None
-    or "host" raises when the spec is made; "host" still has to bind to
-    a consumed artifact that declares a layout."""
+    """The port's DAG holds layouts to the JAX package's two refusals: a
+    spec takes any layout object when it is made, and validation refuses
+    a consume layout for an artifact the node does not need, or for an
+    artifact that declares no layout (the JAX ``dag.py`` messages)."""
     from ate_replication_causalml_torch import scheduler as s
+    from ate_replication_causalml_tpu import scheduler as js
 
-    for kw in (dict(sharding=object()), dict(sharding="device"),
-               dict(needs=("b",), consumes_sharding={"b": "device"})):
-        with pytest.raises(s.DagError, match="Queue A item 6"):
-            s.ArtifactSpec("a", fit=lambda c: 1, **kw)
-    with pytest.raises(s.DagError, match="Queue A item 6"):
-        s.StageSpec("s", run=lambda c: 1, needs=("b",), consumes_sharding={"b": object()})
-    host = s.ArtifactSpec("b", fit=lambda c: 1, sharding="host")
-    s.validate([host], [s.StageSpec("s", run=lambda c: 1, needs=("b",),
-                                    consumes_sharding={"b": "host"})])
-    with pytest.raises(s.DagError, match="unsharded"):
-        s.validate([s.ArtifactSpec("b", fit=lambda c: 1)],
-                   [s.StageSpec("s", run=lambda c: 1, needs=("b",),
-                                consumes_sharding={"b": "host"})])
+    for pkg in (s, js):
+        tag = object()
+        sharded = pkg.ArtifactSpec("b", fit=lambda c: 1, sharding=tag)
+        for consumes in ({"b": "device"}, {"b": "host"}, {"b": object()}):
+            pkg.validate([sharded], [pkg.StageSpec("s", run=lambda c: 1, needs=("b",),
+                                                   consumes_sharding=consumes)])
+        with pytest.raises(pkg.DagError, match="it does not consume"):
+            pkg.validate([sharded], [pkg.StageSpec("s", run=lambda c: 1,
+                                                   consumes_sharding={"b": "device"})])
+        with pytest.raises(pkg.DagError, match="it does not consume"):
+            pkg.validate([sharded, pkg.ArtifactSpec("a", fit=lambda c: 1,
+                                                    consumes_sharding={"b": "host"})], [])
+        with pytest.raises(pkg.DagError, match="unsharded"):
+            pkg.validate([pkg.ArtifactSpec("b", fit=lambda c: 1)],
+                         [pkg.StageSpec("s", run=lambda c: 1, needs=("b",),
+                                        consumes_sharding={"b": "host"})])
 
 
 # ── nuisance cache ────────────────────────────────────────────────────

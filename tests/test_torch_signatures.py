@@ -233,14 +233,22 @@ def test_unported_hist_backend_raises(backend):
 
 
 def test_a_mesh_raises():
+    """``mesh`` binds in the JAX package's position: a value that is not
+    the port's ``Mesh``, or a mesh without the tree axis, raises; a
+    one-rank tree mesh fits (the multi-rank fits:
+    ``tests/test_torch_multigpu_*.py``)."""
+    from ate_replication_causalml_torch.parallel.mesh import make_mesh
+
     x, w, y = _frames(1, 60, 3)
     frame = TFrame(*(torch.as_tensor(a) for a in (x, w, y)))
     _, tk = _jax_key_pair(1)
-    mesh = object()
-    with pytest.raises(ValueError, match="mesh"):
-        tcf.fit_causal_forest(frame, tk, 2, 2, 2, 2, "auto", None, mesh)
-    with pytest.raises(ValueError, match="mesh"):
-        td.double_ml(frame, 2, 2, tk, "r", "r", mesh, device="cpu")
+    for mesh in (object(), make_mesh(("fold",))):
+        with pytest.raises(ValueError, match="mesh"):
+            tcf.fit_causal_forest(frame, tk, 2, 2, 2, 2, "auto", None, mesh)
+        with pytest.raises(ValueError, match="mesh"):
+            td.double_ml(frame, 2, 2, tk, "r", "r", mesh, device="cpu")
+    fit = tcf.fit_causal_forest(frame, tk, 2, 2, 2, 2, "auto", None, make_mesh(("tree",)))
+    assert fit.forest.n_trees == 2
 
 
 @pytest.mark.parametrize("row_backend", ["matmul", "pallas_interpret", "gather"])
