@@ -44,20 +44,33 @@ def load_raw_csv(path: str, schema: DatasetSchema = GGL_SCHEMA) -> dict[str, np.
     """Load the reference's CSV (``read.csv``, ``ate_replication.Rmd:33``)
     into raw columns keyed by the schema's names. Non-numeric entries
     (R's ``NA`` strings, blanks) become NaN and are dropped later by
-    ``prepare_dataset``'s na.omit stage."""
-    with open(path, "r") as f:
-        header = [h.strip().strip('"') for h in f.readline().rstrip("\n").split(",")]
+    ``prepare_dataset``'s na.omit stage. Parsing uses the native C++
+    reader when it builds (``native/``), with ``np.genfromtxt`` as the
+    fallback, as in the JAX package: the C++ reader drops every quote of
+    the header and the names are stripped of spaces here; the NumPy path
+    strips both from each name's ends."""
+    from ate_replication_causalml_torch.native import native_available, read_csv_native
+
+    if native_available():
+        header, data = read_csv_native(path)
+        header = [h.strip() for h in header]
+    else:
+        with open(path, "r") as f:
+            header = [h.strip().strip('"') for h in f.readline().rstrip("\n").split(",")]
+        data = None
     wanted = set(schema.all_columns)
     missing = wanted - set(header)
     if missing:
         raise ValueError(f"CSV {path} is missing columns: {sorted(missing)}")
     usecols = [i for i, h in enumerate(header) if h in wanted]
-    data = np.genfromtxt(
-        path, delimiter=",", skip_header=1, usecols=usecols,
-        dtype=np.float64, missing_values=("NA", "", "NaN"), filling_values=np.nan,
-    )
-    data = np.atleast_2d(data)
-    return {header[c]: data[:, j] for j, c in enumerate(usecols)}
+    if data is None:
+        data = np.genfromtxt(
+            path, delimiter=",", skip_header=1, usecols=usecols,
+            dtype=np.float64, missing_values=("NA", "", "NaN"), filling_values=np.nan,
+        )
+        data = np.atleast_2d(data)
+        return {header[c]: data[:, j] for j, c in enumerate(usecols)}
+    return {header[c]: np.ascontiguousarray(data[:, c]) for c in usecols}
 
 
 def _zscore(col: np.ndarray) -> np.ndarray:
@@ -78,11 +91,15 @@ def prepare_dataset(
     """Raw columns -> scaled, renamed, NA-free ``CausalFrame`` (the notebook's ``df``).
 
     ``rng`` defaults to a fresh R-compatible stream seeded with
-    ``config.seed`` — ``set.seed(1991)`` followed by ``sample_n``.
+    ``config.seed`` — ``set.seed(1991)`` followed by ``sample_n`` — from
+    the native library when it builds, else its NumPy counterpart (the
+    same draws, ``native/``).
     """
     n_raw = len(raw[schema.treatment])
     if rng is None:
-        rng = RCompatRNG(config.seed, sample_kind=config.sample_kind)
+        from ate_replication_causalml_torch.native import make_rcompat_rng
+
+        rng = make_rcompat_rng(config.seed, sample_kind=config.sample_kind)
     idx = rng.sample_n_rows(n_raw, min(config.n_obs, n_raw))
 
     cols: dict[str, np.ndarray] = {}

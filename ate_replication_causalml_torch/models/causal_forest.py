@@ -48,8 +48,15 @@ of ``predict_cate`` captured around static input and forest buffers.
 With a mesh, :func:`grow_causal_forest_sharded` and
 :func:`compute_leaf_index_sharded` are the JAX package's tree- and
 row-sharded programs, one rank per card (``parallel/``).
-Not ported: the non-streaming ``xla``/``onehot`` formulations and the
-matmul row backends.
+
+The JAX package's non-streaming growers (``hist_backend="onehot"`` /
+``"xla"``) score the direct per-level ρ channel over every live node, a
+different algorithm from the streaming grower's five channels; here
+that is :func:`_grow_groups_direct`, on the same kernels. Its matmul
+predict route (``row_backend="matmul"``) selects the same leaves and
+payloads, so the port takes it as a name of its kernels' route. "auto"
+stays the streaming grower: the JAX package's CPU default ("onehot")
+would move every CPU result of the port.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.models.forest import (
     HIST_BACKEND,
+    NON_STREAMING_BACKENDS,
     binarize,
     check_hist_backend,
     dispatch_major_gather,
@@ -84,6 +92,7 @@ from ate_replication_causalml_torch.models.forest import (
 from ate_replication_causalml_torch.models.plan import sharded_causal_plan
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.hist import (
+    bin_histogram_batched,
     bin_histogram_shared,
     mode_for_width,
     node_sums_shared,
@@ -257,6 +266,55 @@ def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_n
     return feats, bins, leaf_stats, base
 
 
+def _grow_groups_direct(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_node,
+                        honesty, hist_mode, words=None):
+    """Grow G little-bag groups of k trees with the JAX package's direct-ρ
+    grower (``grow_one``'s ``level_step`` and its honest leaf payload, its
+    "onehot" and "xla" backends) on the kernels, the groups' trees on one
+    tree axis.
+
+    Each level takes the grow half's per-node moments (``node_sums_shared``),
+    forms the pseudo-outcome ρ = w̃c·(ỹc − w̃c·τ) row by row from its
+    node's (w̄, ȳ, τ) and histograms the two channels [1, ρ] of the grow
+    rows over every live node (``bin_histogram_batched``; ρ changes each
+    level, so there is no sibling subtraction). The leaves are the
+    streaming grower's honest estimate-half sums. The JAX package's two
+    modes (full-n rows with the subsample as weights, or each group's
+    gathered subsample) differ only in which zero-weight rows they carry:
+    here those rows are −1 in the ids."""
+    p = codes.shape[1]
+    tree_keys, base, grow_mask, est_mask = little_bag_masks(group_keys, n, s, k, honesty)
+    level_keys = rnd.split(tree_keys, depth + 1)[:, 1:]     # (T, depth, 2)
+    n_trees = tree_keys.shape[0]
+    wt, yt = mom5[1], mom5[2]
+
+    def hist_fn(ids, m):
+        wbar, ybar, tau = _node_tau(node_sums_shared(ids, mom5, m))       # (T, m) each
+        at = torch.clamp(ids, min=0).long()
+        wc = wt - torch.gather(wbar, 1, at)
+        yc = yt - torch.gather(ybar, 1, at)
+        rho = wc * (yc - wc * torch.gather(tau, 1, at))
+        weights = torch.stack([torch.ones_like(rho), rho], dim=1)         # (T, 2, n)
+        return bin_histogram_batched(codes, ids, weights, max_nodes=m, n_bins=n_bins,
+                                     mode=mode_for_width(hist_mode, m, 2, p, n_bins),
+                                     packed=words)
+
+    def tables_fn(hist, level, perm):
+        cl = torch.cumsum(hist[:, 0], dim=3)
+        rl = torch.cumsum(hist[:, 1], dim=3)
+        ct, rt = cl[..., -1:], rl[..., -1:]
+        cr, rr = ct - cl, rt - rl
+        score = -(rl * rl / torch.clamp(cl, min=_EPS) + rr * rr / torch.clamp(cr, min=_EPS))
+        score = torch.where((cl >= min_node) & (cr >= min_node), score, torch.inf)
+        return select_split(score, level_keys[:, level], 1 << level, p, n_bins, mtry, perm=perm)
+
+    feats, bins, leaf_ids = streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn,
+                                                 tables_fn, grow_mask=grow_mask,
+                                                 est_mask=est_mask, sibling=False)
+    leaf_stats = node_sums_shared(leaf_ids, mom5, 1 << depth)       # (T, L, 5)
+    return feats, bins, leaf_stats, base
+
+
 def grow_causal_forest(
     x: torch.Tensor,
     wt: torch.Tensor,
@@ -271,6 +329,7 @@ def grow_causal_forest(
     ci_group_size: int = 2,
     honesty: bool = True,
     group_chunk: int = DEFAULT_GROUP_CHUNK,
+    hist_backend: str = HIST_BACKEND,
     hist_mode: str | None = None,
 ) -> CausalForest:
     """Grow the causal forest on centered treatment/outcome residuals.
@@ -281,9 +340,16 @@ def grow_causal_forest(
     into honest I (grow) / J (estimate) halves. Group ``i`` grows from
     ``split(key, n_groups)[i]``: the i-th key does not depend on the
     count, so the forest equals the JAX package's padded dispatch plan's
-    and ``group_chunk`` changes no number. ``hist_mode`` as in
+    and ``group_chunk`` changes no number. ``hist_backend``: "auto" (the
+    default) is the streaming grower on the port's kernels (their plain
+    versions on the CPU), not the JAX package's CPU "auto", which
+    resolves to "onehot"; "onehot" and "xla" are the JAX package's
+    direct-ρ grower (:func:`_grow_groups_direct`, on the same kernels),
+    another algorithm whose splits agree with the streaming grower's
+    except where float32 rounding decides a near-tie. ``hist_mode`` as in
     :func:`~.forest.fit_forest_classifier` (K = 5 channels: partition
     from width 16 under "auto"; packed there under the packed policy)."""
+    check_hist_backend(hist_backend)
     n, p = x.shape
     k = ci_group_size
     n_groups = -(-n_trees // k)
@@ -294,16 +360,17 @@ def grow_causal_forest(
                                    mtry=mtry, depth=depth, n_bins=n_bins, min_node=min_node,
                                    sample_fraction=sample_fraction, k=k, honesty=honesty,
                                    group_chunk=group_chunk, hist_mode=hist_mode,
-                                   pool="causal_forest")
+                                   pool="causal_forest", hist_backend=hist_backend)
     return CausalForest(*fields, bin_edges=edges, ci_group_size=k)
 
 
 def _grow_from_group_keys(group_keys, codes, wt, yt, *, mtry, depth, n_bins, min_node,
-                          sample_fraction, k, honesty, group_chunk, hist_mode, pool):
+                          sample_fraction, k, honesty, group_chunk, hist_mode, pool,
+                          hist_backend=HIST_BACKEND):
     """Grow one little-bag group of ``k`` trees a key (``group_keys``
-    (G, 2)) in chunks of ``group_chunk`` groups; returns the four
-    per-tree fields (split features, split bins, leaf statistics,
-    in-sample masks), T = G·k."""
+    (G, 2)) in chunks of ``group_chunk`` groups with ``hist_backend``'s
+    grower; returns the four per-tree fields (split features, split
+    bins, leaf statistics, in-sample masks), T = G·k."""
     n, p = codes.shape
     if mtry is None:
         mtry = int(np.ceil(np.sqrt(p))) + 20  # grf's default, capped at p below
@@ -312,12 +379,13 @@ def _grow_from_group_keys(group_keys, codes, wt, yt, *, mtry, depth, n_bins, min
     words = packed_codes_for(codes, hist_mode)
     mom5 = _moments_stack(wt, yt).T.contiguous()            # (5, n), shared by every tree
     s = max(2, int(n * sample_fraction))
+    grow = _grow_groups_direct if hist_backend in NON_STREAMING_BACKENDS else _grow_groups
 
     def chunk_shard(i: int):
         g = i * group_chunk
-        return _grow_groups(group_keys[g : g + group_chunk], codes, mom5, n=n, s=s, k=k,
-                            depth=depth, mtry=mtry, n_bins=n_bins, min_node=min_node,
-                            honesty=honesty, hist_mode=hist_mode, words=words)
+        return grow(group_keys[g : g + group_chunk], codes, mom5, n=n, s=s, k=k, depth=depth,
+                    mtry=mtry, n_bins=n_bins, min_node=min_node, honesty=honesty,
+                    hist_mode=hist_mode, words=words)
 
     # Classified retry, as the classifier's chunks (parallel/retry.py).
     chunks = require_all(run_shards(obs.instrument_dispatch(pool, chunk_shard),
@@ -354,8 +422,10 @@ def grow_causal_forest_sharded(
     group keys are ``split(key, n_disp · A · per_disp_dev)``, rank r
     grows slice ``[i, r·per : (r+1)·per]`` of dispatch i, and the
     gathered trees, dispatch-major, are cut to ``n_groups · k``. Each
-    rank grows its groups in chunks of :data:`DEFAULT_GROUP_CHUNK`."""
-    check_hist_backend(hist_backend)
+    rank grows its groups in chunks of :data:`DEFAULT_GROUP_CHUNK`, with
+    the streaming grower ("auto") or the direct-ρ one ("xla"); "onehot"
+    is refused, as in the JAX package."""
+    check_hist_backend(hist_backend, sharded=True)
     check_mesh(mesh, axis_name)
     n, p = x.shape
     k = ci_group_size
@@ -371,7 +441,8 @@ def grow_causal_forest_sharded(
     fields = _grow_from_group_keys(mine, codes, wt, yt, mtry=mtry, depth=depth, n_bins=n_bins,
                                    min_node=min_node, sample_fraction=sample_fraction, k=k,
                                    honesty=honesty, group_chunk=DEFAULT_GROUP_CHUNK,
-                                   hist_mode=hist_mode, pool="causal_forest_sharded")
+                                   hist_mode=hist_mode, pool="causal_forest_sharded",
+                                   hist_backend=hist_backend)
     fields = [dispatch_major_gather(f, mesh, axis_name, n_disp)[: n_groups * k] for f in fields]
     return CausalForest(*fields, bin_edges=edges, ci_group_size=k)
 
@@ -412,8 +483,10 @@ def fit_causal_forest(
 ) -> FittedCausalForest:
     """grf-equivalent fit: OOB regression forests for Ŷ and Ŵ, then the
     honest causal forest on the residuals (``ate_replication.Rmd:250-255``).
-    The JAX package's parameters in its order: ``hist_backend`` takes
-    only "auto". With ``mesh`` given, both nuisance fits and the causal
+    The JAX package's parameters in its order: ``hist_backend`` as in
+    :func:`grow_causal_forest`, into both nuisance regressors and the
+    grow ("onehot" refused with a mesh). With ``mesh`` given, both
+    nuisance fits and the causal
     grow shard trees / little-bag groups over the mesh's ``axis_name``
     axis (:func:`~.forest.fit_forest_regressor_sharded`,
     :func:`grow_causal_forest_sharded`); every rank returns the whole fit.
@@ -422,6 +495,12 @@ def fit_causal_forest(
     check_hist_backend(hist_backend)
     if mesh is not None:
         check_mesh(mesh, axis_name)
+        if hist_backend == "onehot":
+            raise ValueError(
+                "hist_backend='onehot' is single-device only (the shared "
+                "bin one-hot is not built on the sharded path); use "
+                "'auto', 'xla' or 'pallas' with a mesh"
+            )
     if key is None:
         key = rnd.key(12345, device=frame.device)  # the seed grf is given (Rmd:255)
     ky, kw, kc = rnd.split(key.to(frame.device), 3).unbind(dim=0)
@@ -430,21 +509,25 @@ def fit_causal_forest(
         fit_reg = functools.partial(fit_forest_regressor_sharded, mesh=mesh, axis_name=axis_name)
     else:
         fit_reg = fit_forest_regressor
+    fit_reg = functools.partial(fit_reg, n_trees=nuisance_trees, depth=nuisance_depth,
+                                hist_backend=hist_backend, hist_mode=hist_mode)
     with stage(stage_times, "nuisance", frame.device):
-        fy = fit_reg(x, y, ky, n_trees=nuisance_trees, depth=nuisance_depth, hist_mode=hist_mode)
+        fy = fit_reg(x, y, ky)
         y_hat = forest_oob_mean(fy, x)
         del fy
-        fw = fit_reg(x, w, kw, n_trees=nuisance_trees, depth=nuisance_depth, hist_mode=hist_mode)
+        fw = fit_reg(x, w, kw)
         w_hat = forest_oob_mean(fw, x)
         del fw
     with stage(stage_times, "causal_grow", frame.device):
         if mesh is not None:
             forest = grow_causal_forest_sharded(x, w - w_hat, y - y_hat, kc, mesh,
                                                 n_trees=n_trees, depth=depth, axis_name=axis_name,
-                                                hist_mode=hist_mode, **grow_kwargs)
+                                                hist_backend=hist_backend, hist_mode=hist_mode,
+                                                **grow_kwargs)
         else:
             forest = grow_causal_forest(x, w - w_hat, y - y_hat, kc, n_trees=n_trees,
-                                        depth=depth, hist_mode=hist_mode, **grow_kwargs)
+                                        depth=depth, hist_backend=hist_backend,
+                                        hist_mode=hist_mode, **grow_kwargs)
     return FittedCausalForest(forest=forest, y_hat=y_hat, w_hat=w_hat, x=x, y=y, w=w)
 
 
@@ -641,8 +724,12 @@ def predict_cate(
     the port's kernels have none. ``leaf_index``:
     the (T, n) leaf ids of this ``x`` from :func:`compute_leaf_index`;
     routing is skipped and the payload read through them, the same bits.
-    ``row_backend``: None or "pallas", the port's kernels (the JAX
-    package's matmul formulations are not ported). ``variance_compat``:
+    ``row_backend``: None, "pallas" or "matmul", each the port's kernels
+    (on the CPU their plain versions). The JAX package's "matmul" one-hot
+    route and payload contraction select one leaf and its stored payload
+    a row, exactly what the kernels read, so it is taken as a name of
+    this route (the JAX package's None means "matmul" on a CPU).
+    ``variance_compat``:
     "unbiased" (gn − 1 between-group df) or "grf" (grf's num_groups).
     ``pack`` as in :func:`compute_leaf_index`."""
     grf_df = _grf_df_flag(variance_compat)
@@ -690,10 +777,15 @@ def predict_cate(
     return CatePredictions(cate=tau, variance=variance)
 
 
+#: The ``row_backend`` names taken, each the port's kernels ("matmul":
+#: the JAX package's one-hot route, which selects the same payloads).
+ROW_BACKENDS = (None, "pallas", "matmul")
+
+
 def _check_row_backend(row_backend) -> None:
-    if row_backend not in (None, "pallas"):
-        raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None or "
-                         "'pallas' (its CUDA kernels)")
+    if row_backend not in ROW_BACKENDS:
+        raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None, "
+                         "'pallas' or 'matmul' (each its CUDA kernels)")
 
 
 #: The forest's tensor fields, the buffers a warmed predict reads.

@@ -24,6 +24,12 @@ fit) each rank of the mesh's tree axis grows its share of the trees and
 the trees are all-gathered in the JAX sharded plan's order, so the
 sharded forest equals the JAX package's sharded forest.
 
+The JAX package's non-streaming backends (``hist_backend="xla"`` and
+``"onehot"``, its CPU default) are taken and grow with the kernels too:
+they share the streaming grower's random streams and split scores, so
+integer weights give the same forest bit for bit, and float weights
+differ only where float32 rounding decides a tie.
+
 Per-tree layout, as in the JAX package: ``split_feat``/``split_bin``
 index internal nodes per level as [0, 2^level) offsets (children of
 node k are 2k/2k+1); a row goes RIGHT when ``code > split_bin``; a
@@ -60,9 +66,15 @@ from ate_replication_causalml_torch.parallel.retry import require_all, run_shard
 
 # Trees grown together: one kernel launch per level covers the chunk.
 DEFAULT_TREE_CHUNK = 16
-# The only histogram backend of the port: its kernels (the JAX package's
-# "auto" picks Pallas on a TPU and its own formulations elsewhere).
+# The port's default histogram backend: its kernels on the card, their
+# plain versions on the CPU. (The JAX package's "auto" picks Pallas on a
+# TPU and "onehot" elsewhere; the port keeps "auto" for its kernels so
+# that no CPU result of the port moves.)
 HIST_BACKEND = "auto"
+# The JAX package's non-streaming backends: the same forests from the
+# kernels (the causal grower keeps their direct per-level ρ channel).
+NON_STREAMING_BACKENDS = ("xla", "onehot")
+HIST_BACKENDS = (HIST_BACKEND,) + NON_STREAMING_BACKENDS
 # Rows per step of the compare-count binarization (bounds its (rows, p,
 # n_bins) boolean temporary).
 _BINARIZE_ROWS = 65_536
@@ -236,7 +248,7 @@ def bitrev_perm(level: int) -> tuple[int, ...]:
 
 
 def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, grow_mask=None,
-                         est_mask=None):
+                         est_mask=None, sibling=True):
     """The bit-reversed level loop of the streaming grower, over a
     leading tree axis.
 
@@ -257,6 +269,9 @@ def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, grow
         histogram's ids (every row is routed).
       est_mask: optional (T, n) bool; rows outside it are −1 in the leaf
         ids returned.
+      sibling: False histograms every node of each level (``hist_fn``
+        gets the grow rows' rev ids and m) instead of the left children,
+        for channels that change from level to level.
 
     Returns (feats (T, depth, 2^(depth−1)), bins (same), leaf ids (T, n)).
     """
@@ -271,7 +286,10 @@ def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, grow
     feats_l, bins_l = [], []
     for level in range(depth):
         m = 1 << level
-        if prev is None:
+        if not sibling:
+            hist = hist_fn(node_rev if grow_mask is None else torch.where(grow_mask, node_rev, -1),
+                           m)
+        elif prev is None:
             hist = hist_fn(ids, 1)
         else:
             # The ids are the left children's: their rev id == their parent's.
@@ -367,12 +385,20 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode,
     return feats, bins, leaf_value, torch.clamp(counts, max=255).to(torch.uint8), train_vals
 
 
-def check_hist_backend(hist_backend: str) -> None:
-    """The JAX package's ``hist_backend`` argument: only "auto" (the
-    port's kernels) is taken; its other backends are not ported."""
-    if hist_backend != HIST_BACKEND:
-        raise ValueError(f"hist_backend={hist_backend!r} is not ported: the port takes only "
-                         f"{HIST_BACKEND!r} (its CUDA kernels)")
+def check_hist_backend(hist_backend: str, sharded: bool = False) -> None:
+    """The JAX package's ``hist_backend`` argument: "auto" (the port's
+    kernels on the card, their plain versions on the CPU), "xla" and
+    "onehot" (:data:`NON_STREAMING_BACKENDS`, grown on the same kernels). The
+    Pallas backends have no counterpart beside "auto"; a sharded fit
+    refuses "onehot" as the JAX package does."""
+    if hist_backend not in HIST_BACKENDS:
+        raise ValueError(f"hist_backend={hist_backend!r} is not ported: the port takes "
+                         f"{HIST_BACKENDS} ({HIST_BACKEND!r}: its CUDA kernels)")
+    if sharded and hist_backend == "onehot":
+        raise ValueError(
+            "hist_backend='onehot' is not supported on the sharded path "
+            "(the shared bin one-hot is not built here); use 'auto'/'xla'/'pallas'"
+        )
 
 
 def _is_binary01(y: torch.Tensor) -> bool:
@@ -397,9 +423,15 @@ def fit_forest_classifier(
     mtry defaults to floor(sqrt(p)) (randomForest's classification
     default). Tree ``i`` grows from ``split(key, n_trees)[i]``, so the
     chunking does not change a single number (None: the default 16; the
-    JAX package sizes it to the TPU's memory). ``hist_backend`` takes
-    only "auto": the port's kernels. ``hist_mode`` is the
-    histogram policy, "dense" | "partition" | "auto" with an optional
+    JAX package sizes it to the TPU's memory). ``hist_backend``: "auto"
+    (the default) grows with the port's kernels on the card and their
+    plain versions on the CPU; it is not the JAX package's CPU "auto",
+    which resolves to "onehot". "xla" and "onehot", the JAX package's
+    non-streaming backends, grow on the same kernels: integer weights give
+    the JAX package's same forest under every backend, float weights
+    differ from its "xla"/"onehot" only where float32 rounding decides a
+    tie. ``hist_mode`` is
+    the histogram policy, "dense" | "partition" | "auto" with an optional
     "+pack", resolved as the JAX package does
     (:func:`~..ops.hist.resolve_hist_mode_packed`: ``ATE_TPU_HIST_MODE``
     when None, default "auto": dense below the crossover width,
@@ -491,9 +523,10 @@ def fit_forest_sharded(
     ``[i, r·per : (r+1)·per]`` of dispatch i, and the gathered trees,
     in dispatch-major, device, local order, are cut to ``n_trees``.
     Each rank grows its trees with the port's kernels in chunks of
-    ``tree_chunk`` (the chunking changes no number). Every rank returns
-    the whole forest. A mesh of one rank grows every key itself."""
-    check_hist_backend(hist_backend)
+    ``tree_chunk`` (the chunking changes no number); "xla" grows the
+    same way and "onehot" is refused, as in the JAX package. Every rank
+    returns the whole forest. A mesh of one rank grows every key itself."""
+    check_hist_backend(hist_backend, sharded=True)
     check_mesh(mesh, axis_name)
     n, p = x.shape
     if mtry is None:

@@ -43,8 +43,8 @@ def main(argv: list[str] | None = None) -> int:
                          "or 1,8,64,256)")
     ap.add_argument("--window-ms", type=float, default=None, help="coalescing deadline window")
     ap.add_argument("--depth", type=int, default=None, help="admission queue depth")
-    ap.add_argument("--row-backend", default=None, choices=("pallas",),
-                    help="predict row kernels (default and 'pallas': the CUDA kernels)")
+    ap.add_argument("--row-backend", default=None, choices=("pallas", "matmul"),
+                    help="predict rows (default, 'pallas' and 'matmul': the CUDA kernels)")
     ap.add_argument("--admin-port", type=int, default=None,
                     help="read-only admin HTTP port (/metrics /healthz /readyz /varz; "
                          "0 = ephemeral; default $ATE_TPU_SERVE_ADMIN_PORT or off)")

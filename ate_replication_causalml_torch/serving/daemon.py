@@ -218,7 +218,7 @@ class ServeConfig:
     window_s: float = DEFAULT_WINDOW_MS / 1e3
     max_depth: int = DEFAULT_DEPTH
     retry_after_s: float = DEFAULT_RETRY_AFTER_MS / 1e3
-    #: None or "pallas": the port's kernels (``predict_cate``'s).
+    #: None, "pallas" or "matmul": the port's kernels (``predict_cate``'s).
     row_backend: str | None = None
     variance_compat: str = "unbiased"
     tree_chunk: int = 32

@@ -257,29 +257,71 @@ imports nothing of JAX. Phases, each printing one JSON line:
    group runs the dry run's legs at its own shapes (data-sharded IRLS,
    the boot-sharded bootstrap, the tree-sharded forest and causal
    forest, the fold-sharded CV; its ``run_sweep(use_mesh=True)`` leg at
-   MICRO is (b)'s, which runs that sweep three times). (b) two ranks
+   MICRO is (b)'s, which runs that sweep and resumes it). (b) two ranks
    sharing the card under gloo, at the notebook's widths: DR-RF's 2,500
    trees of depth 9 tree-sharded; the causal forest (2,000 of depth 8,
    500 nuisance trees) and its row-sharded leaf index; the LASSO-PS
    ``cv_glmnet`` (10 folds, 100 λs) fold-sharded; the AIPW bootstrap
    boot-sharded; the two IRLS fits in float64 data-sharded;
-   ``run_sweep(use_mesh=True)`` at MICRO sequential, on the concurrent
-   engine and again; the scenario matrix with ``shard=True``
+   ``run_sweep(use_mesh=True)`` at MICRO on the concurrent engine, then
+   resumed on the sequential one; the scenario matrix with ``shard=True``
    (calibration at n = 64 × naive, 8 replicates). Gates: each forest
    (and the leaf index) equal by sha256 to the one-process grow, on the
    card, of the ranks' key slices; the CV's ``index_min``, ``index_1se``
    and ``cvm`` equal to the unsharded CV; the taus equal to the
    one-process draws from ``fold_in(key, r)``; each IRLS fit within the
    derived |Δβ| ≤ 2κγ_n|β|/(1 − κγ_n) of the one-process fit, in as many
-   iterations; the sweep's rows in order, finite, concurrent equal to
-   sequential on both ranks, rank 0's journal lines alone, the rerun 0
-   computed; the sharded matrix at max_ulp 0; ``hist``, ``hist_shared``,
+   iterations; the sweep's rows in order, finite, equal on both ranks,
+   rank 0's journal lines alone, the resumed run 0 computed with the same
+   rows; the sharded matrix at max_ulp 0; ``hist``, ``hist_shared``,
    ``route_advance``, ``leaf_record``, ``traverse`` and ``cd_path``
    launched in the ranks, and every call tapped in (a) and in (b)'s
    rank 0 (rank 1 runs the same program on its own keys) held to its plain
    version in its rank after the counts are read; the phase within
    ``MULTI_GPU_BUDGET_S``. The launches of (a) and both ranks of (b)
    are ``launches_by_path["multi_gpu"]``;
+11k. path_matmul_growers — the JAX package's matmul backends
+   (``hist_backend`` "xla" and "onehot", ``row_backend="matmul"``) at the
+   notebook's widths (11,016 × 21, 64 bins), ``MATMUL_TREES`` trees (cut
+   from 2,500 / 500 / 2,000) of depth 9, the causal forest of depth 8
+   through ``fit_causal_forest`` (64 nuisance trees of depth 9), each
+   beside the kernel grower ("auto") on the same key. The port grows and
+   predicts them on its kernels: the classifier and the regressor (on a
+   seeded continuous target, x0 plus a standard normal) are the
+   streaming grower's forests, every field ``torch.equal``; the causal
+   forest is the direct-ρ grower, equal under both names, its nuisances
+   equal to "auto"'s, its split agreement with the streaming grower's ≥
+   ``MATMUL_SPLIT_AGREEMENT`` (the whole table, the JAX package's
+   measure; live nodes printed) and its CATE gap (mean |Δ| / mean |·|)
+   below ``MATMUL_CATE_GAP``; ``predict_cate(row_backend="matmul")``
+   ``torch.equal`` to the default with ``oob`` True and False. Every
+   kernel of ``MATMUL_KERNELS`` launched in those fits and predicts, and
+   each tapped call held to its plain version after the counts are read.
+   Prints each wall beside the kernel grower's, and the split agreement
+   of the CPU port's first ``MATMUL_CPU_TREES`` trees with the card's
+   (same backend and key; classifier gated at 1.0);
+11l. path_rbridge — the port's reticulate bridge on the card: the
+   notebook's ``df_mod`` as a dict of Python float lists, every function
+   the R shim calls (doubly_robust at ``RBRIDGE_DR_TREES`` trees,
+   double_ml at ``RBRIDGE_DML_TREES``, causal_forest at
+   ``RBRIDGE_CF_TREES``), the counts read after the bridge's calls; then
+   each row (and propensity vector) equal bit for bit to the direct port
+   call with the same keys; the kernels the DR-RF and causal rows launch
+   tapped (``kernel_taps``) and held to their plain versions at those
+   inputs; ``run_notebook_sweep(quick=True)`` at ``RBRIDGE_SWEEP`` (the
+   MICRO sweep's overrides as R floats) under
+   ``ATE_TPU_SWEEP_SEQUENTIAL=1``: its configuration the MICRO sweep's
+   (``micro_sweep_config()``), its rows the oracle and one a method, in order,
+   each finite (path_sweep holds ``run_sweep``'s rows themselves);
+11m. path_native — the native host library (``native/``): its build's
+   seconds and ``native_status()``; a CSV of the synthetic 120,000-row
+   pool in the GGL schema's raw columns with ``NATIVE_PLANTED`` NA and
+   blank cells (``build/chip_smoke_native/``): ``load_raw_csv`` through
+   the C++ reader equal to the NumPy reader, NaN-aware and bit for bit,
+   each reader's wall; ``sample_n_rows(120,000, 50,000)`` from the C++
+   RNG equal to the Python one for both ``sample_kind``s;
+   ``prepare_dataset(load_raw_csv(csv))`` → ``inject_bias`` on the card
+   equal to the in-memory path on the same cells;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -303,9 +345,11 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3697,7 +3741,8 @@ def phase_path_frontier(smi: str) -> dict:
 # kernels' wrappers up by, where path_chaos_campaign's taps stand in.
 TAP_SITES = ((fo, ("bin_histogram_batched", "node_sums", "route_advance", "leaf_record",
                    "traverse")),
-             (cf, ("bin_histogram_shared", "node_sums_shared", "traverse")),
+             (cf, ("bin_histogram_batched", "bin_histogram_shared", "node_sums_shared",
+                   "traverse")),
              (lasso, ("cd_path",)))
 
 
@@ -4121,11 +4166,12 @@ def _mg_notebook_legs(out: dict, walls: dict) -> None:
         logistic_glm_sharded(base, wl, data_mesh)))
     out["glm"] = {name: {"coef": g.coef.cpu().numpy(), "n_iter": g.n_iter}
                   for name, g in zip(("outcome", "propensity"), glms)}
-    # run_sweep(use_mesh=True) at MICRO: sequential, concurrent, the rerun.
+    # run_sweep(use_mesh=True) at MICRO on the concurrent engine (the mesh
+    # lane's ordered collectives), then resumed on the sequential one. A
+    # sequential first run was cut for the script's time (PERF.md).
     cfg = micro_sweep_config()
     sweeps = {}
-    for name, sub, sched in (("seq", "sweep_seq", "sequential"), ("conc", "sweep_conc", None),
-                             ("rerun", "sweep_seq", "sequential")):
+    for name, sub, sched in (("conc", "sweep_conc", None), ("rerun", "sweep_conc", "sequential")):
         logs: list = []
         rep = timed(f"sweep_{name}", lambda: pipeline.run_sweep(
             cfg, outdir=os.path.join(MULTI_GPU_OUT, sub), plots=False, log=logs.append,
@@ -4285,7 +4331,7 @@ def phase_path_multi_gpu(smi: str) -> dict:
     t_phase = time.perf_counter()
     build.build_all()   # the ranks only load the libraries built here
     # (a) one rank, NCCL: every leg of the dry run at its own shapes but
-    # the MICRO sweep, which (b) runs three times over its mesh; (b) two
+    # the MICRO sweep, which (b) runs over its mesh; (b) two
     # ranks on the card under gloo, at the notebook's widths. The two
     # worlds run at once: their ranks are launch-bound and leave the card
     # mostly idle.
@@ -4316,18 +4362,19 @@ def phase_path_multi_gpu(smi: str) -> dict:
     rec = _mg_references(ranks, fails)
     ref_wall = time.perf_counter() - t0
     for i, r in enumerate(ranks):
-        seq, conc, rerun = (r["sweep"][k] for k in ("seq", "conc", "rerun"))
-        if [row[0] for row in seq["rows"]] != list(SWEEP_METHODS) or not all(
-                math.isfinite(row[1]) for row in seq["rows"]):
-            fails.append(f"rank {i}: sweep rows {seq['rows']}")
-        if repr(conc["rows"]) != repr(seq["rows"]) or repr(r["sweep"]) != repr(ranks[0]["sweep"]):
-            fails.append(f"rank {i}: concurrent rows differ from sequential, or from rank 0's")
-        if rerun["computed"] != 0 or seq["mesh"] != [
+        conc, rerun = (r["sweep"][k] for k in ("conc", "rerun"))
+        if [row[0] for row in conc["rows"]] != list(SWEEP_METHODS) or not all(
+                math.isfinite(row[1]) for row in conc["rows"]):
+            fails.append(f"rank {i}: sweep rows {conc['rows']}")
+        if repr(r["sweep"]) != repr(ranks[0]["sweep"]):
+            fails.append(f"rank {i}: sweep differs from rank 0's")
+        if rerun["computed"] != 0 or repr(rerun["rows"]) != repr(conc["rows"]) or conc["mesh"] != [
                 f"mesh: {MULTI_GPU_RANKS} devices — tree + fold axes active"]:
-            fails.append(f"rank {i}: rerun computed {rerun['computed']}, mesh {seq['mesh']}")
+            fails.append(f"rank {i}: rerun computed {rerun['computed']} or its rows differ, "
+                         f"mesh {conc['mesh']}")
         if r["matrix"]["missing"] or r["matrix"]["max_ulp"] != 0.0:
             fails.append(f"rank {i}: sharded matrix {r['matrix']}")
-    for sub in ("sweep_seq", "sweep_conc"):
+    for sub in ("sweep_conc",):
         with open(os.path.join(MULTI_GPU_OUT, sub, "results.jsonl")) as f:
             methods = [json.loads(line)["method"] for line in f if line.strip()]
         if methods.count("__config__") != 1 or len(methods) != len(SWEEP_METHODS) + 2:
@@ -4356,11 +4403,406 @@ def phase_path_multi_gpu(smi: str) -> dict:
                              "staged_bytes": [r["staged_bytes"] for r in ranks],
                              "lasso_ps": ranks[0]["cv"]["index_min"],
                              "boot_se": ranks[0]["boot"]["se"],
-                             "sweep_rows": ranks[0]["sweep"]["seq"]["rows"]},
+                             "sweep_rows": ranks[0]["sweep"]["conc"]["rows"]},
           "references": rec, "references_s": ref_wall, "launches": counts})
     if fails:
         raise AssertionError("path_multi_gpu: " + "; ".join(fails))
     return counts
+
+
+# path_matmul_growers: the JAX package's matmul backends ("xla", "onehot";
+# row_backend "matmul") at the notebook's widths, grown and predicted on the
+# kernels: the classifier and regressor on the streaming grower, the causal
+# forest on the direct-ρ grower. Tree counts are cut to MATMUL_TREES (the
+# notebook's 2,500 / 500 / 2,000); the CPU port grows the first
+# MATMUL_CPU_TREES of each forest for the card-CPU split agreement.
+MATMUL_TREES = 64
+MATMUL_CPU_TREES = 8
+MATMUL_SEED = 1818
+MATMUL_SPLIT_AGREEMENT = 0.95
+MATMUL_CATE_GAP = 0.05
+MATMUL_BACKENDS = ("xla", "onehot")
+MATMUL_KERNELS = ("hist", "hist_partition", "node_sums", "node_sums_shared", "route_advance",
+                  "leaf_record", "traverse")
+FOREST_EQUAL = ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf")
+
+
+def split_agreement(a, b, trees: int | None = None) -> dict:
+    """Fraction of equal (feature, bin) cells over the whole split table
+    (the JAX package's measure, padded cells included) and over the live
+    nodes only; ``trees`` compares the first trees only."""
+    fa, ba = a.split_feat[:trees].cpu(), a.split_bin[:trees].cpu()
+    fb, bb = b.split_feat[:trees].cpu(), b.split_bin[:trees].cpu()
+    same = (fa == fb) & (ba == bb)
+    live = torch.zeros_like(same)
+    for lv in range(same.shape[1]):
+        live[:, lv, : 1 << lv] = True
+    return {"table": float(same.float().mean()), "live": float(same[live].float().mean())}
+
+
+def mean_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """mean |got − ref| / mean |ref| (``tests/test_hist_pallas.py``'s CATE gap)."""
+    return float((got - ref).abs().mean() / (ref.abs().mean() + 1e-6))
+
+
+def timed_fit(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_path_matmul_growers(frame_mod, smi: str) -> dict:
+    """The JAX package's matmul backends on the card (docstring, 11k).
+    Returns the kernel launches of their fits and predicts."""
+    x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
+    n = x.shape[0]
+    rng = np.random.default_rng(MATMUL_SEED)
+    ycont = (x[:, 0] + torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                                       device="cuda")).contiguous()
+    key = rnd.key(MATMUL_SEED, device="cuda")
+    fails: list = []
+    walls: dict = {}
+    out: dict = {"phase": "path_matmul_growers", "nvidia_smi": smi, "rows": n, "p": x.shape[1],
+                 "n_bins": N_BINS, "trees": MATMUL_TREES, "depth": DEPTH, "cf_depth": CF_DEPTH,
+                 "reduced": {"trees": f"{MATMUL_TREES} (notebook: {DR_TREES} classifier, "
+                             f"{CF_NUISANCE_TREES} regressor, {CF_TREES} causal)",
+                             "cpu_trees": MATMUL_CPU_TREES}}
+    t_phase = time.perf_counter()
+    fit = {"classifier": lambda b, **kw: fo.fit_forest_classifier(
+               x, w, key, n_trees=MATMUL_TREES, depth=DEPTH, hist_backend=b, **kw),
+           "regressor": lambda b, **kw: fo.fit_forest_regressor(
+               x, ycont, key, n_trees=MATMUL_TREES, depth=DEPTH, hist_backend=b, **kw),
+           "causal": lambda b, **kw: cf.fit_causal_forest(
+               frame_mod, key, MATMUL_TREES, CF_DEPTH, MATMUL_TREES, DEPTH, b, **kw)}
+    kernel = {}
+    for kind in fit:
+        kernel[kind], walls[f"{kind}:auto"] = timed_fit(lambda: fit[kind]("auto"))
+    reset_counts()
+    got = {}
+    preds = {}
+    with kernel_taps() as seen:
+        for kind in fit:
+            for b in MATMUL_BACKENDS:
+                got[kind, b], walls[f"{kind}:{b}"] = timed_fit(lambda: fit[kind](b))
+        for b in MATMUL_BACKENDS:
+            for oob in (True, False):
+                preds[b, oob] = cf.predict_cate(got["causal", b].forest, x, oob=oob,
+                                                row_backend="matmul")
+        sync()
+        counts = read_counts()
+    t0 = time.perf_counter()
+    held = check_taps(seen)
+    taps_s = time.perf_counter() - t0
+    try:
+        require_launched(counts, MATMUL_KERNELS, "matmul_growers")
+    except AssertionError as e:
+        fails.append(str(e))
+    unheld = [k for k in MATMUL_KERNELS if k not in held]
+    if unheld:
+        fails.append(f"never held to their plain versions: {unheld}")
+    checks: dict = {}
+    for b in MATMUL_BACKENDS:
+        # The classifier and regressor: the streaming grower's forest.
+        for kind in ("classifier", "regressor"):
+            mine, ref = got[kind, b], kernel[kind]
+            unequal = [f for f in FOREST_EQUAL
+                       if not torch.equal(getattr(mine, f), getattr(ref, f))]
+            if unequal:
+                fails.append(f"{kind} {b}: {unequal} differ from the kernel grower's")
+            checks[f"{kind}:{b}"] = {"equal_fields": [f for f in FOREST_EQUAL
+                                                      if f not in unequal]}
+        fit_b, fit_ref = got["causal", b], kernel["causal"]
+        same_nuisance = (torch.equal(fit_b.y_hat, fit_ref.y_hat)
+                         and torch.equal(fit_b.w_hat, fit_ref.w_hat))
+        agree = split_agreement(fit_b.forest, fit_ref.forest)
+        cate = cf.predict_cate(fit_b.forest, x, oob=False).cate
+        gap = mean_gap(cate, cf.predict_cate(fit_ref.forest, x, oob=False).cate)
+        eff = cf.average_treatment_effect(fit_b)
+        checks[f"causal:{b}"] = {"agreement": agree, "cate_gap": gap,
+                                 "nuisance_equal": same_nuisance,
+                                 "ate": float(eff.estimate), "se": float(eff.std_err)}
+        if not (same_nuisance and agree["table"] >= MATMUL_SPLIT_AGREEMENT
+                and gap < MATMUL_CATE_GAP):
+            fails.append(f"causal {b}: {checks[f'causal:{b}']}")
+        for oob in (True, False):
+            stream = cf.predict_cate(fit_b.forest, x, oob=oob)
+            if not (torch.equal(preds[b, oob].cate, stream.cate)
+                    and torch.equal(preds[b, oob].variance, stream.variance)):
+                fails.append(f"predict_cate matmul != kernels ({b} forest, oob={oob})")
+        checks[f"predict:{b}"] = "matmul == kernels, oob True and False"
+    # One direct-ρ grower under both names (the JAX package's two modes).
+    one = [f for f in ("split_feat", "split_bin", "leaf_stats", "in_sample")
+           if not torch.equal(getattr(got["causal", "xla"].forest, f),
+                              getattr(got["causal", "onehot"].forest, f))]
+    if one:
+        fails.append(f"causal xla and onehot differ in {one}")
+    eff = cf.average_treatment_effect(kernel["causal"])
+    checks["causal:auto"] = {"ate": float(eff.estimate), "se": float(eff.std_err)}
+    # The CPU port with the same backend and key: the first trees.
+    cpu: dict = {}
+    xc, wc, yc = x.cpu(), w.cpu(), ycont.cpu()
+    keyc = key.cpu()
+    t0 = time.perf_counter()
+    for b in MATMUL_BACKENDS:
+        for kind, (yy, fitter) in {"classifier": (wc, fo.fit_forest_classifier),
+                                   "regressor": (yc, fo.fit_forest_regressor)}.items():
+            host = fitter(xc, yy, keyc, n_trees=MATMUL_CPU_TREES, depth=DEPTH, hist_backend=b)
+            cpu[f"{kind}:{b}"] = split_agreement(host, got[kind, b], MATMUL_CPU_TREES)
+        fit_b = got["causal", b]
+        kc = rnd.split(keyc, 3)[2]
+        host = cf.grow_causal_forest(xc, (fit_b.w - fit_b.w_hat).cpu(),
+                                     (fit_b.y - fit_b.y_hat).cpu(), kc,
+                                     n_trees=MATMUL_CPU_TREES, depth=CF_DEPTH, hist_backend=b)
+        cpu[f"causal:{b}"] = split_agreement(host, fit_b.forest, MATMUL_CPU_TREES)
+    cpu_wall = time.perf_counter() - t0
+    if not all(cpu[f"classifier:{b}"]["table"] == 1.0 for b in MATMUL_BACKENDS):
+        fails.append(f"the CPU port's classifier differs from the card's: {cpu}")
+    out.update(walls_s=walls, checks=checks, cpu_agreement=cpu, cpu_s=cpu_wall,
+               kernels_held=held, taps_s=taps_s, launches=counts,
+               wall_s=time.perf_counter() - t_phase)
+    emit(out)
+    if fails:
+        raise AssertionError("path_matmul_growers: " + "; ".join(fails))
+    return counts
+
+
+# path_rbridge: every function the R shim calls, through the port's bridge
+# on the card, with df_mod marshalled as reticulate sends it. Tree counts
+# are cut (the notebook's 2,500 / 2,000 / 2,000).
+RBRIDGE_DR_TREES = 64
+RBRIDGE_DML_TREES = 64
+RBRIDGE_CF_TREES = 128
+# run_notebook_sweep(quick=True) at the MICRO sweep's overrides
+# (tests/test_pipeline_driver.py).
+RBRIDGE_SWEEP = dict(n_obs=1200, seed=1991, overrides=dict(
+    synthetic_pool=3000.0, dr_trees=16.0, dml_trees=16.0, cf_trees=16.0, cf_nuisance_trees=16.0,
+    forest_depth=4.0, balance_iters=600.0))
+RBRIDGE_KERNELS = ("hist", "hist_partition", "hist_shared", "hist_partition_shared", "node_sums",
+                   "node_sums_shared", "route_advance", "leaf_record", "traverse", "cd_path")
+
+
+def same_bridge_row(a: dict, b: dict) -> bool:
+    """Two bridge rows equal bit for bit (NaN equal to NaN)."""
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, float) and isinstance(y, float):
+            if not (x == y or (math.isnan(x) and math.isnan(y))):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_path_rbridge(frame_mod, smi: str) -> dict:
+    """The reticulate bridge on the card (docstring, 11l). Returns the
+    kernel launches of the bridge's calls alone: the direct port calls
+    they are held to run after the counts are read."""
+    from ate_replication_causalml_torch import rbridge
+    from ate_replication_causalml_torch.parallel.dryrun import micro_sweep_config
+
+    names = list(frame_mod.schema.covariates)
+    host = frame_mod.x.double().cpu().numpy()
+    cols = {c: [float(v) for v in host[:, j]] for j, c in enumerate(names)}
+    cols["W"] = [float(v) for v in frame_mod.w.double().cpu().numpy()]
+    cols["Y"] = [float(v) for v in frame_mod.y.double().cpu().numpy()]
+    key = lambda s: rnd.key(s, device="cuda")
+    fails: list = []
+    walls: dict = {}
+    calls: list = []
+    t_phase = time.perf_counter()
+
+    def bridged(name, call, direct):
+        """The bridge's result, timed; ``direct``, the port call it must
+        equal, is kept for after the counts are read."""
+        sync()
+        t0 = time.perf_counter()
+        got = call()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        calls.append((name, got, direct))
+        return got
+
+    reset_counts()
+    with kernel_taps() as seen:
+        dr = bridged("doubly_robust",
+                     lambda: rbridge.doubly_robust(cols, num_trees=RBRIDGE_DR_TREES),
+                     lambda: doubly_robust(frame_mod, propensity_fn=lambda f: fo.rf_oob_propensity(
+                         f, key(12325), n_trees=RBRIDGE_DR_TREES), key=key(12326)))
+        cfr = bridged("causal_forest",
+                      lambda: rbridge.causal_forest(cols, num_trees=RBRIDGE_CF_TREES),
+                      lambda: {**rbridge._row((rep := causal_forest_report(
+                          frame_mod, key=key(12345), n_trees=RBRIDGE_CF_TREES)).result),
+                          "incorrect_ate": rep.incorrect_ate, "incorrect_se": rep.incorrect_se})
+    rows = {"doubly_robust": dr, "causal_forest": cfr}
+    rows["naive"] = bridged("naive_ate", lambda: rbridge.naive_ate(cols),
+                            lambda: naive_ate(frame_mod))
+    rows["ols"] = bridged("ate_condmean_ols", lambda: rbridge.ate_condmean_ols(cols),
+                          lambda: ate_condmean_ols(frame_mod))
+    p_log = bridged("logistic_propensity", lambda: rbridge.logistic_propensity(cols),
+                    lambda: logistic_propensity(frame_mod.x, frame_mod.w))
+    p_list = [float(v) for v in p_log]
+    p_t = torch.as_tensor(np.asarray(p_list))
+    rows["psw"] = bridged("prop_score_weight", lambda: rbridge.prop_score_weight(cols, p_list),
+                          lambda: prop_score_weight(frame_mod, p_t))
+    rows["psols"] = bridged("prop_score_ols", lambda: rbridge.prop_score_ols(cols, p_list),
+                            lambda: prop_score_ols(frame_mod, p_t))
+    rows["condmean_lasso"] = bridged("ate_condmean_lasso", lambda: rbridge.ate_condmean_lasso(cols),
+                                     lambda: lasso_est.ate_condmean_lasso(frame_mod))
+    rows["lasso"] = bridged("ate_lasso", lambda: rbridge.ate_lasso(cols),
+                            lambda: lasso_est.ate_lasso(frame_mod))
+    bridged("prop_score_lasso", lambda: rbridge.prop_score_lasso(cols),
+            lambda: lasso_est.prop_score_lasso(frame_mod))
+    rows["glm"] = bridged("doubly_robust_glm", lambda: rbridge.doubly_robust_glm(cols),
+                          lambda: doubly_robust_glm(frame_mod, key=key(0)))
+    rows["belloni"] = bridged("belloni", lambda: rbridge.belloni(cols),
+                              lambda: bel.belloni(frame_mod))
+    rows["dml"] = bridged("double_ml", lambda: rbridge.double_ml(cols, num_trees=RBRIDGE_DML_TREES),
+                          lambda: dml.double_ml(frame_mod, n_trees=RBRIDGE_DML_TREES, key=key(123),
+                                                device="cuda"))
+    rows["balance"] = bridged("residual_balance_ATE", lambda: rbridge.residual_balance_ATE(cols),
+                              lambda: balance.residual_balance_ate(frame_mod, key=key(0)))
+    sync()
+    counts = read_counts()
+    t0 = time.perf_counter()
+    for name, got, direct in calls:
+        want = direct()
+        if isinstance(got, dict):
+            ok = same_bridge_row(got, want if isinstance(want, dict) else rbridge._row(want))
+        else:
+            ok = np.array_equal(got, np.asarray(want.cpu().numpy(), np.float64))
+        if not ok:
+            fails.append(f"{name}: bridge {got if isinstance(got, dict) else '(vector)'} "
+                         f"!= direct")
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = check_taps(seen)
+    taps_s = time.perf_counter() - t0
+    unheld = [k for k in RBRIDGE_KERNELS if k != "cd_path" and k not in held]
+    if unheld:
+        fails.append(f"never held to their plain versions on the DR-RF and causal rows: {unheld}")
+    try:
+        require_launched(counts, RBRIDGE_KERNELS, "rbridge")
+    except AssertionError as e:
+        fails.append(str(e))
+    # The notebook driver on the sequential engine (the concurrent one
+    # gives the same rows bit for bit, path_sweep_concurrent): its
+    # configuration is the MICRO sweep's, and its rows are the oracle and
+    # the sweep's methods, finite. run_sweep's rows themselves are
+    # path_sweep's.
+    cfg = rbridge._sweep_config(quick=True, **RBRIDGE_SWEEP)
+    if cfg != micro_sweep_config():
+        fails.append(f"run_notebook_sweep's configuration {cfg} is not the MICRO sweep's")
+    with env("ATE_TPU_SWEEP_SEQUENTIAL", "1"):
+        sync()
+        t0 = time.perf_counter()
+        sweep_rows = rbridge.run_notebook_sweep(quick=True, **RBRIDGE_SWEEP)
+        walls["run_notebook_sweep"] = time.perf_counter() - t0
+    methods = [r["Method"] for r in sweep_rows]
+    if methods != ["oracle", *pipeline.SWEEP_METHODS] or not all(
+            math.isfinite(r["ATE"]) for r in sweep_rows):
+        fails.append(f"run_notebook_sweep's rows: {sweep_rows}")
+    emit({"phase": "path_rbridge", "nvidia_smi": smi, "rows": frame_mod.n,
+          "reduced": {"doubly_robust_trees": RBRIDGE_DR_TREES, "double_ml_trees": RBRIDGE_DML_TREES,
+                      "causal_forest_trees": RBRIDGE_CF_TREES,
+                      "run_notebook_sweep": RBRIDGE_SWEEP},
+          "results": rows, "sweep_methods": methods, "walls_s": walls, "direct_s": direct_s,
+          "kernels_held": held, "taps_s": taps_s, "launches": counts,
+          "wall_s": time.perf_counter() - t_phase})
+    if fails:
+        raise AssertionError("path_rbridge: " + "; ".join(fails))
+    return counts
+
+
+# path_native: the native host library on the card machine, on a CSV of
+# the synthetic pool at the notebook's size with NA and blank cells.
+NATIVE_OUT = os.path.join(REPO, "build", "chip_smoke_native")
+NATIVE_PLANTED = 600
+# Sentinels the CSV writer turns into "NA" and blank cells.
+_NA, _BLANK = 1e308, -1e308
+
+
+def phase_path_native(smi: str) -> None:
+    """The native host library (docstring, 11m)."""
+    from ate_replication_causalml_torch import native
+    from ate_replication_causalml_torch.data import pipeline as dp
+    from ate_replication_causalml_torch.data.schema import GGL_SCHEMA
+    from ate_replication_causalml_torch.utils.rrandom import RCompatRNG
+
+    fails: list = []
+    walls: dict = {}
+    t0 = time.perf_counter()
+    lib = native.load_library(rebuild=True)
+    walls["build"] = time.perf_counter() - t0
+    status = native.native_status()
+    if lib is None:
+        raise AssertionError(f"path_native: the native library did not build: {status}")
+    shutil.rmtree(NATIVE_OUT, ignore_errors=True)
+    os.makedirs(NATIVE_OUT)
+    raw = make_ggl_like(POOL_ROWS, seed=POOL_SEED, true_ate=TRUE_ATE)
+    cols = list(GGL_SCHEMA.all_columns)
+    mat = np.stack([np.asarray(raw[c], np.float64) for c in cols], axis=1)
+    rng = np.random.default_rng(POOL_SEED)
+    r_idx = rng.integers(0, mat.shape[0], NATIVE_PLANTED)
+    c_idx = rng.integers(0, mat.shape[1], NATIVE_PLANTED)
+    mat[r_idx, c_idx] = np.where(np.arange(NATIVE_PLANTED) % 2 == 0, _NA, _BLANK)
+    path = os.path.join(NATIVE_OUT, "pool.csv")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    np.savetxt(buf, mat, fmt="%.17g", delimiter=",", header=",".join(cols), comments="")
+    cell = lambda v: r"(?<=[,\n])" + re.escape(v) + r"(?=[,\n])"
+    text = re.sub(cell("1e+308"), "NA", re.sub(cell("-1e+308"), "", "\n" + buf.getvalue()))[1:]
+    with open(path, "w") as f:
+        f.write(text)
+    walls["write_csv"] = time.perf_counter() - t0
+    mat[r_idx, c_idx] = np.nan
+    planted = {c: mat[:, j] for j, c in enumerate(cols)}
+    t0 = time.perf_counter()
+    nat = dp.load_raw_csv(path)
+    walls["read_native"] = time.perf_counter() - t0
+    native_available = native.native_available
+    native.native_available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        py = dp.load_raw_csv(path)
+        walls["read_numpy"] = time.perf_counter() - t0
+    finally:
+        native.native_available = native_available
+    if sorted(nat) != sorted(py) or not all(
+            np.array_equal(nat[c], py[c], equal_nan=True) for c in nat):
+        fails.append("read_csv_native differs from the NumPy reader")
+    if not all(np.array_equal(nat[c], planted[c], equal_nan=True) for c in cols):
+        fails.append("the CSV did not read back as written")
+    rng_checks = {}
+    size = min(PrepConfig().n_obs, POOL_ROWS)   # the notebook's 50,000 of 120,000
+    for kind in ("rounding", "rejection"):
+        t0 = time.perf_counter()
+        a = native.NativeRCompatRNG(1991, kind).sample_n_rows(POOL_ROWS, size)
+        t1 = time.perf_counter()
+        b = RCompatRNG(1991, kind).sample_n_rows(POOL_ROWS, size)
+        t2 = time.perf_counter()
+        rng_checks[kind] = {"equal": bool(np.array_equal(a, b)), "native_s": t1 - t0,
+                            "python_s": t2 - t1}
+        if not rng_checks[kind]["equal"]:
+            fails.append(f"native sample_n_rows ({kind}) != Python")
+    cfg = PrepConfig()
+    t0 = time.perf_counter()
+    csv_frame, csv_drop = inject_bias(prepare_dataset(dp.load_raw_csv(path), cfg, device="cuda"),
+                                      cfg)
+    walls["csv_to_frame"] = time.perf_counter() - t0
+    mem_frame, mem_drop = inject_bias(prepare_dataset(planted, cfg, device="cuda"), cfg)
+    if not (np.array_equal(csv_drop, mem_drop) and torch.equal(csv_frame.x, mem_frame.x)
+            and torch.equal(csv_frame.w, mem_frame.w) and torch.equal(csv_frame.y, mem_frame.y)):
+        fails.append("the CSV path's frame differs from the in-memory path's")
+    emit({"phase": "path_native", "nvidia_smi": smi, "native_status": status,
+          "csv_rows": mat.shape[0], "csv_cols": mat.shape[1], "planted_na_blank": NATIVE_PLANTED,
+          "csv_bytes": os.path.getsize(path), "frame_rows": csv_frame.n,
+          "dropped": int(len(csv_drop)), "rng": rng_checks, "walls_s": walls})
+    if fails:
+        raise AssertionError("path_native: " + "; ".join(fails))
 
 
 def drop_rows(src: str, out: str, methods) -> None:
@@ -4558,6 +5000,9 @@ def main() -> int:
     by_path["frontier"] = phase_path_frontier(smi)
     by_path["chaos_campaign"] = phase_path_chaos_campaign(smi)
     by_path["multi_gpu"] = phase_path_multi_gpu(smi)
+    by_path["matmul_growers"] = phase_path_matmul_growers(frame_mod, smi)
+    by_path["rbridge"] = phase_path_rbridge(frame_mod, smi)
+    phase_path_native(smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

@@ -44,7 +44,7 @@ def test_port_lists_its_modules():
               "scenarios.matrix", "scenarios.frontier", "scenarios.__main__",
               "resilience.campaign", "resilience.invariants", "parallel.mesh",
               "parallel.multihost", "parallel.shardio", "parallel.spawn", "parallel.dryrun",
-              "models.plan"):
+              "models.plan", "rbridge", "native"):
         assert f"{_PKG}.{m}" in mods
 
 

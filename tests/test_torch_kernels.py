@@ -1023,3 +1023,48 @@ def test_card_rotation_while_serving_captures_nothing(cuda, tmp_path):
     assert len(seen) >= 2
     assert server.builds_in_window() == {"kernel": 0.0, "graph": 0.0}
     server.stop()
+
+
+@pytest.mark.parametrize("backend", ["xla", "onehot"])
+def test_matmul_growers_on_card(cuda, backend):
+    """The JAX package's matmul backends on the card: the classifier is
+    the kernel grower's forest; the causal fit's direct-ρ grow launches
+    the histogram kernel, draws the CPU port's half-samples and agrees
+    with its splits; the "matmul" predict is the kernels' route, in the
+    serving form too."""
+    rng = np.random.default_rng(6)
+    n, p = 2000, 8
+    x = torch.as_tensor(rng.normal(size=(n, p)).astype(np.float32), device=cuda)
+    w = torch.as_tensor((rng.random(n) < 0.4).astype(np.float32), device=cuda)
+    key = rnd.key(8, device=cuda)
+    kw = dict(n_trees=16, depth=6, n_bins=32)
+    ref = fo.fit_forest_classifier(x, w, key, **kw)
+    got = fo.fit_forest_classifier(x, w, key, hist_backend=backend, **kw)
+    for f in ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    frame = CausalFrame(x, w, (x[:, 0] > 0).to(torch.float32))
+    hist_launches = lambda: (th.bin_histogram_batched.launches
+                             + th.bin_histogram_batched.partition_launches
+                             + th.bin_histogram_batched.packed_launches)
+    before = hist_launches()
+    fit = cf.fit_causal_forest(frame, key, 8, 4, 8, 4, backend)
+    torch.cuda.synchronize()
+    assert hist_launches() > before
+    host = cf.grow_causal_forest(x.cpu(), (fit.w - fit.w_hat).cpu(), (fit.y - fit.y_hat).cpu(),
+                                 rnd.split(key.cpu(), 3)[2], n_trees=8, depth=4,
+                                 hist_backend=backend)
+    assert torch.equal(host.in_sample, fit.forest.in_sample.cpu())
+    same = ((host.split_feat == fit.forest.split_feat.cpu())
+            & (host.split_bin == fit.forest.split_bin.cpu()))
+    assert same.float().mean() >= 0.9
+    for oob in (True, False):
+        a = cf.predict_cate(fit.forest, x, oob=oob, row_backend="matmul")
+        b = cf.predict_cate(fit.forest, x, oob=oob)
+        assert torch.equal(a.cate, b.cate) and torch.equal(a.variance, b.variance)
+    # The serving form: one CUDA graph of the predict.
+    warm = cf.lower_predict_cate(fit.forest, 64, row_backend="matmul")
+    got = warm(fit.forest, x[:64].cpu())
+    want = cf.predict_cate(fit.forest, x[:64], oob=False)
+    assert warm.graph is not None
+    assert np.array_equal(got.cate, want.cate.cpu().numpy())
+    assert np.array_equal(got.variance, want.variance.cpu().numpy())

@@ -222,8 +222,21 @@ def test_double_ml_positional():
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla", "onehot"])
 def test_unported_hist_backend_raises(backend):
+    """``hist_backend`` in its position: the Pallas backends raise. "xla"
+    and "onehot", the JAX package's matmul backends, are taken there and
+    grow on the kernels: an integer-weight forest equal to the kernel
+    grower's, and a causal fit through the direct-ρ grower."""
     x, w, y = _frames(1, 60, 3)
     _, tk = _jax_key_pair(1)
+    if backend in ("xla", "onehot"):
+        got, ref = (tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), tk, 2, 2,
+                                             None, 16, None, b) for b in (backend, "auto"))
+        for f in ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        fit = tcf.fit_causal_forest(TFrame(*(torch.as_tensor(a) for a in (x, w, y))), tk, 2, 2,
+                                    2, 2, backend)
+        assert fit.forest.n_trees == 2 and torch.isfinite(fit.forest.leaf_stats).all()
+        return
     with pytest.raises(ValueError, match="hist_backend"):
         tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), tk, 2, 2, None, 16,
                                  None, backend)
@@ -253,7 +266,15 @@ def test_a_mesh_raises():
 
 @pytest.mark.parametrize("row_backend", ["matmul", "pallas_interpret", "gather"])
 def test_unported_row_backend_raises(carried, row_backend):
+    """``row_backend`` in its position: "pallas_interpret" and "gather"
+    raise; "matmul", the JAX package's one-hot route, is taken as a name
+    of the kernels' route and gives their bits."""
     x, _, mine = carried
+    if row_backend == "matmul":
+        got = tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, row_backend)
+        ref = tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, None)
+        assert torch.equal(got.cate, ref.cate) and torch.equal(got.variance, ref.variance)
+        return
     with pytest.raises(ValueError, match="row_backend"):
         tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, row_backend)
 
