@@ -14,7 +14,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
 from typing import Iterable
 
 # 95% normal critical value — the reference hardcodes 1.96 everywhere
@@ -102,10 +101,9 @@ class ResultTable:
         s = json.dumps(self.to_records(), indent=2)
         if path is not None:
             # Write-then-rename so a reader never sees a torn file.
-            tmp = f"{path}.tmp"
-            with open(tmp, "w") as f:
-                f.write(s)
-            os.replace(tmp, path)
+            from ate_replication_causalml_torch.observability.export import atomic_write_text
+
+            atomic_write_text(path, s)
         return s
 
     @classmethod

@@ -185,6 +185,7 @@ def build_all() -> dict[str, Built]:
                                       f"{PREBUILT_ENV}=1 forbids building it here")
             misses.inc(1)
             tmp = f"{so}.{os.getpid()}.tmp"
+            # graftlint: disable=JGL005 — nvcc's log, the tmp half of tmp + os.replace: nvcc writes it, the build publishes it beside the library
             logf = open(log + ".tmp", "w")
             procs[lib] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
@@ -207,6 +208,7 @@ def build_all() -> dict[str, Built]:
             lib = KERNELS[name][0]
             _, so, log = _target(lib)
             _built[name] = _load(name, so, log, seconds if lib in procs else 0.0)
+        # graftlint: disable=JGL021 — a port-only family: pre-creating it adds a key the JAX package's sweep never exports, and tests/test_torch_pipeline.py holds the two family sets equal
         obs.counter("kernel_builds_total", "kernel libraries built or loaded").inc(
             len({KERNELS[k][0] for k in todo}))
         return dict(_built)

@@ -747,6 +747,7 @@ def predict_cate(
     if leaf_index is None:
         codes = binarize(x, forest.bin_edges)
     else:
+        # graftlint: disable=TGL003 — the caller's leaf index: no copy for a device tensor (the daemon's), one a call for a host array
         leaf_index = torch.as_tensor(leaf_index, device=x.device)
         if tuple(leaf_index.shape) != (forest.n_trees, n):
             raise ValueError(f"leaf_index must be (T, n) = {(forest.n_trees, n)}, "
@@ -865,6 +866,7 @@ class WarmPredict:
         # The capture records the launches; they run at each replay.
         self.traverse_per_replay = traverse.launches - before
         build.count_launch(traverse, n=-self.traverse_per_replay)
+        # graftlint: disable=JGL021 — a port-only family: pre-creating it adds a key the JAX package's sweep never exports, and tests/test_torch_pipeline.py holds the two family sets equal
         obs.counter("graph_captures_total", "CUDA graphs captured").inc(1, kind="predict_cate")
         self.graph = graph
 
@@ -887,16 +889,20 @@ class WarmPredict:
             raise ValueError(f"x must be {(self.batch, self.p)}, got {tuple(x.shape)}")
         if self.graph is None:
             m = None if mask is None else torch.as_tensor(mask, dtype=torch.float32)
+            # graftlint: disable=TGL003 — the branch without a graph runs on the CPU only
             both = self._run(forest, x.to(self.device), m)
         else:
             if forest is not self._bound:
                 self._bind(forest)
+            # graftlint: disable=TGL003 — the batch's query in: one host-to-device copy a batch (host numpy in, host numpy out)
             self._x.copy_(x)
             if mask is not None:
+                # graftlint: disable=TGL003 — the fused batch's row mask in: one host-to-device copy a batch
                 self._mask.copy_(torch.as_tensor(mask, dtype=torch.float32))
             self.graph.replay()
             build.count_launch(traverse, n=self.traverse_per_replay)
             both = self._out
+        # graftlint: disable=TGL003 — the batch's one host read: the reply is host numpy
         host = both.cpu().numpy()
         return CatePredictions(cate=host[0].copy(), variance=host[1].copy())
 

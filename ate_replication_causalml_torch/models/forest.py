@@ -301,6 +301,7 @@ def streaming_level_loop(codes, n_trees, depth, n_bins, hist_fn, tables_fn, grow
         last = level == depth - 1
         ids = route_advance(codes, node_int, node_rev, bf_rev.contiguous(), bb_rev.contiguous(),
                             mask=est_mask if last else grow_mask, last=last)
+        # graftlint: disable=TGL003 — the level's bit-reversal order, a host list of m ints: one small host-to-device copy a level
         perm_t = torch.as_tensor(perm, device=dev)
         pad = max_nodes - m
         feats_l.append(torch.nn.functional.pad(bf_rev[:, perm_t], (0, pad)))
@@ -317,6 +318,7 @@ def select_split(score, lk, level_nodes, p, n_bins, mtry, perm=None):
     n_trees = score.shape[0]
     feat_scores = rnd.uniform(lk, (level_nodes, p))  # (T, m, p)
     if perm is not None:
+        # graftlint: disable=TGL003 — the level's bit-reversal order, a host list of m ints: one small host-to-device copy a level
         feat_scores = feat_scores[:, torch.as_tensor(perm, device=score.device)]
     kth = torch.sort(feat_scores, dim=2).values[:, :, mtry - 1 : mtry]
     score = torch.where((feat_scores <= kth)[..., None], score, math.inf)

@@ -70,6 +70,7 @@ def instrument_dispatch(kind: str, fn: Callable[[int], object]):
     thunk's enqueue, and its execution where it synchronizes. No sync is
     added: results come back exactly as produced."""
     c = counter("tree_dispatch_total", "forest tree-chunk dispatches")
+    # graftlint: disable=JGL021 — created at first use: pre-creating it would change the counter/histogram families of the port's metrics.json, which tests/test_torch_pipeline.py holds to the JAX package's sweep
     h = histogram("tree_dispatch_seconds", "per-dispatch host wall-clock")
     c.inc(0, fit=kind)
 

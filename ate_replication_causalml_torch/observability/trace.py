@@ -381,7 +381,8 @@ class MetricSampler:
         return float(sum(samples.values())) if samples else None
 
     def sample_once(self) -> None:
-        self.ticks += 1
+        with self._lock:
+            self.ticks += 1
         for name in self.metrics:
             value = self._peek(name)
             if value is not None:

@@ -166,6 +166,7 @@ def alias_filter(cols, *, with_intercept: bool = True, tol: float = 1e-7) -> np.
     ``lm``. ``cols`` may be a tensor on any device or an array."""
     if isinstance(cols, torch.Tensor):
         cols = cols.detach().cpu().numpy()
+    # graftlint: disable=TGL004 — Belloni's alias filter is R's lm QR on the host, in float64 as the JAX package's (its ops/linalg.py:124)
     a = np.asarray(cols, dtype=np.float64)
     n = a.shape[0]
     basis: list[np.ndarray] = []

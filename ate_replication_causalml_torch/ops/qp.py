@@ -159,6 +159,7 @@ def balance_qp_x64(
     1e-7 stationarity of the reference's exact solver, where float32 ADMM
     floors near 1e-3 residuals. The card runs float64 natively."""
     x = torch.as_tensor(x)
+    # graftlint: disable=TGL004 — the balancing QP is float64 ADMM: the plug-in weights need the reference solver's 1e-7 stationarity (docstring above)
     return balance_qp(x.to(torch.float64), torch.as_tensor(target).to(x.device, torch.float64),
                       zeta=zeta, ub=ub, rho=rho, max_iters=int(max_iters), tol=tol)
 

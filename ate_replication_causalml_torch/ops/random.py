@@ -142,11 +142,14 @@ def uniform(k: torch.Tensor, shape, dtype: torch.dtype = torch.float32,
     elif dtype == torch.float64:
         b1, b2 = _hash_counters(k, shape)  # 64-bit draw: b1 high, b2 low word
         mant = (b1 << 20) | (b2 >> 12)
+        # graftlint: disable=TGL004 — jax.random.uniform's 64-bit draw for dtype=float64, bit for bit
         floats = (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
     else:
         raise TypeError(f"uniform supports float32 and float64, got {dtype}")
-    lo = torch.tensor(minval, dtype=dtype, device=floats.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
+    # Filled on the device: a host scalar copied to the card would wait
+    # for its queue at every draw (two syncs a grow level).
+    lo = torch.full((), minval, dtype=dtype, device=floats.device)
+    hi = torch.full((), maxval, dtype=dtype, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -156,6 +159,7 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     TwoSum gives the sum's rounding error, which decides the one case
     where rounding the float64 sum to float32 differs from rounding the
     exact value: a float64 sum halfway between two float32 values."""
+    # graftlint: disable=TGL004 — the fused multiply-add rounded once: float64 holds the float32 product exactly (docstring above)
     a, b, c = (torch.as_tensor(v).to(torch.float64) for v in (a, b, c))
     prod = a * b
     s = prod + c
@@ -164,7 +168,9 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     r = s.to(torch.float32)
     up = torch.nextafter(r, torch.full_like(r, float("inf")))
     down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    # graftlint: disable=TGL004 — the fused multiply-add rounded once: float64 holds the float32 product exactly (docstring above)
     other = torch.where(s > r.to(torch.float64), up, down)
+    # graftlint: disable=TGL004 — the fused multiply-add rounded once: float64 holds the float32 product exactly (docstring above)
     tie = (s == (r.to(torch.float64) + other.to(torch.float64)) / 2) & (err != 0)
     return torch.where(tie, torch.where(err > 0, torch.maximum(r, other),
                                         torch.minimum(r, other)), r)
@@ -262,6 +268,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     lt = w < 5.0
     # √w correctly rounded (in float64, rounded once): PyTorch's float32
     # sqrt is an approximation on the CPU, not the card's.
+    # graftlint: disable=TGL004 — float32 sqrt is not correctly rounded on the CPU; float64 rounded once gives XLA's bits on every device
     w = torch.where(lt, w - 2.5, torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0)
     p = _f32(0.0, x).expand_as(x)
     for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):

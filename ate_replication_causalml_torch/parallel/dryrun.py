@@ -67,6 +67,7 @@ def nuisance_step_sharded(x, w, y, mesh, axis_name: str = DATA_AXIS):
     p = logistic_glm_sharded(base, w, mesh, axis_name).fitted
     est1 = _est1(w, y, p, mu0, mu1, _control_sign("r"))
     ok = ~torch.isnan(est1)
+    # graftlint: disable=JGL018 — the dry run's rank program is one thread: no other thread of this process enqueues collectives on its group
     sums = all_reduce_sum(torch.stack([torch.where(ok, est1, 0.0).sum(), ok.sum().to(x.dtype),
                                        (mu1 - mu0).sum(), torch.tensor(float(x.shape[0]),
                                                                        dtype=x.dtype,
@@ -128,10 +129,12 @@ def run_legs(log: Callable[[str], None] = lambda s: None, sweep_out: str | None 
     x, w, y = dryrun_data(n_dev, dev)
 
     # data: rows over 'data', the IRLS sums all_reduced.
+    # graftlint: disable=JGL018 — the dry run's rank program is one thread: no other thread of this process enqueues collectives on its group
     rows = shardio.commit((x, w, y), shardio.row_sharding(mesh, x.shape[0]), artifact="dryrun")
     tau, p, mu0, mu1 = nuisance_step_sharded(*(r.local for r in rows), mesh)
 
     # boot: the vectors gathered whole, replicates over 'boot'.
+    # graftlint: disable=JGL018 — the dry run's rank program is one thread: no other thread of this process enqueues collectives on its group
     whole = [all_gather_cat(v, mesh, DATA_AXIS) for v in (rows[1].local, rows[2].local, p, mu0,
                                                           mu1)]
     with use_mesh(mesh):
@@ -199,13 +202,15 @@ def _rank_legs(around: Callable | None, sweep_out: str | None, sweep: bool):
     return legs() if around is None else around(legs)
 
 
-def dryrun_multigpu(world_size: int, backend: str | None = "gloo", device: str = "cpu", *,
+def dryrun_multigpu(world_size: int, backend: str | None = None, device: str | None = None, *,
                     timeout: float = DEFAULT_TIMEOUT_S, around: Callable | None = None,
                     scratch: str | None = None, sweep_out: str | None = None,
                     sweep: bool = True) -> list:
     """Spawn ``world_size`` ranks on ``backend`` / ``device`` and run every
     leg of the dry run in each; returns the ranks' summaries, which must
-    agree. ``around`` (an importable function) wraps the legs in each
+    agree. The ranks run on the card unless ``device="cpu"``, on ``nccl``
+    there and ``gloo`` on the CPU unless ``backend`` is named
+    (:func:`~.spawn.run_ranks`). ``around`` (an importable function) wraps the legs in each
     rank: ``around(run_legs)``'s value is that rank's value (the chip
     script counts and checks the kernels there). A world of one forms a
     real one-rank group, so its collectives run. ``sweep_out``: the
@@ -229,8 +234,7 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default=None, help="nccl (cards), gloo (CPU, or a shared card)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
-    print(dryrun_multigpu(args.ranks, backend, args.device)[0])
+    print(dryrun_multigpu(args.ranks, args.backend, args.device)[0])
     return 0
 
 

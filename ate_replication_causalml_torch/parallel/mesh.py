@@ -239,6 +239,7 @@ def _meter_host_copy(t: torch.Tensor, group, op: str, nbytes: int) -> None:
     """Meter the ``nbytes`` gloo copies through host memory (to the host
     and back) for a collective on the CUDA tensor ``t``."""
     if t.is_cuda and _dist().get_backend(group) == "gloo":
+        # graftlint: disable=JGL021 — a port-only family: pre-creating it adds a key the JAX package's sweep never exports, and tests/test_torch_pipeline.py holds the two family sets equal
         obs.counter(STAGING_FAMILY, "bytes gloo copies through host memory for collectives "
                     "on CUDA tensors, by collective").inc(nbytes, op=op)
 
@@ -257,6 +258,7 @@ def all_gather_cat(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     nbytes = src.numel() * src.element_size()
     _meter_host_copy(src, group, "all_gather", nbytes * (1 + ranks))  # in, and every part out
     parts = [torch.empty_like(src) for _ in range(ranks)]
+    # graftlint: disable=JGL018 — not a launch site: this IS the collective the laned launchers (shardio, the mesh lane's nodes) call under the lane lock
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=0)
 
@@ -269,6 +271,7 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     dist = _dist()
     buf = t.detach().clone()
     _meter_host_copy(buf, group, "all_reduce", 2 * buf.numel() * buf.element_size())
+    # graftlint: disable=JGL018 — not a launch site: this IS the collective the laned launchers (shardio, the mesh lane's nodes) call under the lane lock
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf
 

@@ -56,23 +56,29 @@ def _rank_entry(rank: int, world: int, port: int, backend: str | None, device: s
         join_world(f"127.0.0.1:{port}", world, rank, backend=backend, device=device,
                    timeout=timeout)
         value = fn(*args)
+        # graftlint: disable=JGL005 — the tmp half of tmp + os.replace: the rank's result is published whole below
         with open(os.path.join(out_dir, f"rank{rank}.pkl.tmp"), "wb") as f:
             pickle.dump(value, f)
         os.replace(os.path.join(out_dir, f"rank{rank}.pkl.tmp"),
                    os.path.join(out_dir, f"rank{rank}.pkl"))
     except BaseException:
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
+        from ate_replication_causalml_torch.observability.export import atomic_write_text
+
+        atomic_write_text(os.path.join(out_dir, f"rank{rank}.err"), traceback.format_exc())
         raise SystemExit(1)
     finally:
         leave_world()
 
 
-def run_ranks(fn: Callable, world_size: int, *, backend: str | None = "gloo",
-              device: str = "cpu", args: tuple = (), timeout: float = DEFAULT_TIMEOUT_S,
+def run_ranks(fn: Callable, world_size: int, *, backend: str | None = None,
+              device: str | None = None, args: tuple = (), timeout: float = DEFAULT_TIMEOUT_S,
               join_timeout: float | None = None, scratch: str | None = None) -> list:
     """``fn(*args)`` on ``world_size`` fresh ranks; their return values in
-    rank order. ``fn`` must be importable by name (a module-level
+    rank order. The ranks run on the card unless ``device="cpu"``
+    (``device=None`` resolves through ``resolve_device``, which raises
+    without a card); ``backend=None`` is ``nccl`` on ``cuda`` and ``gloo``
+    on ``cpu``, and ranks sharing a card need ``backend="gloo"`` named.
+    ``fn`` must be importable by name (a module-level
     function) and its value picklable. ``timeout`` bounds each
     collective inside the world; ``join_timeout`` (default ``2 ×
     timeout``) bounds the whole call, after which every rank is killed
@@ -80,8 +86,11 @@ def run_ranks(fn: Callable, world_size: int, *, backend: str | None = "gloo",
     ranks' result files (a temporary one when None)."""
     import torch.multiprocessing as mp
 
+    from ate_replication_causalml_torch import resolve_device
+
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
+    device = str(resolve_device(device))
     if torch.device(device).type == "cuda":
         # Build every kernel here, once; the ranks only load them.
         from ate_replication_causalml_torch.kernels import build

@@ -507,6 +507,7 @@ def _spawn_fleet_daemon(name: str, ckpt: str, dev, logdir: str):
     lines: list[str] = []
 
     def _drain():
+        # graftlint: disable=JGL005 — a live log streamed line by line from the daemon's stderr, read only after the process ends
         with open(os.path.join(logdir, f"{name}.log"), "w") as log:
             for line in proc.stderr:
                 lines.append(line)

@@ -184,7 +184,8 @@ class SweepEngine:
         for node in sorted(nodes.values(), key=lambda n: n.priority):
             if node.exclusive is not None:
                 self._lane_order.setdefault(node.exclusive, []).append(node.name)
-        self._lane_next = dict.fromkeys(self._lane_order, 0)
+        with self._mu:
+            self._lane_next = dict.fromkeys(self._lane_order, 0)
         return nodes
 
     # ── public API ────────────────────────────────────────────────────
@@ -388,6 +389,7 @@ class SweepEngine:
                 if node.kind == "artifact" and not isinstance(e, (KeyboardInterrupt, SystemExit)):
                     obs.emit("artifact_fit_failed", status="error", artifact=node.name,
                              error=f"{type(e).__name__}: {e}")
+        # graftlint: disable=JGL021 — created at first use: pre-creating it would change the counter/histogram families of the port's metrics.json, which tests/test_torch_pipeline.py holds to the JAX package's sweep
         obs.histogram("scheduler_node_seconds", "per-node execution seconds").observe(
             time.perf_counter() - t0, kind=node.kind)
         self.heartbeats.beat(worker_lane)

@@ -202,6 +202,7 @@ class ReloadSupervisor:
         # race each other into two concurrent reloads, the loser dying
         # on the DEGRADED->SERVING double-transition).
         self._running = False
+        # graftlint: disable=JGL021 — created at first use: pre-creating it would change the counter/histogram families of the port's metrics.json, which tests/test_torch_pipeline.py holds to the JAX package's sweep
         self._counter = _registry.counter(
             "serving_reloads_total", "degraded-mode reload attempts by status"
         )

@@ -190,6 +190,7 @@ def save_fitted(path: str, obj: Any) -> None:
     os.makedirs(d, exist_ok=True)
     tmp = os.path.join(d, f".{os.path.basename(path)}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
+        # graftlint: disable=JGL005 — the blessed atomic pattern: a tmp file, fsynced, renamed over the path only on success
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **{_MANIFEST: np.frombuffer(manifest_bytes, dtype=np.uint8),
                                       _DIGEST: np.frombuffer(digest.encode(), dtype=np.uint8)},

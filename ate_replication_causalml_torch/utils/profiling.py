@@ -52,6 +52,7 @@ class StageTimer:
         finally:
             dt = time.perf_counter() - t0
             self.seconds[name] = self.seconds.get(name, 0.0) + dt
+            # graftlint: disable=JGL021 — created at first use: pre-creating it would change the counter/histogram families of the port's metrics.json, which tests/test_torch_pipeline.py holds to the JAX package's sweep
             obs.histogram("stage_seconds", "StageTimer stage durations").observe(dt, stage=name)
 
 

@@ -258,9 +258,11 @@ imports nothing of JAX. Phases, each printing one JSON line:
    the boot-sharded bootstrap, the tree-sharded forest and causal
    forest, the fold-sharded CV; its ``run_sweep(use_mesh=True)`` leg at
    MICRO is (b)'s, which runs that sweep and resumes it). (b) two ranks
-   sharing the card under gloo, at the notebook's widths: DR-RF's 2,500
-   trees of depth 9 tree-sharded; the causal forest (2,000 of depth 8,
-   500 nuisance trees) and its row-sharded leaf index; the LASSO-PS
+   sharing the card under gloo, at the notebook's widths: DR-RF's
+   ``MG_DR_TREES`` (1,000) trees of depth 9 tree-sharded; the causal
+   forest (``MG_CF_TREES``, 800, of depth 8, 500 nuisance trees) and its
+   row-sharded leaf index (both cut from the rows' 2,500 and 2,000 to make
+   room for path_static; the gates hold at any count); the LASSO-PS
    ``cv_glmnet`` (10 folds, 100 λs) fold-sharded; the AIPW bootstrap
    boot-sharded; the two IRLS fits in float64 data-sharded;
    ``run_sweep(use_mesh=True)`` at MICRO on the concurrent engine, then
@@ -322,6 +324,20 @@ imports nothing of JAX. Phases, each printing one JSON line:
    RNG equal to the Python one for both ``sample_kind``s;
    ``prepare_dataset(load_raw_csv(csv))`` → ``inject_bias`` on the card
    equal to the in-memory path on the same cells;
+11n. path_static — the port's static analysis held to the card:
+   (a) ``scripts/torch_check_static.sh`` from a fresh cache (exit code,
+   the rule count, findings — 0 — and suppressions by rule, from the
+   warm JSON report); (b) under ``torch.cuda.set_sync_debug_mode("warn")``
+   a 16-tree depth-9 classifier forest and a 16-tree causal-forest group
+   at the notebook's widths, one ``predict_cate`` and ``STATIC_REPLAYS``
+   warmed replays at buckets 1 and 256, each synchronizing call recorded
+   at its nearest frame in the package (``sync_sites``, file:line with
+   counts): every site inside the hot-path table (``analysis/torchast.py::
+   HOT_PATH`` and what TGL003 reaches from it) must be a TGL003 finding,
+   suppressed in the tree with its reason; the rest are printed; (c) after
+   every earlier path, the TF32 pins still hold (both ``allow_tf32``
+   False, float32 matmul precision ``"highest"``). The lint runs in a
+   subprocess beside (b), and the phase's launches count like a path's;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -355,6 +371,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -395,6 +412,10 @@ from ate_replication_causalml_torch.ops import random as rnd  # noqa: E402
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts  # noqa: E402
 from ate_replication_causalml_torch.ops.linalg import alias_filter  # noqa: E402
 from ate_replication_causalml_torch.observability import serving_report as sreport  # noqa: E402
+from ate_replication_causalml_torch.observability.export import (  # noqa: E402
+    atomic_write_json,
+    atomic_write_text,
+)
 from ate_replication_causalml_torch.observability import stathealth  # noqa: E402
 from ate_replication_causalml_torch.resilience import chaos  # noqa: E402
 from ate_replication_causalml_torch import scenarios as sc  # noqa: E402
@@ -608,9 +629,12 @@ FLEET_MODELS = ("default", "m2", "m3")
 FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 
 # path_scenario_matrix: the stock grid (4 DGPs x 6 estimators, the 4
-# needs_tall columns of sparse_highdim skipped: 20 columns), 64
-# replicates in width-32 blocks, extended to 96; the scalar replay over
-# the first SCENARIO_REPLAY_REPS replicates of the vmapped columns; one
+# needs_tall columns of sparse_highdim skipped: 20 columns), 32
+# replicates (one width-32 block), extended to 64 (a second block); the
+# scalar replay over the first SCENARIO_REPLAY_REPS replicates of the
+# vmapped columns (cut from 64 → 96 and 32 for the script's time on a
+# slow host, PERF.md PR 19: the extension still adds one block a
+# column, and the first 64 replicates' coverage lies within the band); one
 # block of each SCENARIO_CPU_COLUMNS recomputed on the CPU port, its
 # estimates within SCENARIO_CPU_BOUND·(1 + |card|) of the card's (float32
 # GLM sums in the devices' orders; the draws are torch.equal). A lasso
@@ -622,10 +646,10 @@ FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 # card at those inputs, as cd_rows holds the rows' launches (p = 385 on
 # CD_PLAIN_WINDOWS, p = 5 on the whole path).
 SCENARIO_ESTIMATORS = ("naive", "ols", "ipw_logit", "aipw_logit", "lasso", "aipw_rf")
-SCENARIO_REPS = 64
-SCENARIO_EXT_REPS = 96
+SCENARIO_REPS = 32
+SCENARIO_EXT_REPS = 64
 SCENARIO_WIDTH = 32
-SCENARIO_REPLAY_REPS = 32
+SCENARIO_REPLAY_REPS = 16
 SCENARIO_CPU_COLUMNS = ("hetero_confounded:aipw_logit", "calibration:aipw_rf",
                         "calibration:lasso")
 SCENARIO_CPU_BOUND = 1e-5
@@ -2114,6 +2138,7 @@ def phase_path_serve_lifecycle(frame_mod, smi: str, cf_counts: dict) -> dict:
     corrupt = os.path.join(LIFECYCLE_OUT, "corrupt.npz")
     with open(outcome.checkpoint, "rb") as f:
         raw = f.read()
+    # graftlint: disable=JGL005 — writes a deliberately truncated copy: the corrupt candidate the rotation must refuse
     with open(corrupt, "wb") as f:
         f.write(raw[: len(raw) * 3 // 5])
     bound: list[int] = []
@@ -2285,6 +2310,7 @@ class FleetDaemon:
                "admin_port": re.compile(r"^# admin endpoint on \S+:(\d+)")}
 
         def read() -> None:
+            # graftlint: disable=JGL005 — a live log streamed line by line from the daemon's stderr
             with open(self.log_path, "w") as log:
                 for line in self.proc.stderr:
                     log.write(line)
@@ -4063,6 +4089,10 @@ MULTI_GPU_KERNELS = ("hist", "hist_shared", "route_advance", "leaf_record", "tra
                      "cd_path")
 MULTI_GPU_BUDGET_S = 150.0
 MULTI_GPU_RANKS = 2
+#: (b)'s forests: the rows' 2,500 and 2,000 trees cut to make room for
+#: path_static (PERF.md, PR 19); the sharded-equals-one-process gates
+#: hold at any tree count.
+MG_DR_TREES, MG_CF_TREES = 1_000, 800
 MG_DR_KEY, MG_CF_KEY, MG_FOLD_KEY, MG_BOOT_KEY = 12325, 12345, 31, 7
 FOREST_FIELDS = ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf")
 CAUSAL_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample")
@@ -4128,12 +4158,12 @@ def _mg_notebook_legs(out: dict, walls: dict) -> None:
     boot_mesh, data_mesh = make_mesh((BOOT_AXIS,)), make_mesh((DATA_AXIS,))
     dev = x.device
     forest = timed("dr_rf_forest", lambda: fo.fit_forest_sharded(
-        x, w, rnd.key(MG_DR_KEY, device=dev), tree_mesh, n_trees=DR_TREES, depth=DEPTH))
+        x, w, rnd.key(MG_DR_KEY, device=dev), tree_mesh, n_trees=MG_DR_TREES, depth=DEPTH))
     vote = fo.predict_forest(forest, x, oob=True).vote
     out["dr_rf"] = {"digest": digest(getattr(forest, f) for f in FOREST_FIELDS),
                     "n_trees": forest.n_trees, "vote": vote.cpu().numpy()}
     fit = timed("causal_fit", lambda: cf.fit_causal_forest(
-        frame_mod, key=rnd.key(MG_CF_KEY, device=dev), n_trees=CF_TREES, depth=CF_DEPTH,
+        frame_mod, key=rnd.key(MG_CF_KEY, device=dev), n_trees=MG_CF_TREES, depth=CF_DEPTH,
         nuisance_trees=CF_NUISANCE_TREES, mesh=tree_mesh))
     li = timed("leaf_index", lambda: cf.compute_leaf_index_sharded(fit.forest, x,
                                                                     mesh=data_mesh))
@@ -4234,13 +4264,13 @@ def _mg_references(ranks: list, fails: list) -> dict:
             if r[leg]["digest"] != r0[leg]["digest"]:
                 fails.append(f"{leg}: the ranks' forests differ")
     # DR-RF: the one-process grow of the ranks' key slices.
-    chunk, cpd, n_disp = fo.sharded_fit_plan(n, DEPTH, -(-DR_TREES // a), p=p)
+    chunk, cpd, n_disp = fo.sharded_fit_plan(n, DEPTH, -(-MG_DR_TREES // a), p=p)
     key = rnd.key(MG_DR_KEY, device="cuda")
     parts = [fo._grow_from_keys(fo.sharded_tree_keys(key, n_disp, a, chunk * cpd, r), codes, w,
                                 depth=DEPTH, mtry=int(np.sqrt(p)), n_bins=N_BINS, hist_mode=mode,
                                 tree_chunk=fo.DEFAULT_TREE_CHUNK, pool="reference")
              for r in range(a)]
-    ref = [interleave([q[j] for q in parts], n_disp, DR_TREES) for j in range(5)]
+    ref = [interleave([q[j] for q in parts], n_disp, MG_DR_TREES) for j in range(5)]
     rec["dr_rf"] = {"plan": [chunk, cpd, n_disp], "equal": digest(ref) == r0["dr_rf"]["digest"]}
     if not rec["dr_rf"]["equal"]:
         fails.append("DR-RF: the two-rank forest is not the one-process grow of its keys")
@@ -4249,14 +4279,14 @@ def _mg_references(ranks: list, fails: list) -> dict:
     wt = w - torch.as_tensor(r0["causal"]["w_hat"], device="cuda")
     yt = y - torch.as_tensor(r0["causal"]["y_hat"], device="cuda")
     kc = rnd.split(rnd.key(MG_CF_KEY, device="cuda"), 3)[2]
-    groups = CF_TREES // 2
+    groups = MG_CF_TREES // 2
     chunk, cpd, n_disp = sharded_causal_plan(n, CF_DEPTH, -(-groups // a), 2, p, N_BINS, mode)
     parts = [cf._grow_from_group_keys(
         fo.sharded_tree_keys(kc, n_disp, a, chunk * cpd, r), codes, wt, yt, mtry=None,
         depth=CF_DEPTH, n_bins=N_BINS, min_node=5, sample_fraction=0.5, k=2, honesty=True,
         group_chunk=cf.DEFAULT_GROUP_CHUNK, hist_mode=mode, pool="reference")
         for r in range(a)]
-    ref = [interleave([q[j] for q in parts], n_disp, CF_TREES) for j in range(4)]
+    ref = [interleave([q[j] for q in parts], n_disp, MG_CF_TREES) for j in range(4)]
     forest = cf.CausalForest(*ref, bin_edges=fo.quantile_bins(x, N_BINS), ci_group_size=2)
     li = cf.compute_leaf_index(forest, x).cpu().numpy()
     rec["causal"] = {"plan": [chunk, cpd, n_disp], "equal": digest(ref) == r0["causal"]["digest"],
@@ -4755,8 +4785,7 @@ def phase_path_native(smi: str) -> None:
     np.savetxt(buf, mat, fmt="%.17g", delimiter=",", header=",".join(cols), comments="")
     cell = lambda v: r"(?<=[,\n])" + re.escape(v) + r"(?=[,\n])"
     text = re.sub(cell("1e+308"), "NA", re.sub(cell("-1e+308"), "", "\n" + buf.getvalue()))[1:]
-    with open(path, "w") as f:
-        f.write(text)
+    atomic_write_text(path, text)
     walls["write_csv"] = time.perf_counter() - t0
     mat[r_idx, c_idx] = np.nan
     planted = {c: mat[:, j] for j, c in enumerate(cols)}
@@ -4805,6 +4834,164 @@ def phase_path_native(smi: str) -> None:
         raise AssertionError("path_native: " + "; ".join(fails))
 
 
+STATIC_TREES, STATIC_REPLAYS, STATIC_BUCKETS = 16, 50, (1, 256)
+PKG_DIR = os.path.join(REPO, "ate_replication_causalml_torch")
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def sync_sites(sites: dict):
+    """``torch.cuda.set_sync_debug_mode("warn")`` for the block: each
+    synchronizing call adds one to ``sites[file:line]`` of its nearest
+    frame inside the port's package (``<outside>`` when none is)."""
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return
+        f, where = sys._getframe(1), "<outside>"
+        while f is not None:
+            if f.f_code.co_filename.startswith(PKG_DIR + os.sep):
+                rel = os.path.relpath(f.f_code.co_filename, REPO).replace(os.sep, "/")
+                where = f"{rel}:{f.f_lineno}"
+                break
+            f = f.f_back
+        sites[where] = sites.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def static_sections(frame_mod) -> tuple[dict, dict]:
+    """The hot sections under the sync report: a 16-tree depth-9
+    classifier forest, a 16-tree causal-forest group, one
+    ``predict_cate`` and ``STATIC_REPLAYS`` warmed replays a bucket.
+    Returns ``(sites by section, walls)``."""
+    by_section: dict = {}
+    walls: dict = {}
+    x, w = frame_mod.x, frame_mod.w
+    key = rnd.key(19, device="cuda")
+    wt = (w - w.mean()).contiguous()
+    yt = (frame_mod.y - frame_mod.y.mean()).contiguous()
+    host_x = x.cpu().numpy()
+    sync()
+    sections = (
+        ("classifier", lambda: fo.fit_forest_classifier(x, w, key, n_trees=STATIC_TREES,
+                                                        depth=DEPTH)),
+        ("causal_group", lambda: cf.grow_causal_forest(x, wt, yt, key, n_trees=STATIC_TREES,
+                                                       depth=CF_DEPTH)),
+    )
+    out: dict = {}
+    for name, fn in sections:
+        sites: dict = {}
+        t0 = time.perf_counter()
+        with sync_sites(sites):
+            out[name] = fn()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        by_section[name] = sites
+    forest = out["causal_group"]
+    sites = {}
+    t0 = time.perf_counter()
+    with sync_sites(sites):
+        cf.predict_cate(forest, x)
+    sync()
+    walls["predict_cate"] = time.perf_counter() - t0
+    by_section["predict_cate"] = sites
+    for b in STATIC_BUCKETS:
+        warm = cf.lower_predict_cate(forest, b)
+        sites = {}
+        t0 = time.perf_counter()
+        with sync_sites(sites):
+            for i in range(STATIC_REPLAYS):
+                start = (i * b) % (host_x.shape[0] - b + 1)
+                warm(forest, host_x[start:start + b])
+        sync()
+        walls[f"replay_{b}"] = time.perf_counter() - t0
+        by_section[f"replay_{b}"] = sites
+    return by_section, walls
+
+
+STATIC_OUT = os.path.join(REPO, "build", "chip_smoke_static")
+STATIC_BUDGET_S = 20.0
+STATIC_LINT_PATHS = ("ate_replication_causalml_torch", "chip_smoke.py")
+STATIC_KERNELS = ("hist", "hist_partition", "node_sums", "route_advance", "leaf_record",
+                  "traverse")
+
+
+def phase_path_static(frame_mod, smi: str) -> dict:
+    """The port's static analysis against the card (docstring, 11n)."""
+    from ate_replication_causalml_torch.analysis.rules import classify_sync_sites
+
+    t_start = time.perf_counter()
+    shutil.rmtree(STATIC_OUT, ignore_errors=True)
+    os.makedirs(STATIC_OUT)
+    cache = os.path.join(STATIC_OUT, "cache")
+    env_ = dict(os.environ, PYTHON=sys.executable, TORCH_GRAFTLINT_CACHE=cache)
+    # (a) the gate, cold, in a subprocess beside (b).
+    gate = subprocess.Popen(["bash", os.path.join(REPO, "scripts", "torch_check_static.sh")],
+                            cwd=REPO, env=env_, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # (b) the hot sections under the card's sync report.
+    reset_counts()
+    by_section, walls = static_sections(frame_mod)
+    counts = read_counts()
+    try:
+        gate_out, _ = gate.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        gate.kill()
+        gate.communicate()
+        raise AssertionError("path_static: the gate did not finish in 300 s") from None
+    walls["gate"] = time.perf_counter() - t_start
+    scripts_ = sorted(os.path.join("scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
+                      if f.startswith("torch_") and f.endswith(".py"))
+    report = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "torch_graftlint.py"), *STATIC_LINT_PATHS,
+         *scripts_, "--format", "json", "--cache", cache],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    lint = json.loads(report.stdout)
+    suppressed: dict = {}
+    for f in lint["suppressed"]:
+        suppressed[f["rule"]] = suppressed.get(f["rule"], 0) + 1
+    sites: dict = {}
+    for section in by_section.values():
+        for site, n in section.items():
+            sites[site] = sites.get(site, 0) + n
+    classified = classify_sync_sites(REPO, sites)
+    # (c) the float32 pins, after every earlier path.
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    wall = time.perf_counter() - t_start
+    out = {"phase": "path_static", "nvidia_smi": smi,
+           "gate": {"rc": gate.returncode, "ok": "check_static(torch): OK" in gate_out,
+                    "rules": len(lint["rules"]), "files": lint["files"],
+                    "findings": len(lint["findings"]), "suppressed_by_rule": suppressed},
+           "sync_sites": by_section, "hot_sites": classified["hot"],
+           "other_sites": classified["other"], "missed": classified["missed"],
+           "tf32": tf32, "walls_s": walls, "wall_s": wall, "budget_s": STATIC_BUDGET_S,
+           "launches": counts}
+    emit(out)
+    fails = []
+    if gate.returncode != 0 or lint["findings"] or report.returncode != 0:
+        fails.append(f"the gate failed (rc {gate.returncode}):\n{gate_out[-3000:]}")
+    if classified["missed"]:
+        fails.append(f"hot-path sync sites TGL003 does not flag: {classified['missed']}")
+    if tf32 != {"matmul_allow_tf32": False, "cudnn_allow_tf32": False,
+                "float32_matmul_precision": "highest"}:
+        fails.append(f"the TF32 pins moved: {tf32}")
+    if wall > STATIC_BUDGET_S:
+        fails.append(f"the phase took {wall:.1f} s, over its {STATIC_BUDGET_S} s budget")
+    if fails:
+        raise AssertionError("path_static: " + "; ".join(fails))
+    require_launched(counts, STATIC_KERNELS, "static")
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -4813,8 +5000,7 @@ def drop_rows(src: str, out: str, methods) -> None:
     path = os.path.join(out, "results.jsonl")
     with open(path) as f:
         lines = [ln for ln in f if json.loads(ln)["method"] not in methods]
-    with open(path, "w") as f:
-        f.writelines(lines)
+    atomic_write_text(path, "".join(lines))
 
 
 def injections(out: str) -> list:
@@ -5003,6 +5189,7 @@ def main() -> int:
     by_path["matmul_growers"] = phase_path_matmul_growers(frame_mod, smi)
     by_path["rbridge"] = phase_path_rbridge(frame_mod, smi)
     phase_path_native(smi)
+    by_path["static"] = phase_path_static(frame_mod, smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []
@@ -5025,8 +5212,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     RECORD["kernels"] = kernels
     RECORD["nvidia_smi"] = smi
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(RECORD, f, indent=1)
+    atomic_write_json(os.path.join(out_dir, "chip_smoke.json"), RECORD)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,7 +44,11 @@ def test_port_lists_its_modules():
               "scenarios.matrix", "scenarios.frontier", "scenarios.__main__",
               "resilience.campaign", "resilience.invariants", "parallel.mesh",
               "parallel.multihost", "parallel.shardio", "parallel.spawn", "parallel.dryrun",
-              "models.plan", "rbridge", "native"):
+              "models.plan", "rbridge", "native", "analysis", "analysis.core",
+              "analysis.scopes", "analysis.cache", "analysis.reporters", "analysis.torchast",
+              "analysis.rules", "analysis.concurrency", "analysis.concurrency.extract",
+              "analysis.concurrency.flow", "analysis.concurrency.model",
+              "analysis.concurrency.rules"):
         assert f"{_PKG}.{m}" in mods
 
 

@@ -131,7 +131,7 @@ def ran():
             return ja.aipw_tau(w, y, p, mu0, mu1), p, mu0, mu1
 
         ref["glm"] = [np.asarray(v) for v in nuisance_step(xj, wj, yj)]
-    ranks = run_ranks(bodies.estimators_body, A,
+    ranks = run_ranks(bodies.estimators_body, A, backend="gloo", device="cpu",
                       args=(boot, cv_cases, glm, _matrix_spec(True)), timeout=120)
     return dict(boot=boot, cv_cases=cv_cases, glm=glm, ref=ref, ranks=ranks)
 

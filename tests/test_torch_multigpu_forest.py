@@ -72,7 +72,8 @@ def sharded():
         jli = jcf.compute_leaf_index_sharded(jcau, x, mesh=make_mesh(
             (DATA_AXIS,), devices=jax.devices()[:A]))
     cfg = {k: CFG[k] for k in ("trees", "depth", "n_bins")}
-    ranks = run_ranks(bodies.forest_body, A, args=(x, y, ycont, wt, yt, key_data, cfg),
+    ranks = run_ranks(bodies.forest_body, A, backend="gloo", device="cpu",
+                      args=(x, y, ycont, wt, yt, key_data, cfg),
                       timeout=120)
     asnp = lambda fo, names: {f: np.asarray(getattr(fo, f)) for f in names}
     return dict(x=x, y=y, ycont=ycont, wt=wt, yt=yt, key_data=key_data, ranks=ranks,

@@ -106,11 +106,12 @@ def test_use_mesh_override_is_thread_confined():
 def test_worlds_join_and_pod_mesh_layout():
     """Two gloo ranks join from explicit arguments; on four ranks
     ``make_pod_mesh`` lays replicates across slices and rows within one."""
-    got = run_ranks(bodies.world_body, 2, timeout=TIMEOUT)
+    got = run_ranks(bodies.world_body, 2, backend="gloo", device="cpu", timeout=TIMEOUT)
     assert [g["rank"] for g in got] == [0, 1]
     assert all(g["size"] == 2 and g["backend"] == "gloo" and g["device"] == "cpu"
                and g["again"] is True for g in got)
-    pod = run_ranks(bodies.pod_mesh_body, 4, args=(2,), timeout=TIMEOUT)
+    pod = run_ranks(bodies.pod_mesh_body, 4, backend="gloo", device="cpu", args=(2,),
+                    timeout=TIMEOUT)
     assert [p["shape"] for p in pod] == [{"boot": 2, "data": 2}] * 4
     assert [p["coords"] for p in pod] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert [p["data_group"] for p in pod] == [[0, 1], [0, 1], [2, 3], [2, 3]]
@@ -151,7 +152,8 @@ def test_shardio_round_trips_bit_identical(world):
     if world == 1:
         outs = [bodies.shardio_body(vals, padded_vals)]   # no process group
     else:
-        outs = run_ranks(bodies.shardio_body, world, args=(vals, padded_vals), timeout=TIMEOUT)
+        outs = run_ranks(bodies.shardio_body, world, backend="gloo", device="cpu",
+                         args=(vals, padded_vals), timeout=TIMEOUT)
     for out in outs:
         _check_shardio(out, world)
     if world == 1:
@@ -196,7 +198,8 @@ def test_sharded_artifact_fit_once_and_handed_whole():
     fit's tensor itself. Every rank computes it whole, so the shard
     plane moves nothing: no collective, no metered byte."""
     raw = np.arange(4096, dtype=np.float32)
-    outs = run_ranks(bodies.cache_body, 2, args=(raw,), timeout=TIMEOUT)
+    outs = run_ranks(bodies.cache_body, 2, backend="gloo", device="cpu", args=(raw,),
+                     timeout=TIMEOUT)
     for o in outs:
         assert o["moved"] == {} and o["fits"] == 1 and o["all_the_fit"]
         assert np.array_equal(o["u1"], raw)

@@ -44,9 +44,10 @@ def swept(tmp_path_factory):
     # The concurrent sweep is the dry run's sweep leg (every leg of
     # dryrun_multigpu on two gloo ranks, its sweep into outs["conc"]).
     threads = [threading.Thread(target=world, args=("seq", lambda: run_ranks(
-                   bodies.sweep_body, A, args=(outs["seq"], "sequential", True), timeout=240))),
+                   bodies.sweep_body, A, backend="gloo", device="cpu",
+                   args=(outs["seq"], "sequential", True), timeout=240))),
                threading.Thread(target=world, args=("dry", lambda: dryrun_multigpu(
-                   A, "gloo", "cpu", timeout=240, sweep_out=outs["conc"])))]
+                   A, backend="gloo", device="cpu", timeout=240, sweep_out=outs["conc"])))]
     for t in threads:
         t.start()
     for t in threads:

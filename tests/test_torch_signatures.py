@@ -423,3 +423,23 @@ def test_run_sweep_positional(tmp_path, monkeypatch):
         assert os.path.isfile(os.path.join(tmp_path, pkg, "results.jsonl"))
         with pytest.raises(ValueError, match="scheduler"):
             mod.run_sweep(config, None, None, False, logs.append, "threads", None, None, **extra)
+
+@pytest.mark.parametrize("entry", ["dryrun_multigpu", "run_ranks"])
+def test_multi_gpu_entry_points_default_to_the_card(entry, monkeypatch):
+    """``dryrun_multigpu`` (the counterpart of ``__graft_entry__.py``'s
+    ``dryrun_multichip``) and ``run_ranks`` run on the card unless the
+    caller names the CPU: ``device=None`` and ``backend=None`` by default,
+    resolved through ``resolve_device`` (which raises without a card) and
+    to ``nccl`` there; a CPU caller passes ``device="cpu",
+    backend="gloo"``."""
+    from ate_replication_causalml_torch.parallel import dryrun, spawn
+
+    fn = {"dryrun_multigpu": dryrun.dryrun_multigpu, "run_ranks": spawn.run_ranks}[entry]
+    params = inspect.signature(fn).parameters
+    assert params["device"].default is None and params["backend"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        if entry == "run_ranks":
+            fn(abs, 1)
+        else:
+            fn(1)
