@@ -6,9 +6,11 @@
 // (dense mode), both with per-tree weights (entry bin_histogram_pallas_batched)
 // and with one weight stack shared by every tree (shared_weights=True, entry
 // bin_histogram_pallas_batched_shared: the weights' tree stride is 0), and with
-// it the single-tree _hist_kernel as the T = 1 case. The classifier grower
-// calls it per tree chunk and level (K = 2: bootstrap counts and counts * y)
-// and for the leaf sums (node_sums: p = 1, n_bins = 1, M = 2^depth); the
+// it the single-tree _hist_kernel as the T = 1 case; each also in its bf16
+// form (bf16=True, in_dtype=jnp.bfloat16 at hist_pallas.py:618, 755, 842).
+// The classifier grower calls it per tree chunk and level (K = 2: bootstrap
+// counts and counts * y) and for the leaf sums (node_sums: p = 1, n_bins =
+// 1, M = 2^depth); the
 // causal grower calls the shared form (K = 5 float moment channels) per
 // level below the partition crossover and for the honest leaf sums.
 //
@@ -37,7 +39,9 @@
 // codes[row * p + f0 ...]) with 4-byte cp.async copies, four stages deep,
 // so three stages of loads are in flight while the warps add the fourth;
 // every row's id and weights are read once per block, not once per warp
-// and feature. K is a template parameter (1..8). Ids outside [0, M) and
+// and feature. K is a template parameter (1..8), and so is the bf16 form
+// (kBf16: each warp rounds a row's staged weights as it reads them,
+// hist_common.cuh). Ids outside [0, M) and
 // codes outside [0, n_bins) add nothing. The tree is the grid's fastest
 // axis, so the blocks of one row range and feature group, which read the
 // same codes, run together and share them through L2.
@@ -94,7 +98,7 @@ __device__ __forceinline__ void stage_rows(int32_t* st, int nf, const int32_t* _
   }
 }
 
-template <int K>
+template <int K, bool kBf16>
 __global__ void __launch_bounds__(kDenseMaxThreads, kDenseMinBlocks) hist_dense(
     const int32_t* __restrict__ codes, int64_t n, int p, const int32_t* __restrict__ ids,
     const float* __restrict__ w, int64_t w_tree_stride, int n_trees, int max_nodes, int n_bins,
@@ -163,7 +167,9 @@ __global__ void __launch_bounds__(kDenseMaxThreads, kDenseMinBlocks) hist_dense(
         }
         float wk[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) wk[k] = sw[k * kStageRows + r];  // r < kStageRows
+        for (int k = 0; k < K; ++k) {
+          wk[k] = operand<kBf16>(sw[k * kStageRows + r]);  // r < kStageRows
+        }
         add_ordered<K>(tile, chan, cell, wk);
       }
     }
@@ -186,33 +192,40 @@ struct DenseLaunch {
   int n_trees, max_nodes, n_bins, features, group_nodes, node_groups, slice_nodes, slices;
   int64_t rows_per_block;
   int n_parts;
+  int bf16;
   float* out;
   cudaStream_t stream;
 };
 
-template <int K>
-cudaError_t launch_dense(const DenseLaunch& a) {
+template <int K, bool kBf16>
+cudaError_t launch_dense_form(const DenseLaunch& a) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(a.features) * K * a.group_nodes * a.n_bins +
                        static_cast<size_t>(kStages) * (1 + K + a.features) * kStageRows);
-  cudaError_t err = raise_smem_cap(hist_dense<K>, smem);
+  cudaError_t err = raise_smem_cap(hist_dense<K, kBf16>, smem);
   if (err != cudaSuccess) return err;
   const int feature_groups = (a.p + a.features - 1) / a.features;
   const dim3 grid(a.n_trees, feature_groups * a.node_groups, a.n_parts);
-  hist_dense<K><<<grid, 32 * a.features * a.slices, smem, a.stream>>>(
+  hist_dense<K, kBf16><<<grid, 32 * a.features * a.slices, smem, a.stream>>>(
       a.codes, a.n, a.p, a.ids, a.w, a.w_tree_stride, a.n_trees, a.max_nodes, a.n_bins,
       a.features, a.group_nodes, a.node_groups, a.slice_nodes, a.rows_per_block, a.out);
   return cudaGetLastError();
 }
 
+template <int K>
+cudaError_t launch_dense(const DenseLaunch& a) {
+  return a.bf16 ? launch_dense_form<K, true>(a) : launch_dense_form<K, false>(a);
+}
+
 }  // namespace
 
 // features: F per block; node_groups: G blocks split the nodes; slices:
-// warps per feature, each with a contiguous run of the block's nodes.
+// warps per feature, each with a contiguous run of the block's nodes; bf16:
+// the bf16 form.
 extern "C" int ate_hist(const void* codes, int64_t n, int p, const void* ids, const void* w,
                         int64_t w_tree_stride, int n_trees, int n_weights, int max_nodes,
                         int n_bins, int n_parts, int features, int node_groups, int slices,
-                        void* partial, void* out, void* stream) {
+                        int bf16, void* partial, void* out, void* stream) {
   if (features < 1 || node_groups < 1 || slices < 1 || node_groups > max_nodes ||
       features * slices * 32 > kDenseMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -221,7 +234,7 @@ extern "C" int ate_hist(const void* codes, int64_t n, int p, const void* ids, co
   const DenseLaunch a{static_cast<const int32_t*>(codes), n, p, static_cast<const int32_t*>(ids),
                       static_cast<const float*>(w), w_tree_stride, n_trees, max_nodes, n_bins,
                       features, group_nodes, node_groups, (group_nodes + slices - 1) / slices,
-                      slices, (n + n_parts - 1) / n_parts, n_parts,
+                      slices, (n + n_parts - 1) / n_parts, n_parts, bf16,
                       static_cast<float*>(n_parts > 1 ? partial : out),
                       static_cast<cudaStream_t>(stream)};
   const cudaError_t err = ATE_WITH_K(n_weights, launch_dense, a);

@@ -29,8 +29,17 @@
 // as many independent chains on an SM as shared memory allows. Ranks from
 // one ballot per bit of the cell index, tried in place of
 // __match_any_sync, did not shorten the step.
+//
+// The bf16 form (the JAX package's hist_backend="pallas_bf16": its kernels'
+// in_dtype=bfloat16) rounds each weight once, as it is loaded, to bfloat16
+// (round to nearest, ties to even, as XLA's astype) and adds the widened
+// value in float32: the products with the 0/1 indicators stay exact and the
+// sums keep their order, so dense, partition and packed agree bit for bit in
+// this form too. It is a template flag (kBf16): the float32 form compiles
+// exactly as before.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,12 +103,26 @@ __device__ __forceinline__ void add_chained(float* tile, int chan, int cell, con
   __syncwarp();
 }
 
-// w[k] = w_t[k * n + row] for a lane that holds a row, else 0.
-template <int K>
+// A weight as the kernels add it: rounded to bfloat16 and widened back in
+// the bf16 form, unchanged otherwise.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float w) {
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(w));
+  } else {
+    return w;
+  }
+}
+
+// w[k] = w_t[k * n + row] (as operand<kBf16>) for a lane that holds a row,
+// else 0.
+template <int K, bool kBf16 = false>
 __device__ __forceinline__ void load_weights(float (&w)[K], const float* __restrict__ w_t,
                                              int64_t n, int64_t row, bool live) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) w[k] = live ? w_t[static_cast<int64_t>(k) * n + row] : 0.0f;
+  for (int k = 0; k < K; ++k) {
+    w[k] = live ? operand<kBf16>(w_t[static_cast<int64_t>(k) * n + row]) : 0.0f;
+  }
 }
 
 __device__ __forceinline__ void zero_tile(float* tile, int size) {

@@ -78,6 +78,10 @@
 //      ranges are added in the same order, so packed == unpacked == dense
 //      bit for bit, for integer and float weights. K is a template
 //      parameter: no per-lane array lives in local memory.
+// The bf16 form (bf16=True on both entry points, hist_pallas.py:755, 842):
+// the unpacked pass's weights are rounded in step 1b's gather into perm
+// order, where the TPU kernel rounds its permuted weights (:499), and the
+// packed pass rounds each weight as it loads it (hist_common.cuh).
 #include <cooperative_groups.h>
 
 #include "hist_common.cuh"
@@ -169,7 +173,9 @@ __global__ void __launch_bounds__(kThreads) partition_rows(
 // in perm order, node_sorted (T, n) and w_sorted (T, K, n), gathered by
 // row once here and read coalesced by every feature's block, which would
 // otherwise gather a 32-byte sector per lane for each of them. Positions
-// past a range's sorted rows are not written.
+// past a range's sorted rows are not written. The bf16 form stores each
+// weight rounded (operand<kBf16>).
+template <bool kBf16>
 __global__ void partition_gather(const int32_t* __restrict__ ids, int64_t n, int n_trees,
                                  int n_parts, int max_nodes, int64_t rows_per_block,
                                  const int32_t* __restrict__ perm,
@@ -188,7 +194,9 @@ __global__ void partition_gather(const int32_t* __restrict__ ids, int64_t n, int
     const int64_t row = perm[e];
     node_sorted[e] = ids[t * n + row];
     const float* w_t = w + t * w_tree_stride;
-    for (int k = 0; k < n_weights; ++k) w_sorted[(t * n_weights + k) * n + pos] = w_t[k * n + row];
+    for (int k = 0; k < n_weights; ++k) {
+      w_sorted[(t * n_weights + k) * n + pos] = operand<kBf16>(w_t[k * n + row]);
+    }
   }
 }
 
@@ -319,7 +327,7 @@ __global__ void __launch_bounds__(kThreads,
   cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
-template <int K>
+template <int K, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kAccumulateMinBlocks) partition_accumulate_packed(
     const int32_t* __restrict__ words, int64_t n, int p, int slots, int node_groups,
     int group_nodes, const int32_t* __restrict__ ids,
@@ -386,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, kAccumulateMinBlocks) partition_accu
         code = static_cast<int>((bits >> (kSlotBits * (s0 + slot))) & kSlotMask);
       }
       float wk[K];
-      load_weights<K>(wk, w_t, n, row, live);
+      load_weights<K, kBf16>(wk, w_t, n, row, live);
       add_ordered<K>(tile + slot * tile_size, chan, code < n_bins ? local * n_bins + code : -1, wk);
     }
     __syncthreads();
@@ -419,11 +427,11 @@ __global__ void pack_words(const int32_t* __restrict__ codes, int64_t n, int p,
 }
 
 // Step 1 for both accumulate passes, and step 1b for the unpacked one
-// (node_sorted non-null).
+// (node_sorted non-null; bf16: its weights rounded).
 cudaError_t launch_partition_rows(const int32_t* ids, int64_t n, int n_trees, int n_parts,
                                   int max_nodes, int32_t* perm, int32_t* seg, const float* w,
-                                  int64_t w_tree_stride, int n_weights, int32_t* node_sorted,
-                                  float* w_sorted, cudaStream_t s) {
+                                  int64_t w_tree_stride, int n_weights, int bf16,
+                                  int32_t* node_sorted, float* w_sorted, cudaStream_t s) {
   const size_t sort_smem =
       static_cast<size_t>(kWarps * max_nodes + max_nodes + 1) * sizeof(int32_t);
   cudaError_t err = raise_smem_cap(partition_rows, sort_smem);
@@ -434,9 +442,16 @@ cudaError_t launch_partition_rows(const int32_t* ids, int64_t n, int n_trees, in
   err = cudaGetLastError();
   if (err != cudaSuccess || node_sorted == nullptr) return err;
   const int64_t want = (static_cast<int64_t>(n_trees) * n + 255) / 256;
-  partition_gather<<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, s>>>(
-      ids, n, n_trees, n_parts, max_nodes, rows_per_block, perm, seg, w, w_tree_stride,
-      n_weights, node_sorted, w_sorted);
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  if (bf16) {
+    partition_gather<true><<<blocks, 256, 0, s>>>(ids, n, n_trees, n_parts, max_nodes,
+                                                   rows_per_block, perm, seg, w, w_tree_stride,
+                                                   n_weights, node_sorted, w_sorted);
+  } else {
+    partition_gather<false><<<blocks, 256, 0, s>>>(ids, n, n_trees, n_parts, max_nodes,
+                                                    rows_per_block, perm, seg, w, w_tree_stride,
+                                                    n_weights, node_sorted, w_sorted);
+  }
   return cudaGetLastError();
 }
 
@@ -455,6 +470,7 @@ struct PartitionLaunch {
   const float* w_sorted;
   int clustered;
   int slots, node_groups;  // the packed pass
+  int bf16;                // the packed pass's bf16 form
   float* out;
   cudaStream_t stream;
 };
@@ -501,19 +517,25 @@ cudaError_t max_active_clusters(const PartitionLaunch& a, int* count) {
                             : cudaOccupancyMaxActiveClusters(count, partition_accumulate<K>, &cfg);
 }
 
-template <int K>
-cudaError_t launch_accumulate_packed(const PartitionLaunch& a) {
+template <int K, bool kBf16>
+cudaError_t launch_accumulate_packed_form(const PartitionLaunch& a) {
   const int group_nodes = (a.max_nodes + a.node_groups - 1) / a.node_groups;
   const size_t smem = static_cast<size_t>(a.slots) * K * group_nodes * a.n_bins * sizeof(float);
-  cudaError_t err = raise_smem_cap(partition_accumulate_packed<K>, smem);
+  cudaError_t err = raise_smem_cap(partition_accumulate_packed<K, kBf16>, smem);
   if (err != cudaSuccess) return err;
   const int p3 = (a.p + kPackSlots - 1) / kPackSlots;
   const int slot_groups = (kPackSlots + a.slots - 1) / a.slots;
   const dim3 grid(p3 * slot_groups * a.node_groups, a.n_trees);
-  partition_accumulate_packed<K><<<grid, kThreads, smem, a.stream>>>(
+  partition_accumulate_packed<K, kBf16><<<grid, kThreads, smem, a.stream>>>(
       a.codes, a.n, a.p, a.slots, a.node_groups, group_nodes, a.ids, a.perm, a.seg, a.w,
       a.w_tree_stride, a.n_trees, a.n_parts, a.max_nodes, a.n_bins, rows_per_block(a), a.out);
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_accumulate_packed(const PartitionLaunch& a) {
+  return a.bf16 ? launch_accumulate_packed_form<K, true>(a)
+                : launch_accumulate_packed_form<K, false>(a);
 }
 
 PartitionLaunch partition_launch(const void* codes, int64_t n, int p, const void* ids,
@@ -549,17 +571,18 @@ bool unpacked_args_ok(int n_weights, int clustered, int n_parts) {
 // perm (T, n) and the segment starts seg (T, n_parts, max_nodes + 1), which
 // both accumulate passes read; with node_sorted (T, n) and w_sorted (T,
 // n_weights, n), also each position's node and weights w (T, n_weights, n,
-// tree stride w_tree_stride) in perm order, for the unpacked pass. Null
-// node_sorted writes neither (w and w_sorted are then not read).
+// tree stride w_tree_stride) in perm order, for the unpacked pass, rounded to
+// bfloat16 under bf16. Null node_sorted writes neither (w and w_sorted are
+// then not read).
 extern "C" int ate_partition_sort(const void* ids, int64_t n, int n_trees, int max_nodes,
                                   int n_parts, const void* w, int64_t w_tree_stride,
-                                  int n_weights, void* perm, void* seg, void* node_sorted,
-                                  void* w_sorted, void* stream) {
+                                  int n_weights, int bf16, void* perm, void* seg,
+                                  void* node_sorted, void* w_sorted, void* stream) {
   return static_cast<int>(launch_partition_rows(
       static_cast<const int32_t*>(ids), n, n_trees, n_parts, max_nodes,
       static_cast<int32_t*>(perm), static_cast<int32_t*>(seg), static_cast<const float*>(w),
-      w_tree_stride, n_weights, static_cast<int32_t*>(node_sorted), static_cast<float*>(w_sorted),
-      static_cast<cudaStream_t>(stream)));
+      w_tree_stride, n_weights, bf16, static_cast<int32_t*>(node_sorted),
+      static_cast<float*>(w_sorted), static_cast<cudaStream_t>(stream)));
 }
 
 // Step 2, the unpacked pass over perm, seg, node_sorted and w_sorted from
@@ -602,12 +625,12 @@ extern "C" int ate_hist_partition_clusters(int p, int n_trees, int n_weights, in
 
 // The packed pass over perm and seg from ate_partition_sort: words (n,
 // ceil(p/3)) int32 from ate_pack_codes; slots of a word per block in
-// [1, 3]; node_groups blocks split the nodes of a word. Its blocks add
-// their row ranges themselves.
+// [1, 3]; node_groups blocks split the nodes of a word; bf16: the bf16
+// form. Its blocks add their row ranges themselves.
 extern "C" int ate_hist_partition_packed(const void* words, int64_t n, int p, const void* ids,
                                          const void* w, int64_t w_tree_stride, int n_trees,
                                          int n_weights, int max_nodes, int n_bins, int n_parts,
-                                         int slots, int node_groups, const void* perm,
+                                         int slots, int node_groups, int bf16, const void* perm,
                                          const void* seg, void* out, void* stream) {
   if (n_weights < 1 || n_weights > kMaxWeights || slots < 1 || slots > kPackSlots ||
       node_groups < 1 || node_groups > max_nodes || n_bins > (1 << kSlotBits)) {
@@ -617,6 +640,7 @@ extern "C" int ate_hist_partition_packed(const void* words, int64_t n, int p, co
                                        max_nodes, n_bins, n_parts, out, stream);
   a.slots = slots;
   a.node_groups = node_groups;
+  a.bf16 = bf16;
   return static_cast<int>(ATE_WITH_K(n_weights, launch_accumulate_packed, a));
 }
 

@@ -78,15 +78,15 @@ LIBRARIES = {
 # stream go as c_void_p: ctypes would otherwise pass a 32-bit int.
 KERNELS = {
     "hist": ("hist", "ate_hist",
-             [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+             [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "partition_sort": ("hist_partition", "ate_partition_sort",
-                       [_P, _I64, _I, _I, _I, _P, _I64, _I, _P, _P, _P, _P, _P]),
+                       [_P, _I64, _I, _I, _I, _P, _I64, _I, _I, _P, _P, _P, _P, _P]),
     "hist_partition": ("hist_partition", "ate_hist_partition",
                        [_P, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
     "hist_partition_clusters": ("hist_partition", "ate_hist_partition_clusters",
                                 [_I, _I, _I, _I, _I, _I, _I, _P]),
     "hist_partition_packed": ("hist_partition", "ate_hist_partition_packed",
-                              [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+                              [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P]),
     "pack_codes": ("hist_partition", "ate_pack_codes", [_P, _I64, _I, _P, _P]),
     "route": ("route", "ate_route",

@@ -56,7 +56,12 @@ that is :func:`_grow_groups_direct`, on the same kernels. Its matmul
 predict route (``row_backend="matmul"``) selects the same leaves and
 payloads, so the port takes it as a name of its kernels' route. "auto"
 stays the streaming grower: the JAX package's CPU default ("onehot")
-would move every CPU result of the port.
+would move every CPU result of the port. The JAX package's Pallas names
+take the streaming grower: "pallas" as "auto", "pallas_bf16" with the
+split search's histograms in their bf16 form (the five channels rounded
+to bfloat16: another forest, as in the JAX package; the honest leaf sums
+stay float32), and "pallas_interpret" (here also a ``row_backend``), the
+plain versions, for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from ate_replication_causalml_torch.models.forest import (
     NON_STREAMING_BACKENDS,
     binarize,
     check_hist_backend,
+    check_interpret,
     dispatch_major_gather,
     exact_subsample_mask,
     fit_forest_regressor,
@@ -241,11 +247,13 @@ def little_bag_masks(group_keys, n: int, s: int, k: int, honesty: bool = True):
 
 
 def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_node,
-                 honesty, hist_mode, words=None):
+                 honesty, hist_mode, words=None, bf16=False):
     """Grow G little-bag groups of k trees (group keys (G, 2)): the JAX
     package's ``grow_group`` → ``grow_one`` → ``grow_one_streaming``,
     with the groups' trees on one explicit tree axis (T = G·k).
-    ``words``: the packed codes of the "partition+pack" levels."""
+    ``words``: the packed codes of the "partition+pack" levels; ``bf16``:
+    the levels' histograms in their bf16 form (the leaf sums stay
+    float32)."""
     p = codes.shape[1]
     tree_keys, base, grow_mask, est_mask = little_bag_masks(group_keys, n, s, k, honesty)
     # The honesty draw spent tree_key itself; the level keys drop split
@@ -257,7 +265,7 @@ def _grow_groups(group_keys, codes, mom5, *, n, s, k, depth, mtry, n_bins, min_n
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_shared(
             codes, ids, mom5, max_nodes=m, n_bins=n_bins,
-            mode=mode_for_width(hist_mode, m, 5, p, n_bins), packed=words),
+            mode=mode_for_width(hist_mode, m, 5, p, n_bins), packed=words, bf16=bf16),
         tables_fn=lambda hist, level, perm: _tables(
             hist, level_keys, level, perm, p=p, n_bins=n_bins, mtry=mtry, min_node=min_node),
         grow_mask=grow_mask, est_mask=est_mask,
@@ -346,10 +354,13 @@ def grow_causal_forest(
     resolves to "onehot"; "onehot" and "xla" are the JAX package's
     direct-ρ grower (:func:`_grow_groups_direct`, on the same kernels),
     another algorithm whose splits agree with the streaming grower's
-    except where float32 rounding decides a near-tie. ``hist_mode`` as in
+    except where float32 rounding decides a near-tie; "pallas" is "auto",
+    "pallas_bf16" the streaming grower with its levels' histograms in the
+    bf16 form, "pallas_interpret" CPU tensors only
+    (:func:`~.forest.check_hist_backend`). ``hist_mode`` as in
     :func:`~.forest.fit_forest_classifier` (K = 5 channels: partition
     from width 16 under "auto"; packed there under the packed policy)."""
-    check_hist_backend(hist_backend)
+    check_hist_backend(hist_backend, device=x.device)
     n, p = x.shape
     k = ci_group_size
     n_groups = -(-n_trees // k)
@@ -379,7 +390,8 @@ def _grow_from_group_keys(group_keys, codes, wt, yt, *, mtry, depth, n_bins, min
     words = packed_codes_for(codes, hist_mode)
     mom5 = _moments_stack(wt, yt).T.contiguous()            # (5, n), shared by every tree
     s = max(2, int(n * sample_fraction))
-    grow = _grow_groups_direct if hist_backend in NON_STREAMING_BACKENDS else _grow_groups
+    grow = (_grow_groups_direct if hist_backend in NON_STREAMING_BACKENDS
+            else functools.partial(_grow_groups, bf16=hist_backend == "pallas_bf16"))
 
     def chunk_shard(i: int):
         g = i * group_chunk
@@ -423,9 +435,9 @@ def grow_causal_forest_sharded(
     grows slice ``[i, r·per : (r+1)·per]`` of dispatch i, and the
     gathered trees, dispatch-major, are cut to ``n_groups · k``. Each
     rank grows its groups in chunks of :data:`DEFAULT_GROUP_CHUNK`, with
-    the streaming grower ("auto") or the direct-ρ one ("xla"); "onehot"
-    is refused, as in the JAX package."""
-    check_hist_backend(hist_backend, sharded=True)
+    the streaming grower ("auto" and the Pallas names) or the direct-ρ one
+    ("xla"); "onehot" is refused, as in the JAX package."""
+    check_hist_backend(hist_backend, sharded=True, device=x.device)
     check_mesh(mesh, axis_name)
     n, p = x.shape
     k = ci_group_size
@@ -492,7 +504,7 @@ def fit_causal_forest(
     :func:`grow_causal_forest_sharded`); every rank returns the whole fit.
     ``stage_times``, when given, receives the wall seconds of "nuisance"
     and "causal_grow"."""
-    check_hist_backend(hist_backend)
+    check_hist_backend(hist_backend, device=frame.device)
     if mesh is not None:
         check_mesh(mesh, axis_name)
         if hist_backend == "onehot":
@@ -728,12 +740,14 @@ def predict_cate(
     (on the CPU their plain versions). The JAX package's "matmul" one-hot
     route and payload contraction select one leaf and its stored payload
     a row, exactly what the kernels read, so it is taken as a name of
-    this route (the JAX package's None means "matmul" on a CPU).
+    this route (the JAX package's None means "matmul" on a CPU);
+    "pallas_interpret", its CPU test mode, names the plain versions and
+    takes CPU tensors only.
     ``variance_compat``:
     "unbiased" (gn − 1 between-group df) or "grf" (grf's num_groups).
     ``pack`` as in :func:`compute_leaf_index`."""
     grf_df = _grf_df_flag(variance_compat)
-    _check_row_backend(row_backend)
+    _check_row_backend(row_backend, x.device)
     _check_row_chunk(row_chunk)
     _resolve_pack_for(forest, pack)
     n = x.shape[0]
@@ -779,14 +793,17 @@ def predict_cate(
 
 
 #: The ``row_backend`` names taken, each the port's kernels ("matmul":
-#: the JAX package's one-hot route, which selects the same payloads).
-ROW_BACKENDS = (None, "pallas", "matmul")
+#: the JAX package's one-hot route, which selects the same payloads;
+#: "pallas_interpret": their plain versions, CPU tensors only).
+ROW_BACKENDS = (None, "pallas", "matmul", "pallas_interpret")
 
 
-def _check_row_backend(row_backend) -> None:
+def _check_row_backend(row_backend, device=None) -> None:
     if row_backend not in ROW_BACKENDS:
         raise ValueError(f"row_backend={row_backend!r} is not ported: the port takes None, "
-                         "'pallas' or 'matmul' (each its CUDA kernels)")
+                         "'pallas' or 'matmul' (each its CUDA kernels) and 'pallas_interpret' "
+                         "(their plain versions, CPU tensors only)")
+    check_interpret(row_backend, device, "row_backend")
 
 
 #: The forest's tensor fields, the buffers a warmed predict reads.
@@ -824,7 +841,7 @@ class WarmPredict:
                  tree_chunk: int, row_chunk: int, row_backend: str | None,
                  variance_compat: str, pack: bool | str | None):
         _grf_df_flag(variance_compat)
-        _check_row_backend(row_backend)
+        _check_row_backend(row_backend, forest.bin_edges.device)
         _check_row_chunk(row_chunk)
         _resolve_pack_for(forest, pack)
         self.batch = int(batch)

@@ -28,7 +28,14 @@ The JAX package's non-streaming backends (``hist_backend="xla"`` and
 ``"onehot"``, its CPU default) are taken and grow with the kernels too:
 they share the streaming grower's random streams and split scores, so
 integer weights give the same forest bit for bit, and float weights
-differ only where float32 rounding decides a tie.
+differ only where float32 rounding decides a tie. Its explicit Pallas
+names are taken as well: "pallas" is the port's kernels (the "auto"
+forest), "pallas_bf16" runs the split search's histograms in their bf16
+form (weights rounded to bfloat16, float32 sums; the leaf sums stay
+float32, as in the JAX package), which leaves a classifier's integer
+weights exact and changes a regressor's forest, and "pallas_interpret",
+the JAX package's CPU test mode, names the plain versions and is taken
+for CPU tensors only.
 
 Per-tree layout, as in the JAX package: ``split_feat``/``split_bin``
 index internal nodes per level as [0, 2^level) offsets (children of
@@ -74,7 +81,10 @@ HIST_BACKEND = "auto"
 # The JAX package's non-streaming backends: the same forests from the
 # kernels (the causal grower keeps their direct per-level ρ channel).
 NON_STREAMING_BACKENDS = ("xla", "onehot")
-HIST_BACKENDS = (HIST_BACKEND,) + NON_STREAMING_BACKENDS
+# The JAX package's Pallas names: the port's kernels; their bf16 form for
+# the split search; the plain versions (CPU tensors only).
+PALLAS_BACKENDS = ("pallas", "pallas_bf16", "pallas_interpret")
+HIST_BACKENDS = (HIST_BACKEND,) + NON_STREAMING_BACKENDS + PALLAS_BACKENDS
 # Rows per step of the compare-count binarization (bounds its (rows, p,
 # n_bins) boolean temporary).
 _BINARIZE_ROWS = 65_536
@@ -351,7 +361,8 @@ def packed_codes_for(codes: torch.Tensor, hist_mode: str) -> torch.Tensor | None
     return pack_codes(codes) if pack and base != "dense" else None
 
 
-def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode, words=None):
+def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode, words=None,
+                bf16=False):
     """Grow one chunk of trees (one key per tree, (T, 2)).
 
     ``center`` is 0.0 for binary targets (the histogram weights stay
@@ -360,7 +371,8 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode,
     so the sibling subtraction never cancels a large outcome level.
     ``hist_mode`` is the resolved policy; each level's kernel width
     picks its formulation (:func:`mode_for_width`, K = 2). ``words`` are
-    the packed codes that the "partition+pack" levels read."""
+    the packed codes that the "partition+pack" levels read. ``bf16``: the
+    levels' histograms in their bf16 form; the leaf sums stay float32."""
     n_trees = tree_keys.shape[0]
     n, p = codes.shape
     n_leaves = 1 << depth
@@ -376,7 +388,7 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode,
         codes, n_trees, depth, n_bins,
         hist_fn=lambda ids, m: bin_histogram_batched(
             codes, ids, weights2, max_nodes=m, n_bins=n_bins,
-            mode=mode_for_width(hist_mode, m, 2, p, n_bins), packed=words),
+            mode=mode_for_width(hist_mode, m, 2, p, n_bins), packed=words, bf16=bf16),
         tables_fn=lambda hist, level, perm: _split_tables(
             hist, level_keys[:, level], 1 << level, p, n_bins, mtry, perm),
     )
@@ -387,20 +399,32 @@ def _grow_chunk(tree_keys, codes, yf, center, *, depth, mtry, n_bins, hist_mode,
     return feats, bins, leaf_value, torch.clamp(counts, max=255).to(torch.uint8), train_vals
 
 
-def check_hist_backend(hist_backend: str, sharded: bool = False) -> None:
+def check_hist_backend(hist_backend: str, sharded: bool = False, device=None) -> None:
     """The JAX package's ``hist_backend`` argument: "auto" (the port's
     kernels on the card, their plain versions on the CPU), "xla" and
-    "onehot" (:data:`NON_STREAMING_BACKENDS`, grown on the same kernels). The
-    Pallas backends have no counterpart beside "auto"; a sharded fit
-    refuses "onehot" as the JAX package does."""
+    "onehot" (:data:`NON_STREAMING_BACKENDS`, grown on the same kernels),
+    and the Pallas names (:data:`PALLAS_BACKENDS`): "pallas" (the kernels,
+    as "auto"), "pallas_bf16" (their bf16 form in the split search) and
+    "pallas_interpret" (the plain versions), which a CUDA ``device``
+    refuses: the card runs the kernels, never their plain versions in
+    their place. A sharded fit refuses "onehot" as the JAX package does."""
     if hist_backend not in HIST_BACKENDS:
         raise ValueError(f"hist_backend={hist_backend!r} is not ported: the port takes "
                          f"{HIST_BACKENDS} ({HIST_BACKEND!r}: its CUDA kernels)")
+    check_interpret(hist_backend, device, "hist_backend")
     if sharded and hist_backend == "onehot":
         raise ValueError(
             "hist_backend='onehot' is not supported on the sharded path "
             "(the shared bin one-hot is not built here); use 'auto'/'xla'/'pallas'"
         )
+
+
+def check_interpret(backend, device, arg: str) -> None:
+    """Refuse "pallas_interpret" (the JAX package's CPU test mode, the
+    plain versions here) for data on a CUDA device."""
+    if backend == "pallas_interpret" and device is not None and torch.device(device).type == "cuda":
+        raise ValueError(f"{arg}='pallas_interpret' names the plain CPU versions and takes CPU "
+                         "tensors only; on the card use 'pallas' or 'auto' (the CUDA kernels)")
 
 
 def _is_binary01(y: torch.Tensor) -> bool:
@@ -432,7 +456,10 @@ def fit_forest_classifier(
     non-streaming backends, grow on the same kernels: integer weights give
     the JAX package's same forest under every backend, float weights
     differ from its "xla"/"onehot" only where float32 rounding decides a
-    tie. ``hist_mode`` is
+    tie. "pallas" is "auto"; "pallas_bf16" runs the levels' histograms in
+    their bf16 form (the same forest for a 0/1 target, another for a
+    continuous one); "pallas_interpret" takes CPU tensors only
+    (:func:`check_hist_backend`). ``hist_mode`` is
     the histogram policy, "dense" | "partition" | "auto" with an optional
     "+pack", resolved as the JAX package does
     (:func:`~..ops.hist.resolve_hist_mode_packed`: ``ATE_TPU_HIST_MODE``
@@ -442,7 +469,7 @@ def fit_forest_classifier(
     here). Every formulation gives the same sums, so the mode does not
     change the forest.
     """
-    check_hist_backend(hist_backend)
+    check_hist_backend(hist_backend, device=x.device)
     n, p = x.shape
     if mtry is None:
         mtry = max(1, int(np.sqrt(p)))
@@ -451,7 +478,8 @@ def fit_forest_classifier(
     codes = binarize(x, edges)
     fields = _grow_from_keys(rnd.split(key.to(x.device), n_trees), codes, y, depth=depth,
                              mtry=mtry, n_bins=n_bins, hist_mode=hist_mode,
-                             tree_chunk=tree_chunk, pool="forest_classifier")
+                             tree_chunk=tree_chunk, pool="forest_classifier",
+                             bf16=hist_backend == "pallas_bf16")
     return _forest(fields, edges, codes)
 
 
@@ -461,10 +489,12 @@ def _forest(fields, edges, codes) -> Forest:
                   bin_edges=edges, train_leaf=train_leaf, train_fp=codes_fingerprint(codes))
 
 
-def _grow_from_keys(tree_keys, codes, y, *, depth, mtry, n_bins, hist_mode, tree_chunk, pool):
+def _grow_from_keys(tree_keys, codes, y, *, depth, mtry, n_bins, hist_mode, tree_chunk, pool,
+                    bf16=False):
     """Grow one tree a key (``tree_keys`` (T, 2)) in chunks of
     ``tree_chunk`` trees; returns the five per-tree fields (split
-    features, split bins, leaf values, counts, training leaf values)."""
+    features, split bins, leaf values, counts, training leaf values).
+    ``bf16``: the split search's histograms in their bf16 form."""
     tree_chunk = DEFAULT_TREE_CHUNK if tree_chunk is None else tree_chunk
     center = 0.0 if _is_binary01(y) else 1.0
     words = packed_codes_for(codes, hist_mode)
@@ -473,7 +503,7 @@ def _grow_from_keys(tree_keys, codes, y, *, depth, mtry, n_bins, hist_mode, tree
     def chunk_shard(i: int):
         s = i * tree_chunk
         return _grow_chunk(tree_keys[s : s + tree_chunk], codes, yf, center, depth=depth,
-                           mtry=mtry, n_bins=n_bins, hist_mode=hist_mode, words=words)
+                           mtry=mtry, n_bins=n_bins, hist_mode=hist_mode, words=words, bf16=bf16)
 
     # Classified retry (parallel/retry.py): a transient failure re-runs
     # only its chunk, bit for bit (its keys are explicit); a programming
@@ -525,10 +555,11 @@ def fit_forest_sharded(
     ``[i, r·per : (r+1)·per]`` of dispatch i, and the gathered trees,
     in dispatch-major, device, local order, are cut to ``n_trees``.
     Each rank grows its trees with the port's kernels in chunks of
-    ``tree_chunk`` (the chunking changes no number); "xla" grows the
-    same way and "onehot" is refused, as in the JAX package. Every rank
-    returns the whole forest. A mesh of one rank grows every key itself."""
-    check_hist_backend(hist_backend, sharded=True)
+    ``tree_chunk`` (the chunking changes no number); "xla" and the Pallas
+    names grow the same way ("pallas_bf16" in its bf16 form) and "onehot"
+    is refused, as in the JAX package. Every rank returns the whole
+    forest. A mesh of one rank grows every key itself."""
+    check_hist_backend(hist_backend, sharded=True, device=x.device)
     check_mesh(mesh, axis_name)
     n, p = x.shape
     if mtry is None:
@@ -536,13 +567,15 @@ def fit_forest_sharded(
     hist_mode = resolve_hist_mode_packed(hist_mode, n_bins)
     a = mesh.shape[axis_name]
     chunk, chunks_per_disp, n_disp = sharded_fit_plan(n, depth, -(-n_trees // a), n_bins=n_bins,
-                                                      p=p, hist_mode=hist_mode)
+                                                      p=p, hist_mode=hist_mode,
+                                                      hist_backend=hist_backend)
     per = chunk * chunks_per_disp
     edges = quantile_bins(x, n_bins)
     codes = binarize(x, edges)
     mine = sharded_tree_keys(key.to(x.device), n_disp, a, per, mesh.coord(axis_name))
     fields = _grow_from_keys(mine, codes, y, depth=depth, mtry=mtry, n_bins=n_bins,
-                             hist_mode=hist_mode, tree_chunk=tree_chunk, pool="forest_sharded")
+                             hist_mode=hist_mode, tree_chunk=tree_chunk, pool="forest_sharded",
+                             bf16=hist_backend == "pallas_bf16")
     fields = [dispatch_major_gather(f, mesh, axis_name, n_disp)[:n_trees] for f in fields]
     return _forest(fields, edges, codes)
 

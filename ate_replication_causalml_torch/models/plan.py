@@ -118,15 +118,19 @@ def plan_tree_dispatch(n_rows: int, depth: int, per_dev_total: int, cap: int = 3
 
 
 def sharded_fit_plan(n_rows: int, depth: int, per_dev_total: int, n_bins: int = 64, p: int = 21,
-                     hist_mode: str | None = None) -> tuple[int, int, int]:
+                     hist_mode: str | None = None,
+                     hist_backend: str = "auto") -> tuple[int, int, int]:
     """The (chunk, chunks_per_disp, n_disp) plan of the JAX package's
     tree-sharded classifier under its "pallas" backend (histogram floor
-    16), which the port's :func:`~.forest.fit_forest_sharded` follows."""
+    16), which the port's :func:`~.forest.fit_forest_sharded` follows;
+    under ``hist_backend="pallas_interpret"`` the JAX package's floor is 1
+    (its interpret mode pads no width), and so is the plan's."""
     mode = resolve_hist_mode_packed(hist_mode, n_bins)
+    floor = 1 if hist_backend == "pallas_interpret" else HIST_M_FLOOR
     return plan_tree_dispatch(
         n_rows, depth, per_dev_total, streaming=True, p=p, n_bins=n_bins,
-        hist_floor=HIST_M_FLOOR,
-        hist_partition=hist_partition_active(mode, depth, HIST_M_FLOOR, 2, p, n_bins))
+        hist_floor=floor,
+        hist_partition=hist_partition_active(mode, depth, floor, 2, p, n_bins))
 
 
 def sharded_causal_plan(n_rows: int, depth: int, per_dev_groups: int, k: int, p: int,

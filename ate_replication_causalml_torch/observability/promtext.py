@@ -8,11 +8,19 @@ JAX package's ``ate_tpu_`` prefix, so one dashboard reads both packages.
 Summary histograms export as ``_count`` / ``_sum`` plus ``_min`` /
 ``_max``; bucketed histograms as Prometheus histograms, cumulative
 ``_bucket{le=...}`` lines ending at ``+Inf`` == ``_count``.
+
+Also runnable on a saved ``metrics.json`` (the JAX package's command,
+the same text byte for byte)::
+
+    python -m ate_replication_causalml_torch.observability.promtext \
+        results/metrics.json [results/metrics.prom]
 """
 
 from __future__ import annotations
 
+import json
 import re
+import sys
 
 from ate_replication_causalml_torch.observability import registry as _registry
 from ate_replication_causalml_torch.observability.export import atomic_write_text
@@ -83,3 +91,25 @@ def write_prom_textfile(path: str, registry: _registry.MetricsRegistry | None = 
     """Atomic textfile write: the node exporter reads whole files, and a
     torn one would drop the scrape."""
     atomic_write_text(path, render_prom_text(registry))
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Render ``argv[0]`` (a snapshot, ``metrics.json``) to ``argv[1]``
+    (written atomically) or to stdout; the usage on stderr and 2 for any
+    other argument count."""
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or len(argv) > 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    with open(argv[0]) as f:
+        snap = json.load(f)
+    text = render_prom_from_snapshot(snap)
+    if len(argv) == 2:
+        atomic_write_text(argv[1], text)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,13 +23,23 @@ rows in ascending row order within each row range and the ranges in a
 fixed order, so float sums are reproducible and the three formulations
 give the same bits.
 
+Each histogram wrapper also takes ``bf16``: the JAX package's bf16
+form (``bf16=True`` on its kernels, ``hist_backend="pallas_bf16"``),
+which rounds every weight to bfloat16 (round to nearest, ties to even,
+as XLA's ``astype``) and sums the rounded values in float32. Integer
+weights in [-256, 256] round to themselves, so the classifier's
+histograms do not move; float weights (a regressor's counts·y, the
+causal forest's five channels) give other sums, as in the JAX package.
+
 Each public function has a plain PyTorch version (``*_plain``) in this
 module. The wrapper runs it for CPU tensors only; for CUDA tensors it
 launches the hand-written kernel or raises. Each wrapper counts its
 dense-kernel launches in ``<wrapper>.launches`` and, for the histogram
 wrappers, its partition-kernel launches in
 ``<wrapper>.partition_launches`` and its packed ones in
-``<wrapper>.packed_launches``.
+``<wrapper>.packed_launches``; a launch of the bf16 form counts there
+and, by form, in ``<wrapper>.bf16_launches``,
+``<wrapper>.bf16_partition_launches`` or ``<wrapper>.bf16_packed_launches``.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import os
 
 import torch
 
+from ate_replication_causalml_torch import DEFAULT_DEVICE
 from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.ops.pack import (
     PACK_SLOTS,
@@ -101,6 +112,46 @@ HIST_MODES = ("dense", "partition", "auto")
 PACK_SUFFIX = "+pack"
 _LANES = 128
 _PART_BLOCK = 8
+
+
+# The JAX package's 'auto' takes its Pallas kernel from this many rows on a
+# TPU (hist_pallas.py:113); the lossy-bf16 upgrade follows the same rule.
+_PALLAS_ROWS_THRESHOLD = 8_192
+
+
+def resolve_hist_backend(backend: str, allow_onehot: bool = True, n_rows: int | None = None,
+                         n_bins: int | None = None, integer_weights: bool = False,
+                         allow_lossy_bf16: bool = False, device=None) -> str:
+    """The JAX package's backend policy (``hist_pallas.py:116``) on the
+    port: an explicit name passes through unchanged; "auto" stays "auto"
+    (the port's kernels on the card, their plain versions on the CPU),
+    except that ``allow_lossy_bf16=True`` turns it into "pallas_bf16" on
+    a CUDA ``device`` (None: the port's default device) where the JAX
+    package's TPU policy takes its kernel: ``n_rows`` ≥ 8,192 and
+    ``n_bins`` ≤ 128. On the CPU the flag changes nothing, as off a TPU
+    in the JAX package. ``allow_onehot`` and ``integer_weights`` are taken
+    for the JAX package's signature: integer weights keep "auto" there
+    too (its bf16 upgrade of them was dropped), and "onehot" is a name
+    the callers check (``models/forest.py::check_hist_backend``). The
+    growers do not call it: no grower of the JAX package passes
+    ``allow_lossy_bf16``, so there it returns their name unchanged. A
+    caller that opts into the lossy form calls it and passes the result
+    on as ``hist_backend``."""
+    del allow_onehot, integer_weights
+    if backend != "auto" or not allow_lossy_bf16:
+        return backend
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if (dev.type == "cuda" and n_rows is not None and n_rows >= _PALLAS_ROWS_THRESHOLD
+            and n_bins is not None and n_bins <= _LANES):
+        return "pallas_bf16"
+    return backend
+
+
+def round_bf16(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded to bfloat16 (round to nearest, ties to even, as XLA's
+    ``astype`` and the kernels' ``__float2bfloat16_rn``) and widened back
+    to float32: the weights the bf16 form adds."""
+    return w.to(torch.bfloat16).to(torch.float32)
 
 
 def with_pack_mode(mode: str, pack: bool) -> str:
@@ -244,11 +295,15 @@ def _packed_words(codes, packed, n_bins: int):
     return packed
 
 
-def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int):
+def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int,
+                                bf16: bool = False):
     """The plain PyTorch version: one ``index_add_`` per (tree, channel).
-    ``weights`` is (T, K, n), or (K, n) shared by every tree."""
+    ``weights`` is (T, K, n), or (K, n) shared by every tree; ``bf16``
+    adds them rounded (:func:`round_bf16`)."""
     n, p = codes.shape
     n_trees = ids.shape[0]
+    if bf16:
+        weights = round_bf16(weights)
     if weights.ndim == 2:
         weights = weights.expand(n_trees, *weights.shape)
     k_w = weights.shape[1]
@@ -267,13 +322,14 @@ def bin_histogram_batched_plain(codes, ids, weights, max_nodes: int, n_bins: int
     return out
 
 
-def bin_histogram_packed_plain(codes, ids, weights, max_nodes: int, n_bins: int, packed=None):
+def bin_histogram_packed_plain(codes, ids, weights, max_nodes: int, n_bins: int, packed=None,
+                               bf16: bool = False):
     """The plain version of the packed mode: the words (``packed``, or
     :func:`~.pack.pack_codes` of ``codes``) unpacked with
     :func:`~.pack.unpack_codes`, then :func:`bin_histogram_batched_plain`."""
     words = _packed_words(codes, packed, n_bins)
     return bin_histogram_batched_plain(unpack_codes(words, codes.shape[1]), ids, weights,
-                                       max_nodes, n_bins)
+                                       max_nodes, n_bins, bf16)
 
 
 def _n_parts(n: int, n_trees: int, p: int) -> int:
@@ -382,7 +438,7 @@ def partition_max_active_clusters(n: int, n_trees: int, n_weights: int, max_node
     return count.value
 
 
-def partition_sort_plain(ids, max_nodes: int, n_parts: int, weights=None):
+def partition_sort_plain(ids, max_nodes: int, n_parts: int, weights=None, bf16: bool = False):
     """The plain version of the partition passes' first step: per (tree,
     row range), the rows whose id lies in [0, max_nodes), stably sorted by
     id → (perm, seg, node_sorted, w_sorted). perm (T, n) int32: each
@@ -390,8 +446,9 @@ def partition_sort_plain(ids, max_nodes: int, n_parts: int, weights=None):
     seg (T, n_parts, max_nodes + 1) int32: each node's first position
     within its range, the range's count last; with ``weights`` ((T, K, n),
     or (K, n) shared by every tree), node_sorted (T, n) int32 and w_sorted
-    (T, K, n) float32: the node and weights of the row at each position
-    (−1 and 0.0 where perm is −1), else None and None."""
+    (T, K, n) float32: the node and weights (rounded under ``bf16``) of the
+    row at each position (−1 and 0.0 where perm is −1), else None and
+    None."""
     n_trees, n = ids.shape
     span = -(-n // n_parts)
     perm = torch.full((n_trees, n), -1, dtype=torch.int32, device=ids.device)
@@ -414,19 +471,21 @@ def partition_sort_plain(ids, max_nodes: int, n_parts: int, weights=None):
     rows = perm.long().clamp(min=0)
     node_sorted = torch.where(written, torch.gather(ids, 1, rows), -1)
     w = weights if weights.ndim == 3 else weights.expand(n_trees, *weights.shape)
+    if bf16:
+        w = round_bf16(w)
     w_sorted = torch.gather(w, 2, rows[:, None, :].expand(-1, w.shape[1], -1))
     return perm, seg, node_sorted, torch.where(written[:, None, :], w_sorted, 0.0)
 
 
-def partition_sort(ids, max_nodes: int, n_parts: int, weights=None):
+def partition_sort(ids, max_nodes: int, n_parts: int, weights=None, bf16: bool = False):
     """The partition passes' first step on the card (``csrc/hist_partition.cu``
     ``partition_rows``): :func:`partition_sort_plain`'s output, except that
     positions after a range's sorted rows are not written; the plain
     version for CPU tensors. The histogram wrappers run it within each
-    partition launch (with ``weights`` for the unpacked pass) and count it
-    there."""
+    partition launch (with ``weights`` for the unpacked pass, rounded there
+    in the bf16 form) and count it there."""
     if ids.device.type == "cpu":
-        return partition_sort_plain(ids, max_nodes, n_parts, weights)
+        return partition_sort_plain(ids, max_nodes, n_parts, weights, bf16)
     if ids.dtype != torch.int32 or ids.ndim != 2 or not ids.is_contiguous():
         raise TypeError(f"ids must be contiguous (T, n) int32, got {ids.dtype} {tuple(ids.shape)}")
     n_trees, n = ids.shape
@@ -444,18 +503,21 @@ def partition_sort(ids, max_nodes: int, n_parts: int, weights=None):
         node_ptr, ws_ptr = node_sorted.data_ptr(), w_sorted.data_ptr()
     k = build.kernel("partition_sort")
     build.check(k, k.fn(ids.data_ptr(), n, n_trees, max_nodes, n_parts, w_ptr, w_stride, k_w,
-                        perm.data_ptr(), seg.data_ptr(), node_ptr, ws_ptr,
+                        int(bf16), perm.data_ptr(), seg.data_ptr(), node_ptr, ws_ptr,
                         torch.cuda.current_stream(ids.device).cuda_stream))
     return perm, seg, node_sorted, w_sorted
 
 
 def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter,
-            packed=None) -> torch.Tensor:
+            packed=None, bf16: bool = False) -> torch.Tensor:
     """Launch ``csrc/hist.cu`` (dense) or ``csrc/hist_partition.cu``
     (partition, and its packed pass for "partition+pack") on the current
-    stream; add one to ``counter.launches``, ``counter.partition_launches``
-    or ``counter.packed_launches``. ``weights`` (K, n) is shared by every
-    tree (a tree stride of 0)."""
+    stream, in the bf16 form under ``bf16``; add one to
+    ``counter.launches``, ``counter.partition_launches`` or
+    ``counter.packed_launches``, and for the bf16 form to
+    ``counter.bf16_launches``, ``counter.bf16_partition_launches`` or
+    ``counter.bf16_packed_launches``. ``weights`` (K, n) is shared by
+    every tree (a tree stride of 0)."""
     if codes.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {codes.device}")
     base, pack = _check_dispatch_mode(mode)
@@ -497,74 +559,86 @@ def _launch(codes, ids, weights, max_nodes: int, n_bins: int, mode: str, counter
         geometry = (dense_features_per_block(*shape), dense_node_groups(k_w, max_nodes, n_bins),
                     dense_warps_per_feature(*shape))
         k = build.kernel("hist")
-        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *geometry, partial.data_ptr(),
-                            out.data_ptr(), stream))
-        build.count_launch(counter)
+        build.check(k, k.fn(codes.data_ptr(), n, p, *tail, *geometry, int(bf16),
+                            partial.data_ptr(), out.data_ptr(), stream))
+        _count(counter, "launches", bf16)
         return out
     if pack:
         perm, seg, _, _ = partition_sort(ids, max_nodes, n_parts)
         geometry = (packed_slots(k_w, max_nodes, n_bins),
                     packed_node_groups(k_w, max_nodes, n_bins))
         k = build.kernel("hist_partition_packed")
-        build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, perm.data_ptr(),
+        build.check(k, k.fn(words.data_ptr(), n, p, *tail, *geometry, int(bf16), perm.data_ptr(),
                             seg.data_ptr(), out.data_ptr(), stream))
-        build.count_launch(counter, "packed_launches")
+        _count(counter, "packed_launches", bf16)
         return out
-    perm, seg, node_sorted, w_sorted = partition_sort(ids, max_nodes, n_parts, weights)
+    perm, seg, node_sorted, w_sorted = partition_sort(ids, max_nodes, n_parts, weights, bf16)
     k = build.kernel("hist_partition")
     build.check(k, k.fn(codes.data_ptr(), n, p, n_trees, k_w, max_nodes, n_bins, n_parts,
                         int(cluster > 1), perm.data_ptr(), seg.data_ptr(), node_sorted.data_ptr(),
                         w_sorted.data_ptr(), partial.data_ptr(), out.data_ptr(), stream))
-    build.count_launch(counter, "partition_launches")
+    _count(counter, "partition_launches", bf16)
     return out
 
 
-def _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, shared, counter):
+def _count(counter, attr: str, bf16: bool) -> None:
+    """One launch on ``counter.<attr>``, and on its bf16 twin for the bf16 form."""
+    build.count_launch(counter, attr)
+    if bf16:
+        build.count_launch(counter, "bf16_" + attr)
+
+
+def _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, shared, counter, bf16):
     _, pack = _check_dispatch_mode(mode)
     _check_inputs(codes, ids, weights, shared=shared)
     if codes.device.type == "cpu":
         if pack:
-            return bin_histogram_packed_plain(codes, ids, weights, max_nodes, n_bins, packed)
-        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins)
-    return _launch(codes, ids, weights, max_nodes, n_bins, mode, counter, packed)
+            return bin_histogram_packed_plain(codes, ids, weights, max_nodes, n_bins, packed,
+                                              bf16)
+        return bin_histogram_batched_plain(codes, ids, weights, max_nodes, n_bins, bf16)
+    return _launch(codes, ids, weights, max_nodes, n_bins, mode, counter, packed, bf16)
 
 
 def bin_histogram_batched(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                          mode: str = "dense", packed=None) -> torch.Tensor:
+                          mode: str = "dense", packed=None, bf16: bool = False) -> torch.Tensor:
     """Tree-batched histograms: codes (n, p) int32, ids (T, n) int32,
     weights (T, K, n) float32 → (T, K, max_nodes, p, n_bins) float32.
     ``mode`` is the resolved formulation, "dense", "partition" or
     "partition+pack"; the last reads ``packed``, the (n, ceil(p/3))
     int32 words of ``codes`` (:func:`~.pack.pack_codes`; packed here
-    when None). Other modes ignore ``packed``."""
+    when None). Other modes ignore ``packed``. ``bf16``: the bf16 form
+    (the weights rounded to bfloat16, float32 sums)."""
     return _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, False,
-                      bin_histogram_batched)
+                      bin_histogram_batched, bf16)
 
 
-bin_histogram_batched.launches = 0
-bin_histogram_batched.partition_launches = 0
-bin_histogram_batched.packed_launches = 0
+def _zero_counts(wrapper) -> None:
+    for attr in ("launches", "partition_launches", "packed_launches"):
+        setattr(wrapper, attr, 0)
+        setattr(wrapper, "bf16_" + attr, 0)
+
+
+_zero_counts(bin_histogram_batched)
 
 
 def bin_histogram_shared(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                         mode: str = "dense", packed=None) -> torch.Tensor:
+                         mode: str = "dense", packed=None, bf16: bool = False) -> torch.Tensor:
     """:func:`bin_histogram_batched` with one (K, n) weight stack shared
     by every tree (the JAX package's ``bin_histogram_shared``); each
     tree's row membership rides in its ids (−1 drops a row)."""
     return _histogram(codes, ids, weights, max_nodes, n_bins, mode, packed, True,
-                      bin_histogram_shared)
+                      bin_histogram_shared, bf16)
 
 
-bin_histogram_shared.launches = 0
-bin_histogram_shared.partition_launches = 0
-bin_histogram_shared.packed_launches = 0
+_zero_counts(bin_histogram_shared)
 
 
 def bin_histogram(codes, ids, weights, *, max_nodes: int, n_bins: int,
-                  mode: str = "dense") -> torch.Tensor:
+                  mode: str = "dense", bf16: bool = False) -> torch.Tensor:
     """Single-tree case: ids (n,), weights (K, n) → (K, max_nodes, p, n_bins)."""
     return bin_histogram_batched(
         codes, ids[None], weights[None], max_nodes=max_nodes, n_bins=n_bins, mode=mode,
+        bf16=bf16,
     )[0]
 
 

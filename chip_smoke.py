@@ -40,7 +40,14 @@ imports nothing of JAX. Phases, each printing one JSON line:
    ``cv_glmnet`` calls: within ``CD_PATH_BOUND`` of its plain version,
    two launches equal, bounded by the recurrence's floor (``bound_ms``)
    with the chain of the whole-dot-product order beside it
-   (``order_chain_ms``).
+   (``order_chain_ms``). The histograms' bf16 form
+   (``hist_backend="pallas_bf16"``: weights rounded to bfloat16, float32
+   sums) at dense K=2 integer M=16 and 128 (bit for bit the float32
+   form), the regressor's float K=2 partition M=64 and packed (the DML
+   fold) M=128, and the causal K=5 float channels dense M=8, partition
+   M=32 (bit for bit the dense bf16 form) and packed M=32, each held to
+   its plain version (the same rounding) and timed beside the
+   ``scatter_add_`` of the rounded weights.
    ``pack_words`` beside its yardstick, the JAX package's own form of
    the step: one ``torch.matmul`` of the float32 codes by the pack
    matrix. The launch floor: a one-element PyTorch op in the same
@@ -302,6 +309,20 @@ imports nothing of JAX. Phases, each printing one JSON line:
    Prints each wall beside the kernel grower's, and the split agreement
    of the CPU port's first ``MATMUL_CPU_TREES`` trees with the card's
    (same backend and key; classifier gated at 1.0);
+11k'. path_pallas_backends — the JAX package's explicit Pallas names at
+   the same widths and tree counts: the classifier, the regressor and the
+   causal fit (its nuisance regressors included) under "pallas", each bit
+   for bit path_matmul_growers' "auto" fit, and under "pallas_bf16" (the
+   split search's histograms in their bf16 form: weights rounded to
+   bfloat16, float32 sums), whose classifier is bit for bit "auto"; the
+   bf16 regressor and causal fit again under the packed policy, bit for
+   bit the unpacked ones; every bf16 kernel form (``BF16_KERNELS``)
+   launched and each tapped call held to its plain version (the same
+   rounding) after the counts are read; "pallas_interpret" (the plain
+   CPU versions) refused for card tensors by the classifier, the causal
+   fit and ``predict_cate``. Prints the walls, the bf16 regressor's and
+   causal forest's split agreement with "auto", the bf16 CATE gap and
+   the ATE and SE of "auto", "pallas" and "pallas_bf16", none gated;
 11l. path_rbridge — the port's reticulate bridge on the card: the
    notebook's ``df_mod`` as a dict of Python float lists, every function
    the R shim calls (doubly_robust at ``RBRIDGE_DR_TREES`` trees,
@@ -343,12 +364,13 @@ imports nothing of JAX. Phases, each printing one JSON line:
    ``torch.profiler``) and the device activities of one ADMM iteration,
    late: a process that has run the profiler
    launches kernels more slowly afterwards;
-13. path_xprof — ``ATE_TPU_XPROF`` at ``SweepConfig().quick()``, last: a
-   quick sweep, then its directory without ``XPROF_ROWS``' journal lines
-   swept again under the whole-run ``torch.profiler`` capture with the
-   default scheduler: the knob forces the sequential sweep, the Chrome
-   trace holds each recomputed row's ``record_function`` range and
-   launches of ``XPROF_KERNELS``, the rows equal the quick sweep's.
+13. path_xprof — ``ATE_TPU_XPROF`` at the MICRO sweep's configuration
+   (``micro_sweep_config()``), last: a sweep, then its directory without
+   ``XPROF_ROWS``' journal lines swept again under the whole-run
+   ``torch.profiler`` capture with the default scheduler: the knob forces
+   the sequential sweep, the Chrome trace holds each recomputed row's
+   ``record_function`` range and launches of ``XPROF_KERNELS``, the rows
+   equal the first sweep's.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -807,6 +829,14 @@ COUNTERS = {  # kernel name -> (wrapper, its counter for that kernel)
     "traverse": (tree.traverse, "launches"),
     "leaf_record": (tree.leaf_record, "launches"),
     "cd_path": (lasso.cd_path, "launches"),
+    # The bf16 form of the histogram kernels (hist_backend="pallas_bf16"):
+    # its launches count on the wrapper's counters above too.
+    "hist_bf16": (hist.bin_histogram_batched, "bf16_launches"),
+    "hist_partition_bf16": (hist.bin_histogram_batched, "bf16_partition_launches"),
+    "hist_partition_packed_bf16": (hist.bin_histogram_batched, "bf16_packed_launches"),
+    "hist_shared_bf16": (hist.bin_histogram_shared, "bf16_launches"),
+    "hist_partition_shared_bf16": (hist.bin_histogram_shared, "bf16_partition_launches"),
+    "hist_partition_shared_packed_bf16": (hist.bin_histogram_shared, "bf16_packed_launches"),
 }
 
 # Launches of the row kernels each path must make, from its configuration
@@ -852,13 +882,17 @@ def scenario_launches(rf_cells: int, lasso_blocks: int) -> dict:
 
 
 PACKED_KERNELS = ("hist_partition_packed", "hist_partition_shared_packed", "pack_codes")
+# The bf16 forms, launched only under hist_backend="pallas_bf16"
+# (path_pallas_backends).
+BF16_KERNELS = tuple(k for k in COUNTERS if k.endswith("_bf16"))
 # The JAX package's per-level route and lookup kernels, which the paths
 # no longer call (ROW_LAUNCHES holds them at 0 there).
 OLD_ROW_KERNELS = ("route", "lookup")
 # The LASSO rows' kernel, off the forest paths.
 LASSO_KERNELS = ("cd_path",)
 UNPACKED_KERNELS = tuple(k for k in COUNTERS
-                         if k not in PACKED_KERNELS + OLD_ROW_KERNELS + LASSO_KERNELS)
+                         if k not in PACKED_KERNELS + OLD_ROW_KERNELS + LASSO_KERNELS
+                         + BF16_KERNELS)
 
 
 def reset_counts() -> None:
@@ -937,14 +971,17 @@ NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
 
 
 def ptxas_functions(log: str) -> dict:
-    """``nvcc -Xptxas -v`` → {"name<K>": {registers, stack, spill_bytes}}."""
+    """``nvcc -Xptxas -v`` → {"name<K>": {registers, stack, spill_bytes}}
+    ("name<K,bf16>" for a histogram kernel's bf16 form)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
             mangled = ln.split("'")[1] if "'" in ln else ln.rsplit(" ", 1)[-1]
             base = next((b for b in DEVICE_FUNCTIONS if b in mangled), mangled)
             if base + "ILi" in mangled:
-                k = mangled.split(base + "ILi", 1)[1].split("E", 1)[0]
+                k, rest = mangled.split(base + "ILi", 1)[1].split("E", 1)
+                if rest.startswith("Lb1"):  # the histograms' bf16 form: <K, true>
+                    k += ",bf16"
             else:     # other template arguments, as mangled (cd_path_kernel<float, true, 1>: fLb1ELi1E)
                 k = mangled.split(base + "I", 1)[1].split("Ev", 1)[0] if base + "I" in mangled else None
             name = f"{base}<{k}>" if k else base
@@ -1026,6 +1063,21 @@ def check_float(name: str, got: torch.Tensor, want: torch.Tensor, scale: torch.T
     return float(diff.max()), ratio
 
 
+def check_bf16_form(name: str, got: torch.Tensor, weights: torch.Tensor, form) -> None:
+    """The bf16 form ``got`` against the float32 form ``form(w)`` of the
+    same kernel: bit for bit the float32 form on the rounded weights (the
+    kernel rounds each weight once as it loads it and adds in the same
+    order), and, where the rounding moves a weight, not the float32 form
+    on ``weights`` themselves, which is what a bf16 kernel that skipped
+    the rounding would give. The plain version's bound alone cannot see
+    that: the rounding moves a cell by far less than 64·eps·Σ|w| of its
+    (tree, channel)."""
+    rounded = hist.round_bf16(weights)
+    check_equal(f"{name}: the float32 form on the rounded weights", got, form(rounded))
+    if not torch.equal(rounded, weights) and torch.equal(got, form(weights)):
+        raise AssertionError(f"{name}: equal to the float32 form on unrounded weights")
+
+
 def hist_library(codes, ids, weights, m):
     """One ``scatter_add_`` over precomputed flat (tree, channel, node,
     feature, bin) indices: the one-call yardstick (index construction
@@ -1047,28 +1099,35 @@ def hist_library(codes, ids, weights, m):
     return lambda: torch.zeros(size, device=dev).scatter_add_(0, flat_idx, flat_val).view(t, k, m, p, N_BINS)
 
 
-def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20):
+def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20, bf16=False):
     """One histogram case: the kernel against its plain version (exact
     for integer weights, within FLOAT_ULPS·eps·Σ|w| for float ones), two
-    launches bitwise equal, times and bound."""
+    launches bitwise equal, times and bound. ``bf16``: the bf16 form, its
+    plain version the same rounding and its yardstick the ``scatter_add_``
+    of the rounded weights (rounded outside the timed call)."""
     n, p = codes.shape
     t = ids.shape[0]
     k = weights.shape[-2]
     wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
-    run = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode=mode)
-    plain = lambda: hist.bin_histogram_batched_plain(codes, ids, weights, m, N_BINS)
+    run = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode=mode, bf16=bf16)
+    plain = lambda: hist.bin_histogram_batched_plain(codes, ids, weights, m, N_BINS, bf16)
     got, again = run(), run()
     want = plain()
+    addends = hist.round_bf16(weights) if bf16 else weights
     integer = bool(torch.equal(weights, weights.round()))
-    name = f"hist{'_shared' if shared else ''} {mode} M={m} T={t} K={k} n={n}"
+    name = (f"hist{'_shared' if shared else ''}{' bf16' if bf16 else ''} {mode} M={m} T={t} "
+            f"K={k} n={n}")
     if not torch.equal(got, again):
         raise AssertionError(f"{name}: two launches differ")
-    lib = hist_library(codes, ids, weights, m)
+    if bf16:
+        check_bf16_form(name, got, weights, lambda w: wrapper(codes, ids, w, max_nodes=m,
+                                                              n_bins=N_BINS, mode=mode))
+    lib = hist_library(codes, ids, addends, m)
     if integer:
         err, ratio = check_equal(name, got, want), 0.0
         check_equal(f"{name} scatter_add_", lib(), want)
     else:
-        scale = weights.abs().sum(dim=-1)
+        scale = addends.abs().sum(dim=-1)
         scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
         err, ratio = check_float(name, got, want, scale)
         check_float(f"{name} scatter_add_", lib(), want, scale)
@@ -1076,48 +1135,54 @@ def measure_hist(codes, weights, ids, m, mode="dense", shared=False, reps=20):
     nbytes = 4 * (codes.numel() + ids.numel() + weights.numel() + got.numel())
     b_ms, b_by = bound(nbytes, n_valid * p * k)
     row = {"M": m, "n": n, "T": t, "K": k, "mode": mode, "weights": "integer" if integer else "float",
-           "max_abs_err": err, "err_over_bound": ratio, "call_ms": time_ms(run, reps),
+           "bf16": bf16, "max_abs_err": err, "err_over_bound": ratio, "call_ms": time_ms(run, reps),
            "call_library_ms": time_ms(lib, reps), "plain_ms": time_ms(plain, max(3, reps // 4)),
            "bound_ms": b_ms, "bound_by": b_by, "out": got}
     return timed(row, run, lib, 2 if n > 100_000 else 10)
 
 
-def measure_packed(codes, weights, ids, m, shared, reps=20):
+def measure_packed(codes, weights, ids, m, shared, reps=20, bf16=False):
     """One case of the packed pass: ``torch.equal`` to the unpacked
     partition kernel on the same inputs, two launches equal, against the
     plain version (exact for integer weights, FLOAT_ULPS·eps·Σ|w| for
     float ones); times of both kernels, the plain version and the
     ``scatter_add_`` yardstick; the bound counts the packed words, ids,
-    weights and output bytes (each once)."""
+    weights and output bytes (each once). ``bf16`` as in ``measure_hist``."""
     n, p = codes.shape
     t = ids.shape[0]
     k = weights.shape[-2]
     wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
     words = pack.pack_codes(codes)
     run = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode="partition+pack",
-                          packed=words)
-    unpacked = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode="partition")
-    plain = lambda: hist.bin_histogram_packed_plain(codes, ids, weights, m, N_BINS, words)
+                          packed=words, bf16=bf16)
+    unpacked = lambda: wrapper(codes, ids, weights, max_nodes=m, n_bins=N_BINS, mode="partition",
+                               bf16=bf16)
+    plain = lambda: hist.bin_histogram_packed_plain(codes, ids, weights, m, N_BINS, words, bf16)
     got, again, ref = run(), run(), unpacked()
-    name = f"hist{'_shared' if shared else ''} partition+pack M={m} T={t} K={k} n={n}"
+    addends = hist.round_bf16(weights) if bf16 else weights
+    name = (f"hist{'_shared' if shared else ''}{' bf16' if bf16 else ''} partition+pack M={m} "
+            f"T={t} K={k} n={n}")
     if not torch.equal(got, again):
         raise AssertionError(f"{name}: two launches differ")
     if not torch.equal(got, ref):
         raise AssertionError(f"{name}: not bitwise equal to the unpacked partition kernel")
+    if bf16:
+        check_bf16_form(name, got, weights, lambda w: wrapper(
+            codes, ids, w, max_nodes=m, n_bins=N_BINS, mode="partition+pack", packed=words))
     want = plain()
     integer = bool(torch.equal(weights, weights.round()))
-    lib = hist_library(codes, ids, weights, m)
+    lib = hist_library(codes, ids, addends, m)
     if integer:
         err, ratio = check_equal(name, got, want), 0.0
     else:
-        scale = weights.abs().sum(dim=-1)
+        scale = addends.abs().sum(dim=-1)
         scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
         err, ratio = check_float(name, got, want, scale)
     n_valid = int(((ids >= 0) & (ids < m)).sum())
     b_ms, b_by = bound(4 * (words.numel() + ids.numel() + weights.numel() + got.numel()),
                        n_valid * p * k)
     row = {"M": m, "n": n, "T": t, "K": k, "mode": "partition+pack",
-           "weights": "integer" if integer else "float",
+           "weights": "integer" if integer else "float", "bf16": bf16,
            "slots_per_block": hist.packed_slots(k, m, N_BINS),
            "node_groups": hist.packed_node_groups(k, m, N_BINS), "equal_to_unpacked": True,
            "max_abs_err": err, "err_over_bound": ratio, "call_ms": time_ms(run, reps),
@@ -1446,6 +1511,35 @@ def phase_kernels(frame_mod) -> dict:
     emit({"phase": "kernels", "kernel": "hist_partition_shared_packed", "rows": pks_rows})
     summary["hist_partition_packed"] = pk_rows[2]         # M=128
     summary["hist_partition_shared_packed"] = pks_rows[2]  # M=64, the causal path's deepest
+
+    # The bf16 form (hist_backend="pallas_bf16"): dense K=2 integer at M=16
+    # and 128, bit for bit the float32 form there; the regressor's float
+    # K=2 levels on the partition kernel (M=64) and the packed pass (the
+    # DML fold, M=128); the causal K=5 float channels dense (M=8),
+    # partition (M=32, bitwise the dense bf16 form) and packed (M=32).
+    bf16_rows: dict = {"hist_bf16": []}
+    for m in (16, 128):
+        lid = ids(m)
+        row = measure_hist(codes, weights, lid, m, bf16=True)
+        check_equal(f"hist bf16 M={m}: the float32 form on integer weights", row["out"],
+                    hist.bin_histogram_batched(codes, lid, weights, max_nodes=m, n_bins=N_BINS))
+        bf16_rows["hist_bf16"].append(strip(row))
+    bf16_rows["hist_partition_bf16"] = [strip(measure_hist(codes, wf, ids(64), 64,
+                                                           mode="partition", bf16=True))]
+    bf16_rows["hist_partition_packed_bf16"] = [measure_packed(fold, fold_w, fold_ids(128), 128,
+                                                              False, bf16=True)]
+    bf16_rows["hist_shared_bf16"] = [strip(measure_hist(codes, mom, ids(8), 8, shared=True,
+                                                        bf16=True))]
+    lid = ids(32)
+    row = measure_hist(codes, mom, lid, 32, mode="partition", shared=True, bf16=True)
+    check_equal("hist_shared bf16 M=32: partition = dense", row["out"],
+                hist.bin_histogram_shared(codes, lid, mom, max_nodes=32, n_bins=N_BINS, bf16=True))
+    bf16_rows["hist_partition_shared_bf16"] = [strip(row)]
+    bf16_rows["hist_partition_shared_packed_bf16"] = [measure_packed(codes, mom, lid, 32, True,
+                                                                     bf16=True)]
+    for name, rows in bf16_rows.items():
+        emit({"phase": "kernels", "kernel": name, "rows": rows})
+        summary[name] = rows[0]
     summary["pack_codes"] = pack_row(fold)
     # The launch floor: a one-element PyTorch op in the same harness.
     one = torch.zeros(1, device=x.device)
@@ -3368,8 +3462,8 @@ def phase_path_sweep() -> dict:
     if any(counts[k] for k in unpacked):
         fails.append(f"unpacked partition launches under the packed policy: {counts}")
     try:
-        require_launched(counts, [k for k in COUNTERS if k not in unpacked + OLD_ROW_KERNELS],
-                         "sweep")
+        require_launched(counts, [k for k in COUNTERS
+                                  if k not in unpacked + OLD_ROW_KERNELS + BF16_KERNELS], "sweep")
         require_row_launches(counts, "sweep")
     except AssertionError as e:
         fails.append(str(e))
@@ -3834,10 +3928,10 @@ def kernel_taps():
             setattr(mod, name, fn)
 
 
-def hist_kernel_name(wrapper: str, mode: str) -> str:
+def hist_kernel_name(wrapper: str, mode: str, bf16: bool = False) -> str:
     name = "hist_partition" if mode.startswith("partition") else "hist"
     return name + ("_shared" if wrapper.endswith("shared") else "") + (
-        "_packed" if mode.endswith("pack") else "")
+        "_packed" if mode.endswith("pack") else "") + ("_bf16" if bf16 else "")
 
 
 def check_tapped(name: str, b: dict) -> tuple[str, float]:
@@ -3849,19 +3943,24 @@ def check_tapped(name: str, b: dict) -> tuple[str, float]:
     at p ≤ 32), warm-started as in ``cd_plain_windows``. Returns (kernel,
     max |Δ|)."""
     if name.startswith("bin_histogram"):
-        kernel = hist_kernel_name(name, b["mode"])
+        bf16 = b["bf16"]
+        kernel = hist_kernel_name(name, b["mode"], bf16)
         run = lambda: getattr(hist, name)(b["codes"], b["ids"], b["weights"],
                                           max_nodes=b["max_nodes"], n_bins=b["n_bins"],
-                                          mode=b["mode"], packed=b["packed"])
+                                          mode=b["mode"], packed=b["packed"], bf16=bf16)
         got = run()
         check_equal(f"{kernel} (two launches)", run(), got)
+        if bf16:
+            check_bf16_form(kernel, got, b["weights"], lambda w: getattr(hist, name)(
+                b["codes"], b["ids"], w, max_nodes=b["max_nodes"], n_bins=b["n_bins"],
+                mode=b["mode"], packed=b["packed"]))
         args = (b["codes"], b["ids"], b["weights"], b["max_nodes"], b["n_bins"])
-        want = (hist.bin_histogram_packed_plain(*args, b["packed"]) if b["mode"].endswith("pack")
-                else hist.bin_histogram_batched_plain(*args))
+        want = (hist.bin_histogram_packed_plain(*args, b["packed"], bf16)
+                if b["mode"].endswith("pack") else hist.bin_histogram_batched_plain(*args, bf16))
         w = b["weights"]
         if torch.equal(w, w.round()):
             return kernel, check_equal(kernel, got, want)
-        scale = w.abs().sum(dim=-1)
+        scale = (hist.round_bf16(w) if bf16 else w).abs().sum(dim=-1)
         scale = (scale if scale.ndim == 2 else scale[None])[:, :, None, None, None]
         return kernel, check_float(kernel, got, want, scale)[0]
     if name.startswith("node_sums"):
@@ -4483,9 +4582,10 @@ def timed_fit(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_path_matmul_growers(frame_mod, smi: str) -> dict:
+def phase_path_matmul_growers(frame_mod, smi: str) -> tuple[dict, dict, dict]:
     """The JAX package's matmul backends on the card (docstring, 11k).
-    Returns the kernel launches of their fits and predicts."""
+    Returns the kernel launches of their fits and predicts, the three
+    "auto" fits and the fit of each kind by backend name."""
     x, w, y = frame_mod.x, frame_mod.w, frame_mod.y
     n = x.shape[0]
     rng = np.random.default_rng(MATMUL_SEED)
@@ -4595,6 +4695,117 @@ def phase_path_matmul_growers(frame_mod, smi: str) -> dict:
     emit(out)
     if fails:
         raise AssertionError("path_matmul_growers: " + "; ".join(fails))
+    return counts, kernel, fit
+
+
+# path_pallas_backends: the JAX package's explicit Pallas names at the
+# notebook's widths, through the entry points: the classifier, the
+# nuisance regressor and the honest causal forest (its own regressors
+# included) under "pallas" (the kernels: bit for bit path_matmul_growers'
+# "auto" fits) and "pallas_bf16" (the split search's histograms in their
+# bf16 form: the classifier bit for bit "auto"), the bf16 regressor and
+# causal fit again under the packed policy (bit for bit the unpacked
+# ones: dense == partition == packed holds in the bf16 form), and
+# "pallas_interpret" refused on the card. Tree counts as
+# path_matmul_growers' (MATMUL_TREES).
+PALLAS_NAMES = ("pallas", "pallas_bf16")
+
+
+def phase_path_pallas_backends(frame_mod, smi: str, auto: dict, fit: dict) -> dict:
+    """Returns the kernel launches of the fits under the Pallas names."""
+    x = frame_mod.x
+    fails: list = []
+    walls: dict = {}
+    t_phase = time.perf_counter()
+    got: dict = {}
+    reset_counts()
+    for kind in fit:
+        got[kind, "pallas"], walls[f"{kind}:pallas"] = timed_fit(lambda: fit[kind]("pallas"))
+    with kernel_taps() as seen:
+        for kind in fit:
+            got[kind, "pallas_bf16"], walls[f"{kind}:pallas_bf16"] = timed_fit(
+                lambda: fit[kind]("pallas_bf16"))
+        with packed_policy():
+            for kind in ("regressor", "causal"):
+                got[kind, "packed"], walls[f"{kind}:pallas_bf16+pack"] = timed_fit(
+                    lambda: fit[kind]("pallas_bf16"))
+        sync()
+        counts = read_counts()
+    t0 = time.perf_counter()
+    held = check_taps(seen)
+    taps_s = time.perf_counter() - t0
+    try:
+        require_launched(counts, BF16_KERNELS, "pallas_backends")
+    except AssertionError as e:
+        fails.append(str(e))
+    unheld = [k for k in BF16_KERNELS if k not in held]
+    if unheld:
+        fails.append(f"never held to their plain versions: {unheld}")
+
+    def forest_of(v):
+        return v.forest if isinstance(v, cf.FittedCausalForest) else v
+
+    def unequal(a, b) -> list:
+        fa, fb = forest_of(a), forest_of(b)
+        fields = CAUSAL_FIELDS if isinstance(fa, cf.CausalForest) else FOREST_EQUAL
+        diff = [f for f in fields if not torch.equal(getattr(fa, f), getattr(fb, f))]
+        if isinstance(a, cf.FittedCausalForest):
+            diff += [f for f in ("y_hat", "w_hat") if not torch.equal(getattr(a, f), getattr(b, f))]
+        return diff
+
+    checks: dict = {}
+    for kind in fit:
+        diff = unequal(got[kind, "pallas"], auto[kind])
+        checks[f"{kind}:pallas"] = {"unequal_to_auto": diff}
+        if diff:
+            fails.append(f"{kind} pallas: {diff} differ from the auto fit")
+    diff = unequal(got["classifier", "pallas_bf16"], auto["classifier"])
+    if diff:
+        fails.append(f"classifier pallas_bf16: {diff} differ from the auto fit")
+    checks["classifier:pallas_bf16"] = {"unequal_to_auto": diff}
+    for kind in ("regressor", "causal"):
+        diff = unequal(got[kind, "packed"], got[kind, "pallas_bf16"])
+        if diff:
+            fails.append(f"{kind} pallas_bf16: the packed policy's fit differs in {diff}")
+        checks[f"{kind}:pallas_bf16"] = {
+            "agreement": split_agreement(forest_of(got[kind, "pallas_bf16"]),
+                                         forest_of(auto[kind])),
+            "packed_unequal": diff}
+    bf16_fit, auto_fit = got["causal", "pallas_bf16"], auto["causal"]
+    cate = cf.predict_cate(bf16_fit.forest, x, oob=False).cate
+    checks["causal:pallas_bf16"]["cate_gap"] = mean_gap(
+        cate, cf.predict_cate(auto_fit.forest, x, oob=False).cate)
+    checks["causal:pallas_bf16"]["nuisance_equal"] = (
+        torch.equal(bf16_fit.y_hat, auto_fit.y_hat) and torch.equal(bf16_fit.w_hat, auto_fit.w_hat))
+    ate = {}
+    for name, f in (("auto", auto_fit), ("pallas", got["causal", "pallas"]),
+                    ("pallas_bf16", bf16_fit)):
+        eff = cf.average_treatment_effect(f)
+        ate[name] = {"ate": float(eff.estimate), "se": float(eff.std_err)}
+    # "pallas_interpret" names the plain CPU versions: refused on the card.
+    refused = {}
+    for what, call in (
+            ("fit_forest_classifier", lambda: fit["classifier"]("pallas_interpret")),
+            ("fit_causal_forest", lambda: fit["causal"]("pallas_interpret")),
+            ("predict_cate", lambda: cf.predict_cate(auto_fit.forest, x,
+                                                     row_backend="pallas_interpret"))):
+        try:
+            call()
+            refused[what] = False
+        except ValueError as e:
+            refused[what] = "'pallas' or 'auto'" in str(e)
+    if not all(refused.values()):
+        fails.append(f"pallas_interpret not refused on the card: {refused}")
+    emit({"phase": "path_pallas_backends", "nvidia_smi": smi, "rows": x.shape[0],
+          "p": x.shape[1], "n_bins": N_BINS, "trees": MATMUL_TREES, "depth": DEPTH,
+          "cf_depth": CF_DEPTH,
+          "reduced": {"trees": f"{MATMUL_TREES} (notebook: {DR_TREES} classifier, "
+                      f"{CF_NUISANCE_TREES} regressor, {CF_TREES} causal)"},
+          "walls_s": walls, "checks": checks, "ate": ate, "refused_on_card": refused,
+          "kernels_held": held, "taps_s": taps_s, "launches": counts,
+          "wall_s": time.perf_counter() - t_phase})
+    if fails:
+        raise AssertionError("path_pallas_backends: " + "; ".join(fails))
     return counts
 
 
@@ -5076,15 +5287,19 @@ def phase_path_sweep_chaos() -> None:
 
 
 def phase_path_xprof() -> None:
-    """``ATE_TPU_XPROF`` on the card at ``SweepConfig().quick()``, last (a
-    process that has run the profiler launches more slowly): a quick sweep
-    without the profiler, then a copy of its directory with the journal
-    lines of ``XPROF_ROWS`` dropped, rerun with the default scheduler and
-    the whole-run capture. The knob must force the sequential sweep; the
-    Chrome trace must hold each recomputed row's ``record_function`` range
-    and launches of the port's kernels (``XPROF_KERNELS``); the rows must
-    equal the sweep's without the profiler."""
-    config = pipeline.SweepConfig().quick()
+    """``ATE_TPU_XPROF`` on the card at the MICRO sweep's configuration
+    (``micro_sweep_config()``; ``SweepConfig().quick()`` before, cut for
+    the script's time), last (a process that has run the profiler
+    launches more slowly): a sweep without the profiler, then a copy of
+    its directory with the journal lines of ``XPROF_ROWS`` dropped, rerun
+    with the default scheduler and the whole-run capture. The knob must
+    force the sequential sweep; the Chrome trace must hold each
+    recomputed row's ``record_function`` range and launches of the port's
+    kernels (``XPROF_KERNELS``); the rows must equal the sweep's without
+    the profiler."""
+    from ate_replication_causalml_torch.parallel.dryrun import micro_sweep_config
+
+    config = micro_sweep_config()
     plain_out = XPROF_OUT + "_plain"
     shutil.rmtree(plain_out, ignore_errors=True)
     plain = rerun(config, plain_out, scheduler="sequential")
@@ -5101,7 +5316,7 @@ def phase_path_xprof() -> None:
     ranges = [obs.sanitize_label(m) for m in XPROF_ROWS]
     kernels = {k: sum(k in n for n in names) for k in XPROF_KERNELS}
     forced = any("forcing the sequential sweep" in ln for ln in logs)
-    emit({"phase": "path_xprof", "config": "SweepConfig().quick()", "rows": list(XPROF_ROWS),
+    emit({"phase": "path_xprof", "config": "micro_sweep_config()", "rows": list(XPROF_ROWS),
           "plain_wall_s": plain["wall_s"], "wall_s": wall, "forced_sequential": forced,
           "trace_bytes": os.path.getsize(path), "trace_events": len(names),
           "ranges": {r: r in names for r in ranges}, "kernel_events": kernels})
@@ -5146,6 +5361,17 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
                                      "partition_accumulate_packed"),
     # Its in-kernel pack matmul.
     "pack_codes": (_PART, _TPU + "hist_pallas.py:441", "pack_words"),
+    # The bf16 form of each (hist_backend="pallas_bf16"): the Pallas calls
+    # with in_dtype=jnp.bfloat16 of the batched (:755) and shared (:842)
+    # entries.
+    "hist_bf16": (_HIST, _TPU + "hist_pallas.py:755", "hist_dense"),
+    "hist_partition_bf16": (_PART, _TPU + "hist_pallas.py:755", "partition_accumulate"),
+    "hist_partition_packed_bf16": (_PART, _TPU + "hist_pallas.py:755",
+                                   "partition_accumulate_packed"),
+    "hist_shared_bf16": (_HIST, _TPU + "hist_pallas.py:842", "hist_dense"),
+    "hist_partition_shared_bf16": (_PART, _TPU + "hist_pallas.py:842", "partition_accumulate"),
+    "hist_partition_shared_packed_bf16": (_PART, _TPU + "hist_pallas.py:842",
+                                          "partition_accumulate_packed"),
     # Not a TPU kernel: the XLA program of the coordinate descent
     # (_cd_sweeps under the λ scan and the fold vmap).
     "cd_path": ("ate_replication_causalml_torch/csrc/lasso.cu", _TPU + "lasso.py:95",
@@ -5186,7 +5412,8 @@ def main() -> int:
     by_path["frontier"] = phase_path_frontier(smi)
     by_path["chaos_campaign"] = phase_path_chaos_campaign(smi)
     by_path["multi_gpu"] = phase_path_multi_gpu(smi)
-    by_path["matmul_growers"] = phase_path_matmul_growers(frame_mod, smi)
+    by_path["matmul_growers"], auto_fits, fitters = phase_path_matmul_growers(frame_mod, smi)
+    by_path["pallas_backends"] = phase_path_pallas_backends(frame_mod, smi, auto_fits, fitters)
     by_path["rbridge"] = phase_path_rbridge(frame_mod, smi)
     phase_path_native(smi)
     by_path["static"] = phase_path_static(frame_mod, smi)

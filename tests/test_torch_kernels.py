@@ -123,7 +123,7 @@ def _entry_call(mode, m, dev):
         partial = (torch.empty((n_parts,) + tuple(out.shape), dtype=torch.float32, device=dev)
                    if n_parts > 1 else out)
         args = (codes.data_ptr(), n, p, *tail, th.dense_features_per_block(*shape),
-                th.dense_node_groups(k_w, m, N_BINS), th.dense_warps_per_feature(*shape),
+                th.dense_node_groups(k_w, m, N_BINS), th.dense_warps_per_feature(*shape), 0,
                 partial.data_ptr(), out.data_ptr(), stream)
         keep = (codes, ids, w, partial)
         k, smem = build.kernel("hist"), th.dense_block_bytes(*shape)
@@ -131,7 +131,7 @@ def _entry_call(mode, m, dev):
         words = tp.pack_codes(codes)
         perm, seg, _, _ = th.partition_sort(ids, m, n_parts)
         args = (words.data_ptr(), n, p, *tail, th.packed_slots(k_w, m, N_BINS),
-                th.packed_node_groups(k_w, m, N_BINS), perm.data_ptr(), seg.data_ptr(),
+                th.packed_node_groups(k_w, m, N_BINS), 0, perm.data_ptr(), seg.data_ptr(),
                 out.data_ptr(), stream)
         keep = (codes, ids, w, words, perm, seg)
         k, smem = build.kernel("hist_partition_packed"), th.packed_block_bytes(k_w, m, N_BINS)
@@ -1068,3 +1068,85 @@ def test_matmul_growers_on_card(cuda, backend):
     assert warm.graph is not None
     assert np.array_equal(got.cate, want.cate.cpu().numpy())
     assert np.array_equal(got.variance, want.variance.cpu().numpy())
+
+
+BF16_FORMS = ("dense", "partition", "partition+pack")
+BF16_COUNTERS = {"dense": "bf16_launches", "partition": "bf16_partition_launches",
+                 "partition+pack": "bf16_packed_launches"}
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("k, m", [(2, 16), (2, 128), (5, 8), (5, 32), (8, 77)])
+def test_bf16_kernels_equal_plain(cuda, k, m, shared):
+    """The bf16 form of every formulation (``hist_backend="pallas_bf16"``):
+    integer weights bit for bit the plain version and the float32 form;
+    float weights within the bound of the plain version's bf16 sums; the
+    three formulations and two launches bitwise equal; each launch on
+    its bf16 counter."""
+    codes, ids, wi = _hist_case(k * 10 + m, 11016, 21, 16, m, cuda, k)
+    gen = torch.Generator().manual_seed(k + m)
+    wf = (wi * 0.37 + torch.rand(wi.shape, generator=gen).to(cuda) - 0.5).contiguous()
+    wrapper = th.bin_histogram_shared if shared else th.bin_histogram_batched
+    for w in (wi, wf):
+        w = w[0].contiguous() if shared else w
+        run = lambda mode: wrapper(codes, ids, w, max_nodes=m, n_bins=N_BINS, mode=mode,
+                                   bf16=True)
+        outs = {}
+        for mode in BF16_FORMS:
+            before = getattr(wrapper, BF16_COUNTERS[mode])
+            outs[mode] = run(mode)
+            torch.cuda.synchronize()
+            assert getattr(wrapper, BF16_COUNTERS[mode]) == before + 1, mode
+        dense = outs["dense"]
+        assert all(torch.equal(v, dense) for v in outs.values())
+        assert torch.equal(run("dense"), dense)
+        # The kernels round each weight once as they load it and add in
+        # the float32 form's order: the float32 form on the rounded weights.
+        assert torch.equal(dense, wrapper(codes, ids, th.round_bf16(w), max_nodes=m,
+                                          n_bins=N_BINS))
+        want = th.bin_histogram_batched_plain(codes, ids, w, m, N_BINS, bf16=True)
+        if torch.equal(w, w.round()):
+            assert torch.equal(dense, want)
+            assert torch.equal(dense, wrapper(codes, ids, w, max_nodes=m, n_bins=N_BINS))
+        else:
+            assert _float_bound(dense, want, th.round_bf16(w))
+            assert not torch.equal(dense, wrapper(codes, ids, w, max_nodes=m, n_bins=N_BINS))
+
+
+def test_bf16_partition_sort_equals_plain(cuda):
+    """The unpacked pass's first step rounds the gathered weights, as its
+    plain version does."""
+    _, ids, _ = _hist_case(3, 11016, 21, 16, 32, cuda)
+    w = _moments(3, 11016, cuda)
+    got = th.partition_sort(ids, 32, 3, w, bf16=True)
+    want = th.partition_sort_plain(ids, 32, 3, w, bf16=True)
+    written = want[0] >= 0
+    assert torch.equal(got[3].transpose(1, 2)[written], want[3].transpose(1, 2)[written])
+
+
+def test_pallas_interpret_raises_on_card_and_bf16_classifier_is_auto(cuda):
+    """"pallas_interpret" names the plain CPU versions: refused for card
+    tensors (growers and predict). The bf16 classifier on the card is the
+    "auto" forest and the CPU port's bf16 forest."""
+    rng = np.random.default_rng(9)
+    n, p = 3000, 8
+    xh = rng.normal(size=(n, p)).astype(np.float32)
+    wh = (rng.random(n) < 0.4).astype(np.float32)
+    x, w = torch.as_tensor(xh, device=cuda), torch.as_tensor(wh, device=cuda)
+    key = rnd.key(8, device=cuda)
+    kw = dict(n_trees=16, depth=6, n_bins=32)
+    with pytest.raises(ValueError, match="'pallas' or 'auto'"):
+        fo.fit_forest_classifier(x, w, key, hist_backend="pallas_interpret", **kw)
+    with pytest.raises(ValueError, match="'pallas' or 'auto'"):
+        cf.grow_causal_forest(x, w - 0.4, w, key, n_trees=2, depth=2,
+                              hist_backend="pallas_interpret")
+    auto = fo.fit_forest_classifier(x, w, key, **kw)
+    bf16 = fo.fit_forest_classifier(x, w, key, hist_backend="pallas_bf16", **kw)
+    host = fo.fit_forest_classifier(torch.as_tensor(xh), torch.as_tensor(wh), key.cpu(),
+                                    hist_backend="pallas_bf16", **kw)
+    for f in ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf"):
+        assert torch.equal(getattr(bf16, f), getattr(auto, f)), f
+        assert torch.equal(getattr(bf16, f).cpu(), getattr(host, f)), f
+    forest = cf.grow_causal_forest(x, w - 0.4, w, key, n_trees=4, depth=3)
+    with pytest.raises(ValueError, match="'pallas' or 'auto'"):
+        cf.predict_cate(forest, x, row_backend="pallas_interpret")

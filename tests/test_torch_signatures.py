@@ -220,15 +220,19 @@ def test_double_ml_positional():
     assert abs(got.ate - ref.ate) <= 1e-6 and abs(got.se - ref.se) <= 1e-6
 
 
-@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla", "onehot"])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret", "xla", "onehot", "pallas_bf16",
+                                     "gather"])
 def test_unported_hist_backend_raises(backend):
-    """``hist_backend`` in its position: the Pallas backends raise. "xla"
-    and "onehot", the JAX package's matmul backends, are taken there and
-    grow on the kernels: an integer-weight forest equal to the kernel
-    grower's, and a causal fit through the direct-ρ grower."""
+    """``hist_backend`` in its position: a name the JAX package does not
+    take ("gather") raises. Its names are taken there and grow on the
+    kernels (on the CPU their plain versions): "xla" and "onehot" (the
+    matmul backends), "pallas", "pallas_interpret" and "pallas_bf16" (its
+    bf16 form: integer weights stay exact) give an integer-weight forest
+    equal to the kernel grower's, and each takes a causal fit ("xla" and
+    "onehot" through the direct-ρ grower)."""
     x, w, y = _frames(1, 60, 3)
     _, tk = _jax_key_pair(1)
-    if backend in ("xla", "onehot"):
+    if backend != "gather":
         got, ref = (tf.fit_forest_classifier(torch.as_tensor(x), torch.as_tensor(w), tk, 2, 2,
                                              None, 16, None, b) for b in (backend, "auto"))
         for f in ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf"):
@@ -266,11 +270,12 @@ def test_a_mesh_raises():
 
 @pytest.mark.parametrize("row_backend", ["matmul", "pallas_interpret", "gather"])
 def test_unported_row_backend_raises(carried, row_backend):
-    """``row_backend`` in its position: "pallas_interpret" and "gather"
-    raise; "matmul", the JAX package's one-hot route, is taken as a name
-    of the kernels' route and gives their bits."""
+    """``row_backend`` in its position: "gather" raises; "matmul", the JAX
+    package's one-hot route, is taken as a name of the kernels' route and
+    "pallas_interpret", its CPU test mode, as the plain versions' (CPU
+    tensors only): both give the default route's bits."""
     x, _, mine = carried
-    if row_backend == "matmul":
+    if row_backend in ("matmul", "pallas_interpret"):
         got = tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, row_backend)
         ref = tcf.predict_cate(mine, torch.as_tensor(x), True, 4, 128, None, None)
         assert torch.equal(got.cate, ref.cate) and torch.equal(got.variance, ref.variance)
