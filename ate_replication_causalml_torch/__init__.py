@@ -22,6 +22,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
+__all__ = ["EstimatorResult", "ResultTable", "__version__"]
+
 DEFAULT_DEVICE = "cuda"
 
 
@@ -34,3 +36,13 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run the plain CPU versions"
         )
     return dev
+
+
+def __getattr__(name):
+    # The result records resolve on first use: importing them here would
+    # load every estimator (and its models) with any submodule.
+    if name in ("EstimatorResult", "ResultTable"):
+        from ate_replication_causalml_torch.estimators import base
+
+        return getattr(base, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

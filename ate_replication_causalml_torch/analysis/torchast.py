@@ -79,6 +79,8 @@ HOT_PATH: tuple[tuple[str, str], ...] = (
     ("ops/pack.py", "pack_codes"),
     ("ops/random.py", "uniform"),
     ("models/causal_forest.py", "WarmPredict.__call__"),
+    ("models/forest.py", "WarmForestPredict.__call__"),
+    ("models/forest.py", "WarmGraph._host"),
 )
 
 #: In-place container mutators — shared by the mutable-global discovery

@@ -81,6 +81,7 @@ from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.models.forest import (
     HIST_BACKEND,
     NON_STREAMING_BACKENDS,
+    WarmGraph,
     binarize,
     check_hist_backend,
     check_interpret,
@@ -107,7 +108,6 @@ from ate_replication_causalml_torch.ops.hist import (
 from ate_replication_causalml_torch.ops.pack import packable, resolve_predict_pack
 from ate_replication_causalml_torch.parallel.mesh import TREE_AXIS, check_mesh
 from ate_replication_causalml_torch.parallel.retry import require_all, run_shards
-from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.ops.tree import table_lookup, traverse
 
 _EPS = 1e-12
@@ -806,36 +806,20 @@ def _check_row_backend(row_backend, device=None) -> None:
     check_interpret(row_backend, device, "row_backend")
 
 
-#: The forest's tensor fields, the buffers a warmed predict reads.
-_CF_TENSORS = tuple(_CF_DTYPES)
-
-
-class WarmPredict:
-    """A predict warmed for one query shape ``(batch, p)``, the port's
-    counterpart of the JAX package's AOT executable. Call it as
-    ``warm(forest, x)`` (masked: ``warm(forest, x, mask)``) with host
-    ``x`` (batch, p) float32; it returns :class:`CatePredictions` of host
-    float32 numpy arrays.
-
-    On the card: at construction the kernels are built, ``predict_cate``
-    runs once on a side stream (``warm-up``) and is captured as one
-    ``torch.cuda.CUDAGraph`` around static buffers: the query, the mask,
-    and a copy of the forest's tensors. The forest is the call's runtime
-    argument: a call with another forest object of the same geometry
-    (a degraded-mode reload, a same-shape fleet model) copies its
-    tensors into the captured buffers first, and nothing is captured
-    again. A call is one copy into the static query buffer, one replay
-    and one host read. Every replay adds the ``traverse`` launches it
-    runs to ``traverse.launches`` (the capture's own recorded launches
-    are taken back out), and every capture counts in
-    ``graph_captures_total``.
-
-    On the CPU the same callable runs ``predict_cate`` on the given forest
-    and query directly, without a graph.
+class WarmPredict(WarmGraph):
+    """:func:`predict_cate` warmed for one query shape ``(batch, p)``
+    (:class:`~.forest.WarmGraph`: on the card one CUDA graph of
+    ``binarize``, one ``traverse`` a 32-tree chunk and the row-independent
+    sums). Call it as ``warm(forest, x)`` (masked: ``warm(forest, x,
+    mask)``) with host ``x`` (batch, p) float32; it returns
+    :class:`CatePredictions` of host float32 numpy arrays.
 
     Masked: the outputs are multiplied by a (batch,) 0/1 row mask, as the
     JAX package's fused executable does: real rows keep their bits (×1.0
     is exact), masked rows are exact zeros."""
+
+    fields = tuple(_CF_DTYPES)
+    kind = "predict_cate"
 
     def __init__(self, forest: CausalForest, batch: int, *, masked: bool, oob: bool,
                  tree_chunk: int, row_chunk: int, row_backend: str | None,
@@ -844,83 +828,23 @@ class WarmPredict:
         _check_row_backend(row_backend, forest.bin_edges.device)
         _check_row_chunk(row_chunk)
         _resolve_pack_for(forest, pack)
-        self.batch = int(batch)
-        self.p = int(forest.bin_edges.shape[0])
-        self.masked = masked
         self._kw = dict(oob=oob, tree_chunk=tree_chunk, row_chunk=row_chunk,
                         row_backend=row_backend, variance_compat=variance_compat, pack=pack)
-        self.device = forest.bin_edges.device
-        self.shapes = {f: tuple(getattr(forest, f).shape) for f in _CF_TENSORS}
-        self.graph = None
-        self.traverse_per_replay = 0
-        self._bound = None
-        if self.device.type == "cuda":
-            self._capture(forest)
+        super().__init__(forest, batch, masked)
+
+    def _geometry(self, forest) -> tuple:
+        return super()._geometry(forest) + (forest.ci_group_size,)
 
     def _run(self, forest, x, mask):
         out = predict_cate(forest, x, **self._kw)
         both = torch.stack((out.cate, out.variance))
         return both * mask if mask is not None else both
 
-    def _capture(self, forest) -> None:
-        dev = self.device
-        build.build_all()
-        self._forest = CausalForest(**{f: getattr(forest, f).clone() for f in _CF_TENSORS},
-                                    ci_group_size=forest.ci_group_size)
-        self._bound = forest
-        self._x = torch.zeros((self.batch, self.p), dtype=torch.float32, device=dev)
-        self._mask = (torch.ones((self.batch,), dtype=torch.float32, device=dev)
-                      if self.masked else None)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run(self._forest, self._x, self._mask)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = traverse.launches
-        with torch.cuda.graph(graph):
-            self._out = self._run(self._forest, self._x, self._mask)
-        # The capture records the launches; they run at each replay.
-        self.traverse_per_replay = traverse.launches - before
-        build.count_launch(traverse, n=-self.traverse_per_replay)
-        # graftlint: disable=JGL021 — a port-only family: pre-creating it adds a key the JAX package's sweep never exports, and tests/test_torch_pipeline.py holds the two family sets equal
-        obs.counter("graph_captures_total", "CUDA graphs captured").inc(1, kind="predict_cate")
-        self.graph = graph
-
-    def _bind(self, forest) -> None:
-        """Copy another forest's tensors into the captured buffers."""
-        if forest.ci_group_size != self._forest.ci_group_size or any(
-                tuple(getattr(forest, f).shape) != self.shapes[f] for f in _CF_TENSORS):
-            raise ValueError("forest geometry differs from the warmed predict's; "
-                             "warm a new one")
-        for f in _CF_TENSORS:
-            getattr(self._forest, f).copy_(getattr(forest, f))
-        self._bound = forest
-
     def __call__(self, forest: CausalForest, x, mask=None) -> CatePredictions:
         if (mask is not None) != self.masked:
             raise TypeError("a masked warmed predict takes (forest, x, mask); an unmasked "
                             "one (forest, x)")
-        x = torch.as_tensor(x, dtype=torch.float32)
-        if tuple(x.shape) != (self.batch, self.p):
-            raise ValueError(f"x must be {(self.batch, self.p)}, got {tuple(x.shape)}")
-        if self.graph is None:
-            m = None if mask is None else torch.as_tensor(mask, dtype=torch.float32)
-            # graftlint: disable=TGL003 — the branch without a graph runs on the CPU only
-            both = self._run(forest, x.to(self.device), m)
-        else:
-            if forest is not self._bound:
-                self._bind(forest)
-            # graftlint: disable=TGL003 — the batch's query in: one host-to-device copy a batch (host numpy in, host numpy out)
-            self._x.copy_(x)
-            if mask is not None:
-                # graftlint: disable=TGL003 — the fused batch's row mask in: one host-to-device copy a batch
-                self._mask.copy_(torch.as_tensor(mask, dtype=torch.float32))
-            self.graph.replay()
-            build.count_launch(traverse, n=self.traverse_per_replay)
-            both = self._out
-        # graftlint: disable=TGL003 — the batch's one host read: the reply is host numpy
-        host = both.cpu().numpy()
+        host = self._host(forest, x, mask)
         return CatePredictions(cate=host[0].copy(), variance=host[1].copy())
 
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +57,7 @@ import torch
 from ate_replication_causalml_torch import observability as obs
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
+from ate_replication_causalml_torch.kernels import build
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_torch.ops.bootstrap import _poisson1_counts
 from ate_replication_causalml_torch.ops.hist import (
@@ -638,9 +640,42 @@ def _oob_reduce(leaf_vals, counts):
     return (leaf_vals * mask).sum(dim=0) / denom, (votes * mask).sum(dim=0) / denom
 
 
+#: XLA:CPU's reduction window: a reduced dimension longer than this is
+#: summed in windows of this many (its tree-reduction rewrite).
+_XLA_REDUCE_WINDOW = 32
+
+
+def _xla_sum0(a: torch.Tensor) -> torch.Tensor:
+    """Σ over dim 0 of a float32 tensor in XLA:CPU's order, so the sum
+    has the JAX package's bits on either device: a dimension longer than
+    32 is padded with zeros to whole windows of 32 (half the padding
+    before, the rest after), each window summed in order from 0.0, and
+    the window sums reduced the same way until 32 or fewer are left;
+    those are summed in order from 0.0."""
+    w = _XLA_REDUCE_WINDOW
+    while a.shape[0] > w:
+        n_win = -(-a.shape[0] // w)
+        pad = n_win * w - a.shape[0]
+        a = torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (pad // 2, pad - pad // 2))
+        a = a.view(n_win, w, *a.shape[1:])
+        acc = torch.zeros_like(a[:, 0])
+        for j in range(w):
+            acc = acc + a[:, j]
+        a = acc
+    acc = torch.zeros_like(a[0])
+    for row in a:
+        acc = acc + row
+    return acc
+
+
 def _mean_reduce(leaf_vals):
+    """The tree averages of the leaf values and of the votes, as the JAX
+    package's jitted mean computes them: the XLA:CPU sum times the
+    float32 reciprocal of the tree count (XLA's rewrite of the division
+    by a constant)."""
     votes = (leaf_vals > 0.5).to(torch.float32)
-    return leaf_vals.mean(dim=0), votes.mean(dim=0)
+    inv = float(np.float32(1.0) / np.float32(leaf_vals.shape[0]))
+    return _xla_sum0(leaf_vals) * inv, _xla_sum0(votes) * inv
 
 
 def predict_forest(forest: Forest, x: torch.Tensor, oob: bool = False) -> ForestPredictions:
@@ -672,6 +707,145 @@ def predict_forest(forest: Forest, x: torch.Tensor, oob: bool = False) -> Forest
         leaf_vals = forest_apply(forest, binarize(x, forest.bin_edges))
     prob, vote = _oob_reduce(leaf_vals, forest.counts) if oob else _mean_reduce(leaf_vals)
     return ForestPredictions(prob=prob, vote=vote)
+
+
+class WarmGraph:
+    """A forest's predict warmed for one query shape ``(batch, p)``: the
+    port's counterpart of the JAX package's AOT executable, the base of
+    :class:`WarmForestPredict` and the causal forest's ``WarmPredict``.
+    A subclass names the forest's tensor fields its predict reads
+    (``fields``), the ``graph_captures_total`` label (``kind``) and the
+    predict itself (``_run(forest, x, mask)`` → a (2, batch) float32
+    tensor).
+
+    On the card: at construction the kernels are built, the predict runs
+    once on a side stream (``warm-up``) and is captured as one
+    ``torch.cuda.CUDAGraph`` around static buffers: the query, the mask
+    and a copy of the forest's tensors. The forest is the call's runtime
+    argument: a call with another forest object of the same geometry (a
+    degraded-mode reload, a same-shape fleet model) copies its tensors
+    into the captured buffers first, and nothing is captured again. A
+    call is one copy into the static query buffer, one replay and one
+    host read. ``capture_s`` is the capture's host wall. Every replay adds the ``traverse`` launches it runs to
+    ``traverse.launches`` (the capture's own recorded launches are taken
+    back out), and every capture counts in ``graph_captures_total``.
+
+    On the CPU the same call runs the predict on the given forest and
+    query directly, without a graph."""
+
+    fields: tuple[str, ...] = ()
+    kind = ""
+
+    def __init__(self, forest, batch: int, masked: bool = False):
+        self.batch = int(batch)
+        self.p = int(forest.bin_edges.shape[0])
+        self.masked = masked
+        self.device = forest.bin_edges.device
+        self.shapes = self._geometry(forest)
+        self.graph = None
+        self.traverse_per_replay = 0
+        self.capture_s = 0.0
+        self._bound = None
+        if self.device.type == "cuda":
+            self._capture(forest)
+
+    def _geometry(self, forest) -> tuple:
+        return tuple(tuple(getattr(forest, f).shape) for f in self.fields)
+
+    def _run(self, forest, x, mask) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _capture(self, forest) -> None:
+        dev = self.device
+        build.build_all()
+        self._forest = dataclasses.replace(
+            forest, **{f: getattr(forest, f).clone() for f in self.fields})
+        self._bound = forest
+        self._x = torch.zeros((self.batch, self.p), dtype=torch.float32, device=dev)
+        self._mask = (torch.ones((self.batch,), dtype=torch.float32, device=dev)
+                      if self.masked else None)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run(self._forest, self._x, self._mask)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = traverse.launches
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._out = self._run(self._forest, self._x, self._mask)
+        self.capture_s = time.perf_counter() - t0
+        # The capture records the launches; they run at each replay.
+        self.traverse_per_replay = traverse.launches - before
+        build.count_launch(traverse, n=-self.traverse_per_replay)
+        # graftlint: disable=JGL021 — a port-only family: pre-creating it adds a key the JAX package's sweep never exports, and tests/test_torch_pipeline.py holds the two family sets equal
+        obs.counter("graph_captures_total", "CUDA graphs captured").inc(1, kind=self.kind)
+        self.graph = graph
+
+    def _bind(self, forest) -> None:
+        """Copy another forest's tensors into the captured buffers."""
+        if self._geometry(forest) != self.shapes:
+            raise ValueError("forest geometry differs from the warmed predict's; "
+                             "warm a new one")
+        for f in self.fields:
+            getattr(self._forest, f).copy_(getattr(forest, f))
+        self._bound = forest
+
+    def _host(self, forest, x, mask=None) -> np.ndarray:
+        """One call: the (2, batch) predict as host float32 numpy."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if tuple(x.shape) != (self.batch, self.p):
+            raise ValueError(f"x must be {(self.batch, self.p)}, got {tuple(x.shape)}")
+        if self.graph is None:
+            m = None if mask is None else torch.as_tensor(mask, dtype=torch.float32)
+            # graftlint: disable=TGL003 — the branch without a graph runs on the CPU only
+            both = self._run(forest, x.to(self.device), m)
+        else:
+            if forest is not self._bound:
+                self._bind(forest)
+            # graftlint: disable=TGL003 — the batch's query in: one host-to-device copy a batch (host numpy in, host numpy out)
+            self._x.copy_(x)
+            if mask is not None:
+                # graftlint: disable=TGL003 — the fused batch's row mask in: one host-to-device copy a batch
+                self._mask.copy_(torch.as_tensor(mask, dtype=torch.float32))
+            self.graph.replay()
+            build.count_launch(traverse, n=self.traverse_per_replay)
+            both = self._out
+        # graftlint: disable=TGL003 — the batch's one host read: the reply is host numpy
+        return both.cpu().numpy()
+
+
+class WarmForestPredict(WarmGraph):
+    """:func:`predict_forest` with ``oob=False``, warmed for one query
+    shape (:class:`WarmGraph`: on the card one CUDA graph of
+    ``binarize``, one ``traverse`` launch over every tree and the tree
+    averages). Called as ``warm(forest, x)`` with ``x`` (batch, p)
+    float32; returns :class:`ForestPredictions` of host float32 numpy
+    arrays, bit for bit ``predict_forest(forest, x)`` on the forest's
+    device."""
+
+    fields = ("split_feat", "split_bin", "leaf_value", "bin_edges")
+    kind = "predict_forest"
+
+    def _run(self, forest, x, mask):
+        out = predict_forest(forest, x)
+        return torch.stack((out.prob, out.vote))
+
+    def __call__(self, forest: Forest, x) -> ForestPredictions:
+        host = self._host(forest, x)
+        return ForestPredictions(prob=host[0].copy(), vote=host[1].copy())
+
+
+def lower_predict_forest(forest: Forest, batch: int) -> WarmForestPredict:
+    """The classifier forest's predict for a fixed ``(batch, p)`` query
+    shape, warmed (on the card: built and captured), called as
+    ``warm(forest, x)``: the counterpart of the JAX package's AOT lower,
+    whose ``.compile()`` executable is called as ``compiled(forest, x)``.
+    New rows only (``oob=False``): the OOB path's check of the training
+    matrix has no fixed-shape form. The forest is a runtime argument, so
+    a same-shape reload reuses the warmed predict; a query of another
+    shape raises."""
+    return WarmForestPredict(forest, batch)
 
 
 def forest_oob_mean(forest: Forest, x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ for the sweep and the serving daemon:
   (:mod:`.serving_report`);
 * the exporters: ``metrics.json``, ``events.jsonl`` and the Prometheus
   textfile (:mod:`.export`, :mod:`.promtext`), all written atomically;
-* device and build capture (:mod:`.device`);
+* device and build capture (:mod:`.device`: device memory, the kernel
+  build cache's directory, a built library's ptxas resources);
 * the trace timeline and its critical-path / overlap analysis
   (:mod:`.trace`, :mod:`.critical_path`).
 
@@ -24,10 +25,13 @@ from typing import Callable
 
 from ate_replication_causalml_torch.observability.device import (
     install_monitoring,
+    record_compiled_cost,
     record_device_memory,
+    watch_cache_dir,
 )
 from ate_replication_causalml_torch.observability.events import EVENTS, EventLog, emit, span
 from ate_replication_causalml_torch.observability.export import (
+    atomic_file,
     atomic_write_json,
     atomic_write_text,
     write_events_jsonl,
@@ -35,15 +39,19 @@ from ate_replication_causalml_torch.observability.export import (
     write_run_artifacts,
 )
 from ate_replication_causalml_torch.observability.registry import (
+    DEFAULT_LATENCY_BUCKETS,
     PAD_FRACTION_BOUNDS,
     REGISTRY,
     SCHEMA_VERSION,
+    BucketHistogram,
     MetricsRegistry,
     bucket_histogram,
     counter,
     enabled,
     gauge,
     histogram,
+    parse_label_key,
+    peek_labeled,
     sanitize_label,
     set_enabled,
 )
@@ -52,15 +60,17 @@ from ate_replication_causalml_torch.observability.trace import (
     build_trace,
     trace_enabled,
     write_trace_artifacts,
+    write_trace_json,
 )
 
-__all__ = ["EVENTS", "EventLog", "MetricSampler", "MetricsRegistry", "PAD_FRACTION_BOUNDS",
-           "REGISTRY", "SCHEMA_VERSION", "atomic_write_json", "atomic_write_text",
-           "bucket_histogram", "build_trace", "counter",
+__all__ = ["BucketHistogram", "DEFAULT_LATENCY_BUCKETS", "EVENTS", "EventLog", "MetricSampler",
+           "MetricsRegistry", "PAD_FRACTION_BOUNDS", "REGISTRY", "SCHEMA_VERSION", "atomic_file",
+           "atomic_write_json", "atomic_write_text", "bucket_histogram", "build_trace", "counter",
            "emit", "enabled", "gauge", "histogram", "install_monitoring", "instrument_dispatch",
-           "record_device_memory", "sanitize_label", "set_enabled", "span", "trace_enabled",
+           "parse_label_key", "peek_labeled", "record_compiled_cost", "record_device_memory",
+           "sanitize_label", "set_enabled", "span", "trace_enabled", "watch_cache_dir",
            "write_events_jsonl", "write_metrics_json", "write_run_artifacts",
-           "write_trace_artifacts"]
+           "write_trace_artifacts", "write_trace_json"]
 
 
 def instrument_dispatch(kind: str, fn: Callable[[int], object]):

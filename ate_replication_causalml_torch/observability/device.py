@@ -19,15 +19,27 @@ remapped to PyTorch and the port's kernel build:
   ``device_memory_bytes`` gauge, per CUDA device; it records nothing on
   the CPU, as the JAX package records nothing there.
 
-The JAX package's ``record_compiled_cost`` (XLA's cost and memory
-analysis of a compiled program) and ``watch_cache_dir`` (XLA's
-persistent compile cache) have no PyTorch counterpart and are not
-ported.
+* :func:`watch_cache_dir` gauges a build cache directory at every
+  snapshot (the JAX package's watch of XLA's persistent cache; the
+  port's cache is the kernel build's directory of hash-named libraries);
+* :func:`record_compiled_cost` records a built kernel library's
+  ``ptxas`` resources (the JAX package's records XLA's cost and memory
+  analysis of a compiled program): registers, stack and spill bytes and
+  the ``nvcc`` wall.
 """
 
 from __future__ import annotations
 
-from ate_replication_causalml_torch.observability.registry import bucket_histogram, counter, gauge
+import os
+import re
+
+from ate_replication_causalml_torch.observability.registry import (
+    REGISTRY,
+    bucket_histogram,
+    counter,
+    enabled,
+    gauge,
+)
 
 #: ``scripts/check_metrics_schema.py::REQUIRED_COUNTERS``: the families
 #: every instrumented run exports, zero or not.
@@ -58,6 +70,14 @@ SWEEP_COUNTERS = (
 #: allocator-wide byte count, current and peak.
 _MEMORY_SUFFIXES = ("_bytes.all.current", "_bytes.all.peak")
 
+_WATCHED_CACHE_DIRS: set[str] = set()
+
+# ptxas -v, one device function: "Used 40 registers, ..." and "N bytes
+# stack frame, N bytes spill stores, N bytes spill loads".
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+_PTXAS_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
 
 def install_monitoring() -> None:
     """Pre-create the counter families at 0, and the router's request
@@ -67,6 +87,65 @@ def install_monitoring() -> None:
     counter("router_request_path_total",
             "router forwards by direct/failover/exhausted path").inc(0)
     bucket_histogram("router_request_seconds", "router-observed forward latency (e2e)")
+
+
+def _scan_cache_dir(cache_dir: str) -> tuple[int, int]:
+    entries = total = 0
+    try:
+        with os.scandir(cache_dir) as it:
+            for e in it:
+                if e.is_file():
+                    entries += 1
+                    total += e.stat().st_size
+    except OSError:
+        pass
+    return entries, total
+
+
+def watch_cache_dir(cache_dir: str) -> None:
+    """Gauge ``cache_dir`` at every snapshot: ``compile_cache_entries`` /
+    ``compile_cache_bytes`` (its files now) and
+    ``compile_cache_entries_written`` (files added since the watch began).
+    Once per directory: a second call would reset the baseline."""
+    if not enabled() or cache_dir in _WATCHED_CACHE_DIRS:
+        return
+    _WATCHED_CACHE_DIRS.add(cache_dir)
+    base_entries, _ = _scan_cache_dir(cache_dir)
+
+    def collect() -> None:
+        entries, total = _scan_cache_dir(cache_dir)
+        gauge("compile_cache_entries", "build cache entry files").set(entries)
+        gauge("compile_cache_bytes", "build cache total bytes").set(total)
+        gauge("compile_cache_entries_written",
+              "entries added since this process began the watch").set(
+            max(0, entries - base_entries))
+
+    REGISTRY.add_collector(collect)
+    collect()
+
+
+def record_compiled_cost(name: str, compiled) -> dict:
+    """Record a built kernel library (``kernels.build.Built``: its
+    ``ptxas`` report and ``seconds``) as ``compiled_cost`` gauges labeled
+    ``entry=name``: the most registers and stack bytes of any of its
+    device functions, their spill bytes (stores and loads) summed, and
+    the ``nvcc`` wall in this process (0 when the library was reused).
+    Returns the numbers."""
+    out: dict = {}
+    if not enabled():
+        return out
+    regs = [int(m) for m in _PTXAS_REGISTERS.findall(compiled.ptxas)]
+    frames = [tuple(map(int, m)) for m in _PTXAS_FRAME.findall(compiled.ptxas)]
+    if regs:
+        out["registers"] = float(max(regs))
+    if frames:
+        out["stack_bytes"] = float(max(f[0] for f in frames))
+        out["spill_bytes"] = float(sum(f[1] + f[2] for f in frames))
+    out["nvcc_seconds"] = float(compiled.seconds)
+    g = gauge("compiled_cost", "resources of each built kernel library")
+    for key, v in out.items():
+        g.set(v, entry=name, stat=key)
+    return out
 
 
 def record_device_memory(context: str = "") -> dict:

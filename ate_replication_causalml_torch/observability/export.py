@@ -3,8 +3,8 @@ metrics.prom trio.
 
 Port of ``ate_replication_causalml_tpu/observability/export.py``. Every
 artifact the sweep writes beside its journal goes through
-:func:`atomic_write_text` (a temporary file in the target directory,
-fsynced, then ``os.replace``d), so a kill mid-write never leaves a
+:func:`atomic_file` (a temporary file in the target directory, fsynced,
+then ``os.replace``d), so a kill mid-write never leaves a
 truncated ``report.json`` or ``metrics.json`` beside a valid
 ``results.jsonl``. :func:`write_run_artifacts` is the sweep's one call:
 ``metrics.json``, ``events.jsonl`` and the Prometheus textfile, in the
@@ -13,10 +13,12 @@ JAX package's layout and schema version.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import stat
 import threading
+from typing import Iterator
 
 from ate_replication_causalml_torch.observability import events as _events
 from ate_replication_causalml_torch.observability import registry as _registry
@@ -26,21 +28,26 @@ EVENTS_BASENAME = "events.jsonl"
 PROMTEXT_BASENAME = "metrics.prom"
 
 
-def atomic_write_text(path: str, text: str) -> None:
-    """Write ``text`` to ``path`` atomically: a temporary file in the
-    same directory (``os.replace`` must not cross filesystems), fsynced,
-    renamed over ``path``. The file gets the mode a plain ``open(path,
-    "w")`` would: an existing file keeps its own, a new one 0o666 under
-    the umask."""
+@contextlib.contextmanager
+def atomic_file(path: str) -> Iterator[str]:
+    """Yield a temporary path in ``path``'s directory for the caller to
+    write (a streaming writer never holds the whole artifact in memory).
+    On a clean exit the file is fsynced and ``os.replace``d over
+    ``path``; on an exception it is unlinked and ``path`` is left as it
+    was. The same directory keeps the rename on one filesystem, so it is
+    atomic. The file gets the mode a plain ``open(path, "w")`` would: an
+    existing file keeps its own, a new one 0o666 under the umask."""
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     tmp = os.path.join(d, f".{os.path.basename(path)}.{os.getpid()}.{threading.get_ident()}.tmp")
-    fd = os.open(tmp, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o666)
+    os.close(os.open(tmp, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o666))
     try:
-        with os.fdopen(fd, "w") as f:
-            f.write(text)
-            f.flush()
-            os.fsync(f.fileno())
+        yield tmp
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
         try:
             os.chmod(tmp, stat.S_IMODE(os.stat(path).st_mode))
         except FileNotFoundError:
@@ -52,6 +59,13 @@ def atomic_write_text(path: str, text: str) -> None:
         except OSError:
             pass
         raise
+
+
+def atomic_write_text(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` through :func:`atomic_file`."""
+    with atomic_file(path) as tmp:
+        with open(tmp, "w") as f:
+            f.write(text)
 
 
 def atomic_write_json(path: str, obj, sort_keys: bool = False) -> None:

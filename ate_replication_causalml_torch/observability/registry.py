@@ -8,10 +8,11 @@ version). The sweep driver, the engine, the nuisance cache, the prefetch
 lane, the shard runner and the kernel build write here; the serving
 daemon adds the bucketed histograms (:class:`BucketHistogram`, the
 ``bucket_histograms`` section: fixed log-spaced bounds, p50/p95/p99 in
-the snapshot) that its latency, phase, fill and pad families ride. The
-JAX package's snapshot-time collectors are not ported: nothing of the
-port registers one. Telemetry is
-host-side only: it never touches an estimator's tensors.
+the snapshot) that its latency, phase, fill and pad families ride.
+Snapshot-time collectors (:meth:`MetricsRegistry.add_collector`) refresh
+gauges that read outside state, such as
+:func:`~.device.watch_cache_dir`'s. Telemetry is host-side only: it
+never touches an estimator's tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import os
 import re
 import threading
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 #: metrics.json / events.jsonl schema version (the JAX package's;
 #: ``scripts/check_metrics_schema.py`` validates against it).
@@ -238,6 +239,7 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.RLock()
         self._metrics: dict[str, Counter | Gauge | Histogram | BucketHistogram] = {}
+        self._collectors: list[Callable[[], None]] = []
 
     def _get(self, cls, name: str, help: str):
         with self._lock:
@@ -276,6 +278,12 @@ class MetricsRegistry:
                                  f"bounds {m.bounds!r}")
             return m
 
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` before every :meth:`snapshot` (once per function)."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
     def family(self, name: str):
         """The metric registered under ``name``, or None: the read-only
         accessor of the SLO engine and the daemon's ``stats`` op (it
@@ -311,7 +319,13 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """Versioned plain-dict snapshot (the metrics.json payload);
-        families never sampled are left out."""
+        families never sampled are left out. The collectors run first."""
+        for fn in list(self._collectors):
+            try:
+                fn()
+            # graftlint: disable=JGL007 — a collector is observer code: a failing one must not lose the snapshot it feeds
+            except Exception:  # noqa: BLE001
+                pass
         out = {"schema_version": SCHEMA_VERSION, "created_unix": time.time(),
                "counters": {}, "gauges": {}, "histograms": {}, "bucket_histograms": {}}
         with self._lock:
@@ -325,9 +339,11 @@ class MetricsRegistry:
         return out
 
     def reset(self) -> None:
-        """Drop every metric (tests, and a caller reading one run)."""
+        """Drop every metric and collector (tests, and a caller reading
+        one run)."""
         with self._lock:
             self._metrics.clear()
+            self._collectors.clear()
 
 
 #: The process-global default registry every in-tree emitter writes to.
@@ -349,3 +365,7 @@ def histogram(name: str, help: str = "") -> Histogram:
 def bucket_histogram(name: str, help: str = "",
                      bounds: Sequence[float] | None = None) -> BucketHistogram:
     return REGISTRY.bucket_histogram(name, help, bounds=bounds)
+
+
+def peek_labeled(name: str) -> list[tuple[dict[str, str], float]] | None:
+    return REGISTRY.peek_labeled(name)

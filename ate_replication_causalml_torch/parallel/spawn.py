@@ -44,6 +44,7 @@ def free_port() -> int:
 def _rank_entry(rank: int, world: int, port: int, backend: str | None, device: str,
                 fn: Callable, args: tuple, out_dir: str, timeout: float) -> None:
     from ate_replication_causalml_torch.kernels import build
+    from ate_replication_causalml_torch.observability.export import atomic_file, atomic_write_text
     from ate_replication_causalml_torch.parallel.multihost import join_world, leave_world
 
     if torch.device(device).type == "cuda":
@@ -56,14 +57,11 @@ def _rank_entry(rank: int, world: int, port: int, backend: str | None, device: s
         join_world(f"127.0.0.1:{port}", world, rank, backend=backend, device=device,
                    timeout=timeout)
         value = fn(*args)
-        # graftlint: disable=JGL005 — the tmp half of tmp + os.replace: the rank's result is published whole below
-        with open(os.path.join(out_dir, f"rank{rank}.pkl.tmp"), "wb") as f:
-            pickle.dump(value, f)
-        os.replace(os.path.join(out_dir, f"rank{rank}.pkl.tmp"),
-                   os.path.join(out_dir, f"rank{rank}.pkl"))
+        with atomic_file(os.path.join(out_dir, f"rank{rank}.pkl")) as tmp:
+            # graftlint: disable=JGL005 — atomic_file's tmp: the rank's result is published whole
+            with open(tmp, "wb") as f:
+                pickle.dump(value, f)
     except BaseException:
-        from ate_replication_causalml_torch.observability.export import atomic_write_text
-
         atomic_write_text(os.path.join(out_dir, f"rank{rank}.err"), traceback.format_exc())
         raise SystemExit(1)
     finally:

@@ -39,9 +39,10 @@ import torch
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.data.frame import CausalFrame
 from ate_replication_causalml_torch.data.schema import DatasetSchema
-from ate_replication_causalml_torch.estimators import aipw, balance, belloni as bel, dml
+from ate_replication_causalml_torch.estimators import aipw, balance, dml
 from ate_replication_causalml_torch.estimators import ipw, lasso_est, naive, ols
 from ate_replication_causalml_torch.estimators.base import EstimatorResult
+from ate_replication_causalml_torch.estimators.belloni import belloni as _belloni
 from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report
 from ate_replication_causalml_torch.models.forest import rf_oob_propensity
 from ate_replication_causalml_torch.ops import random as rnd
@@ -179,7 +180,7 @@ def doubly_robust_glm(dataset, treatment_var="W", outcome_var="Y",
 def belloni(dataset, treatment_var="W", outcome_var="Y", covariates=None,
             compat="r", device=None):
     frame = frame_from_columns(dataset, treatment_var, outcome_var, covariates, device=device)
-    return _row(bel.belloni(frame, compat=compat))
+    return _row(_belloni(frame, compat=compat))
 
 
 def double_ml(dataset, treatment_var="W", outcome_var="Y", num_trees=100, seed=123,

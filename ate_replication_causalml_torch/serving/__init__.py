@@ -58,13 +58,12 @@ from ate_replication_causalml_torch.serving.protocol import (
 )
 
 __all__ = [
-    "AdmissionController", "BackendSpec", "Batch", "BucketPlan", "BurnShedder",
-    "CateClient", "CateServer", "CircuitBreaker", "Coalescer", "ConsistentHashRing",
-    "FleetSupervisor", "InvalidTransition", "ModelFleet", "ModelLifecycle",
-    "PendingRequest", "ProtocolError", "RejectedRequest", "ReloadSupervisor",
-    "RouterConfig", "RouterServer", "ServeConfig", "ServingError", "ServingLifecycle",
-    "ServingUnavailable", "decode_frame", "encode_frame", "parse_backend_specs",
-    "parse_fleet_spec", "read_frame", "write_frame",
+    "AdmissionController", "BackendSpec", "Batch", "BucketPlan", "BurnShedder", "CateClient",
+    "CateServer", "CircuitBreaker", "Coalescer", "ConsistentHashRing", "FleetSupervisor",
+    "InvalidTransition", "ModelFleet", "ModelLifecycle", "PendingRequest", "ProtocolError",
+    "RejectedRequest", "ReloadSupervisor", "RetrainSupervisor", "RouterConfig", "RouterServer",
+    "ServeConfig", "ServingError", "ServingLifecycle", "ServingUnavailable", "decode_frame",
+    "encode_frame", "parse_backend_specs", "parse_fleet_spec", "read_frame", "write_frame",
 ]
 
 _ROUTER_NAMES = ("BackendSpec", "CircuitBreaker", "ConsistentHashRing", "FleetSupervisor",
@@ -72,8 +71,9 @@ _ROUTER_NAMES = ("BackendSpec", "CircuitBreaker", "ConsistentHashRing", "FleetSu
 
 
 def __getattr__(name):
-    # The daemon and the forest it loads resolve on first use; so does
-    # the router, which ``python -m ...serving.router`` runs as __main__.
+    # The daemon and the forest it loads resolve on first use; so do the
+    # router, which ``python -m ...serving.router`` runs as __main__, and
+    # the retrain supervisor, as in the JAX package.
     if name in ("CateServer", "ServeConfig", "RejectedRequest"):
         from ate_replication_causalml_torch.serving import daemon
 
@@ -82,4 +82,8 @@ def __getattr__(name):
         from ate_replication_causalml_torch.serving import router
 
         return getattr(router, name)
+    if name == "RetrainSupervisor":
+        from ate_replication_causalml_torch.serving import retrain
+
+        return retrain.RetrainSupervisor
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,8 +20,8 @@ same forest gives the same digest in both packages and each package's
 manifest may name only a type of the table, and any other name is
 refused before anything is imported.
 
-:func:`save_fitted` writes atomically (temporary file, fsync,
-``os.replace``); :func:`load_fitted` recomputes the digest and raises
+:func:`save_fitted` writes atomically
+(``observability.export.atomic_file``); :func:`load_fitted` recomputes the digest and raises
 :class:`~..resilience.errors.CheckpointCorrupt`, naming the path, on a
 mismatch, an unreadable or torn archive, or a missing manifest. Archives
 without a digest load with a ``checkpoint_unverified`` event. Under
@@ -36,7 +36,6 @@ import functools
 import hashlib
 import json
 import os
-import threading
 from typing import Any
 
 import numpy as np
@@ -44,6 +43,7 @@ import torch
 
 from ate_replication_causalml_torch import resolve_device
 from ate_replication_causalml_torch.observability import events as _events
+from ate_replication_causalml_torch.observability.export import atomic_file
 from ate_replication_causalml_torch.resilience import chaos
 from ate_replication_causalml_torch.resilience.errors import CheckpointCorrupt
 
@@ -186,29 +186,17 @@ def save_fitted(path: str, obj: Any) -> None:
     manifest = _encode(obj, "root", arrays)
     manifest_bytes = json.dumps(manifest).encode()
     digest = _content_digest(manifest_bytes, arrays)
-    d = os.path.dirname(os.path.abspath(path))
-    os.makedirs(d, exist_ok=True)
-    tmp = os.path.join(d, f".{os.path.basename(path)}.{os.getpid()}.{threading.get_ident()}.tmp")
-    try:
-        # graftlint: disable=JGL005 — the blessed atomic pattern: a tmp file, fsynced, renamed over the path only on success
+    with atomic_file(path) as tmp:
+        # graftlint: disable=JGL005 — atomic_file's tmp, renamed over the path only on success
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **{_MANIFEST: np.frombuffer(manifest_bytes, dtype=np.uint8),
                                       _DIGEST: np.frombuffer(digest.encode(), dtype=np.uint8)},
                                 **arrays)
-            f.flush()
-            os.fsync(f.fileno())
         inj = chaos.active()
         if inj is not None:
             cut = inj.truncate_npz(os.path.getsize(tmp), site=path)
             if cut is not None:
                 os.truncate(tmp, cut)
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
 
 
 def load_fitted(path: str, device=None, verify: bool = True) -> Any:

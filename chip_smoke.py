@@ -266,10 +266,10 @@ imports nothing of JAX. Phases, each printing one JSON line:
    forest, the fold-sharded CV; its ``run_sweep(use_mesh=True)`` leg at
    MICRO is (b)'s, which runs that sweep and resumes it). (b) two ranks
    sharing the card under gloo, at the notebook's widths: DR-RF's
-   ``MG_DR_TREES`` (1,000) trees of depth 9 tree-sharded; the causal
-   forest (``MG_CF_TREES``, 800, of depth 8, 500 nuisance trees) and its
+   ``MG_DR_TREES`` (500) trees of depth 9 tree-sharded; the causal
+   forest (``MG_CF_TREES``, 400, of depth 8, 500 nuisance trees) and its
    row-sharded leaf index (both cut from the rows' 2,500 and 2,000 to make
-   room for path_static; the gates hold at any count); the LASSO-PS
+   room for later phases; the gates hold at any count); the LASSO-PS
    ``cv_glmnet`` (10 folds, 100 λs) fold-sharded; the AIPW bootstrap
    boot-sharded; the two IRLS fits in float64 data-sharded;
    ``run_sweep(use_mesh=True)`` at MICRO on the concurrent engine, then
@@ -359,6 +359,20 @@ imports nothing of JAX. Phases, each printing one JSON line:
    every earlier path, the TF32 pins still hold (both ``allow_tf32``
    False, float32 matmul precision ``"highest"``). The lint runs in a
    subprocess beside (b), and the phase's launches count like a path's;
+11o. path_public_surface — the JAX package's public import surface on
+   the port: every name of the package's, ``estimators``',
+   ``observability``'s and ``serving``'s ``__all__`` resolved, no jax
+   loaded; then the DR-RF row's propensity forest (``DR_TREES`` trees of
+   depth 9 at the notebook's widths, its key) fit again, and
+   ``lower_predict_forest`` warmed at the full panel and at a
+   ``PUBLIC_BUCKET``-row bucket: ``PUBLIC_CALLS`` calls each on host
+   queries, every reply bit for bit the eager ``predict_forest`` on the
+   card, one ``traverse`` launch a replay, one capture and no build after
+   the warm-up, each call's syncs only the query's copy in and the reply's
+   read (TGL003 sites of ``WarmGraph._host``), a query of another shape
+   refused; the fit's and the predicts' kernels tapped and held to their
+   plain versions after the counts are read. Prints the fit, eager, warm,
+   capture and per-call walls and each replay's device time;
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -383,6 +397,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import importlib
 import io
 import json
 import math
@@ -415,7 +430,6 @@ from ate_replication_causalml_torch.estimators.aipw import (  # noqa: E402
     outcome_model_mu,
 )
 from ate_replication_causalml_torch.estimators import balance  # noqa: E402
-from ate_replication_causalml_torch.estimators import belloni as bel  # noqa: E402
 from ate_replication_causalml_torch.estimators import lasso_est  # noqa: E402
 from ate_replication_causalml_torch.estimators.causal_forest_est import causal_forest_report  # noqa: E402
 from ate_replication_causalml_torch.estimators import dml  # noqa: E402
@@ -453,6 +467,9 @@ from ate_replication_causalml_torch.serving.daemon import (  # noqa: E402
     serve_socket,
 )
 from ate_replication_causalml_torch.utils.checkpoint import load_fitted, save_fitted  # noqa: E402
+
+# The estimators package exports the function belloni under its module's name.
+bel = importlib.import_module("ate_replication_causalml_torch.estimators.belloni")
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -654,9 +671,10 @@ FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 # needs_tall columns of sparse_highdim skipped: 20 columns), 32
 # replicates (one width-32 block), extended to 64 (a second block); the
 # scalar replay over the first SCENARIO_REPLAY_REPS replicates of the
-# vmapped columns (cut from 64 → 96 and 32 for the script's time on a
-# slow host, PERF.md PR 19: the extension still adds one block a
-# column, and the first 64 replicates' coverage lies within the band); one
+# vmapped columns (both cut for the script's time on a slow host, PERF.md
+# §4: the extension still adds one block a column, the first 64
+# replicates' coverage lies within the band, and the replay reaches
+# every vmapped column); one
 # block of each SCENARIO_CPU_COLUMNS recomputed on the CPU port, its
 # estimates within SCENARIO_CPU_BOUND·(1 + |card|) of the card's (float32
 # GLM sums in the devices' orders; the draws are torch.equal). A lasso
@@ -671,7 +689,7 @@ SCENARIO_ESTIMATORS = ("naive", "ols", "ipw_logit", "aipw_logit", "lasso", "aipw
 SCENARIO_REPS = 32
 SCENARIO_EXT_REPS = 64
 SCENARIO_WIDTH = 32
-SCENARIO_REPLAY_REPS = 16
+SCENARIO_REPLAY_REPS = 8
 SCENARIO_CPU_COLUMNS = ("hetero_confounded:aipw_logit", "calibration:aipw_rf",
                         "calibration:lasso")
 SCENARIO_CPU_BOUND = 1e-5
@@ -4189,9 +4207,9 @@ MULTI_GPU_KERNELS = ("hist", "hist_shared", "route_advance", "leaf_record", "tra
 MULTI_GPU_BUDGET_S = 150.0
 MULTI_GPU_RANKS = 2
 #: (b)'s forests: the rows' 2,500 and 2,000 trees cut to make room for
-#: path_static (PERF.md, PR 19); the sharded-equals-one-process gates
-#: hold at any tree count.
-MG_DR_TREES, MG_CF_TREES = 1_000, 800
+#: later phases (PERF.md §4); the sharded-equals-one-process gates hold at
+#: any tree count.
+MG_DR_TREES, MG_CF_TREES = 500, 400
 MG_DR_KEY, MG_CF_KEY, MG_FOLD_KEY, MG_BOOT_KEY = 12325, 12345, 31, 7
 FOREST_FIELDS = ("split_feat", "split_bin", "leaf_value", "counts", "train_leaf")
 CAUSAL_FIELDS = ("split_feat", "split_bin", "leaf_stats", "in_sample")
@@ -5203,6 +5221,145 @@ def phase_path_static(frame_mod, smi: str) -> dict:
     return counts
 
 
+# path_public_surface: every name of the JAX package's public import
+# surface (the package's, estimators', observability's and serving's
+# __all__) resolved from the port, then the DR-RF row's propensity forest
+# (its key, trees and depth) behind lower_predict_forest at the full
+# panel and at one serving bucket: PUBLIC_CALLS calls each on host
+# queries (the panel and its reverse; PUBLIC_BUCKET-row windows), every
+# reply bit for bit the eager predict_forest on the card.
+PUBLIC_MODULES = ("ate_replication_causalml_torch", "ate_replication_causalml_torch.estimators",
+                  "ate_replication_causalml_torch.observability",
+                  "ate_replication_causalml_torch.serving")
+PUBLIC_BUCKET = 256
+PUBLIC_WINDOWS = 4
+PUBLIC_CALLS = 24
+PUBLIC_KERNELS = ("hist", "hist_partition", "node_sums", "route_advance", "leaf_record",
+                  "traverse")
+
+
+def family_total(name: str, **labels) -> float:
+    """The sum of one metric family's samples whose labels include
+    ``labels`` (0 when the family was never created)."""
+    return sum(v for lab, v in (obs.peek_labeled(name) or [])
+               if all(lab.get(k) == want for k, want in labels.items()))
+
+
+def phase_path_public_surface(frame_mod, smi: str) -> dict:
+    """The JAX package's public surface on the port and the classifier
+    forest's warmed predict (docstring, 11o)."""
+    from ate_replication_causalml_torch.analysis.rules import classify_sync_sites
+
+    t_start = time.perf_counter()
+    exported = {}
+    for name in PUBLIC_MODULES:
+        mod = importlib.import_module(name)
+        # Each name resolved: a missing one raises, a lazy one loads here.
+        exported[name] = len([getattr(mod, n) for n in mod.__all__])
+    leaked = [m for m in ("jax", "jaxlib", "ate_replication_causalml_tpu") if m in sys.modules]
+    x, n = frame_mod.x, frame_mod.n
+    host_x = x.cpu().numpy()
+    windows = [host_x[s:s + PUBLIC_BUCKET]
+               for s in np.linspace(0, n - PUBLIC_BUCKET, PUBLIC_WINDOWS).astype(int)]
+    plan = {n: [host_x, np.ascontiguousarray(host_x[::-1])], PUBLIC_BUCKET: windows}
+    sync()
+    walls: dict = {}
+    batches: dict = {}
+    fails: list = []
+    reset_counts()
+    with kernel_taps() as seen:
+        t0 = time.perf_counter()
+        forest = fo.fit_forest_classifier(x, frame_mod.w, rnd.key(12325, device="cuda"),
+                                          n_trees=DR_TREES, depth=DEPTH)
+        sync()
+        walls["fit"] = time.perf_counter() - t0
+        warms = {}
+        for batch, queries in plan.items():
+            t0 = time.perf_counter()
+            eager = [fo.predict_forest(forest, torch.as_tensor(q, device="cuda")) for q in queries]
+            want = [(e.prob.cpu().numpy(), e.vote.cpu().numpy()) for e in eager]
+            eager_s = (time.perf_counter() - t0) / len(queries)
+            builds = family_total("kernel_builds_total")
+            captures = family_total("graph_captures_total", kind="predict_forest")
+            t0 = time.perf_counter()
+            warm = fo.lower_predict_forest(forest, batch)
+            sync()
+            warm_s = time.perf_counter() - t0
+            sites: dict = {}
+            call_s, equal = [], True
+            with sync_sites(sites):
+                for i in range(PUBLIC_CALLS):
+                    t0 = time.perf_counter()
+                    got = warm(forest, queries[i % len(queries)])
+                    call_s.append(time.perf_counter() - t0)
+                    prob, vote = want[i % len(queries)]
+                    equal &= bool(np.array_equal(got.prob, prob) and np.array_equal(got.vote, vote))
+            classified = classify_sync_sites(REPO, sites)
+            warms[batch] = warm
+            batches[batch] = {
+                "eager_s": eager_s, "warm_s": warm_s, "capture_s": warm.capture_s,
+                "call_ms": {"p50": float(np.median(call_s)) * 1e3,
+                            "max": float(np.max(call_s)) * 1e3},
+                "calls": PUBLIC_CALLS, "queries": len(queries), "equal": equal,
+                "traverse_per_replay": warm.traverse_per_replay,
+                "captures": family_total("graph_captures_total", kind="predict_forest") - captures,
+                "builds": family_total("kernel_builds_total") - builds,
+                "sync_sites": sites, "sync_missed": classified["missed"],
+                "sync_other": sorted(classified["other"])}
+            if not equal:
+                fails.append(f"batch {batch}: a reply differs from predict_forest")
+            if warm.traverse_per_replay != 1 or batches[batch]["captures"] != 1:
+                fails.append(f"batch {batch}: {warm.traverse_per_replay} traverse launches a "
+                             f"replay, {batches[batch]['captures']} captures (1 and 1)")
+            if batches[batch]["builds"]:
+                fails.append(f"batch {batch}: kernels built after the warm-up")
+            # A call's syncs: the query's copy in and the reply's read, each a
+            # TGL003 site of WarmGraph._host; the replay itself adds none.
+            if (classified["missed"] or classified["other"]
+                    or sum(sites.values()) != 2 * PUBLIC_CALLS):
+                fails.append(f"batch {batch}: sync sites {sites}, missed {classified['missed']}")
+            try:
+                warm(forest, queries[0][:-1])
+                fails.append(f"batch {batch}: a query of {batch - 1} rows was served")
+            except ValueError:
+                pass
+    counts = read_counts()
+    # Device time of the replay alone (after the counts: timing launches
+    # are no part of the path).
+    for batch, warm in warms.items():
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(10):
+            warm.graph.replay()
+        b.record()
+        sync()
+        batches[batch]["replay_device_ms"] = a.elapsed_time(b) / 10
+    t0 = time.perf_counter()
+    taps = check_taps(seen)
+    walls["taps"] = time.perf_counter() - t0
+    want_rows = {"route_advance": ROW_LAUNCHES["dr_rf"]["route_advance"],
+                 "leaf_record": ROW_LAUNCHES["dr_rf"]["leaf_record"],
+                 "traverse": sum(len(q) + 1 + PUBLIC_CALLS for q in plan.values()),
+                 "route": 0, "lookup": 0}
+    got_rows = {k: counts[k] for k in want_rows}
+    if got_rows != want_rows:
+        fails.append(f"row kernel launches {got_rows}, derived {want_rows}")
+    if leaked:
+        fails.append(f"the public surface loaded {leaked}")
+    missing = [k for k in ("leaf_record", "traverse") if k not in taps]
+    if missing:
+        fails.append(f"no tapped call of {missing}")
+    emit({"phase": "path_public_surface", "nvidia_smi": smi, "exported": exported,
+          "rows": n, "trees": DR_TREES, "depth": DEPTH,
+          "batches": {str(k): v for k, v in batches.items()}, "kernels_held": taps,
+          "walls_s": walls, "wall_s": time.perf_counter() - t_start, "launches": counts})
+    if fails:
+        raise AssertionError("path_public_surface: " + "; ".join(fails))
+    require_launched(counts, PUBLIC_KERNELS, "public surface")
+    require_unpacked(counts, "public surface")
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -5417,6 +5574,7 @@ def main() -> int:
     by_path["rbridge"] = phase_path_rbridge(frame_mod, smi)
     phase_path_native(smi)
     by_path["static"] = phase_path_static(frame_mod, smi)
+    by_path["public_surface"] = phase_path_public_surface(frame_mod, smi)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

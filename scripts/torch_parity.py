@@ -284,7 +284,7 @@ def lasso_rows(jmod, tmod) -> dict:
     jbe = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
     jipw = importlib.import_module("ate_replication_causalml_tpu.estimators.ipw")
     jlasso = importlib.import_module("ate_replication_causalml_tpu.ops.lasso")
-    from ate_replication_causalml_torch.estimators import belloni as tbe
+    tbe = importlib.import_module("ate_replication_causalml_torch.estimators.belloni")
     from ate_replication_causalml_torch.estimators import ipw as tipw
     from ate_replication_causalml_torch.estimators import lasso_est as tle
     from ate_replication_causalml_torch.ops import lasso as tlasso

@@ -459,7 +459,8 @@ def test_tgl011_translated_fixtures_fire_where_jgl011_does():
 
 #: (file, the line removed or replaced, what stands in its place)
 TGL022_PLANTS = {
-    "causal_forest_wait_stream": ("models/causal_forest.py",
+    # The causal forest's warmed predict captures through models/forest.py's WarmGraph.
+    "causal_forest_wait_stream": ("models/forest.py",
                                   "        torch.cuda.current_stream(dev).wait_stream(side)\n", ""),
     "cache_wait_event": ("scheduler/cache.py",
                          "            torch.cuda.current_stream(self._device).wait_event(event)\n",

@@ -1,10 +1,17 @@
 """The torch package and chip_smoke.py import neither JAX nor the JAX
 package (nor triton): checked in a fresh interpreter that imports every
-module of the port."""
+module of the port, and in one that imports only the public surface.
+Also the port's ``atomic_file``, the tmp-then-rename writer every
+artifact goes through."""
 
 import os
+import stat
 import subprocess
 import sys
+
+import pytest
+
+from ate_replication_causalml_torch.observability import atomic_file
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = "ate_replication_causalml_torch"
@@ -90,3 +97,54 @@ def test_chip_smoke_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_public_surface_imports_no_jax_and_starts_no_cuda():
+    """The JAX package's import lines, pointed at the port: the estimators,
+    the package's result records, observability and serving (their lazy
+    names included) load no jax and leave CUDA uninitialised."""
+    code = "\n".join([
+        "import sys",
+        f"sys.path.insert(0, {_REPO!r})",
+        "from ate_replication_causalml_torch.estimators import (doubly_robust, double_ml,",
+        "    causal_forest_report, EstimatorResult, Z_95)",
+        "from ate_replication_causalml_torch import EstimatorResult as E2, ResultTable",
+        "import ate_replication_causalml_torch.estimators as est",
+        "import ate_replication_causalml_torch.observability as obs",
+        "import ate_replication_causalml_torch.serving as srv",
+        "for mod in (est, obs, srv):",
+        "    for name in mod.__all__:",
+        "        getattr(mod, name)",
+        "assert E2 is EstimatorResult and srv.RetrainSupervisor.__name__ == 'RetrainSupervisor'",
+        "bad = [m for m in ('jax', 'jaxlib', 'ate_replication_causalml_tpu') if m in sys.modules]",
+        "assert not bad, f'imported: {bad}'",
+        "import torch",
+        "assert not torch.cuda.is_initialized()",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=_REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_atomic_file_keeps_the_old_file_on_an_exception(tmp_path):
+    path = tmp_path / "report.json"
+    path.write_text("old")
+    with pytest.raises(RuntimeError):
+        with atomic_file(str(path)) as tmp:
+            with open(tmp, "w") as f:
+                f.write("half a rep")
+            raise RuntimeError("killed mid-write")
+    assert path.read_text() == "old"
+    assert os.listdir(tmp_path) == ["report.json"]
+
+
+def test_atomic_file_replaces_and_keeps_the_mode(tmp_path):
+    path = tmp_path / "report.json"
+    path.write_text("old")
+    os.chmod(path, 0o600)
+    with atomic_file(str(path)) as tmp:
+        with open(tmp, "w") as f:
+            f.write("new")
+    assert path.read_text() == "new"
+    assert stat.S_IMODE(os.stat(path).st_mode) == 0o600
+    assert os.listdir(tmp_path) == ["report.json"]

@@ -34,15 +34,15 @@ import pytest
 import torch
 
 from ate_replication_causalml_torch.data.frame import CausalFrame as TFrame
-from ate_replication_causalml_torch.estimators import belloni as tb
 from ate_replication_causalml_torch.estimators import ipw as tipw
 from ate_replication_causalml_torch.estimators import lasso_est as tle
 from ate_replication_causalml_torch.ops import random as rnd
 from ate_replication_causalml_tpu.data.frame import CausalFrame as JFrame
 
-# The JAX package's estimators/__init__.py exports functions under the
+# Both packages' estimators/__init__.py export functions under the
 # module names; import the modules themselves.
 jb = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
+tb = importlib.import_module("ate_replication_causalml_torch.estimators.belloni")
 jipw = importlib.import_module("ate_replication_causalml_tpu.estimators.ipw")
 jle = importlib.import_module("ate_replication_causalml_tpu.estimators.lasso_est")
 

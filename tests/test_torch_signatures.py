@@ -29,7 +29,6 @@ import torch
 from ate_replication_causalml_torch import pipeline as tpipe
 from ate_replication_causalml_torch.data.frame import CausalFrame as TFrame
 from ate_replication_causalml_torch.estimators import balance as tbal
-from ate_replication_causalml_torch.estimators import belloni as tbe
 from ate_replication_causalml_torch.estimators import dml as td
 from ate_replication_causalml_torch.estimators import lasso_est as tle
 from ate_replication_causalml_torch.models import causal_forest as tcf
@@ -45,9 +44,10 @@ from ate_replication_causalml_tpu.models import forest as jf
 from ate_replication_causalml_tpu.ops import lasso as jla
 from ate_replication_causalml_tpu.ops import qp as jqp
 
-# The JAX package's estimators/__init__.py binds these module names to
+# Both packages' estimators/__init__.py bind these module names to
 # functions; import the modules themselves.
 jbe = importlib.import_module("ate_replication_causalml_tpu.estimators.belloni")
+tbe = importlib.import_module("ate_replication_causalml_torch.estimators.belloni")
 jle = importlib.import_module("ate_replication_causalml_tpu.estimators.lasso_est")
 jbal = importlib.import_module("ate_replication_causalml_tpu.estimators.balance")
 

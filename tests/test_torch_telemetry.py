@@ -8,8 +8,9 @@ the port's engine, the Prometheus rendering of one registry snapshot.
 Then the port's own pieces: the exporters' files pass
 ``scripts/check_metrics_schema.py``, the required counter families exist
 at 0, the sampler and the dispatch instrumentation count, the atomic
-writer keeps a file's mode, and ``torch.profiler`` captures write Chrome
-traces. The sweep-level checks (the five files of a MICRO sweep in both
+writer keeps a file's mode, the build-cache watch gauges what the JAX
+package's watch gauges, a built library's ptxas resources are recorded,
+and ``torch.profiler`` captures write Chrome traces. The sweep-level checks (the five files of a MICRO sweep in both
 modes, against the JAX package's) are in ``tests/test_torch_pipeline.py``,
 on its module's sweeps.
 """
@@ -30,6 +31,8 @@ from ate_replication_causalml_torch.observability import trace as ttrace
 from ate_replication_causalml_torch.scheduler import ArtifactSpec, StageSpec, SweepEngine
 from ate_replication_causalml_torch.utils import profiling as tprof
 from ate_replication_causalml_tpu.observability import critical_path as jcp
+from ate_replication_causalml_tpu.observability import device as jdevice
+from ate_replication_causalml_tpu.observability import registry as jregistry
 from ate_replication_causalml_tpu.observability import promtext as jprom
 from ate_replication_causalml_tpu.observability import trace as jtrace
 
@@ -195,6 +198,48 @@ def test_atomic_write_keeps_an_existing_files_mode(tmp_path):
     assert stat.S_IMODE(os.stat(path).st_mode) == 0o600
     assert json.loads(open(path).read()) == {"a": 1}
     assert sorted(os.listdir(tmp_path)) == ["report.json"]      # no temporary left
+
+
+CACHE_GAUGES = ("compile_cache_entries", "compile_cache_bytes", "compile_cache_entries_written")
+
+
+def test_watch_cache_dir_gauges_equal_jax(tmp_path, monkeypatch):
+    """Both packages' watches of one directory, a file written after the
+    watch began: the same three gauges at every snapshot. The JAX side
+    watches into a registry of its own, so no collector outlives the
+    test."""
+    jreg = jregistry.MetricsRegistry()
+    monkeypatch.setattr(jdevice, "REGISTRY", jreg)
+    monkeypatch.setattr(jdevice, "gauge", jreg.gauge)
+    monkeypatch.setattr(jdevice, "_WATCHED_CACHE_DIRS", set())
+    monkeypatch.setattr(tdevice, "_WATCHED_CACHE_DIRS", set())
+    for name, size in (("a.so", 10), ("b.so", 7)):
+        (tmp_path / name).write_bytes(b"x" * size)
+    tobs.watch_cache_dir(str(tmp_path))
+    jdevice.watch_cache_dir(str(tmp_path))
+    (tmp_path / "c.so").write_bytes(b"x" * 5)
+    got = tobs.REGISTRY.snapshot()["gauges"]
+    want = jreg.snapshot()["gauges"]
+    assert {g: got[g] for g in CACHE_GAUGES} == {g: want[g] for g in CACHE_GAUGES}
+    assert got["compile_cache_entries"] == {"": 3} and got["compile_cache_entries_written"] == {"": 1}
+
+
+def test_record_compiled_cost_reads_ptxas():
+    """A built library's ptxas report: the most registers and stack bytes
+    of its device functions, their spill bytes summed, the nvcc wall."""
+    from types import SimpleNamespace
+
+    ptxas = ("ptxas info    : Function properties for hist_dense\n"
+             "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+             "ptxas info    : Used 40 registers, 384 bytes cmem[0]\n"
+             "ptxas info    : Function properties for traverse_kernel\n"
+             "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+             "ptxas info    : Used 56 registers, 380 bytes cmem[0]\n")
+    got = tobs.record_compiled_cost("hist", SimpleNamespace(ptxas=ptxas, seconds=2.5))
+    assert got == {"registers": 56.0, "stack_bytes": 16.0, "spill_bytes": 12.0,
+                   "nvcc_seconds": 2.5}
+    snap = tobs.REGISTRY.snapshot()["gauges"]["compiled_cost"]
+    assert snap["entry=hist,stat=registers"] == 56.0 and len(snap) == 4
 
 
 def test_metric_sampler_and_dispatch_instrumentation():
