@@ -214,7 +214,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
    blocks, seed 0, into ``build/chip_smoke_scenarios/``: aggregate mode on
    the default (concurrent) engine; a rerun (0 computed, 0 launches, 0
    builds); an extension to ``SCENARIO_EXT_REPS`` (one new block a
-   vmapped column, 32 new cells an aipw_rf column, 0 builds); rows mode
+   vmapped column, 16 new cells an aipw_rf column, 0 builds); rows mode
    and aggregate mode on the sequential engine at the extended count; the
    scalar replay of the first ``SCENARIO_REPLAY_REPS``. Every streaming state equals
    ``fold_rows`` of the rows run and the sequential run's bit for bit
@@ -373,6 +373,25 @@ imports nothing of JAX. Phases, each printing one JSON line:
    refused; the fit's and the predicts' kernels tapped and held to their
    plain versions after the counts are read. Prints the fit, eager, warm,
    capture and per-call walls and each replay's device time;
+11p. path_1m — the JAX system's 1M-row configuration
+   (``scripts/torch_stage_time_1m.py``, imported) at full width and cut
+   depth: ``make``'s panel at ``PATH_1M_ROWS`` × 21 (64 bins), the six
+   stages with ``PATH_1M_NUISANCE_TREES``-tree regressors of depth 9 and a
+   ``PATH_1M_TREES``-tree causal forest of depth 8, the leaf index, the OOB
+   predict with variance through it and without it, and the Poisson AIPW on
+   ``make_panel`` with ``PATH_1M_BOOT`` replicates through "auto" (its chunk
+   rule: 125 a chunk). Gates: (a) every kernel launch tapped and held to its
+   plain version at the path's inputs, the launches equal to those derived
+   from the configuration (``path_1m_launches``); (b) the cached predict
+   equal to the routed one bit for bit, the card's Poisson counts of a
+   (2, 1M) draw equal to the CPU port's, both panels equal to the CPU
+   port's draws (a subprocess started after the build draws them on two
+   cores beside the earlier phases); (c) |ATE −
+   1.5| ≤ ``PATH_1M_ATE_BOUND`` and the bootstrap SE within
+   ``PATH_1M_SE_REL`` of the plug-in SE; (d) each stage's wall, peak
+   device memory and launches printed; (e) the phase within
+   ``PATH_1M_BUDGET_S``. Also prints each pure kernel's device ms at the
+   path's inputs (``device_ms_1m``, after the taps are held);
 12. stages  — each partition row's device time by kernel (``stage_ms``:
    the sort, the gather, the accumulate pass and any second pass, from
    ``torch.profiler``) and the device activities of one ADMM iteration,
@@ -393,11 +412,13 @@ non-zero and prints no result. Details go to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import hashlib
 import importlib
+import importlib.util
 import io
 import json
 import math
@@ -669,12 +690,12 @@ FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 
 # path_scenario_matrix: the stock grid (4 DGPs x 6 estimators, the 4
 # needs_tall columns of sparse_highdim skipped: 20 columns), 32
-# replicates (one width-32 block), extended to 64 (a second block); the
-# scalar replay over the first SCENARIO_REPLAY_REPS replicates of the
-# vmapped columns (both cut for the script's time on a slow host, PERF.md
-# §4: the extension still adds one block a column, the first 64
-# replicates' coverage lies within the band, and the replay reaches
-# every vmapped column); one
+# replicates (one width-32 block), extended to 48 (a second, half-full
+# block: the streaming blocks [0, 32) and [32, 48) are fold_rows' own
+# segments at width 32); the scalar replay over the first
+# SCENARIO_REPLAY_REPS replicates of the vmapped columns (all cut for the
+# script's time on a slow host, PERF.md §4: the extension still adds one
+# block a column, and the replay reaches every vmapped column); one
 # block of each SCENARIO_CPU_COLUMNS recomputed on the CPU port, its
 # estimates within SCENARIO_CPU_BOUND·(1 + |card|) of the card's (float32
 # GLM sums in the devices' orders; the draws are torch.equal). A lasso
@@ -687,7 +708,7 @@ FLEET_OUT = os.path.join(REPO, "build", "chip_smoke_fleet")
 # CD_PLAIN_WINDOWS, p = 5 on the whole path).
 SCENARIO_ESTIMATORS = ("naive", "ols", "ipw_logit", "aipw_logit", "lasso", "aipw_rf")
 SCENARIO_REPS = 32
-SCENARIO_EXT_REPS = 64
+SCENARIO_EXT_REPS = 48
 SCENARIO_WIDTH = 32
 SCENARIO_REPLAY_REPS = 8
 SCENARIO_CPU_COLUMNS = ("hetero_confounded:aipw_logit", "calibration:aipw_rf",
@@ -3683,7 +3704,7 @@ def phase_path_scenario_matrix(smi: str) -> dict:
     """The Monte-Carlo scenario matrix (``scenarios/``) on the card at the
     stock grid: aggregate mode on the default engine; a rerun (0
     computed, 0 launches, 0 builds); an extension to
-    ``SCENARIO_EXT_REPS`` (one new block a vmapped column, 32 new cells an
+    ``SCENARIO_EXT_REPS`` (one new block a vmapped column, 16 new cells an
     aipw_rf column, 0 builds); rows mode and aggregate mode on the
     sequential engine at the extended count; the scalar replay. Gates: every streaming state equals
     ``fold_rows`` of the rows run bit for bit and the sequential run's;
@@ -3880,7 +3901,7 @@ def phase_path_frontier(smi: str) -> dict:
 TAP_SITES = ((fo, ("bin_histogram_batched", "node_sums", "route_advance", "leaf_record",
                    "traverse")),
              (cf, ("bin_histogram_batched", "bin_histogram_shared", "node_sums_shared",
-                   "traverse")),
+                   "traverse", "table_lookup")),
              (lasso, ("cd_path",)))
 
 
@@ -4012,6 +4033,10 @@ def check_tapped(name: str, b: dict) -> tuple[str, float]:
         got = tree.traverse(*args)
         check_equal(f"{name} (two launches)", tree.traverse(*args), got)
         return name, check_equal(name, got, tree.traverse_plain(*args))
+    if name == "table_lookup":
+        got = tree.table_lookup(b["table"], b["ids"])
+        check_equal("lookup (two launches)", tree.table_lookup(b["table"], b["ids"]), got)
+        return "lookup", check_equal("lookup", got, tree.table_lookup_plain(b["table"], b["ids"]))
     if name == "cd_path":
         betas, sweeps = lasso.cd_path(**b)
         again, sweeps2 = lasso.cd_path(**b)
@@ -5360,6 +5385,232 @@ def phase_path_public_surface(frame_mod, smi: str) -> dict:
     return counts
 
 
+# path_1m: bench.py's 1M-row configuration at full width (1M rows x 21
+# features, 64 bins) and cut depth: 32-tree nuisance regressors (depth 9),
+# a 64-tree causal forest (depth 8), 1,000 Poisson replicates.
+PATH_1M_ROWS = 1_000_000
+PATH_1M_NUISANCE_TREES = 32
+PATH_1M_TREES = 64
+PATH_1M_BOOT = 1_000
+# |ATE - 1.5| (the panel's truth, E[1 + 1[x0 > 0]]): the ATE's SE at 1M
+# rows is ~0.001, so 0.05 catches gross faults only (a wrong sign, a
+# residual off by its nuisance, a forest that never split).
+PATH_1M_ATE_BOUND = 0.05
+# The bootstrap SE against the plug-in SE of the same combination: a
+# Poisson replicate is the count-weighted mean of est1 + est2 (every term
+# finite here), whose SD is that plug-in SE to first order; an SD from
+# 1,000 replicates carries a Monte Carlo error of about 1/sqrt(2 * 999) =
+# 2.2%, so 10% is about 4.5 of those.
+PATH_1M_SE_REL = 0.10
+PATH_1M_BUDGET_S = 60.0
+PATH_1M_CPU_PANELS = os.path.join(REPO, "build", "chip_smoke_1m_cpu_panels.pt")
+PATH_1M_CPU_THREADS = 2
+PATH_1M_KERNELS = ("hist", "hist_partition", "hist_shared", "hist_partition_shared",
+                   "node_sums", "node_sums_shared", "route_advance", "leaf_record", "traverse",
+                   "lookup")
+
+
+def stage_time_script():
+    """``scripts/torch_stage_time_1m.py`` as a module (the panels and the
+    six stages live there, not in the package)."""
+    path = os.path.join(REPO, "scripts", "torch_stage_time_1m.py")
+    spec = importlib.util.spec_from_file_location("torch_stage_time_1m", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def path_1m_launches() -> dict:
+    """The kernels' launches of path_1m, from its configuration: each
+    regressor 2 chunks of 16 trees and 9 levels, K=2 (the DR-RF split:
+    widths 1, 1, 2, 4, 8, 16 dense, 32, 64, 128 partition), a node_sums
+    and a leaf_record a chunk; the causal forest 4 chunks of 8 two-tree
+    groups and 8 levels, K=5 (the causal split: widths 1, 1, 2, 4, 8
+    dense, 16, 32, 64 partition), a node_sums_shared a chunk; traverse
+    one a 32-tree predict chunk: the AIPW stage's predict, the leaf index
+    and the routed predict (2 each); lookup 2 (the cached predict)."""
+    reg = 2 * -(-PATH_1M_NUISANCE_TREES // fo.DEFAULT_TREE_CHUNK)
+    grp = -(-PATH_1M_TREES // 2)
+    causal = -(-grp // cf.DEFAULT_GROUP_CHUNK)
+    pred = -(-PATH_1M_TREES // 32)
+    want = {k: 0 for k in COUNTERS}
+    want.update(hist=6 * reg, hist_partition=3 * reg, node_sums=reg, leaf_record=reg,
+                hist_shared=5 * causal, hist_partition_shared=3 * causal,
+                node_sums_shared=causal, route_advance=9 * reg + 8 * causal,
+                traverse=3 * pred, lookup=pred)
+    return want
+
+
+def start_cpu_panels() -> subprocess.Popen:
+    """A subprocess that draws both of path_1m's panels on the CPU port
+    into PATH_1M_CPU_PANELS. ``main`` starts it right after the build, on
+    PATH_1M_CPU_THREADS of the host's cores, so the CPU draw (~25 s on
+    eight cores) runs beside the card's phases and is done when path_1m
+    reads it."""
+    if os.path.exists(PATH_1M_CPU_PANELS):
+        os.remove(PATH_1M_CPU_PANELS)
+    os.makedirs(os.path.dirname(PATH_1M_CPU_PANELS), exist_ok=True)
+    code = "\n".join([
+        "import importlib.util, sys, torch",
+        f"sys.path.insert(0, {REPO!r})",
+        f"torch.set_num_threads({PATH_1M_CPU_THREADS})",
+        "spec = importlib.util.spec_from_file_location('s', "
+        f"{os.path.join(REPO, 'scripts', 'torch_stage_time_1m.py')!r})",
+        "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)",
+        f"torch.save(m.draw_panels({PATH_1M_ROWS}, 'cpu'), {PATH_1M_CPU_PANELS!r})",
+    ])
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # A failure before path_1m must not leave the draw running.
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def tapped_call(name: str, b: dict):
+    """(kernel, a zero-argument call of it at a tapped call's inputs) for
+    timing; (None, None) for ``route_advance``, which advances its ids in
+    place, and ``cd_path``."""
+    if name.startswith("bin_histogram"):
+        return hist_kernel_name(name, b["mode"], b["bf16"]), lambda: getattr(hist, name)(
+            b["codes"], b["ids"], b["weights"], max_nodes=b["max_nodes"], n_bins=b["n_bins"],
+            mode=b["mode"], packed=b["packed"], bf16=b["bf16"])
+    if name.startswith("node_sums"):
+        return name, lambda: getattr(hist, name)(b["ids"], b["weights"], b["num_nodes"])
+    if name == "leaf_record":
+        return name, lambda: tree.leaf_record(b["leaf_sums"], b["base"], b["mu"], b["node"])
+    if name == "traverse":
+        return name, lambda: tree.traverse(b["codes"], b["split_feat"], b["split_bin"],
+                                           b["table"])
+    if name == "table_lookup":
+        return "lookup", lambda: tree.table_lookup(b["table"], b["ids"])
+    return None, None
+
+
+def _nbytes(v) -> int:
+    if isinstance(v, torch.Tensor):
+        return v.numel() * v.element_size()
+    return sum(_nbytes(t) for t in v) if isinstance(v, (tuple, list)) else 0
+
+
+def time_taps(seen: dict) -> dict:
+    """Device ms of each tapped call of a pure kernel at its inputs (a
+    graph of 3 calls replayed 3 times), with the shapes that tell the
+    cases apart and the bytes bound: every input tensor read once and
+    the output written once over the card's memory rate."""
+    out: dict = {}
+    for name, b in seen.values():
+        kernel, fn = tapped_call(name, b)
+        if fn is None:
+            continue
+        case = {k: (list(v.shape) if isinstance(v, torch.Tensor) else v) for k, v in b.items()
+                if k in ("ids", "weights", "max_nodes", "num_nodes", "mode", "split_feat", "table")}
+        nbytes = sum(_nbytes(v) for v in b.values()) + _nbytes(fn())
+        bound_ms, bound_by = bound(nbytes, 0)
+        out.setdefault(kernel, []).append({**case, "ms": device_ms(fn, calls=3, reps=3),
+                                           "bound_ms": bound_ms, "bound_by": bound_by})
+    return out
+
+
+def phase_path_1m(smi: str, cpu: subprocess.Popen) -> dict:
+    """bench.py's 1M-row configuration at cut depth (docstring, 11p).
+    ``cpu``: the CPU panels' subprocess (``start_cpu_panels``)."""
+    st = stage_time_script()
+    t_start = time.perf_counter()
+    want = path_1m_launches()
+    dev = torch.device("cuda")
+    fails: list = []
+    sync()
+    reset_counts()
+    with kernel_taps() as seen:
+        frame = st.make(PATH_1M_ROWS, dev)
+        fitted, rec = st.run(frame, PATH_1M_TREES, 1, "path_1m",
+                             nuisance_trees=PATH_1M_NUISANCE_TREES)
+        pst = st.Stages(dev)
+        li = pst.run("leaf_index", lambda: cf.compute_leaf_index(fitted.forest, fitted.x))
+        cached = pst.run("predict_cached", lambda: cf.predict_cate(
+            fitted.forest, fitted.x, oob=True, leaf_index=li))
+        routed = pst.run("predict_routed", lambda: cf.predict_cate(fitted.forest, fitted.x,
+                                                                   oob=True))
+        panel = pst.run("panel", lambda: st.make_panel(rnd.key(0, device=dev), PATH_1M_ROWS))
+        tau, boot_se, plugin_se = pst.run("aipw", lambda: st.aipw_bootstrap(
+            *panel, rnd.key(1, device=dev), n_boot=PATH_1M_BOOT, chunk=None))
+    counts = read_counts()
+    stages = {**rec["stages"], **pst.rows()}
+    walls = {"path": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    taps = check_taps(seen)
+    walls["taps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device_ms_1m = time_taps(seen)
+    walls["kernel_timing"] = time.perf_counter() - t0
+    del seen
+    # (b) exact checks.
+    exact = {"cached_equals_routed": bool(torch.equal(cached.cate, routed.cate)
+                                          and torch.equal(cached.variance, routed.variance))}
+    ck = rnd.split(rnd.key(3, device=dev), 2)[1]
+    shape = (2, PATH_1M_ROWS)
+    exact["poisson_counts_equal_cpu"] = bool(torch.equal(_poisson1_counts(ck, shape).cpu(),
+                                                         _poisson1_counts(ck.cpu(), shape)))
+    t0 = time.perf_counter()
+    try:
+        cpu_out, _ = cpu.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        cpu.kill()
+        cpu.communicate()
+        raise AssertionError("path_1m: the CPU panels did not finish in 300 s") from None
+    walls["cpu_panels_wait"] = time.perf_counter() - t0
+    if cpu.returncode:
+        raise AssertionError(f"path_1m: the CPU panels failed: {cpu_out[-2000:]}")
+    card = {"x": frame.x, "panel_w": panel[1], "panel_y": panel[2], "make_w": frame.w,
+            "make_y": frame.y}
+    if not torch.equal(panel[0], frame.x):
+        fails.append("the two panels' covariates differ on the card")
+    differing = st.panel_differences(card, torch.load(PATH_1M_CPU_PANELS))
+    os.remove(PATH_1M_CPU_PANELS)
+    exact["panel_rows_differing"] = differing
+    for k, v in exact.items():
+        if v is False or (isinstance(v, dict) and any(v.values())):
+            fails.append(f"{k}: {v}")
+    # (c) sanity bounds.
+    ate, se = rec["ate"], rec["se"]
+    n = PATH_1M_ROWS
+    sane = {"ate": ate, "se": se, "ate_bound": PATH_1M_ATE_BOUND,
+            "tau": float(tau), "boot_se": float(boot_se), "plugin_se": float(plugin_se),
+            "se_rel_gap": abs(float(boot_se) / float(plugin_se) - 1.0),
+            "mean_cate": float(cached.cate.sum()) / n,
+            "mean_var": float(cached.variance.sum()) / n,
+            "li_dtype": str(li.dtype)}
+    if not (math.isfinite(ate) and abs(ate - st.TRUE_ATE) <= PATH_1M_ATE_BOUND and se > 0):
+        fails.append(f"ATE {ate} (SE {se}) not within {PATH_1M_ATE_BOUND} of {st.TRUE_ATE}")
+    if not sane["se_rel_gap"] <= PATH_1M_SE_REL:
+        fails.append(f"bootstrap SE {sane['boot_se']} vs plug-in {sane['plugin_se']}: "
+                     f"{sane['se_rel_gap']:.4f} over {PATH_1M_SE_REL}")
+    if not (torch.isfinite(cached.cate).all() and (cached.variance >= 0).all()):
+        fails.append("the predict is not finite, or a variance is negative")
+    # (a) launches and taps.
+    if counts != want:
+        fails.append(f"launches {counts}, derived {want}")
+    missing = [k for k in PATH_1M_KERNELS if k not in taps]
+    if missing:
+        fails.append(f"no tapped call of {missing}")
+    wall = time.perf_counter() - t_start
+    walls["phase"] = wall
+    if wall > PATH_1M_BUDGET_S:
+        fails.append(f"the phase took {wall:.1f} s, over its {PATH_1M_BUDGET_S} s budget")
+    emit({"phase": "path_1m", "nvidia_smi": smi, "rows": n, "p": st.P,
+          "nuisance_trees": PATH_1M_NUISANCE_TREES, "trees": PATH_1M_TREES,
+          "boot": PATH_1M_BOOT, "stages": stages, "exact": exact, "sanity": sane,
+          "kernels_held": taps, "device_ms_1m": device_ms_1m, "launches": counts,
+          "derived": want, "walls_s": walls,
+          "wall_s": wall, "budget_s": PATH_1M_BUDGET_S})
+    del fitted, frame, li, cached, routed, panel
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("path_1m: " + "; ".join(fails))
+    return counts
+
+
 def drop_rows(src: str, out: str, methods) -> None:
     """A copy of the sweep directory ``src`` whose journal lacks the lines
     of ``methods``."""
@@ -5546,6 +5797,7 @@ CHAIN_KEYS = ("bound_kind", "rate_bound_ms", "rate_bound_by", "chain_updates",
 def main() -> int:
     name, smi = phase_device()
     functions = phase_build()
+    cpu_panels = start_cpu_panels()
     frame, frame_mod = notebook_frames("cuda")
     timing = phase_kernels(frame_mod)
     by_path = {"dr_rf": phase_path(frame, frame_mod)}
@@ -5575,6 +5827,7 @@ def main() -> int:
     phase_path_native(smi)
     by_path["static"] = phase_path_static(frame_mod, smi)
     by_path["public_surface"] = phase_path_public_surface(frame_mod, smi)
+    by_path["path_1m"] = phase_path_1m(smi, cpu_panels)
     phase_stages(frame_mod)
     phase_path_xprof()
     kernels = []

@@ -1,6 +1,7 @@
-"""The torch package and chip_smoke.py import neither JAX nor the JAX
-package (nor triton): checked in a fresh interpreter that imports every
-module of the port, and in one that imports only the public surface.
+"""The torch package, chip_smoke.py and scripts/torch_stage_time_1m.py
+import neither JAX nor the JAX package (nor triton): checked in a fresh
+interpreter that imports every module of the port, and in one that
+imports only the public surface.
 Also the port's ``atomic_file``, the tmp-then-rename writer every
 artifact goes through."""
 
@@ -66,6 +67,10 @@ def test_port_and_chip_smoke_import_no_jax():
         f"for m in {_port_modules()!r}:",
         "    importlib.import_module(m)",
         "import chip_smoke",
+        "import importlib.util",
+        "spec = importlib.util.spec_from_file_location('torch_stage_time_1m', "
+        f"{os.path.join(_REPO, 'scripts', 'torch_stage_time_1m.py')!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "bad = [m for m in ('jax', 'jaxlib', 'triton', 'ate_replication_causalml_tpu')",
         "       if m in sys.modules]",
         "assert not bad, f'imported: {bad}'",
