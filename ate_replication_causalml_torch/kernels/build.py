@@ -69,6 +69,7 @@ _D = ctypes.c_double
 LIBRARIES = {
     "hist": "hist.cu",
     "hist_partition": "hist_partition.cu",
+    "leaf_sums": "leaf_sums.cu",
     "route": "route.cu",
     "lookup": "lookup.cu",
     "lasso": "lasso.cu",
@@ -89,6 +90,8 @@ KERNELS = {
                               [_P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P]),
     "pack_codes": ("hist_partition", "ate_pack_codes", [_P, _I64, _I, _P, _P]),
+    "leaf_sums": ("leaf_sums", "ate_leaf_sums",
+                  [_P, _I64, _I, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "route": ("route", "ate_route",
               [_P, _I64, _I, _P, _P, _P, _I, _I, _P, _P]),
     "lookup": ("lookup", "ate_lookup",

@@ -31,11 +31,16 @@ weights in [-256, 256] round to themselves, so the classifier's
 histograms do not move; float weights (a regressor's counts·y, the
 causal forest's five channels) give other sums, as in the JAX package.
 
+:func:`node_sums` and :func:`node_sums_shared`, the per-leaf sums (the
+histogram at one constant feature and one bin), run on a kernel of their
+own, ``csrc/leaf_sums.cu``, with the dense kernel's bits.
+
 Each public function has a plain PyTorch version (``*_plain``) in this
 module. The wrapper runs it for CPU tensors only; for CUDA tensors it
 launches the hand-written kernel or raises. Each wrapper counts its
-dense-kernel launches in ``<wrapper>.launches`` and, for the histogram
-wrappers, its partition-kernel launches in
+dense-kernel (or, for the leaf sums, leaf-sum kernel) launches in
+``<wrapper>.launches`` and, for the histogram wrappers, its
+partition-kernel launches in
 ``<wrapper>.partition_launches`` and its packed ones in
 ``<wrapper>.packed_launches``; a launch of the bf16 form counts there
 and, by form, in ``<wrapper>.bf16_launches``,
@@ -268,16 +273,20 @@ def _check_dispatch_mode(mode: str) -> tuple[str, bool]:
 def _check_inputs(codes, ids, weights, shared: bool):
     if codes.dtype != torch.int32 or codes.ndim != 2:
         raise TypeError(f"codes must be (n, p) int32, got {codes.dtype} {tuple(codes.shape)}")
-    if ids.dtype != torch.int32 or ids.ndim != 2 or ids.shape[1] != codes.shape[0]:
+    _check_ids_weights(ids, weights, shared, codes.shape[0])
+    if not (codes.device == ids.device == weights.device):
+        raise ValueError("codes, ids and weights must lie on one device")
+
+
+def _check_ids_weights(ids, weights, shared: bool, n: int) -> None:
+    if ids.dtype != torch.int32 or ids.ndim != 2 or ids.shape[1] != n:
         raise TypeError(f"ids must be (T, n) int32, got {ids.dtype} {tuple(ids.shape)}")
     want = "(K, n)" if shared else "(T, K, n)"
     ok_shape = (weights.ndim == 2 if shared
                 else weights.ndim == 3 and weights.shape[0] == ids.shape[0])
-    if weights.dtype != torch.float32 or not ok_shape or weights.shape[-1] != codes.shape[0]:
+    if weights.dtype != torch.float32 or not ok_shape or weights.shape[-1] != n:
         raise TypeError(f"weights must be {want} float32, got {weights.dtype} "
                         f"{tuple(weights.shape)}")
-    if not (codes.device == ids.device == weights.device):
-        raise ValueError("codes, ids and weights must lie on one device")
 
 
 def _packed_words(codes, packed, n_bins: int):
@@ -649,19 +658,130 @@ def node_sums_plain(ids, weights, num_nodes: int) -> torch.Tensor:
     return h[:, :, :, 0, 0].transpose(1, 2)
 
 
+# ---------------------------------------------------------------------------
+# The leaf-sum kernel's launch plan (csrc/leaf_sums.cu). A block takes one
+# row range (``_n_parts(n, T, 1)`` of them, the dense route's, so the sums
+# keep its bits) of one tree and a group of leaves, and streams the range
+# in chunks of whole 512-row steps (16 warps of 32 rows), double buffered,
+# within the dense kernel's two-blocks-an-SM budget, or a block's whole
+# shared memory where the grid has no more blocks than the card has SMs.
+# Tests check the cover and the budget.
+# ---------------------------------------------------------------------------
+
+_LEAF_WARPS = 16
+_LEAF_STEP_ROWS = 32 * _LEAF_WARPS
+_LEAF_FOLDS = ("cluster", "slab")  # the kernel's fold argument, by index
+
+
+def leaf_sums_block_bytes(n_weights: int, group_nodes: int, chunk_rows: int) -> int:
+    """Dynamic shared memory of one leaf-sum block: two stages of the
+    tree's id row and the K weight rows (each chunk_rows + 4 words), the
+    (warp, leaf) counters, the bucket starts, the chunk positions
+    (uint16), the (leaves, K) running sums and the scan's warp sums."""
+    words = (2 * (1 + n_weights) * (chunk_rows + 4) + _LEAF_WARPS * group_nodes + group_nodes
+             + 1 + chunk_rows // 2 + group_nodes * n_weights + _LEAF_WARPS + 1)
+    return 4 * words
+
+
+def leaf_sums_leaf_groups(n_weights: int, max_nodes: int) -> int:
+    """Blocks that split the leaves: 1 while a block with one 512-row
+    chunk fits the two-blocks-an-SM budget (M ≤ 1,345 at K=2, 1,021 at
+    K=5), else the fewest contiguous groups that do."""
+    fixed = leaf_sums_block_bytes(n_weights, 0, _LEAF_STEP_ROWS)
+    per_node = leaf_sums_block_bytes(n_weights, 1, _LEAF_STEP_ROWS) - fixed
+    group = max(1, min(max_nodes, (_DENSE_SMEM_BUDGET - fixed) // per_node))
+    return -(-max_nodes // group)
+
+
+def leaf_sums_chunk_rows(n_weights: int, group_nodes: int, range_rows: int, budget: int) -> int:
+    """Rows a chunk stages: the most whole 512-row steps that fit
+    ``budget`` bytes of shared memory, no more than the range needs, and
+    at least one step."""
+    steps = max(1, -(-range_rows // _LEAF_STEP_ROWS))
+    while steps > 1 and leaf_sums_block_bytes(n_weights, group_nodes,
+                                              steps * _LEAF_STEP_ROWS) > budget:
+        steps -= 1
+    return steps * _LEAF_STEP_ROWS
+
+
+def leaf_sums_fold(n_parts: int) -> str:
+    """How the range sums are added in range order: "cluster" (up to 8
+    ranges, the portable cluster size: one thread-block cluster, through
+    distributed shared memory) or "slab" (more: a slab a range, added by
+    the last block to arrive)."""
+    return "cluster" if n_parts <= _MAX_CLUSTER_RANGES else "slab"
+
+
+def leaf_sums_plan(n: int, n_trees: int, n_weights: int, max_nodes: int) -> dict:
+    """The leaf-sum launch at one shape: ranges, leaf groups, the chunk,
+    the fold, the grid's blocks and a block's shared memory. A grid of no
+    more blocks than SMs (the sweep's 96) takes one chunk as long as a
+    block's whole shared memory allows (K=5: one 2,048-row chunk a range
+    ran 0.77–0.83× the time of two under the two-blocks budget,
+    scripts/torch_hist_geometry.py)."""
+    n_parts = _n_parts(n, n_trees, 1)
+    span = -(-n // n_parts)
+    leaf_groups = leaf_sums_leaf_groups(n_weights, max_nodes)
+    group_nodes = -(-max_nodes // leaf_groups)
+    blocks = n_parts * n_trees * leaf_groups
+    budget = _MAX_SMEM_BYTES if blocks <= _SMS else _DENSE_SMEM_BUDGET
+    chunk_rows = leaf_sums_chunk_rows(n_weights, group_nodes, span, budget)
+    return {"n_parts": n_parts, "rows_per_range": span, "leaf_groups": leaf_groups,
+            "group_nodes": group_nodes, "chunk_rows": chunk_rows, "fold": leaf_sums_fold(n_parts),
+            "blocks": blocks, "block_bytes": leaf_sums_block_bytes(n_weights, group_nodes,
+                                                                   chunk_rows)}
+
+
+def _leaf_sums(ids, weights, num_nodes: int, counter) -> torch.Tensor:
+    """Launch ``csrc/leaf_sums.cu`` on the current stream and add one to
+    ``counter.launches``. ``weights`` (K, n) is shared by every tree."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {ids.device}")
+    n_trees, n = ids.shape
+    k_w = weights.shape[-2]
+    out = torch.empty((n_trees, num_nodes, k_w), dtype=torch.float32, device=ids.device)
+    if n_trees == 0 or n == 0 or num_nodes == 0 or k_w == 0:
+        return out.zero_()
+    if k_w > _MAX_WEIGHTS:
+        raise ValueError(f"the leaf-sum kernel takes at most {_MAX_WEIGHTS} weight channels, "
+                         f"got {k_w}")
+    for name, t in (("ids", ids), ("weights", weights)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    plan = leaf_sums_plan(n, n_trees, k_w, num_nodes)
+    slab_ptr = arrivals_ptr = 0
+    if plan["fold"] == "slab":
+        groups = n_trees * plan["leaf_groups"]
+        slab = torch.empty(plan["n_parts"] * groups * plan["group_nodes"] * k_w,
+                           dtype=torch.float32, device=ids.device)
+        arrivals = torch.zeros(groups, dtype=torch.int32, device=ids.device)
+        slab_ptr, arrivals_ptr = slab.data_ptr(), arrivals.data_ptr()
+    k = build.kernel("leaf_sums")
+    build.check(k, k.fn(ids.data_ptr(), n, n_trees, weights.data_ptr(),
+                        0 if weights.ndim == 2 else k_w * n, k_w, num_nodes, plan["n_parts"],
+                        plan["leaf_groups"], plan["chunk_rows"], _LEAF_FOLDS.index(plan["fold"]),
+                        slab_ptr, arrivals_ptr, out.data_ptr(),
+                        torch.cuda.current_stream(ids.device).cuda_stream))
+    build.count_launch(counter)
+    return out
+
+
 def _node_sums(ids, weights, num_nodes: int, shared: bool, counter) -> torch.Tensor:
-    codes0 = torch.zeros((ids.shape[1], 1), dtype=torch.int32, device=ids.device)
-    _check_inputs(codes0, ids, weights, shared=shared)
+    _check_ids_weights(ids, weights, shared, ids.shape[-1] if ids.ndim else -1)
+    if ids.device != weights.device:
+        raise ValueError("ids and weights must lie on one device")
     if ids.device.type == "cpu":
         return node_sums_plain(ids, weights, num_nodes)
-    h = _launch(codes0, ids, weights, num_nodes, 1, "dense", counter)
-    return h[:, :, :, 0, 0].transpose(1, 2)
+    return _leaf_sums(ids, weights, num_nodes, counter)
 
 
 def node_sums(ids, weights, num_nodes: int) -> torch.Tensor:
     """Per-node weighted sums: ids (T, n) int32, weights (T, K, n) float32
-    → (T, num_nodes, K). The degenerate histogram with one constant
-    feature and one bin, through the dense kernel."""
+    → (T, num_nodes, K), each (tree, node, channel) its rows in ascending
+    order within each ``_n_parts`` row range and the ranges in order: the
+    bits of the degenerate histogram (one constant feature, one bin) on
+    the dense kernel, ``bin_histogram_batched(codes0, ids, w, max_nodes=M,
+    n_bins=1, mode="dense")``, through the leaf-sum kernel."""
     return _node_sums(ids, weights, num_nodes, False, node_sums)
 
 

@@ -9,8 +9,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
 1. device  — the card, and ``nvidia-smi``'s name and power limit line;
 2. build   — compiles every kernel library of ``csrc/`` with nvcc (sm_90a)
    and records each device function's registers and spill bytes from
-   ptxas; fails if ``hist_dense``, ``partition_accumulate`` or
-   ``partition_accumulate_packed`` (any K) spills;
+   ptxas; fails if ``hist_dense``, ``partition_accumulate``,
+   ``partition_accumulate_packed`` or ``leaf_sums_kernel`` (any K) spills;
 3. kernels — each kernel's wrapper on card tensors at the shapes the
    DR-RF, causal forest and DML paths give it, held against its plain
    PyTorch version: ``torch.equal`` on integer weights, on route, lookup
@@ -47,7 +47,12 @@ imports nothing of JAX. Phases, each printing one JSON line:
    fold) M=128, and the causal K=5 float channels dense M=8, partition
    M=32 (bit for bit the dense bf16 form) and packed M=32, each held to
    its plain version (the same rounding) and timed beside the
-   ``scatter_add_`` of the rounded weights.
+   ``scatter_add_`` of the rounded weights. The leaf sums
+   (``node_sums`` K=2 integer at 512 leaves, ``node_sums_shared`` K=5
+   float at 256, ``csrc/leaf_sums.cu``) ``torch.equal`` to the dense
+   route they replace (``bin_histogram_*(codes0, ids, w, n_bins=1,
+   mode="dense")``; and the regressor's float K=2 weights), timed beside
+   it (``replaced_ms``).
    ``pack_words`` beside its yardstick, the JAX package's own form of
    the step: one ``torch.matmul`` of the float32 codes by the pack
    matrix. The launch floor: a one-element PyTorch op in the same
@@ -1004,9 +1009,9 @@ def phase_device() -> tuple[str, str]:
 DEVICE_FUNCTIONS = ("partition_accumulate_packed", "partition_accumulate", "partition_rows",
                     "partition_gather", "hist_dense", "hist_reduce", "pack_words", "route_kernel",
                     "lookup_kernel", "route_advance_kernel", "traverse_kernel", "leaf_record_kernel",
-                    "cd_path_kernel", "cd_path_small_kernel")
+                    "cd_path_kernel", "cd_path_small_kernel", "leaf_sums_kernel")
 # Kernels that must not spill (every instantiation).
-NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate")
+NO_SPILL = ("hist_dense", "partition_accumulate_packed", "partition_accumulate", "leaf_sums_kernel")
 
 
 def ptxas_functions(log: str) -> dict:
@@ -1260,7 +1265,45 @@ def pack_row(codes, reps=20):
     return timed(row, lambda: pack.pack_codes(codes), lib)
 
 
+def node_sums_library(ids, weights, leaves):
+    """One ``scatter_add_`` over precomputed flat (tree, channel, leaf)
+    indices, viewed as (T, M, K): the leaf sums' one-call yardstick (index
+    construction not timed). ``weights`` (T, K, n) or (K, n) shared."""
+    t = ids.shape[0]
+    w = weights if weights.ndim == 3 else weights.expand(t, *weights.shape)
+    k = w.shape[1]
+    dev = ids.device
+    valid = (ids >= 0) & (ids < leaves)
+    seg = ((torch.arange(t, device=dev)[:, None, None] * k
+            + torch.arange(k, device=dev)[None, :, None]) * leaves + ids.long()[:, None, :])
+    sel = valid[:, None, :].expand_as(seg)
+    seg_idx, seg_val = seg[sel], w[sel]
+    return lambda: torch.zeros(t * k * leaves, device=dev).scatter_add_(0, seg_idx, seg_val).view(
+        t, k, leaves).transpose(1, 2)
+
+
+def node_sums_dense(ids, weights, leaves):
+    """The route the leaf-sum kernel replaced, as a call: the degenerate
+    histogram (one all-zero codes column, one bin) on the dense kernel,
+    viewed as (T, M, K). Its launches count on the histogram wrappers."""
+    codes0 = torch.zeros((ids.shape[1], 1), dtype=torch.int32, device=ids.device)
+    wrapper = hist.bin_histogram_shared if weights.ndim == 2 else hist.bin_histogram_batched
+    return lambda: wrapper(codes0, ids, weights, max_nodes=leaves, n_bins=1,
+                           mode="dense")[:, :, :, 0, 0].transpose(1, 2)
+
+
+def check_dense_route(name, got, ids, weights, leaves) -> None:
+    """The leaf-sum kernel's bits are the dense route's, for any weights."""
+    if not torch.equal(got, node_sums_dense(ids, weights, leaves)()):
+        raise AssertionError(f"{name}: not bitwise equal to the dense route")
+
+
 def node_sums_row(ids, weights, leaves, shared, reps=20):
+    """The leaf-sum kernel at one path shape: two launches equal,
+    ``torch.equal`` to the dense route it replaced, against its plain
+    version (exact for integer weights, FLOAT_ULPS·eps·Σ|w| for float
+    ones) and the ``scatter_add_`` yardstick; device times of the kernel,
+    the dense route (``replaced_ms``) and the yardstick."""
     t = ids.shape[0]
     wrapper = hist.node_sums_shared if shared else hist.node_sums
     run = lambda: wrapper(ids, weights, leaves)
@@ -1270,16 +1313,9 @@ def node_sums_row(ids, weights, leaves, shared, reps=20):
     name = f"node_sums{'_shared' if shared else ''} M={leaves}"
     if not torch.equal(got, again):
         raise AssertionError(f"{name}: two launches differ")
-    w = weights if weights.ndim == 3 else weights.expand(t, *weights.shape)
-    k = w.shape[1]
-    dev = ids.device
-    valid = (ids >= 0) & (ids < leaves)
-    seg = ((torch.arange(t, device=dev)[:, None, None] * k
-            + torch.arange(k, device=dev)[None, :, None]) * leaves + ids.long()[:, None, :])
-    sel = valid[:, None, :].expand_as(seg)
-    seg_idx, seg_val = seg[sel], w[sel]
-    lib = lambda: torch.zeros(t * k * leaves, device=dev).scatter_add_(0, seg_idx, seg_val).view(
-        t, k, leaves).transpose(1, 2)
+    check_dense_route(name, got, ids, weights, leaves)
+    k = weights.shape[-2]
+    lib = node_sums_library(ids, weights, leaves)
     if shared:
         scale = weights.abs().sum(dim=1)[None, None, :]
         err, ratio = check_float(name, got, want, scale)
@@ -1287,10 +1323,15 @@ def node_sums_row(ids, weights, leaves, shared, reps=20):
     else:
         err, ratio = check_equal(name, got, want), 0.0
         check_equal(f"{name} scatter_add_", lib(), got)
-    b_ms, b_by = bound(4 * (ids.numel() + weights.numel() + got.numel()), int(valid.sum()) * k)
+    n_valid = int(((ids >= 0) & (ids < leaves)).sum())
+    b_ms, b_by = bound(4 * (ids.numel() + weights.numel() + got.numel()), n_valid * k)
+    plan = hist.leaf_sums_plan(ids.shape[1], t, k, leaves)
     row = {"M": leaves, "n": ids.shape[1], "T": t, "K": k, "max_abs_err": err,
-           "err_over_bound": ratio, "call_ms": time_ms(run, reps), "call_library_ms": time_ms(lib, reps),
-           "plain_ms": time_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by}
+           "err_over_bound": ratio, "equal_to_dense": True, "plan": plan,
+           "call_ms": time_ms(run, reps), "call_library_ms": time_ms(lib, reps),
+           "plain_ms": time_ms(plain, 5),
+           "replaced_ms": device_ms(node_sums_dense(ids, weights, leaves)),
+           "bound_ms": b_ms, "bound_by": b_by}
     return timed(row, run, lib)
 
 
@@ -1591,6 +1632,10 @@ def phase_kernels(frame_mod) -> dict:
     # Leaf sums: 512 leaves, K=2 integer (DR-RF); 256 leaves, K=5 float (causal).
     summary["node_sums"] = node_sums_row(ids(1 << DEPTH), weights, 1 << DEPTH, shared=False)
     summary["node_sums_shared"] = node_sums_row(ids(1 << CF_DEPTH), mom, 1 << CF_DEPTH, shared=True)
+    # A regressor's float leaf sums (counts, counts·y): the dense route's bits too.
+    lid = ids(1 << DEPTH)
+    check_dense_route("node_sums float K=2", hist.node_sums(lid, wf, 1 << DEPTH), lid, wf,
+                      1 << DEPTH)
     emit({"phase": "kernels", "kernel": "node_sums", "rows": [summary["node_sums"]]})
     emit({"phase": "kernels", "kernel": "node_sums_shared", "rows": [summary["node_sums_shared"]]})
 
@@ -3975,7 +4020,8 @@ def hist_kernel_name(wrapper: str, mode: str, bf16: bool = False) -> str:
 
 def check_tapped(name: str, b: dict) -> tuple[str, float]:
     """One tapped call's inputs: the kernel launched twice (bitwise equal)
-    and held to its plain version with the tolerance its phase row uses:
+    and held to its plain version with the tolerance its phase row uses
+    (the leaf sums also ``torch.equal`` to the dense route they replaced):
     histograms and leaf sums exact for integer weights, within
     FLOAT_ULPS·eps·Σ|w| for float ones; the row kernels ``torch.equal``;
     ``cd_path`` within CD_PATH_BOUND on CD_PLAIN_WINDOWS (the whole path
@@ -4006,6 +4052,7 @@ def check_tapped(name: str, b: dict) -> tuple[str, float]:
         run = lambda: getattr(hist, name)(b["ids"], b["weights"], b["num_nodes"])
         got = run()
         check_equal(f"{name} (two launches)", run(), got)
+        check_dense_route(name, got, b["ids"], b["weights"], b["num_nodes"])
         want = hist.node_sums_plain(b["ids"], b["weights"], b["num_nodes"])
         w = b["weights"]
         if torch.equal(w, w.round()):
@@ -5496,7 +5543,9 @@ def time_taps(seen: dict) -> dict:
     """Device ms of each tapped call of a pure kernel at its inputs (a
     graph of 3 calls replayed 3 times), with the shapes that tell the
     cases apart and the bytes bound: every input tensor read once and
-    the output written once over the card's memory rate."""
+    the output written once over the card's memory rate; the leaf sums
+    also with their ``scatter_add_`` yardstick (``library_ms``) and the
+    dense route they replaced (``replaced_ms``)."""
     out: dict = {}
     for name, b in seen.values():
         kernel, fn = tapped_call(name, b)
@@ -5506,8 +5555,13 @@ def time_taps(seen: dict) -> dict:
                 if k in ("ids", "weights", "max_nodes", "num_nodes", "mode", "split_feat", "table")}
         nbytes = sum(_nbytes(v) for v in b.values()) + _nbytes(fn())
         bound_ms, bound_by = bound(nbytes, 0)
-        out.setdefault(kernel, []).append({**case, "ms": device_ms(fn, calls=3, reps=3),
-                                           "bound_ms": bound_ms, "bound_by": bound_by})
+        row = {**case, "ms": device_ms(fn, calls=3, reps=3), "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if name.startswith("node_sums"):  # the yardstick and the replaced dense route
+            args = (b["ids"], b["weights"], b["num_nodes"])
+            row.update(library_ms=device_ms(node_sums_library(*args), calls=3, reps=3),
+                       replaced_ms=device_ms(node_sums_dense(*args), calls=3, reps=3))
+        out.setdefault(kernel, []).append(row)
     return out
 
 
@@ -5744,6 +5798,7 @@ def phase_path_xprof() -> None:
 
 
 _HIST = "ate_replication_causalml_torch/csrc/hist.cu"
+_LEAF = "ate_replication_causalml_torch/csrc/leaf_sums.cu"
 _PART = "ate_replication_causalml_torch/csrc/hist_partition.cu"
 _TPU = "ate_replication_causalml_tpu/ops/"
 _ROUTE = "ate_replication_causalml_torch/csrc/route.cu"
@@ -5753,8 +5808,10 @@ SOURCES = {  # kernel -> (source, the TPU kernel it replaces, its device functio
     "hist_partition": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
     "hist_shared": (_HIST, _TPU + "hist_pallas.py:782", "hist_dense"),
     "hist_partition_shared": (_PART, _TPU + "hist_pallas.py:335", "partition_accumulate"),
-    "node_sums": (_HIST, _TPU + "hist_pallas.py:243", "hist_dense"),
-    "node_sums_shared": (_HIST, _TPU + "hist_pallas.py:782", "hist_dense"),
+    # The JAX package's node sums (a constant feature through the batched
+    # kernels), on the card a kernel of their own.
+    "node_sums": (_LEAF, _TPU + "hist_pallas.py:1329", "leaf_sums_kernel"),
+    "node_sums_shared": (_LEAF, _TPU + "hist_pallas.py:1356", "leaf_sums_kernel"),
     "route": (_ROUTE, _TPU + "tree_pallas.py:198", "route_kernel"),
     "lookup": (_LOOKUP, _TPU + "tree_pallas.py:67", "lookup_kernel"),
     # The fused passes: the route kernel with the grower's id updates; the

@@ -3,6 +3,7 @@
     python3 scripts/torch_hist_geometry.py > build/hist_geometry.jsonl
     python3 scripts/torch_hist_geometry.py --only partition
     python3 scripts/torch_hist_geometry.py --only partition --repo DIR
+    python3 scripts/torch_hist_geometry.py --only node_sums
 
 The A/B behind the geometry helpers of ``ops/hist.py``: for the dense
 kernel, features per block and warps per feature
@@ -27,6 +28,20 @@ each call's device time by kernel (``partition_rows``,
 imports the package from another checkout (an earlier commit unpacked
 with ``git archive``, for the split before a change) and times only its
 default partition call and that split, through the public wrappers.
+The node_sums section is the A/B of the leaf-sum kernel
+(``csrc/leaf_sums.cu``) against the routes it could take instead, at
+the sweep's shapes (16 trees of 11,016 rows: 512 leaves with per-tree
+K=2 Poisson counts and counts·y, 256 leaves with the shared K=5 moment
+channels) and at bench.py's 1,000,000 rows, on uniform ids and on the
+leaf ids and weights of a grown forest (``scripts/torch_stage_time_1m.py``'s
+stages at 16 trees, whose leaves are skewed): the dense route it replaced
+and the partition route (each the degenerate histogram, one all-zero
+codes column and one bin), one ``scatter_add_`` and the kernel, then the
+kernel under other chunk rows (``leaf_sums_chunk_rows``) and, where its
+ranges form a cluster, the slab fold (``leaf_sums_fold``); each route
+and variant held
+``torch.equal`` to the dense route. Every line carries the card's name
+and ``nvidia-smi``'s name and power limit.
 Prints one JSON line per measurement. It needs a card and imports no
 JAX. A development tool: ``chip_smoke.py`` does not run it.
 """
@@ -36,8 +51,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib.util
+import io
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -206,10 +223,100 @@ def partition_section(rng, dev, emit, variants: bool) -> None:
                  stage_ms=stage_ms(run))
 
 
+LEAF_SHAPES = [(11016, 512, 2, False), (11016, 256, 5, True), (1_000_000, 512, 2, False),
+               (1_000_000, 256, 5, True)]  # (n, M, K, shared weights)
+
+
+def leaf_inputs(rng, n, m, shared, dev):
+    """16 trees' ids in [-1, M) and the weights of the path that calls the
+    leaf sums at this shape: per-tree K=2 (counts, counts·y), or the
+    shared K=5 moment channels [1, w̃, ỹ, w̃², w̃ỹ]."""
+    ids = torch.as_tensor(rng.integers(-1, m, size=(16, n)).astype(np.int32), device=dev)
+    if shared:
+        wt = (rng.random(n) - 0.5).astype(np.float32)
+        yt = (rng.random(n) * 2 - 1).astype(np.float32)
+        w = np.stack([np.ones(n, np.float32), wt, yt, wt * wt, wt * yt])
+    else:
+        counts = rng.poisson(1.0, size=(16, n)).astype(np.float32)
+        y = (rng.random(n) < 0.3).astype(np.float32)
+        w = np.stack([counts, counts * y], axis=1)
+    return ids, torch.as_tensor(w, device=dev)
+
+
+def forest_leaf_inputs(dev) -> list:
+    """(n, M, K, shared, ids, weights) of the first leaf-sum call at each
+    (wrapper, M) in one pass of ``scripts/torch_stage_time_1m.py``'s six
+    stages at 16 trees (16 nuisance trees) on its panel of 11,016 and of
+    1,000,000 rows: the regressors' leaf sums (512 leaves, K=2 float) and
+    the causal forest's honest payloads (256 leaves, K=5 shared), with a
+    grown forest's skewed leaves."""
+    st = _smoke.stage_time_script()
+    out = []
+    for n in (11016, 1_000_000):
+        frame = st.make(n, dev)
+        with _smoke.kernel_taps() as seen, contextlib.redirect_stdout(io.StringIO()):
+            st.run(frame, 16, 1, "ab", nuisance_trees=16)
+        cases: dict = {}
+        for name, b in seen.values():
+            if name.startswith("node_sums"):
+                cases.setdefault((name, b["num_nodes"]), b)
+        for (name, m), b in sorted(cases.items()):
+            out.append((n, m, b["weights"].shape[-2], name.endswith("shared"), b["ids"],
+                        b["weights"]))
+        del frame, seen
+    return out
+
+
+def node_sums_section(rng, dev, emit) -> None:
+    """The leaf-sum kernel against the dense and partition routes and
+    ``scatter_add_``; then its tree-group, chunk and fold variants; on
+    uniform ids and on a grown forest's."""
+    uniform = [("uniform", n, m, k, shared, *leaf_inputs(rng, n, m, shared, dev))
+               for n, m, k, shared in LEAF_SHAPES]
+    forest = [("forest", *case) for case in forest_leaf_inputs(dev)]
+    for kind, n, m, k, shared, ids, w in uniform + forest:
+        t = ids.shape[0]
+        codes0 = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        wrapper = hist.bin_histogram_shared if shared else hist.bin_histogram_batched
+        kernel = hist.node_sums_shared if shared else hist.node_sums
+        run = lambda: kernel(ids, w, m)
+        routes = {mode: (lambda mode=mode: wrapper(codes0, ids, w, max_nodes=m, n_bins=1,
+                                                   mode=mode)[:, :, :, 0, 0].transpose(1, 2))
+                  for mode in ("dense", "partition")}
+        want = routes["dense"]()
+        for name, fn in (("partition", routes["partition"]), ("kernel", run)):
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"node_sums {name} n={n} M={m} K={k}: bits differ from dense")
+        w16 = w if not shared else w.expand(t, k, n)
+        lib = yardstick(codes0, ids, w16, m, 1)
+        calls = 3 if n > 100_000 else 10
+        plan = hist.leaf_sums_plan(n, t, k, m)
+        case = dict(kernel="node_sums", ids=kind, n=n, T=t, M=m, K=k, shared=shared)
+        emit(**case, plan=plan, ms=device_ms(run, calls),
+             dense_ms=device_ms(routes["dense"], calls),
+             partition_ms=device_ms(routes["partition"], calls), library_ms=device_ms(lib, calls))
+        # Shorter chunks, and longer ones past the two-blocks-an-SM budget
+        # (one block an SM); the slab fold where the ranges form a cluster.
+        variants = [{"leaf_sums_chunk_rows": r} for r in (1024, 1536, 2048, 4096, 8192)
+                    if r != plan["chunk_rows"] and r < 2 * plan["rows_per_range"]
+                    and hist.leaf_sums_block_bytes(k, plan["group_nodes"], r)
+                    <= hist._MAX_SMEM_BYTES]
+        if plan["fold"] == "cluster" and plan["n_parts"] > 1:
+            variants.append({"leaf_sums_fold": "slab"})
+        for variant in variants:
+            with contextlib.ExitStack() as stack:
+                for name, value in variant.items():
+                    stack.enter_context(helper(name, value))
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"node_sums {variant} n={n} M={m}: bits differ")
+                emit(**case, **variant, plan=hist.leaf_sums_plan(n, t, k, m),
+                     ms=device_ms(run, calls))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("dense", "packed", "partition"), default=None,
-                    help="run one section (default: all three)")
+    ap.add_argument("--only", choices=("dense", "packed", "partition", "node_sums"), default=None,
+                    help="run one section (default: all four)")
     ap.add_argument("--repo", default=None,
                     help="import the package from this checkout; partition: its default call "
                          "and stage split alone")
@@ -220,9 +327,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     repo = _package_root()
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+
     def emit(**row):
-        print(json.dumps({"device": torch.cuda.get_device_name(0), "repo": repo, **row}),
-              flush=True)
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                          "repo": repo, **row}), flush=True)
 
     if args.only in (None, "dense"):
         dense_section(rng, dev, emit)
@@ -230,6 +340,8 @@ def main() -> int:
         packed_section(rng, dev, emit)
     if args.only in (None, "partition"):
         partition_section(rng, dev, emit, args.repo is None)
+    if args.only in (None, "node_sums"):
+        node_sums_section(rng, dev, emit)
     return 0
 
 

@@ -429,6 +429,93 @@ def test_partition_cluster_ranges(n_parts, cluster):
     assert th.partition_cluster_ranges(n_parts) == cluster
 
 
+# (n, T, K, M): the paths' leaf sums (the sweep's 11,016 rows and a DML
+# fold's 5,508 at 16 trees, K=2 at 512 leaves, K=5 at 256; 1M rows; a
+# direct-rho level's K=5 at 8 leaves) and edges: one row, one leaf, every
+# K, leaves past one group's shared memory.
+LEAF_PLAN_CASES = (
+    [(11016, 16, 2, 512), (11016, 16, 5, 256), (5508, 16, 2, 512), (1_000_000, 16, 2, 512),
+     (1_000_000, 16, 5, 256), (11016, 16, 5, 8)]
+    + [(1, 1, 1, 1), (31, 3, 8, 512), (2049, 3, 3, 16)]
+    + [(20_000, 2, k, 100) for k in range(1, 9)]
+    + [(100, 2, 2, 5000), (1_000_000, 3, 5, 2048), (1_000_000, 18, 5, 64)]
+)
+
+
+@pytest.mark.parametrize("n,t,k,m", LEAF_PLAN_CASES)
+def test_leaf_sums_plan_gives_each_cell_one_block(n, t, k, m):
+    """The leaf-sum blocks (row range × tree × leaf group) take each
+    (tree, row range, leaf) exactly once; the ranges are the dense
+    route's (``_n_parts(n, T, 1)`` of ceil(n / n_parts) rows, so the sums
+    keep its bits), in order and covering the rows; a chunk is whole
+    512-row steps, within the kernel's uint16 positions and no longer than
+    a range needs; a block fits the dense kernel's two-blocks-an-SM
+    budget, or, in a grid of no more blocks than SMs, a block's shared
+    memory; the fold is the cluster for up to 8 ranges."""
+    plan = th.leaf_sums_plan(n, t, k, m)
+    n_parts, span = plan["n_parts"], plan["rows_per_range"]
+    assert n_parts == th._n_parts(n, t, 1) and span == -(-n // n_parts)
+    bounds = [(min(n, r * span), min(n, (r + 1) * span)) for r in range(n_parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    lg, gm = plan["leaf_groups"], plan["group_nodes"]
+    owners = np.zeros((t, n_parts, m), np.int64)
+    for group in range(lg):
+        owners[:, :, group * gm:(group + 1) * gm] += 1
+    assert (owners == 1).all()
+    assert plan["blocks"] == n_parts * t * lg
+    rows = plan["chunk_rows"]
+    assert rows % th._LEAF_STEP_ROWS == 0 and th._LEAF_STEP_ROWS <= rows <= 1 << 16  # uint16 slots
+    assert rows <= max(th._LEAF_STEP_ROWS, -(-span // th._LEAF_STEP_ROWS) * th._LEAF_STEP_ROWS)
+    assert plan["block_bytes"] == th.leaf_sums_block_bytes(k, gm, rows)
+    if plan["blocks"] > th._SMS:
+        assert 2 * (plan["block_bytes"] + th._BLOCK_RESERVED_BYTES) <= th._SM_SMEM_BYTES
+        assert plan["block_bytes"] <= th._DENSE_SMEM_BUDGET
+    assert plan["block_bytes"] <= th._MAX_SMEM_BYTES
+    assert plan["fold"] == ("cluster" if n_parts <= 8 else "slab")
+
+
+def test_leaf_sums_plan_at_the_paths_shapes():
+    """At the sweep's shapes (16 trees of 11,016 rows) every leaf-sum call
+    is one launch of 96 blocks, fewer than an H100's SMs: 6 row ranges in
+    one thread-block cluster, one tree and every leaf a block, each range
+    one chunk. At 1M rows (66 ranges, 1,056 blocks) the slab fold and
+    chunks within the two-blocks-an-SM budget (2,560 rows at K=2)."""
+    for k, m in ((2, 512), (5, 256)):
+        sweep = th.leaf_sums_plan(11016, 16, k, m)
+        assert (sweep["n_parts"], sweep["fold"], sweep["blocks"]) == (6, "cluster", 96)
+        assert sweep["chunk_rows"] >= sweep["rows_per_range"] and sweep["leaf_groups"] == 1
+    for k, m in ((2, 512), (5, 256)):
+        big = th.leaf_sums_plan(1_000_000, 16, k, m)
+        assert (big["n_parts"], big["fold"], big["blocks"]) == (66, "slab", 1056)
+        assert big["block_bytes"] <= th._DENSE_SMEM_BUDGET
+    assert th.leaf_sums_plan(1_000_000, 16, 2, 512)["chunk_rows"] == 2560
+
+
+@pytest.mark.parametrize("n_parts,fold", [(1, "cluster"), (2, "cluster"), (6, "cluster"),
+                                          (8, "cluster"), (9, "slab"), (66, "slab")])
+def test_leaf_sums_fold(n_parts, fold):
+    """Up to 8 ranges form one cluster (one range a cluster of one); more
+    use the slab."""
+    assert th.leaf_sums_fold(n_parts) == fold
+
+
+def test_node_sums_check_inputs():
+    """The leaf sums take (T, n) int32 ids and float32 weights (T, K, n),
+    or (K, n) shared, on one device; a device with no kernel raises."""
+    _, ids, w = (torch.as_tensor(a) for a in _case(2, 100, 1, 3, 2, 4))
+    with pytest.raises(TypeError):
+        th.node_sums(ids.long(), w, 4)
+    with pytest.raises(TypeError):
+        th.node_sums(ids, w.double(), 4)
+    with pytest.raises(TypeError, match=r"\(K, n\)"):
+        th.node_sums_shared(ids, w, 4)
+    with pytest.raises(TypeError, match=r"\(T, K, n\)"):
+        th.node_sums(ids, w[0], 4)
+    with pytest.raises(ValueError, match="one device"):
+        th.node_sums(ids, w.to("meta"), 4)
+
+
 @pytest.mark.parametrize("n,m,n_parts", [(23, 5, 3), (1000, 100, 1), (4097, 16, 3), (300, 7, 16)])
 def test_partition_sort_plain_is_a_stable_sort_per_range(n, m, n_parts):
     """perm lists each range's rows with an id in [0, M) once, by (id,

@@ -361,6 +361,162 @@ def test_node_sums_kernel_equals_plain(cuda):
     assert torch.all((got - want).abs() <= 16 * EPS32 * ws.abs().sum(dim=1)[None, None, :])
 
 
+def _dense_leaf_sums(ids, w, m):
+    """The route the leaf-sum kernel replaced: the degenerate histogram on
+    the dense kernel (one all-zero codes column, one bin), as (T, M, K)."""
+    codes0 = torch.zeros((ids.shape[1], 1), dtype=torch.int32, device=ids.device)
+    fn = th.bin_histogram_shared if w.ndim == 2 else th.bin_histogram_batched
+    return fn(codes0, ids, w, max_nodes=m, n_bins=1, mode="dense")[:, :, :, 0, 0].transpose(1, 2)
+
+
+def _leaf_case(seed, n, t, k, m, dev):
+    """Ids in [-1, m + 2) (−1 and ≥ M add nothing), per-tree integer
+    weights (Poisson counts and counts·c), per-tree float weights and a
+    shared float (K, n) stack, drawn on the card from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(-1, m + 2, (t, n), generator=g, device=dev, dtype=torch.int32)
+    counts = torch.poisson(torch.ones((t, 1, n), device=dev), generator=g)
+    scale = torch.randint(0, 3, (t, k, n), generator=g, device=dev).float()
+    wi = (counts * scale).contiguous()
+    wf = torch.randn((t, k, n), generator=g, device=dev).contiguous()
+    ws = (torch.rand((k, n), generator=g, device=dev) - 0.4).contiguous()
+    return ids, wi, wf, ws
+
+
+# (n, T): one row range (n = 1, 31), two (2,049), the sweep's six
+# (11,016 at 16 trees: one thread-block cluster) and 1M rows' 66 (the
+# slab and the last block's sum; 16 trees).
+# Every K at the smaller shapes; at 1M rows K = 1, 2, 5 and 8 (the ends of
+# the template and the paths' K).
+LEAF_CASES = [(n, t, k) for n, t in [(1, 2), (31, 3), (2049, 3), (11016, 16)]
+              for k in range(1, 9)] + [(1_000_000, 16, k) for k in (1, 2, 5, 8)]
+LEAF_M = [1, 2, 16, 256, 512]
+
+
+@pytest.mark.parametrize("n,t,k", LEAF_CASES)
+def test_leaf_sums_equal_dense_route(cuda, n, t, k):
+    """The leaf-sum kernel gives the dense route's bits, per-tree and
+    shared weights, integer and float, at M = 1, 2, 16, 256 and 512;
+    integer weights also equal the plain version; each call counts one
+    launch."""
+    for m in LEAF_M:
+        ids, wi, wf, ws = _leaf_case(n * 10 + k * 1000 + m, n, t, k, m, cuda)
+        for fn, w in ((th.node_sums, wi), (th.node_sums, wf), (th.node_sums_shared, ws),
+                      (th.node_sums_shared, wi[0].contiguous())):
+            before = fn.launches
+            got = fn(ids, w, m)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert got.shape == (t, m, k)
+            assert torch.equal(got, _dense_leaf_sums(ids, w, m)), (fn.__name__, m)
+            if w is wi:
+                assert torch.equal(got, th.node_sums_plain(ids, w, m))
+
+
+@pytest.mark.parametrize("n,t", [(11016, 16), (30_000, 2)])
+def test_leaf_sums_equal_dense_route_on_skewed_leaves(cuda, n, t):
+    """A grown forest's leaves are skewed: most rows in a few leaves, so
+    many lanes of a step share a leaf and a bucket holds hundreds of a
+    chunk's rows. Ids with ~half the rows in one leaf and the rest
+    geometric over the others (and −1): the dense route's bits, per-tree
+    float and shared float weights, both folds (6 ranges: the cluster;
+    15: the slab)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for m in (16, 512):
+        heavy = torch.rand((t, n), generator=g, device=cuda) < 0.5
+        geo = torch.floor(torch.log(torch.rand((t, n), generator=g, device=cuda)) / -0.05)
+        ids = torch.where(heavy, 3, geo.clamp(max=m).to(torch.int32) - 1).to(torch.int32)
+        for k in (2, 5):
+            _, _, wf, ws = _leaf_case(n + m + k, n, t, k, m, cuda)
+            for fn, w in ((th.node_sums, wf), (th.node_sums_shared, ws)):
+                assert torch.equal(fn(ids, w, m), _dense_leaf_sums(ids, w, m)), (fn.__name__, m, k)
+
+
+def test_leaf_sums_two_launches_equal_and_empty_calls(cuda):
+    """Two launches on the same inputs are bitwise equal (float weights, the
+    cluster and the slab fold); an empty call launches and counts nothing."""
+    for n in (11016, 30_000):
+        ids, _, wf, ws = _leaf_case(n, n, 4, 5, 64, cuda)
+        assert torch.equal(th.node_sums(ids, wf, 64), th.node_sums(ids, wf, 64))
+        assert torch.equal(th.node_sums_shared(ids, ws, 64), th.node_sums_shared(ids, ws, 64))
+    before = th.node_sums.launches
+    empty = th.node_sums(ids[:, :0], wf[:, :, :0], 64)
+    assert th.node_sums.launches == before and empty.shape == (4, 64, 5) and not bool(empty.any())
+
+
+def _leaf_entry_call(n, t, m, dev):
+    """The leaf-sum C entry point at (n, T, M, K=2, per-tree float
+    weights), its arguments fixed on the current stream: a function that
+    launches it once and returns the C code, the output, the dense route's
+    sums, the block's shared-memory bytes and the arrival counters (None
+    for the cluster form)."""
+    from ate_replication_causalml_torch.kernels import build
+
+    ids, _, w, _ = _leaf_case(n + m, n, t, 2, m, dev)
+    plan = th.leaf_sums_plan(n, t, 2, m)
+    out = torch.zeros((t, m, 2), dtype=torch.float32, device=dev)
+    slab = arrivals = None
+    if plan["fold"] == "slab":
+        slab = torch.empty(plan["n_parts"] * t * m * 2, dtype=torch.float32, device=dev)
+        arrivals = torch.zeros(t, dtype=torch.int32, device=dev)
+    k = build.kernel("leaf_sums")
+    args = (ids.data_ptr(), n, t, w.data_ptr(), 2 * n, 2, m, plan["n_parts"],
+            plan["leaf_groups"], plan["chunk_rows"], th._LEAF_FOLDS.index(plan["fold"]),
+            0 if slab is None else slab.data_ptr(),
+            0 if arrivals is None else arrivals.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch(_keep=(ids, w, slab, arrivals)):
+        return k.fn(*args)
+
+    return launch, out, _dense_leaf_sums(ids, w, m), plan["block_bytes"], arrivals
+
+
+def test_leaf_sums_launch_from_threads_at_other_sizes(cuda):
+    """The concurrent sweep's workers call the leaf sums from several
+    threads, each on its own stream, at other shared-memory sizes, and
+    with more than 8 row ranges the kernel's last block per tree adds the
+    slabs by an arrival count that it resets: eight threads (the cluster
+    and the slab form, 16 and 512 leaves, two threads each), each calling
+    the C entry point 5,000 times on one set of buffers. Every call
+    returns 0, each output equals the dense route's bits, and the counters
+    end at zero."""
+    import threading
+
+    cases = [(11016, 4, 16), (11016, 4, 512), (30_000, 2, 16), (30_000, 2, 512)] * 2
+    errors, results = [], {}
+    start = threading.Barrier(len(cases))
+
+    def run(i):
+        n, t, m = cases[i]
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                launch, out, want, smem, arrivals = _leaf_entry_call(n, t, m, cuda)
+                torch.cuda.current_stream().synchronize()
+                start.wait()
+                codes = [launch() for _ in range(5000)]
+                torch.cuda.current_stream().synchronize()
+            zeroed = arrivals is None or not bool(arrivals.any())
+            results[i] = (smem, [c for c in codes if c != 0], torch.equal(out, want), zeroed)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"n={n} M={m}: {type(e).__name__}: {e}")
+            start.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert {th.leaf_sums_plan(n, t, 2, m)["fold"] for n, t, m in cases} == {"cluster", "slab"}
+    sizes = {cases[i]: r[0] for i, r in results.items()}
+    assert sizes[(11016, 4, 16)] < sizes[(11016, 4, 512)], sizes
+    failed = {cases[i]: sorted(set(r[1])) for i, r in results.items() if r[1]}
+    assert not failed, f"nonzero codes from the C entry point: {failed}"
+    assert all(r[2] for r in results.values())
+    assert all(r[3] for r in results.values())
+
+
 def test_kernels_take_float_weights_and_count_only_launches(cuda):
     """Float weights now launch the kernel (counted once per launch); an
     empty call launches nothing and counts nothing."""
